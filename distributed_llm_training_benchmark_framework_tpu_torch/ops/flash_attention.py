@@ -1,0 +1,425 @@
+"""Flash attention: hand-written Hopper kernels, their plain PyTorch versions,
+and the ``torch.autograd.Function`` that ties them together.
+
+Port of ``distributed_llm_training_benchmark_framework_tpu/ops/flash_attention.py``.
+Three CUDA C++ kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) replace
+the three Pallas TPU kernels there:
+
+========================  ====================================  ===========================
+wrapper                   replaces (JAX package, same file)     bound on the H100
+========================  ====================================  ===========================
+``flash_fwd``             ``_flash_fwd_kernel``                 4*BH*S^2*Dh tensor FLOPs
+``flash_bwd_dq``          ``_bwd_dq_kernel``                    6*BH*S^2*Dh tensor FLOPs
+``flash_bwd_dkv``         ``_bwd_dkv_kernel``                   8*BH*S^2*Dh tensor FLOPs
+========================  ====================================  ===========================
+
+Each count halves when causal; with dropout each kernel also evaluates the
+coordinate hash (about 10 integer operations) per live score element. The
+bytes each kernel must move (its inputs once, its outputs once) take a few
+microseconds at 3.35 TB/s, so all three are bound by operations. The first
+design (wmma tiles staged through shared memory, 64x64 tiles, 4 warps per
+CTA) is simple and correct, not fast; the source notes in ``csrc/`` say so.
+
+Every wrapper works on (BH, S, Dh) tensors. On a CPU tensor it runs its
+plain PyTorch version (the tests' path); on a CUDA tensor it launches the
+kernel or raises; there is no fallback. Each kernel launch adds one to the
+wrapper's ``launches`` attribute and nowhere else.
+
+The dropout mask is the JAX package's stateless coordinate hash
+(``mix32`` / ``dropout_keep`` / ``dropout_threshold`` below), bit-identical
+to JAX for the same uint32 seed. torch has no full uint32 arithmetic, so
+the plain version computes it in int64 and masks with 0xFFFFFFFF after
+every multiply (an int64 product that wraps keeps the right low 32 bits).
+
+Layout: the public :func:`flash_attention` takes (B, S, H, Dh) like the JAX
+one and transposes to (B*H, S, Dh) for the kernels.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+TILE = 64  # rows of a q tile and of a k tile in the CUDA kernels (kTile)
+HEAD_DIMS = (64, 128)
+_M32 = 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# Dropout hash (plain PyTorch; the kernels inline csrc/dropout_hash.cuh)
+# ---------------------------------------------------------------------------
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3-style 32-bit finalizer on int64 tensors holding uint32 values."""
+    x = x & _M32
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & _M32
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_keep(seed, bh, rows, cols, threshold: int) -> torch.Tensor:
+    """Keep mask of the coordinate hash; arguments broadcast as in JAX.
+
+    ``seed`` is an int or an int64 tensor holding a uint32; ``bh``, ``rows``
+    and ``cols`` are int64 tensors of absolute coordinates."""
+    base = mix32(seed + bh * 0x9E3779B9)
+    rowbase = mix32(base + rows * 0x85EBCA6B)
+    return mix32(rowbase + cols) < threshold
+
+
+def dropout_threshold(rate: float) -> int:
+    """keep iff hash < min(floor((1 - rate) * 2^32), 2^32 - 1)."""
+    return min(int((1.0 - rate) * 2**32), 2**32 - 1)
+
+
+def _tile_coords(offsets: Optional[torch.Tensor], S: int, device) -> torch.Tensor:
+    """Absolute row (or col) index of each of S positions from per-tile bases
+    (None: identity, tile i starts at i*TILE)."""
+    local = torch.arange(S, device=device, dtype=torch.int64)
+    if offsets is None:
+        return local
+    return offsets.to(torch.int64).repeat_interleave(TILE) + local % TILE
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path, and the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+
+def flash_forward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool, dropout_rate: float, seed: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Materialized forward with the kernel's exact mask and normalizer
+    semantics (JAX ``_jnp_reference_forward``): (BH, S, Dh) -> (out, lse).
+    Differentiable with ordinary autograd."""
+    BH, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    rows = torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(S, device=q.device)[None, :]
+    mask = rows >= cols
+    if causal:
+        s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    if dropout_rate > 0.0:
+        bh = torch.arange(BH, device=q.device)[:, None, None]
+        keep = dropout_keep(seed, bh, rows[None], cols[None], dropout_threshold(dropout_rate))
+        p_acc = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    else:
+        p_acc = p
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    acc = torch.matmul(p_acc.to(q.dtype).float(), v.float())
+    out = (acc / l_safe).to(q.dtype)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out, lse
+
+
+def _plain_bwd_blocks(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+                      qoff, koff, bhv, block_k):
+    """Yield (k0, kb, p, pd, ds) per k block: the probability tile math shared
+    by both backward kernels (JAX ``_jnp_blockwise_bwd``), fp32 throughout,
+    ds rounded to the operand dtype."""
+    BH, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    rows = _tile_coords(qoff, S, q.device)
+    cols_all = _tile_coords(koff, k.shape[1], q.device)
+    bh = (bhv.to(torch.int64) if bhv is not None
+          else torch.arange(BH, device=q.device))[:, None, None]
+    qf, dof = q.float(), dout.float()
+    for k0 in range(0, k.shape[1], block_k):
+        kb, vb = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()
+        cols = cols_all[k0:k0 + block_k]
+        s = torch.matmul(qf, kb.transpose(1, 2)) * scale
+        mask = rows[:, None] >= cols[None, :]
+        if causal:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.exp(s - lse[:, :, None])
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        dp = torch.matmul(dof, vb.transpose(1, 2))
+        if dropout_rate > 0.0:
+            keep = dropout_keep(seed, bh, rows[None, :, None], cols[None, None, :],
+                                dropout_threshold(dropout_rate))
+            inv = 1.0 / (1.0 - dropout_rate)
+            pd = torch.where(keep, p * inv, 0.0)
+            dp = torch.where(keep, dp * inv, 0.0)
+        else:
+            pd = p
+        ds = (p * (dp - delta[:, :, None]) * scale).to(q.dtype)
+        yield k0, kb, pd, ds
+
+
+def _plain_block_k(S: int) -> int:
+    for b in (512, 256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if b <= S and S % b == 0:
+            return b
+    return S
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+                       qoff=None, koff=None, bhv=None):
+    """dq = sum over k blocks of ds . k (plain PyTorch version of K2)."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for _k0, kb, _pd, ds in _plain_bwd_blocks(
+        q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+        qoff, koff, bhv, _plain_block_k(q.shape[1]),
+    ):
+        dq += torch.matmul(ds.float(), kb)
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+                        qoff=None, koff=None, bhv=None):
+    """dk = ds^T . q and dv = (D*p)^T . dO per k block (plain version of K3)."""
+    dk, dv = [], []
+    qf, dof = q.float(), dout.float()
+    for _k0, _kb, pd, ds in _plain_bwd_blocks(
+        q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+        qoff, koff, bhv, _plain_block_k(q.shape[1]),
+    ):
+        dv.append(torch.matmul(pd.to(q.dtype).float().transpose(1, 2), dof))
+        dk.append(torch.matmul(ds.float().transpose(1, 2), qf))
+    return torch.cat(dk, dim=1).to(k.dtype), torch.cat(dv, dim=1).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _dropout_args(dropout_rate: float, seed: int):
+    if dropout_rate > 0.0:
+        return 1, seed & _M32, dropout_threshold(dropout_rate), 1.0 / (1.0 - dropout_rate)
+    return 0, 0, 0, 1.0
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    """Refuse what the kernels do not take: raise, never fall back."""
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash kernels run on CUDA tensors (the plain version serves CPU "
+            f"tensors); got device {q.device}"
+        )
+    BH, S, D = q.shape
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"tensors on different devices: {t.device} vs {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"flash kernels take bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous (BH, S, Dh) tensors")
+        if tuple(t.shape) != (BH, S, D):
+            raise ValueError(f"shape mismatch: {tuple(t.shape)} vs {(BH, S, D)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the kernels (need one of {HEAD_DIMS})")
+    if S % TILE != 0:
+        raise ValueError(f"sequence length {S} must be a multiple of the tile size {TILE}")
+
+
+def _row_stats(q: torch.Tensor, *stats: torch.Tensor):
+    """lse / delta as contiguous fp32 (BH, S) tensors on q's device."""
+    out = []
+    for t in stats:
+        if t.device != q.device or tuple(t.shape) != tuple(q.shape[:2]):
+            raise ValueError(
+                f"row statistics must be (BH, S) = {tuple(q.shape[:2])} on {q.device}, "
+                f"got {tuple(t.shape)} on {t.device}"
+            )
+        out.append(t.float().contiguous())
+    return out
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int):
+    """K1: (BH, S, Dh) q, k, v -> (out bf16 (BH, S, Dh), lse fp32 (BH, S))."""
+    if _on_cpu(q):
+        return flash_forward_plain(q, k, v, causal, dropout_rate, seed)
+    _check_cuda(q, k, v)
+    BH, S, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
+    dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
+    lib = _build.load()["flash_fwd"]
+    code = lib.flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
+    )
+    _build.check("flash_fwd", code, "flash_fwd launch")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+def _identity_offsets(BH: int, S: int, device):
+    tiles = torch.arange(S // TILE, dtype=torch.int32, device=device) * TILE
+    return tiles, tiles, torch.arange(BH, dtype=torch.int32, device=device)
+
+
+def _offset_args(q, qoff, koff, bhv):
+    BH, S, _ = q.shape
+    iq, ik, ib = _identity_offsets(BH, S, q.device)
+    out = []
+    for given, ident in ((qoff, iq), (koff, ik), (bhv, ib)):
+        t = ident if given is None else given.to(device=q.device, dtype=torch.int32).contiguous()
+        if t.shape != ident.shape:
+            raise ValueError(f"offset vector of shape {tuple(t.shape)}, expected {tuple(ident.shape)}")
+        out.append(t)
+    return out
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, dropout_rate: float, seed: int,
+                 qoff=None, koff=None, bhv=None):
+    """K2: dq (BH, S, Dh). ``qoff``/``koff`` are per-64-row-tile global bases
+    and ``bhv`` the global batch*head ids (None: identity, plain flash)."""
+    if _on_cpu(q):
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+                                  qoff, koff, bhv)
+    _check_cuda(q, k, v, dout)
+    BH, S, D = q.shape
+    qo, ko, bv = _offset_args(q, qoff, koff, bhv)
+    lse, delta = _row_stats(q, lse, delta)
+    dq = torch.empty_like(q)
+    dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
+    lib = _build.load()["flash_bwd"]
+    code = lib.flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), qo.data_ptr(), ko.data_ptr(), bv.data_ptr(),
+        BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
+    )
+    _build.check("flash_bwd", code, "flash_bwd_dq launch")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, dropout_rate: float, seed: int,
+                  qoff=None, koff=None, bhv=None):
+    """K3: (dk, dv), each (BH, S, Dh); offsets as for :func:`flash_bwd_dq`."""
+    if _on_cpu(q):
+        return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
+                                   qoff, koff, bhv)
+    _check_cuda(q, k, v, dout)
+    BH, S, D = q.shape
+    qo, ko, bv = _offset_args(q, qoff, koff, bhv)
+    lse, delta = _row_stats(q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
+    lib = _build.load()["flash_bwd"]
+    code = lib.flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+        bv.data_ptr(), BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr,
+        inv, _stream(q),
+    )
+    _build.check("flash_bwd", code, "flash_bwd_dkv launch")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * out) in fp32, computed outside the kernels as in JAX."""
+    return (dout.float() * out.float()).sum(dim=-1)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """(BH, S, Dh) flash attention: K1 forward; delta in plain torch, then K2
+    and K3 backward. Saves (q, k, v, out, lse) and the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, dropout_rate: float, seed: int):
+        out, lse = flash_fwd(q, k, v, causal, dropout_rate, seed)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, ctx.causal, ctx.dropout_rate, ctx.seed)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None
+
+
+def _to_bhsd(t: torch.Tensor) -> torch.Tensor:
+    B, S, H, D = t.shape
+    return t.transpose(1, 2).reshape(B * H, S, D).contiguous()
+
+
+def _from_bhsd(t: torch.Tensor, B: int, H: int) -> torch.Tensor:
+    BH, S, D = t.shape
+    return t.reshape(B, H, S, D).transpose(1, 2)
+
+
+def _resolve_dropout(dropout_rate: float, dropout_seed: Optional[int], api: str):
+    if dropout_seed is None:
+        if dropout_rate > 0.0:
+            warnings.warn(
+                f"{api}: dropout_rate > 0 with dropout_seed=None; dropout is "
+                "DISABLED (deterministic attention). Pass a uint32 dropout_seed "
+                "to enable it.", stacklevel=3,
+            )
+        return 0.0, 0
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    return dropout_rate, int(dropout_seed) & _M32
+
+
+def flash_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Multi-head flash attention over (B, S, H, Dh) inputs -> (B, S, H, Dh).
+
+    ``dropout_rate`` > 0 with a uint32 ``dropout_seed`` drops attention
+    probabilities inside the kernels with the coordinate-hash mask; with
+    ``dropout_seed=None`` the rate is ignored (with a warning), as in JAX."""
+    B, S, H, D = q.shape
+    rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention")
+    out = FlashAttentionFunction.apply(
+        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed,
+    )
+    return _from_bhsd(out, B, H)
+
+
+def flash_attention_plain(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
+                          dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`flash_attention` on any device,
+    differentiated by ordinary autograd. Never on the training path: it is
+    what a check on the card compares the kernels with."""
+    B, S, H, D = q.shape
+    rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention_plain")
+    out, _ = flash_forward_plain(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed)
+    return _from_bhsd(out, B, H)
