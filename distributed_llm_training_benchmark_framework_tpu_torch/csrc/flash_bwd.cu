@@ -18,7 +18,13 @@
 // Like the Pallas kernels, both take per-tile global bases for rows (qoff)
 // and columns (koff) and a global batch*head vector (bhv), so that causal
 // masking and the dropout hash see absolute coordinates; plain flash passes
-// identity vectors, ring attention will pass its own.
+// identity vectors, ring attention (ops/ring_attention.py) the bases of the
+// block that sits at this hop. A tile is skipped, in either loop, when its
+// last row lies before its first column, so a block wholly in the q shard's
+// future costs no products. The output type is a template parameter: bf16
+// for flash (the JAX launches in flash_attention.py write the input dtype)
+// and fp32 for the ring (_block_bwd_kernel in ring_attention.py writes fp32
+// partials that the ring sums over its hops before one cast).
 //
 // Bound on the H100: 6*BH*S^2*Dh tensor FLOPs for dq (s, dp, dq products)
 // and 8*BH*S^2*Dh for dk/dv, halved when causal, plus the hash's integer
@@ -47,12 +53,12 @@ constexpr int dkv_smem_bytes() {
          2 * Layout<D>::prob_bytes + 2 * Layout<D>::acc_bytes + 3 * kTile * 4;
 }
 
-template <int D, bool CAUSAL, bool DROPOUT>
+template <int D, bool CAUSAL, bool DROPOUT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, const int* __restrict__ qoff,
+                        OutT* __restrict__ dq, const int* __restrict__ qoff,
                         const int* __restrict__ koff, const int* __restrict__ bhv, int S,
                         float scale, uint32_t seed, uint32_t threshold, float inv_keep) {
   typedef Layout<D> L;
@@ -123,15 +129,15 @@ __global__ void __launch_bounds__(kThreads)
     warp_mm_ab_acc<D>(sAcc + r0 * L::ld_acc, sdS + r0 * L::ld_prob, sK);
   }
   __syncthreads();
-  store_rows_bf16<D>(dq + base + (size_t)qt * kTile * D, sAcc, r0, lane);
+  store_rows<D>(dq + base + (size_t)qt * kTile * D, sAcc, r0, lane);
 }
 
-template <int D, bool CAUSAL, bool DROPOUT>
+template <int D, bool CAUSAL, bool DROPOUT, typename OutT>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         OutT* __restrict__ dk, OutT* __restrict__ dv,
                          const int* __restrict__ qoff, const int* __restrict__ koff,
                          const int* __restrict__ bhv, int S, float scale, uint32_t seed,
                          uint32_t threshold, float inv_keep) {
@@ -220,8 +226,8 @@ __global__ void __launch_bounds__(kThreads)
     warp_mm_ab_acc<D>(sdK + r0 * L::ld_acc, sdST + r0 * L::ld_prob, sQ);
   }
   __syncthreads();
-  store_rows_bf16<D>(dk + base + (size_t)kt * kTile * D, sdK, r0, lane);
-  store_rows_bf16<D>(dv + base + (size_t)kt * kTile * D, sdV, r0, lane);
+  store_rows<D>(dk + base + (size_t)kt * kTile * D, sdK, r0, lane);
+  store_rows<D>(dv + base + (size_t)kt * kTile * D, sdV, r0, lane);
 }
 
 struct BwdArgs {
@@ -235,9 +241,9 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-template <int D, bool CAUSAL, bool DROPOUT>
+template <int D, bool CAUSAL, bool DROPOUT, typename OutT>
 cudaError_t launch_dq(const BwdArgs& a) {
-  auto kern = flash_bwd_dq_kernel<D, CAUSAL, DROPOUT>;
+  auto kern = flash_bwd_dq_kernel<D, CAUSAL, DROPOUT, OutT>;
   constexpr int smem = dq_smem_bytes<D>();
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -246,14 +252,14 @@ cudaError_t launch_dq(const BwdArgs& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dq), a.qoff, a.koff, a.bhv, a.S, a.scale, a.seed, a.threshold,
+      static_cast<OutT*>(a.dq), a.qoff, a.koff, a.bhv, a.S, a.scale, a.seed, a.threshold,
       a.inv_keep);
   return cudaGetLastError();
 }
 
-template <int D, bool CAUSAL, bool DROPOUT>
+template <int D, bool CAUSAL, bool DROPOUT, typename OutT>
 cudaError_t launch_dkv(const BwdArgs& a) {
-  auto kern = flash_bwd_dkv_kernel<D, CAUSAL, DROPOUT>;
+  auto kern = flash_bwd_dkv_kernel<D, CAUSAL, DROPOUT, OutT>;
   constexpr int smem = dkv_smem_bytes<D>();
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -262,20 +268,21 @@ cudaError_t launch_dkv(const BwdArgs& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.qoff, a.koff, a.bhv, a.S,
+      static_cast<OutT*>(a.dk), static_cast<OutT*>(a.dv), a.qoff, a.koff, a.bhv, a.S,
       a.scale, a.seed, a.threshold, a.inv_keep);
   return cudaGetLastError();
 }
 
-// Template dispatch over (Dh, causal, dropout) for one of the two launchers.
-template <template <int, bool, bool> class Launch>
-cudaError_t dispatch(int Dh, int causal, int dropout, const BwdArgs& a) {
+// Template dispatch over (Dh, causal, dropout) for one of the two launchers
+// and one output type.
+template <template <int, bool, bool, typename> class Launch, typename OutT>
+cudaError_t dispatch_out(int Dh, int causal, int dropout, const BwdArgs& a) {
 #define FLASH_BWD_CASE(D)                                                     \
   if (Dh == D) {                                                              \
-    if (causal && dropout) return Launch<D, true, true>::run(a);              \
-    if (causal) return Launch<D, true, false>::run(a);                        \
-    if (dropout) return Launch<D, false, true>::run(a);                       \
-    return Launch<D, false, false>::run(a);                                   \
+    if (causal && dropout) return Launch<D, true, true, OutT>::run(a);        \
+    if (causal) return Launch<D, true, false, OutT>::run(a);                  \
+    if (dropout) return Launch<D, false, true, OutT>::run(a);                 \
+    return Launch<D, false, false, OutT>::run(a);                             \
   }
   FLASH_BWD_CASE(64)
   FLASH_BWD_CASE(128)
@@ -283,40 +290,49 @@ cudaError_t dispatch(int Dh, int causal, int dropout, const BwdArgs& a) {
   return cudaErrorInvalidValue;
 }
 
-template <int D, bool C, bool DR>
+template <template <int, bool, bool, typename> class Launch>
+cudaError_t dispatch(int Dh, int causal, int dropout, int out_fp32, const BwdArgs& a) {
+  return out_fp32 ? dispatch_out<Launch, float>(Dh, causal, dropout, a)
+                  : dispatch_out<Launch, bf16>(Dh, causal, dropout, a);
+}
+
+template <int D, bool C, bool DR, typename OutT>
 struct DqLaunch {
-  static cudaError_t run(const BwdArgs& a) { return launch_dq<D, C, DR>(a); }
+  static cudaError_t run(const BwdArgs& a) { return launch_dq<D, C, DR, OutT>(a); }
 };
 
-template <int D, bool C, bool DR>
+template <int D, bool C, bool DR, typename OutT>
 struct DkvLaunch {
-  static cudaError_t run(const BwdArgs& a) { return launch_dkv<D, C, DR>(a); }
+  static cudaError_t run(const BwdArgs& a) { return launch_dkv<D, C, DR, OutT>(a); }
 };
 
 }  // namespace flash
 
 // C entries, bound with ctypes. q, k, v, dout: (BH, S, Dh) bf16 contiguous;
 // lse, delta: (BH, S) fp32; qoff/koff: (S/64,) int32 global tile bases;
-// bhv: (BH,) int32 global batch*head ids. Outputs are (BH, S, Dh) bf16.
-// Each launches on `stream` and returns cudaGetLastError() (0 on success).
+// bhv: (BH,) int32 global batch*head ids. Outputs are (BH, S, Dh), bf16 or,
+// with out_fp32, fp32. Each launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, const void* qoff,
                             const void* koff, const void* bhv, int BH, int S, int Dh,
-                            int causal, int dropout, float scale, unsigned int seed,
-                            unsigned int threshold, float inv_keep, void* stream) {
+                            int causal, int dropout, int out_fp32, float scale,
+                            unsigned int seed, unsigned int threshold, float inv_keep,
+                            void* stream) {
   flash::BwdArgs a{q,        k,     v,    dout,      lse,      delta,
                    dq,       nullptr, nullptr,
                    static_cast<const int*>(qoff), static_cast<const int*>(koff),
                    static_cast<const int*>(bhv),
                    BH,       S,     scale, seed,     threshold, inv_keep,
                    static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(flash::dispatch<flash::DqLaunch>(Dh, causal, dropout, a));
+  return static_cast<int>(
+      flash::dispatch<flash::DqLaunch>(Dh, causal, dropout, out_fp32, a));
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv,
                              const void* qoff, const void* koff, const void* bhv, int BH,
-                             int S, int Dh, int causal, int dropout, float scale,
+                             int S, int Dh, int causal, int dropout, int out_fp32, float scale,
                              unsigned int seed, unsigned int threshold, float inv_keep,
                              void* stream) {
   flash::BwdArgs a{q,        k,     v,    dout,      lse,      delta,
@@ -325,7 +341,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                    static_cast<const int*>(bhv),
                    BH,       S,     scale, seed,     threshold, inv_keep,
                    static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(flash::dispatch<flash::DkvLaunch>(Dh, causal, dropout, a));
+  return static_cast<int>(
+      flash::dispatch<flash::DkvLaunch>(Dh, causal, dropout, out_fp32, a));
 }
 
 extern "C" const char* flash_bwd_error_string(int code) {

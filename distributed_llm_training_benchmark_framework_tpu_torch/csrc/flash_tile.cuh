@@ -121,14 +121,19 @@ __device__ __forceinline__ void warp_mm_ab_acc(float* c, const bf16* a, const bf
   }
 }
 
-// Write a warp's 16 rows of an fp32 accumulator to global memory as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ dst, const float* acc,
-                                                int r0, int lane) {
+__device__ __forceinline__ void store_out(bf16* dst, float x) { *dst = __float2bfloat16(x); }
+__device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
+
+// Write a warp's 16 rows of an fp32 accumulator to global memory as OutT:
+// bf16 (the flash backward's gradients) or fp32 (the per-hop partials of
+// the ring backward, summed over hops before one final cast).
+template <int D, typename OutT>
+__device__ __forceinline__ void store_rows(OutT* __restrict__ dst, const float* acc, int r0,
+                                           int lane) {
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int r = r0 + rr;
     for (int d = lane; d < D; d += 32)
-      dst[(size_t)r * D + d] = __float2bfloat16(acc[r * Layout<D>::ld_acc + d]);
+      store_out(dst + (size_t)r * D + d, acc[r * Layout<D>::ld_acc + d]);
   }
 }
 

@@ -1,9 +1,9 @@
 """TinyGPT: the benchmark transformer, as ``nn.Module``s.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/models/tinygpt.py``
-(the forward path and the loss; sharding hooks, MoE, remat and the
-sequence-parallel dispatch are not in this slice). One config covers both
-families: the reference TinyGPT (learned positions, LayerNorm, exact-erf
+(the forward path and the loss, and the dispatch to sequence-parallel ring
+attention; sharding hooks, MoE and remat are not ported yet). One config
+covers both families: the reference TinyGPT (learned positions, LayerNorm, exact-erf
 GELU, biases, tied head, non-causal, dropout 0.1) and, through
 ``models.llama``, the Llama family (RMSNorm, RoPE, SwiGLU, GQA, no bias,
 untied head, causal).
@@ -28,6 +28,7 @@ formula). Elsewhere it upcasts the bf16 operands and multiplies in fp32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -40,8 +41,10 @@ from ..ops.flash_attention import (
     dropout_threshold,
     flash_attention,
 )
+from ..ops.ring_attention import ring_attention
+from ..parallel.mesh import AXES, Mesh
 
-ATTENTION_IMPLS = ("reference", "flash")
+ATTENTION_IMPLS = ("reference", "flash", "ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +69,9 @@ class TinyGPTConfig:
     n_kv_head: Optional[int] = None
     bias: bool = True
     tie_embeddings: bool = True
+    # Zigzag causal load balancing of ring attention: None = auto (on for
+    # causal rings with even shards), True = force, False = contiguous.
+    ring_zigzag: Optional[bool] = None
 
     @property
     def head_dim(self) -> int:
@@ -316,9 +322,13 @@ class Block(nn.Module):
 
 
 class TinyGPT(nn.Module):
-    """Embedding (+ learned positions) -> blocks -> final norm -> LM head."""
+    """Embedding (+ learned positions) -> blocks -> final norm -> LM head.
 
-    def __init__(self, config: TinyGPTConfig):
+    ``mesh`` gives the width of the ``seq`` axis that ring attention shards
+    the sequence over (None: width 1, where ring attention is flash, as in
+    JAX without a ``seq`` axis)."""
+
+    def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         c = self.config = config
         D, V = c.n_embd, c.vocab_size
@@ -333,9 +343,13 @@ class TinyGPT(nn.Module):
             self.lm_head = _param(V, D)
         # The attention every block calls; the config picks it. A check that
         # compares against another implementation assigns this attribute.
-        self.attention: AttentionFn = (
-            flash_attention if c.attention_impl == "flash" else reference_attention
-        )
+        self.attention: AttentionFn = reference_attention
+        if c.attention_impl == "flash":
+            self.attention = flash_attention
+        elif c.attention_impl == "ring":
+            seq = mesh.size(AXES.seq) if mesh is not None else 1
+            self.attention = functools.partial(ring_attention, seq_shards=seq,
+                                               zigzag=c.ring_zigzag)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TinyGPT":

@@ -15,10 +15,15 @@ register / shared-memory / spill report lands beside each library as
 
 Nothing here runs at import time: ``load()`` is called by the kernel
 wrappers the first time they launch.
+
+``LAUNCHES`` is the one record of kernel launches, one count per kernel
+mode: a wrapper calls ``launched`` where it launches its kernel and nowhere
+else, and ``reset_launch_counts`` zeroes them all.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -54,9 +59,13 @@ SIGNATURES = {
         "flash_fwd_error_string": [_I],
     },
     "flash_bwd": {
-        "flash_bwd_dq": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
-        "flash_bwd_dkv": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
+        "flash_bwd_dq": [_P] * 10 + [_I] * 6 + [_F, _U, _U, _F, _P],
+        "flash_bwd_dkv": [_P] * 11 + [_I] * 6 + [_F, _U, _U, _F, _P],
         "flash_bwd_error_string": [_I],
+    },
+    "ring_fwd": {
+        "ring_fwd_block": [_P] * 9 + [_I] * 5 + [_F, _U, _U, _F, _P],
+        "ring_fwd_error_string": [_I],
     },
 }
 
@@ -71,7 +80,7 @@ def nvcc_path() -> str:
         return str(cand)
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin, "
-        "/usr/local/cuda/bin): the flash-attention kernels cannot be built"
+        "/usr/local/cuda/bin): the attention kernels cannot be built"
     )
 
 
@@ -137,6 +146,19 @@ def load() -> Dict[str, ctypes.CDLL]:
                 f.restype = ctypes.c_char_p if fn.endswith("_error_string") else ctypes.c_int
             _libs[name] = lib
         return _libs
+
+
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+
+def launched(mode: str) -> None:
+    """Count one launch of a kernel mode (e.g. ``flash_bwd_dq_fp32``)."""
+    LAUNCHES[mode] += 1
+
+
+def reset_launch_counts() -> None:
+    """Zero the count of every kernel mode."""
+    LAUNCHES.clear()
 
 
 def check(lib_name: str, code: int, what: str) -> None:

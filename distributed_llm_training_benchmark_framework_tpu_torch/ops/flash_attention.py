@@ -13,6 +13,12 @@ wrapper                   replaces (JAX package, same file)     bound on the H10
 ``flash_bwd_dkv``         ``_bwd_dkv_kernel``                   8*BH*S^2*Dh tensor FLOPs
 ========================  ====================================  ===========================
 
+The two backward wrappers also serve the ring backward (``ops/ring_attention.py``,
+JAX ``_block_bwd_kernel``): with ``out_dtype=torch.float32`` they launch the
+same kernels in their fp32-output mode with the ring's global offsets, and
+count those launches apart, as the modes ``flash_bwd_dq_fp32`` and
+``flash_bwd_dkv_fp32``.
+
 Each count halves when causal; with dropout each kernel also evaluates the
 coordinate hash (about 10 integer operations) per live score element. The
 bytes each kernel must move (its inputs once, its outputs once) take a few
@@ -22,8 +28,8 @@ CTA) is simple and correct, not fast; the source notes in ``csrc/`` say so.
 
 Every wrapper works on (BH, S, Dh) tensors. On a CPU tensor it runs its
 plain PyTorch version (the tests' path); on a CUDA tensor it launches the
-kernel or raises; there is no fallback. Each kernel launch adds one to the
-wrapper's ``launches`` attribute and nowhere else.
+kernel or raises; there is no fallback. Each kernel launch adds one to its
+mode's count in ``_build.LAUNCHES`` and nowhere else.
 
 The dropout mask is the JAX package's stateless coordinate hash
 (``mix32`` / ``dropout_keep`` / ``dropout_threshold`` below), bit-identical
@@ -81,11 +87,15 @@ def dropout_threshold(rate: float) -> int:
 
 def _tile_coords(offsets: Optional[torch.Tensor], S: int, device) -> torch.Tensor:
     """Absolute row (or col) index of each of S positions from per-tile bases
-    (None: identity, tile i starts at i*TILE)."""
+    of S / len(offsets) rows each (None: identity). The kernels take 64-row
+    tiles; a plain version also takes finer ones (one row each, say)."""
     local = torch.arange(S, device=device, dtype=torch.int64)
     if offsets is None:
         return local
-    return offsets.to(torch.int64).repeat_interleave(TILE) + local % TILE
+    if S % offsets.numel():
+        raise ValueError(f"{offsets.numel()} tile bases do not tile {S} positions")
+    tile = S // offsets.numel()
+    return offsets.to(device=device, dtype=torch.int64).repeat_interleave(tile) + local % tile
 
 
 # ---------------------------------------------------------------------------
@@ -169,20 +179,24 @@ def _plain_block_k(S: int) -> int:
 
 
 def flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
-                       qoff=None, koff=None, bhv=None):
-    """dq = sum over k blocks of ds . k (plain PyTorch version of K2)."""
+                       qoff=None, koff=None, bhv=None, out_dtype=None):
+    """dq = sum over k blocks of ds . k (plain PyTorch version of K2 and,
+    with ``out_dtype=torch.float32``, of K2′), in ``out_dtype`` (default
+    q's dtype)."""
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for _k0, kb, _pd, ds in _plain_bwd_blocks(
         q, k, v, dout, lse, delta, causal, dropout_rate, seed,
         qoff, koff, bhv, _plain_block_k(q.shape[1]),
     ):
         dq += torch.matmul(ds.float(), kb)
-    return dq.to(q.dtype)
+    return dq.to(out_dtype or q.dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
-                        qoff=None, koff=None, bhv=None):
-    """dk = ds^T . q and dv = (D*p)^T . dO per k block (plain version of K3)."""
+                        qoff=None, koff=None, bhv=None, out_dtype=None):
+    """dk = ds^T . q and dv = (D*p)^T . dO per k block (plain version of K3
+    and, with ``out_dtype=torch.float32``, of K3′), in ``out_dtype`` (default
+    k's and v's dtype)."""
     dk, dv = [], []
     qf, dof = q.float(), dout.float()
     for _k0, _kb, pd, ds in _plain_bwd_blocks(
@@ -191,7 +205,8 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
     ):
         dv.append(torch.matmul(pd.to(q.dtype).float().transpose(1, 2), dof))
         dk.append(torch.matmul(ds.float().transpose(1, 2), qf))
-    return torch.cat(dk, dim=1).to(k.dtype), torch.cat(dv, dim=1).to(v.dtype)
+    return (torch.cat(dk, dim=1).to(out_dtype or k.dtype),
+            torch.cat(dv, dim=1).to(out_dtype or v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +257,13 @@ def _row_stats(q: torch.Tensor, *stats: torch.Tensor):
     return out
 
 
+def _out_dtype(out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    out = out_dtype or torch.bfloat16
+    if out not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the backward kernels write bfloat16 or float32, not {out}")
+    return out
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -265,7 +287,7 @@ def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int):
         BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
     )
     _build.check("flash_fwd", code, "flash_fwd launch")
-    flash_fwd.launches += 1
+    _build.launched("flash_fwd")
     return out, lse
 
 
@@ -287,65 +309,68 @@ def _offset_args(q, qoff, koff, bhv):
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, dropout_rate: float, seed: int,
-                 qoff=None, koff=None, bhv=None):
+                 qoff=None, koff=None, bhv=None, out_dtype=None):
     """K2: dq (BH, S, Dh). ``qoff``/``koff`` are per-64-row-tile global bases
-    and ``bhv`` the global batch*head ids (None: identity, plain flash)."""
+    and ``bhv`` the global batch*head ids (None: identity, plain flash).
+    ``out_dtype`` bfloat16 (default) or float32; float32 is K2′, the ring's
+    launch, counted as the mode ``flash_bwd_dq_fp32``."""
     if _on_cpu(q):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
-                                  qoff, koff, bhv)
+                                  qoff, koff, bhv, out_dtype)
     _check_cuda(q, k, v, dout)
+    out = _out_dtype(out_dtype)
     BH, S, D = q.shape
     qo, ko, bv = _offset_args(q, qoff, koff, bhv)
     lse, delta = _row_stats(q, lse, delta)
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=out, device=q.device)
     dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
     lib = _build.load()["flash_bwd"]
     code = lib.flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), qo.data_ptr(), ko.data_ptr(), bv.data_ptr(),
-        BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
+        BH, S, D, int(causal), dropout, int(out == torch.float32), 1.0 / math.sqrt(D),
+        seed32, thr, inv, _stream(q),
     )
     _build.check("flash_bwd", code, "flash_bwd_dq launch")
-    flash_bwd_dq.launches += 1
+    _build.launched("flash_bwd_dq_fp32" if out == torch.float32 else "flash_bwd_dq")
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, dropout_rate: float, seed: int,
-                  qoff=None, koff=None, bhv=None):
-    """K3: (dk, dv), each (BH, S, Dh); offsets as for :func:`flash_bwd_dq`."""
+                  qoff=None, koff=None, bhv=None, out_dtype=None):
+    """K3: (dk, dv), each (BH, S, Dh); offsets and ``out_dtype`` as for
+    :func:`flash_bwd_dq` (float32 is K3′)."""
     if _on_cpu(q):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
-                                   qoff, koff, bhv)
+                                   qoff, koff, bhv, out_dtype)
     _check_cuda(q, k, v, dout)
+    out = _out_dtype(out_dtype)
     BH, S, D = q.shape
     qo, ko, bv = _offset_args(q, qoff, koff, bhv)
     lse, delta = _row_stats(q, lse, delta)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk = torch.empty(k.shape, dtype=out, device=k.device)
+    dv = torch.empty(v.shape, dtype=out, device=v.device)
     dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
     lib = _build.load()["flash_bwd"]
     code = lib.flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-        bv.data_ptr(), BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr,
-        inv, _stream(q),
+        bv.data_ptr(), BH, S, D, int(causal), dropout, int(out == torch.float32),
+        1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
     )
     _build.check("flash_bwd", code, "flash_bwd_dkv launch")
-    flash_bwd_dkv.launches += 1
+    _build.launched("flash_bwd_dkv_fp32" if out == torch.float32 else "flash_bwd_dkv")
     return dk, dv
 
 
-KERNEL_WRAPPERS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-for _w in KERNEL_WRAPPERS:
-    _w.launches = 0
-
-
-def reset_launch_counts() -> None:
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+# Zeroes every kernel's count, the ring kernels' included.
+reset_launch_counts = _build.reset_launch_counts
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    """Launches of K1-K3 in their bf16 mode, the flash path's (the ring's
+    are in ``ops.ring_attention.launch_counts``)."""
+    return {m: _build.LAUNCHES[m] for m in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,12 @@ run ``warmup_steps`` untimed steps, then the timed steps in windows of
 ``sync_every`` steps fenced by ``torch.cuda.synchronize()`` (each step of a
 window is charged the window's mean), and compute the result row.
 Telemetry, checkpoints, fault injection, the numerics sentinel and the
-streaming input path are not in this slice.
+streaming input path are not ported yet.
+
+``sequence_parallel`` > 1 runs ring attention over that many sequence
+shards. In this port all of them are held on the one device, in one process
+(``ops/ring_attention.py``), so the row keeps ``world_size`` 1 and stamps
+``sequence_parallel`` beside it.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
 no explicit ``cpu`` it raises.
@@ -22,6 +27,7 @@ import torch
 
 from ..data.synthetic import SyntheticDataset
 from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
+from ..parallel.mesh import AXES, make_mesh
 from ..parallel.strategies import StrategyConfig, get_strategy, make_optimizer
 from ..utils import flops as flops_mod
 from ..utils import metrics as metrics_mod
@@ -49,21 +55,58 @@ class Run:
     step_fn: TrainStep
 
 
+def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
+                    ring_zigzag: Optional[bool]) -> dict:
+    """The JAX loop's checks of the sequence-parallel options
+    (``train/loop.py:482-530``) and the config overrides they give."""
+    if sequence_parallel < 1:
+        raise ValueError(f"sequence_parallel must be >= 1, got {sequence_parallel}")
+    if sequence_parallel > 1 and attention_impl != "ring":
+        raise ValueError(
+            "sequence_parallel > 1 requires attention_impl 'ring' (the port has no "
+            f"Ulysses attention yet); got {attention_impl!r}"
+        )
+    overrides = {}
+    if causal:
+        overrides["causal"] = True
+    if ring_zigzag is not None:
+        # The knob has a consumer only on a real ring; refuse rather than run
+        # flash while the row records the setting.
+        if attention_impl != "ring":
+            raise ValueError(
+                f"ring_zigzag={'on' if ring_zigzag else 'off'} requires attention_impl "
+                f"'ring' (the zigzag layout is a ring-attention property); got "
+                f"{attention_impl!r}"
+            )
+        if ring_zigzag and sequence_parallel <= 1:
+            raise ValueError(
+                "ring_zigzag on requires sequence_parallel > 1: with one sequence shard "
+                "there is no ring to balance"
+            )
+        overrides["ring_zigzag"] = ring_zigzag
+    return overrides
+
+
 def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A",
               seq_len: int = 2048, model_family: str = "tinygpt", per_device_batch: int = 1,
               grad_accum: int = 4, attention_impl: str = "flash",
-              dropout: Optional[float] = None, seed: int = 42,
+              dropout: Optional[float] = None, sequence_parallel: int = 1,
+              causal: bool = False, ring_zigzag: Optional[bool] = None, seed: int = 42,
               device: Optional[str] = None) -> Run:
     """Model (initialised from ``seed``), optimizer, device-resident table and
-    train step of one arm; ``run_benchmark`` and the step profiler share it."""
+    train step of one arm; ``run_benchmark`` and the step profiler share it.
+    ``causal`` turns causal masking on (Llama is causal anyway);
+    ``ring_zigzag`` None is auto."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     overrides = {"attention_impl": attention_impl}
+    overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
     if dropout is not None:
         overrides["dropout"] = dropout
     cfg = get_config(model_family, tier, seq_len, **overrides)
+    mesh = make_mesh((sequence_parallel,), (AXES.seq,))
     with torch.device(dev):
-        model = TinyGPT(cfg)
+        model = TinyGPT(cfg, mesh=mesh)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     optimizer = make_optimizer(strat, model.parameters())
     table = SyntheticDataset(cfg.vocab_size, seq_len, DATASET_SIZE, seed).to_device(dev)
@@ -84,6 +127,9 @@ def run_benchmark(
     grad_accum: int = 4,
     attention_impl: str = "flash",
     dropout: Optional[float] = None,
+    sequence_parallel: int = 1,
+    causal: bool = False,
+    ring_zigzag: Optional[bool] = None,
     sync_every: int = 10,
     seed: int = 42,
     device: Optional[str] = None,
@@ -91,13 +137,17 @@ def run_benchmark(
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     on one device and return the result row; with ``results_dir`` also
-    write ``result_<arm>.json`` there and print the marker-delimited JSON."""
+    write ``result_<arm>.json`` there and print the marker-delimited JSON.
+    ``sequence_parallel``, ``causal`` and ``ring_zigzag`` as for
+    :func:`build_run`."""
     if steps <= warmup_steps:
         raise ValueError(f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
     t_start = time.perf_counter()
     run = build_run(strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
                     per_device_batch=per_device_batch, grad_accum=grad_accum,
-                    attention_impl=attention_impl, dropout=dropout, seed=seed, device=device)
+                    attention_impl=attention_impl, dropout=dropout,
+                    sequence_parallel=sequence_parallel, causal=causal,
+                    ring_zigzag=ring_zigzag, seed=seed, device=device)
     dev, cfg, strat, model, table, step_fn = (
         run.device, run.config, run.strategy, run.model, run.table, run.step_fn)
     if dev.type == "cuda":
@@ -139,6 +189,8 @@ def run_benchmark(
         dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
         flops_per_token=flops_mod.train_flops_per_token(cfg), sync_every=sync_every,
         phase_times=phase, wall_time_total_sec=time.perf_counter() - t_start,
+        sequence_parallel=sequence_parallel,
+        ring_zigzag={None: "auto", True: "on", False: "off"}[cfg.ring_zigzag],
     )
     if results_dir is not None:
         metrics_mod.emit_result(result, results_dir)

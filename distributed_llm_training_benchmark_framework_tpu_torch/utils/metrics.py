@@ -4,7 +4,9 @@ Port of the subset of ``distributed_llm_training_benchmark_framework_tpu/utils/m
 that the bench row reads: ``arm_slug``, ``tokens_per_step``,
 ``BenchmarkResult``, ``compute_result`` and the
 ``BENCHMARK_RESULT_JSON_START`` / ``_END`` emission. The field names are
-the JAX package's. Peak device memory is
+the JAX package's, so ``analysis/validate_results.py`` checks a port row as
+it checks a JAX one; ``h2d_gbps_per_gpu`` is the reference's fp32
+transfer proxy, ``batch*accum*seq*4`` bytes per step time. Peak device memory is
 ``torch.cuda.max_memory_allocated`` (``peak_hbm_method =
 "torch_cuda_max_memory_allocated"``); a CPU run reports 0.0 and
 ``"unavailable"``.
@@ -57,6 +59,7 @@ class BenchmarkResult:
     mean_step_time_sec: float
     mean_loss: float
     peak_vram_gb: float
+    h2d_gbps_per_gpu: float = 0.0
     peak_hbm_gb: float = 0.0
     peak_hbm_method: str = "unavailable"
     device_kind: str = ""
@@ -82,6 +85,11 @@ class BenchmarkResult:
     time_in_init_sec: float = 0.0
     time_in_warmup_sec: float = 0.0
     time_in_timed_sec: float = 0.0
+    # Sequence shards of ring attention; the port holds them all on one
+    # device, so world_size stays 1.
+    sequence_parallel: int = 1
+    # Ring-attention zigzag layout mode ('auto'/'on'/'off'), run identity.
+    ring_zigzag: str = "auto"
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -99,7 +107,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    causal: bool = False, model_family: str = "tinygpt",
                    flops_per_token: float = 0.0, sync_every: int = 1,
                    phase_times: Optional[Dict[str, float]] = None,
-                   wall_time_total_sec: float = 0.0) -> BenchmarkResult:
+                   wall_time_total_sec: float = 0.0, sequence_parallel: int = 1,
+                   ring_zigzag: str = "auto") -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -109,6 +118,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         lw, loss_first, loss_last = 0, 0.0, 0.0
     step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, world_size)
     tps = step_tokens / mean_step if mean_step > 0 else 0.0
+    h2d = per_device_batch * grad_accum * seq_len * 4 / mean_step / 1e9 if mean_step > 0 else 0.0
     tps_per_chip = tps / world_size if world_size else 0.0
     mfu = flops_mod.mfu_pct(tps_per_chip, flops_per_token, device_kind)
     if step_times:
@@ -124,7 +134,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         strategy=strategy, world_size=world_size, rank=0, seq_len=seq_len, tier=tier,
         steps=steps, per_device_batch=per_device_batch, grad_accum=grad_accum,
         tokens_per_sec=tps, mean_step_time_sec=mean_step, mean_loss=mean_loss,
-        peak_vram_gb=peak_gb, peak_hbm_gb=peak_gb, peak_hbm_method=peak_method,
+        peak_vram_gb=peak_gb, h2d_gbps_per_gpu=h2d, peak_hbm_gb=peak_gb,
+        peak_hbm_method=peak_method,
         device_kind=device_kind, backend=backend, n_params=n_params,
         attention_impl=attention_impl, dropout=dropout, causal=causal,
         model_family=model_family, flops_per_token=flops_per_token,
@@ -137,6 +148,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         time_in_init_sec=round(pt.get("init", 0.0), 4),
         time_in_warmup_sec=round(pt.get("warmup", 0.0), 4),
         time_in_timed_sec=round(pt.get("timed", 0.0), 4),
+        sequence_parallel=sequence_parallel, ring_zigzag=ring_zigzag,
     )
 
 

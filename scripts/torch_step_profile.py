@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where one training step of the PyTorch port spends its time on the card.
 
-    python3 scripts/torch_step_profile.py [--rows parity flagship] [--steps 3]
+    python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring]
+                                          [--steps 3]
                                           [--out chiprun_out/torch_step_profile.json]
 
-For each bench row (parity: TinyGPT tier A b1 x accum 4, dropout 0.1;
-flagship: Llama tier A b2 x accum 2; both S 2048, zero2, flash attention)
+For each row (parity: TinyGPT tier A b1 x accum 4, dropout 0.1; flagship:
+Llama tier A b2 x accum 2; both S 2048, zero2, flash attention; and the
+sequence-parallel rows parity_ring: TinyGPT b1 x accum 1 and flagship_ring:
+Llama b1 x accum 2, both S 8192 over 4 ring shards on the one card)
 it builds the run exactly as ``train.loop.run_benchmark`` does, takes 3
 warmup steps, times ``--steps`` steps on the host clock (synchronised), and
 profiles the same number of steps with ``torch.profiler``. It reports, per
 step: the wall time, the device-busy time (sum of kernel, memcpy and memset
 time on the card), the idle share (1 - busy / unprofiled wall), the device time by
-class (the three flash kernels, GEMMs, everything else) and the ten
+class (the ring block kernel, the three flash kernels, whose backward pair
+the ring launches in its fp32 mode, GEMMs, everything else) and the ten
 longest kernels. Needs a CUDA device.
 """
 
@@ -30,14 +34,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 ROWS = {
-    "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4),
-    "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2),
+    "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, seq_len=2048),
+    "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, seq_len=2048),
+    "parity_ring": dict(model_family="tinygpt", per_device_batch=1, grad_accum=1,
+                        seq_len=8192, attention_impl="ring", sequence_parallel=4),
+    "flagship_ring": dict(model_family="llama", per_device_batch=1, grad_accum=2,
+                          seq_len=8192, attention_impl="ring", sequence_parallel=4),
 }
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
 def kernel_class(name: str) -> str:
-    for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+    for k in ("ring_fwd_block_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel"):
         if k in name:
             return k
     if any(m in name.lower() for m in GEMM_MARKERS):
@@ -65,7 +74,7 @@ def device_events(prof):
 def profile_row(name: str, steps: int) -> dict:
     from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 
-    run = build_run(tier="A", seq_len=2048, device="cuda", **ROWS[name])
+    run = build_run(tier="A", device="cuda", **ROWS[name])
     step = 0
     for _ in range(3):
         run.step_fn(run.table, step).item()
