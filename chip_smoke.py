@@ -54,6 +54,20 @@ the flagship ring row trains at), shards of 2048 as zigzag half-chunks of
 9. checks the first-step tier-A loss at S 8192 (dropout 0) through the ring
    against flash within 1e-2, for both families.
 
+The head-dim-64 forward microbench (``microbench/flash_fwd.py``, the port of
+``scripts/microbench_flash_fwd.py``) and its five kernels K5-K9
+(``ops/fwd_variants.py``): non-causal, no dropout, at (f) BH 16, S 2048,
+Dh 64 (the microbench's default, the parity row's attention block at rate
+0) and (g) BH 4, S 256, Dh 128.
+
+10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
+    <= 2e-2), K9 against K5 bit for bit at Dh 64, prints max |Δ| of K5, K6
+    and K7 against each other and of K5 against K1 at rate 0, and times
+    each at (f) as in phase 2, beside SDPA on the same block (for K8, which
+    no one call computes, the two calls baddbmm and bmm);
+11. runs the microbench once through its module at (f), printing its table,
+    and checks every kernel's launch count equals the launches it made.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it), the nvidia-smi line, and, last,
@@ -78,6 +92,9 @@ import torch
 # utils/platform.py), matched on the card's name.
 H100_INT32_OPS = 64 * 132 * 1.98e9
 HASH_OPS_PER_ELEMENT = 10  # mix32 (2 mul, 3 shift, 3 xor) + add + compare
+# Exponentials: 16 per SM per clock (the special-function units), same SMs
+# and clock. Written beside the softmax variants' bound, not part of it.
+H100_EXP_OPS = 16 * 132 * 1.98e9
 
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
@@ -467,6 +484,94 @@ def phase_ring_whole_model(fa, models, SyntheticDataset, make_mesh):
         torch.cuda.empty_cache()
 
 
+FWD_SHAPES = {
+    "f": dict(BH=16, S=2048, D=64),
+    "g": dict(BH=4, S=256, D=128),
+}
+FWD_SOURCE = "distributed_llm_training_benchmark_framework_tpu_torch/csrc/fwd_variants.cu"
+# Line of each Pallas kernel in scripts/microbench_flash_fwd.py.
+FWD_REPLACES = {"fwd_current": 83, "fwd_headpair": 140, "fwd_kt": 199,
+                "fwd_matmul_only": 258, "fwd_qscaled": 303}
+
+
+def phase_fwd_variants(fa, fv, peaks):
+    """Phase 10: K5-K9 against their plain versions at (f) and (g), K9 == K5
+    bitwise at Dh 64, cross-variant differences, times at (f)."""
+    results = {n: {"max_abs_err": 0.0} for n in fv.VARIANTS}
+    for key, sh in FWD_SHAPES.items():
+        BH, S, D = sh["BH"], sh["S"], sh["D"]
+        q, k, v, _ = make_inputs(sh, seed=3)
+        kt = k.transpose(1, 2).contiguous()
+        args = {n: (q, kt, v) if n == "fwd_kt" else (q, k, v) for n in fv.VARIANTS}
+        outs = {n: fv.WRAPPERS[n](*a) for n, a in args.items()}
+        k1, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
+        torch.cuda.synchronize()
+        plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
+        errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
+        cur = outs["fwd_current"]
+        cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
+                 "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
+                 "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1)}
+        log(f"[10] ({key}) BH={BH} S={S} Dh={D}: rel-Frobenius vs plain "
+            + json.dumps({n: f"{e:.2e}" for n, e in errs.items()})
+            + "; max abs between kernels " + json.dumps({n: f"{e:.2e}" for n, e in cross.items()}))
+        for n, e in errs.items():
+            assert e <= 2e-2, f"({key}) {n}: rel error {e} > 2e-2"
+            results[n]["max_abs_err"] = max(results[n]["max_abs_err"], max_abs(outs[n], plains[n]))
+        if D == 64:
+            assert torch.equal(outs["fwd_qscaled"], cur), f"({key}) K9 differs from K5 at Dh 64"
+        if key == "f":
+            live = BH * S * S
+            bound = bound_ms("fwd", D, live, 4 * BH * S * D * 2, 0.0, peaks)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            sdpa_ms = median_ms(lambda: sdpa(q[None], k[None], v[None]))
+            # K8 in two calls: bf16(scale * q.k^T), then its product with v.
+            buf = torch.empty(BH, S, S, dtype=q.dtype, device=q.device)
+            two_calls_ms = median_ms(lambda: torch.bmm(
+                torch.baddbmm(buf, q, k.transpose(1, 2), beta=0.0, alpha=D ** -0.5), v))
+            for n, a in args.items():
+                r = results[n]
+                r["ms"] = median_ms(lambda: fv.WRAPPERS[n](*a))
+                r["plain_ms"] = median_ms(lambda: fv.PLAIN[n](*a), warmup=2, reps=20)
+                r["bound_ms"], r["bound_by"] = bound
+                if n == "fwd_matmul_only":
+                    r["library_ms"] = None
+                    r["library_two_calls_ms"] = two_calls_ms
+                    r["library_note"] = ("no one call computes K8: torch.baddbmm(beta=0, "
+                                         "alpha=scale) then torch.bmm, two calls")
+                else:
+                    r["library_ms"] = sdpa_ms
+                    r["exp_bound_ms"] = 1e3 * live / H100_EXP_OPS
+            k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
+            log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written) {k1_ms:.5f} ms; "
+                f"SDPA {sdpa_ms:.5f} ms; K8 as baddbmm + bmm {two_calls_ms:.5f} ms")
+            log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(
+                {n: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in r.items()
+                     if nm != "library_note"} for n, r in results.items()}))
+        del q, k, v, kt, outs, plains
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_microbench(build, mb):
+    """Phase 11: the microbench through its module at (f); every kernel's
+    launch count equals the launches its row made."""
+    sh = FWD_SHAPES["f"]
+    build.reset_launch_counts()
+    rows = mb.main(["--bh", str(sh["BH"]), "--seq", str(sh["S"]), "--dim", str(sh["D"]),
+                    "--reps", "25", "--device", "cuda"])
+    counts = dict(build.LAUNCHES)
+    want = {r["kernel"]: r["launches"] for r in rows if r["kernel"]}
+    log(f"[11] launches {counts} (want {want})")
+    assert counts == want, f"microbench launches {counts}, want {want}"
+    for r in rows:
+        assert r["ms"] > 0 and math.isfinite(r["max_abs"]), r
+        if r["ref"] == "sdpa_materialized":
+            assert r["max_abs"] <= 2e-2, f"{r['name']}: max abs {r['max_abs']} vs sdpa_materialized"
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -474,7 +579,9 @@ def main() -> int:
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
+    from distributed_llm_training_benchmark_framework_tpu_torch.microbench import flash_fwd as mb
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
     from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
     from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
@@ -509,6 +616,8 @@ def main() -> int:
     phase_ring_vs_flash(fa, ra)
     ring_launches = phase_ring_train(fa, ra, run_benchmark)
     phase_ring_whole_model(fa, models, SyntheticDataset, make_mesh)
+    fwd_timing = phase_fwd_variants(fa, fv, peaks)
+    mb_launches = phase_microbench(_build, mb)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -568,7 +677,20 @@ def main() -> int:
             if "library_note" in r:
                 entry["library_note"] = r["library_note"]
             kernels.append(entry)
-    log(f"[10] total {time.perf_counter() - t0:.1f} s")
+    sh = FWD_SHAPES["f"]
+    for n in fv.VARIANTS:
+        r = fwd_timing[n]
+        kernels.append({
+            "name": f"{n} [microbench (f): BH {sh['BH']} S {sh['S']} Dh {sh['D']} non-causal"
+                    " rate 0]",
+            "route": "cuda",
+            "source": FWD_SOURCE,
+            "replaces": f"scripts/microbench_flash_fwd.py:{FWD_REPLACES[n]}",
+            "launches": mb_launches[n],
+            "launches_on": "the microbench path (phase 11)",
+            **r,
+        })
+    log(f"[12] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

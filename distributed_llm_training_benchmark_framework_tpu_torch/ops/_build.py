@@ -67,6 +67,11 @@ SIGNATURES = {
         "ring_fwd_block": [_P] * 9 + [_I] * 5 + [_F, _U, _U, _F, _P],
         "ring_fwd_error_string": [_I],
     },
+    "fwd_variants": {
+        **{fn: [_P] * 4 + [_I] * 3 + [_F, _P] for fn in (
+            "fwd_current", "fwd_headpair", "fwd_kt", "fwd_matmul_only", "fwd_qscaled")},
+        "fwd_variants_error_string": [_I],
+    },
 }
 
 

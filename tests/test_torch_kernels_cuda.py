@@ -6,8 +6,9 @@ versions against JAX instead). On the card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: rel-Frobenius 2e-2 for bf16 outputs and gradients and for the
-ring kernels' fp32 o and partials, 1e-3 absolute for the fp32 lse and the
+Tolerances: rel-Frobenius 2e-2 for bf16 outputs and gradients (the flash
+kernels and the microbench's forward variants K5-K9) and for the ring
+kernels' fp32 o and partials, 1e-3 absolute for the fp32 lse and the
 ring block's m and l (the kernels and the plain versions sum in different
 orders; a dropout mask that differed anywhere would show as an O(1) error).
 """
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
 
 pytestmark = pytest.mark.cuda
@@ -150,3 +152,30 @@ def test_ring_refuses_chunks_the_kernels_cannot_tile(cuda):
         ra.ring_attention(y, y, y, causal=True, seq_shards=4, zigzag=True)  # halves of 96
     with pytest.raises(ValueError, match="zigzag=False"):
         ra.ring_attention(y, y, y, causal=True, seq_shards=4)  # auto picks zigzag here too
+
+
+FWD_CASES = [(name, d) for name in fv.VARIANTS for d in (64, 128)]
+
+
+def _fwd_inputs(cuda, d, bh=4, s=256, seed=4):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(bh, s, d, device=cuda, generator=g).to(torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("name,d", FWD_CASES)
+def test_fwd_variants_match_plain_and_count_one_launch(cuda, name, d):
+    """K5-K9 against their plain versions (K6 fits at Dh 128: 2 x 110 KB of
+    shared memory, under the 227 KB a CTA may take), one launch per call."""
+    q, k, v = _fwd_inputs(cuda, d)
+    args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
+    before = fv.launch_counts()
+    out = fv.WRAPPERS[name](*args)
+    after = fv.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {n: int(n == name) for n in after}
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert _rel(out, fv.PLAIN[name](*args)) <= 2e-2
+
+
+def test_fwd_qscaled_equals_fwd_current_bitwise_at_dh64(cuda):
+    q, k, v = _fwd_inputs(cuda, 64, bh=2, s=512, seed=5)
+    assert torch.equal(fv.fwd_qscaled(q, k, v), fv.fwd_current(q, k, v))
