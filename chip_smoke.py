@@ -8,7 +8,8 @@ and fails, printing no result, if any phase fails:
 
 0. prints the card's name and power limit (nvidia-smi), turns TF32 off,
    builds the CUDA kernels from ``csrc/`` with nvcc and prints the build time
-   and ptxas's register / spill report;
+   and ptxas's register / spill report, per template instance for K1 and K4
+   (the shared wgmma mainloop, ``csrc/flash_fwd_sm90.cuh``);
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
@@ -17,7 +18,10 @@ and fails, printing no result, if any phase fails:
 2. times each kernel, its plain version and, as a yardstick the port never
    calls, torch's scaled_dot_product_attention (rate 0: it cannot draw the
    coordinate-hash mask) with CUDA events, median of 25 launches after 5
-   warmup launches, at shapes (a) and (b);
+   warmup launches, at shapes (a) and (b). Each timed launch waits behind a
+   ~1 ms device sleep, so ``ms`` is the card's own time; each kernel is
+   also timed from an idle card (``idle_start_ms``, the wrapper's host
+   time to the launch included), the clock of the earlier times in PERF.md;
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
    flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
@@ -62,9 +66,11 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 
 10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
     <= 2e-2), K9 against K5 bit for bit at Dh 64, prints max |Δ| of K5, K6
-    and K7 against each other and of K5 against K1 at rate 0, and times
-    each at (f) as in phase 2, beside SDPA on the same block (for K8, which
-    no one call computes, the two calls baddbmm and bmm);
+    and K7 against each other and of K5 against K1 at rate 0 (K1 is the
+    wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` and K5 the first wmma
+    design, so that line compares two designs, not one loop built twice),
+    and times each at (f) as in phase 2, beside SDPA on the same block (for
+    K8, which no one call computes, the two calls baddbmm and bmm);
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
 
@@ -79,6 +85,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -120,13 +127,26 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def median_ms(fn, warmup: int = 5, reps: int = 25) -> float:
+# About 1 ms of device sleep (torch.cuda._sleep counts SM clock cycles).
+SLEEP_CYCLES = 2_000_000
+
+
+def median_ms(fn, warmup: int = 5, reps: int = 25, idle_start: bool = False) -> float:
+    """Median over ``reps`` calls of the card's time between two CUDA events
+    around one call of ``fn``. Each call is enqueued behind a ~1 ms device
+    sleep, so the host's time to reach the launch is off the clock and the
+    reading is the card's own time. ``idle_start=True`` starts the clock on
+    an idle card instead (no sleep), the clock of the earlier times in
+    PERF.md: that reading also holds the wrapper's host time up to the
+    launch."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        if not idle_start:
+            torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -175,6 +195,29 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
     return bound_ms(kind, D, live, nbytes, shape["rate"], peaks)
 
 
+# The sources built on the shared wgmma mainloop (csrc/flash_fwd_sm90.cuh):
+# phase 0 prints each of their template instances' registers and spills.
+FWD_SM90_LIBS = ("flash_fwd", "ring_fwd")
+
+
+def ptxas_instances(report: list[str]) -> dict:
+    """{kernel<Dh, causal, dropout>: (registers, spill line)} from ptxas -v."""
+    out, name, spill = {}, None, ""
+    for ln in report:
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            kernel = "ring_fwd_block_kernel" if "ring_fwd_block_kernel" in mangled else "flash_fwd_kernel"
+            args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", mangled)
+            name = (f"{kernel}<Dh {args[1]}, causal {args[2]}, dropout {args[3]}>" if args
+                    else mangled)
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and name is not None:
+            out[name] = (int(re.search(r"Used (\d+) registers", ln)[1]), spill)
+            name = None
+    return out
+
+
 def phase_kernels(fa, peaks):
     """Phases 1 and 2: kernel vs plain at shapes a, b, c; times at a and b."""
     results = {}
@@ -215,6 +258,7 @@ def phase_kernels(fa, peaks):
             }
             for kind, (kern, plain) in timings.items():
                 res[kind]["ms"] = median_ms(kern)
+                res[kind]["idle_start_ms"] = median_ms(kern, idle_start=True)
                 res[kind]["plain_ms"] = median_ms(plain, warmup=2, reps=20)
                 res[kind]["bound_ms"], res[kind]["bound_by"] = bound(kind, sh, peaks)
                 res[kind]["library_ms"] = None
@@ -382,6 +426,7 @@ def phase_ring_kernels(fa, ra, peaks):
         res = {}
         for kind, (kern, plain) in timings.items():
             res[kind] = dict(max_abs_err=errs[kind], ms=median_ms(kern),
+                             idle_start_ms=median_ms(kern, idle_start=True),
                              plain_ms=median_ms(plain, warmup=2, reps=20), library_ms=None)
             res[kind]["bound_ms"], res[kind]["bound_by"] = bound_ms(
                 kind, D, live, nbytes[kind], r, peaks)
@@ -509,6 +554,8 @@ def phase_fwd_variants(fa, fv, peaks):
         plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
         errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
         cur = outs["fwd_current"]
+        # K1 runs its own wgmma mainloop (csrc/flash_fwd_sm90.cuh), not K5's
+        # wmma loop: "K5-K1" compares two designs, not two builds of one loop.
         cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
                  "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
                  "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1)}
@@ -543,7 +590,8 @@ def phase_fwd_variants(fa, fv, peaks):
                     r["library_ms"] = sdpa_ms
                     r["exp_bound_ms"] = 1e3 * live / H100_EXP_OPS
             k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
-            log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written) {k1_ms:.5f} ms; "
+            log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; its own wgmma "
+                f"mainloop, not K5's wmma loop) {k1_ms:.5f} ms; "
                 f"SDPA {sdpa_ms:.5f} ms; K8 as baddbmm + bmm {two_calls_ms:.5f} ms")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(
                 {n: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in r.items()
@@ -608,6 +656,9 @@ def main() -> int:
         spills = [ln.strip() for ln in report
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[0] {lib}: {len(regs)} kernels, {sorted(set(regs))}; spills: {spills or 'none'}")
+        if lib in FWD_SM90_LIBS:
+            for inst, (nregs, spill) in ptxas_instances(report).items():
+                log(f"[0]   {inst}: {nregs} registers, {spill}")
 
     timing = phase_kernels(fa, peaks)
     launches = phase_train(fa, ra, run_benchmark)
@@ -646,6 +697,7 @@ def main() -> int:
                 "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
+                "idle_start_ms": r["idle_start_ms"],
             }
             if "library_fwd_bwd_ms" in r:
                 entry["library_fwd_bwd_ms"] = r["library_fwd_bwd_ms"]
@@ -671,8 +723,8 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": ring_launches[sh["row"]][count],
-                **{nm: r[nm] for nm in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                        "library_ms")},
+                **{nm: r[nm] for nm in ("max_abs_err", "ms", "idle_start_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
             }
             if "library_note" in r:
                 entry["library_note"] = r["library_note"]

@@ -8,122 +8,69 @@
 // over all k tiles with fp32 running max m, running sum l and output
 // accumulator over bf16 operands, scale 1/sqrt(Dh):
 //   - causal: mask by global position; k tiles wholly above the diagonal are
-//     skipped (with equal 64-row tiles: only k tiles kt <= qt run);
+//     skipped (with equal 64-row tiles: only k tiles kt <= qt run), and only
+//     the diagonal tile evaluates the mask;
 //   - dropout: the normalizer l sums the UN-dropped p while the accumulator
 //     takes keep ? p / (1 - rate) : 0, with the coordinate-hash mask of
-//     dropout_hash.cuh (bit-identical to JAX's);
+//     dropout_hash.cuh (bit-identical to JAX's), keyed by (bh, row, col);
 //   - writes out = acc / l (bf16) and lse = m + log(l), with l == 0 -> 1.
 //
 // Bound on the H100: 4*BH*S^2*Dh tensor FLOPs (halved when causal), plus
 // the hash's integer work per score element when rate > 0; the bytes moved
 // (q, k, v, out once) are far below either at S = 2048.
-// This design does little about that bound yet: wmma 16x16x16 products with
-// operands and the accumulator staged in shared memory, 4 warps per CTA, no
-// copy/compute overlap. wgmma, TMA and warp specialisation come later.
+// Design: the shared Hopper mainloop of flash_fwd_sm90.cuh (TMA-fed K/V
+// stages, wgmma for both products, scores, probabilities and the output
+// accumulator in registers, the softmax on the accumulator fragment). The
+// grid runs the q tiles of every head from the last (heaviest when causal)
+// to the first, so the long causal tiles start in the first wave.
 #include "dropout_hash.cuh"
-#include "flash_tile.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace flash {
 
-template <int D>
-constexpr int fwd_smem_bytes() {
-  // q, k, v tiles; fp32 scores; bf16 probabilities; fp32 output accumulator.
-  return 3 * Layout<D>::tile_bytes + Layout<D>::score_bytes + Layout<D>::prob_bytes +
-         Layout<D>::acc_bytes;
-}
+using sm90::bf16;
+using sm90::kTile;
+
+// K1's coordinates: flash's own, every k tile below the causal limit live.
+struct FlashCoords {
+  int q_off, n_kt;
+  __device__ int k_off(int kt) const { return kt * kTile; }
+  __device__ int next_live(int kt) const { return kt; }
+};
 
 template <int D, bool CAUSAL, bool DROPOUT>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
+__global__ void __launch_bounds__(sm90::kThreads)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                      float* __restrict__ lse, int S, float scale, uint32_t seed,
                      uint32_t threshold, float inv_keep) {
-  typedef Layout<D> L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::tile_bytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * L::tile_bytes);
-  float* sS = reinterpret_cast<float*>(smem + 3 * L::tile_bytes);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * L::tile_bytes + L::score_bytes);
-  float* sO = reinterpret_cast<float*>(smem + 3 * L::tile_bytes + L::score_bytes +
-                                       L::prob_bytes);
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const FlashCoords co{qt * kTile, CAUSAL ? qt + 1 : S / kTile};
+  float o[D / 64][32], m[2], l[2];
+  sm90::fwd_mainloop<D, CAUSAL, DROPOUT>(
+      &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, scale,
+      DROPOUT ? dropout_bh_base(seed, static_cast<uint32_t>(bh)) : 0u, threshold, inv_keep,
+      o, m, l);
 
-  const int qt = blockIdx.x, bh = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * kRowsPerWarp;
-  const int q0 = qt * kTile;
-  const size_t base = (size_t)bh * S * D;
-
-  load_tile<D>(sQ, q + base + (size_t)q0 * D, tid);
-  zero_acc<D>(sO, tid);
-  const uint32_t bh_base = DROPOUT ? dropout_bh_base(seed, (uint32_t)bh) : 0u;
-
-  // Row statistics of this warp's 16 rows; every lane holds all of them.
-  float m_row[kRowsPerWarp], l_row[kRowsPerWarp];
+  const int tid = threadIdx.x;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m_row[rr] = kNegInf;
-    l_row[rr] = 0.f;
-  }
-
-  const int n_kt = CAUSAL ? qt + 1 : S / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    __syncthreads();  // every warp is done reading the previous k/v tiles
-    load_tile<D>(sK, k + base + (size_t)kt * kTile * D, tid);
-    load_tile<D>(sV, v + base + (size_t)kt * kTile * D, tid);
-    __syncthreads();
-
-    warp_mm_abt<D>(sS + r0 * L::ld_score, sQ + r0 * L::ld_tile, sK);
-    __syncwarp();
-
+  for (int h = 0; h < 2; ++h) {
+    const int row = qt * kTile + sm90::frag_row(tid, h);
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    bf16* dst = out + ((size_t)bh * S + row) * D;
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = r0 + rr;
-      const int row = q0 + r;
-      float s[2];
-      bool live[2];
+    for (int b = 0; b < D / 64; ++b)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        s[h] = sS[r * L::ld_score + c] * scale;
-        live[h] = !CAUSAL || row >= kt * kTile + c;
-        if (!live[h]) s[h] = kNegInf;
-      }
-      const float m_prev = m_row[rr];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-      const float alpha = expf(m_prev - m_new);
-      const uint32_t row_base = DROPOUT ? dropout_row_base(bh_base, (uint32_t)row) : 0u;
-      float psum = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float p = expf(s[h] - m_new);
-        if (!live[h]) p = 0.f;
-        psum += p;
-        float p_acc = p;
-        if (DROPOUT)
-          p_acc = dropout_keep(row_base, (uint32_t)(kt * kTile + c), threshold)
-                      ? p * inv_keep
-                      : 0.f;
-        sP[r * L::ld_prob + c] = __float2bfloat16(p_acc);
-      }
-      l_row[rr] = alpha * l_row[rr] + warp_sum(psum);
-      m_row[rr] = m_new;
-      for (int d = lane; d < D; d += 32) sO[r * L::ld_acc + d] *= alpha;
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 64 * b + sm90::frag_col(tid, j)) =
+            __floats2bfloat162_rn(o[b][4 * j + 2 * h] / l_safe,
+                                  o[b][4 * j + 2 * h + 1] / l_safe);
+    if (tid % 4 == 0) {
+      const float m_out = m[h] == sm90::kNegInf ? sm90::kNegInf : m[h] * scale;
+      lse[(size_t)bh * S + row] = m_out + logf(l_safe);
     }
-    __syncwarp();
-    warp_mm_ab_acc<D>(sO + r0 * L::ld_acc, sP + r0 * L::ld_prob, sV);
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = r0 + rr;
-    const float l_safe = l_row[rr] == 0.f ? 1.f : l_row[rr];
-    bf16* dst = out + base + (size_t)(q0 + r) * D;
-    for (int d = lane; d < D; d += 32)
-      dst[d] = __float2bfloat16(sO[r * L::ld_acc + d] / l_safe);
-    if (lane == 0) lse[(size_t)bh * S + q0 + r] = m_row[rr] + logf(l_safe);
   }
 }
 
@@ -132,14 +79,15 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
                        int BH, int S, float scale, uint32_t seed, uint32_t threshold,
                        float inv_keep, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<D, CAUSAL, DROPOUT>;
-  constexpr int smem = fwd_smem_bytes<D>();
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = sm90::smem_bytes<D>();
+  CUtensorMap maps[3];
+  cudaError_t e = sm90::make_qkv_maps(maps, q, k, v, BH * S, D);
   if (e != cudaSuccess) return e;
-  dim3 grid(S / kTile, BH);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), S, scale, seed, threshold, inv_keep);
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(BH, S / kTile), sm90::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), static_cast<float*>(lse), S, scale,
+      seed, threshold, inv_keep);
   return cudaGetLastError();
 }
 
@@ -148,17 +96,13 @@ cudaError_t dispatch_fwd(int causal, int dropout, const void* q, const void* k,
                          const void* v, void* out, void* lse, int BH, int S, float scale,
                          uint32_t seed, uint32_t threshold, float inv_keep,
                          cudaStream_t st) {
-  if (causal && dropout)
-    return launch_fwd<D, true, true>(q, k, v, out, lse, BH, S, scale, seed, threshold,
-                                     inv_keep, st);
-  if (causal)
-    return launch_fwd<D, true, false>(q, k, v, out, lse, BH, S, scale, seed, threshold,
-                                      inv_keep, st);
-  if (dropout)
-    return launch_fwd<D, false, true>(q, k, v, out, lse, BH, S, scale, seed, threshold,
-                                      inv_keep, st);
-  return launch_fwd<D, false, false>(q, k, v, out, lse, BH, S, scale, seed, threshold,
-                                     inv_keep, st);
+#define FLASH_FWD_LAUNCH(C, DR) \
+  return launch_fwd<D, C, DR>(q, k, v, out, lse, BH, S, scale, seed, threshold, inv_keep, st)
+  if (causal && dropout) FLASH_FWD_LAUNCH(true, true);
+  if (causal) FLASH_FWD_LAUNCH(true, false);
+  if (dropout) FLASH_FWD_LAUNCH(false, true);
+  FLASH_FWD_LAUNCH(false, false);
+#undef FLASH_FWD_LAUNCH
 }
 
 }  // namespace flash

@@ -1,5 +1,6 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
-// ring_fwd.cu, fwd_variants.cu): the tile geometry, the shared-memory layout
+// Shared pieces of the first-design flash-attention kernels (flash_bwd.cu,
+// fwd_variants.cu; the forward K1 / K4 run flash_fwd_sm90.cuh's wgmma
+// mainloop instead): the tile geometry, the shared-memory layout
 // of one tile, the global -> shared tile copies, warp reductions and the
 // tensor-core tile products.
 //

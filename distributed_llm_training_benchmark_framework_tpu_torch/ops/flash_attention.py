@@ -22,9 +22,13 @@ count those launches apart, as the modes ``flash_bwd_dq_fp32`` and
 Each count halves when causal; with dropout each kernel also evaluates the
 coordinate hash (about 10 integer operations) per live score element. The
 bytes each kernel must move (its inputs once, its outputs once) take a few
-microseconds at 3.35 TB/s, so all three are bound by operations. The first
-design (wmma tiles staged through shared memory, 64x64 tiles, 4 warps per
-CTA) is simple and correct, not fast; the source notes in ``csrc/`` say so.
+microseconds at 3.35 TB/s, so all three are bound by operations. The
+forward (and the ring's block forward K4) runs the Hopper mainloop of
+``csrc/flash_fwd_sm90.cuh``: TMA-fed K/V stages, wgmma products, scores,
+probabilities and the output accumulator in registers. The backward pair
+is still the first design (wmma tiles staged through shared memory, 64x64
+tiles, 4 warps per CTA), simple and correct, not fast; the source notes in
+``csrc/`` say so.
 
 Every wrapper works on (BH, S, Dh) tensors. On a CPU tensor it runs its
 plain PyTorch version (the tests' path); on a CUDA tensor it launches the

@@ -20,8 +20,11 @@ from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_att
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
 
+import torch_dropout_probe as probe
+
 pytestmark = pytest.mark.cuda
-CASES = [(d, causal, rate) for d in (64, 128) for causal in (False, True) for rate in (0.0, 0.1)]
+CASES = [(d, causal, rate, s) for d in (64, 128) for causal in (False, True) for rate in (0.0, 0.1)
+         for s in (64, 256)]
 
 
 @pytest.fixture
@@ -35,10 +38,12 @@ def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-@pytest.mark.parametrize("d,causal,rate", CASES)
-def test_kernels_match_plain(cuda, d, causal, rate):
+@pytest.mark.parametrize("d,causal,rate,s", CASES)
+def test_kernels_match_plain(cuda, d, causal, rate, s):
+    """K1-K3 at BH 4 and S 64 (one tile, the diagonal one when causal) or
+    S 256 (chip_smoke's shape (c) at Dh 64, causal, rate 0.1)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v, do = (torch.randn(4, 256, d, device=cuda, generator=g).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(4, s, d, device=cuda, generator=g).to(torch.bfloat16)
                    for _ in range(4))
     out, lse = fa.flash_fwd(q, k, v, causal, rate, 77)
     p_out, p_lse = fa.flash_forward_plain(q, k, v, causal, rate, 77)
@@ -83,16 +88,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fa.flash_bwd_dq(w, w, w, w, bad_lse, bad_lse, False, 0.0, 0)
 
 
-RING_CASES = [(d, causal, rate, zig) for d in (64, 128) for causal, zig in
-              ((False, False), (True, False), (True, True)) for rate in (0.0, 0.1)]
+# (BH, Sl): 3 x 256, then chip_smoke's shape (c), 4 x 256, and one-tile
+# shards of 64 (contiguous only: zigzag halves of 32 rows cannot be tiled).
+RING_CASES = [(d, causal, rate, zig, bh, sl) for bh, sl in ((3, 256), (4, 256), (4, 64))
+              for d in (64, 128) for causal, zig in ((False, False), (True, False), (True, True))
+              for rate in (0.0, 0.1) if not (zig and sl == 64)]
 
 
-@pytest.mark.parametrize("d,causal,rate,zig", RING_CASES)
-def test_ring_kernels_match_plain(cuda, d, causal, rate, zig):
+@pytest.mark.parametrize("d,causal,rate,zig,bh,sl", RING_CASES)
+def test_ring_kernels_match_plain(cuda, d, causal, rate, zig, bh, sl):
     """K4, K2′ and K3′ on one ring block at the hops of shards 1 and 2 of 4,
     with zigzag offsets or contiguous ones; contiguous causal hops include
     blocks wholly in the shard's future (every tile skipped)."""
-    n, BH, Sl = 4, 3, 256
+    n, BH, Sl = 4, bh, sl
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v, do = (torch.randn(BH, Sl, d, device=cuda, generator=g).to(torch.bfloat16)
                    for _ in range(4))
@@ -179,3 +187,62 @@ def test_fwd_variants_match_plain_and_count_one_launch(cuda, name, d):
 def test_fwd_qscaled_equals_fwd_current_bitwise_at_dh64(cuda):
     q, k, v = _fwd_inputs(cuda, 64, bh=2, s=512, seed=5)
     assert torch.equal(fv.fwd_qscaled(q, k, v), fv.fwd_current(q, k, v))
+
+
+# The dropout mask read back out of K1 and K4 (tests/torch_dropout_probe.py):
+# the register fragment layout decides which (row, col) each element hashes,
+# so a wrong coordinate shows here bit for bit.
+
+
+@pytest.mark.parametrize("s,causal,rate", [(64, False, 0.1), (64, True, 0.1), (64, False, 0.5),
+                                           (64, True, 0.5), (128, True, 0.3)])
+def test_flash_fwd_dropout_mask_is_the_hash_bit_for_bit(cuda, s, causal, rate):
+    seed, bh = 0x2545F491, 3
+    tiles = torch.arange(s // 64, device=cuda) * 64
+    bhv = torch.arange(bh, device=cuda)
+    thr = fa.dropout_threshold(rate)
+    for t in range(s // 64):
+        out, l = probe.flash_probe(bh, s, t, causal, rate, seed, cuda)
+        rows, cols, all_cols = probe.coords(tiles, tiles, t, cuda)
+        live = probe.live_mask(rows, cols, causal)
+        keep = fa.dropout_keep(seed, bhv[:, None, None], rows[None, :, None],
+                               cols[None, None, :], thr) & live
+        assert torch.equal(out != 0, keep)
+        want_l = probe.live_mask(rows, all_cols, causal).sum(-1).float().expand(bh, s)
+        assert torch.allclose(l, want_l, rtol=1e-5, atol=0)
+        o = out.float() * l[..., None]
+        assert torch.allclose(o, keep * probe.kept_value(rate), rtol=2 ** -7, atol=0)
+
+
+def _ring_case(name, cuda):
+    """(qoff, koff) of a 4-shard ring with shards of 128 rows."""
+    contiguous = ra._shard_tiles(4, 128, False, cuda)
+    zigzag = ra._shard_tiles(4, 128, True, cuda)
+    return {
+        "contiguous past shard": (contiguous[2], contiguous[1]),
+        "zigzag half-chunk pair": (zigzag[1], zigzag[2]),
+        "diagonal": (contiguous[2], contiguous[2]),
+        "wholly in the future": (contiguous[0], contiguous[3]),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["contiguous past shard", "zigzag half-chunk pair",
+                                  "diagonal", "wholly in the future"])
+@pytest.mark.parametrize("causal,rate", [(True, 0.1), (True, 0.5), (False, 0.3)])
+def test_ring_fwd_block_dropout_mask_is_the_hash_bit_for_bit(cuda, name, causal, rate):
+    seed = 0x9E3779B9
+    qo, ko = _ring_case(name, cuda)
+    bhv = ra._global_bh_vec(1, 3, 1, 2, 8, cuda)  # global batch*head ids 10, 11, 12
+    thr = fa.dropout_threshold(rate)
+    for t in range(ko.numel()):
+        m, l, o = probe.ring_probe(qo, ko, bhv, t, causal, rate, seed, cuda)
+        rows, cols, all_cols = probe.coords(qo, ko, t, cuda)
+        keep = fa.dropout_keep(seed, bhv.long()[:, None, None], rows[None, :, None],
+                               cols[None, None, :], thr) & probe.live_mask(rows, cols, causal)
+        assert torch.equal(o, keep * probe.kept_value(rate))
+        row_live = probe.live_mask(rows, all_cols, causal)
+        assert torch.equal(l, row_live.sum(-1).float().expand_as(l))
+        want_m = torch.where(row_live.any(-1), 0.0, ra.NEG_INF).expand_as(m)
+        assert torch.equal(m, want_m)
+        if name == "wholly in the future" and causal:
+            assert m.eq(ra.NEG_INF).all() and l.eq(0).all() and o.eq(0).all()
