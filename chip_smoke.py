@@ -18,10 +18,12 @@ and fails, printing no result, if any phase fails:
 2. times each kernel, its plain version and, as a yardstick the port never
    calls, torch's scaled_dot_product_attention (rate 0: it cannot draw the
    coordinate-hash mask) with CUDA events, median of 25 launches after 5
-   warmup launches, at shapes (a) and (b). Each timed launch waits behind a
-   ~1 ms device sleep, so ``ms`` is the card's own time; each kernel is
-   also timed from an idle card (``idle_start_ms``, the wrapper's host
-   time to the launch included), the clock of the earlier times in PERF.md;
+   warmup launches, at shapes (a) and (b). ``ms`` starts the clock on an
+   idle card, so it holds the wrapper's host time up to the launch as well
+   as the kernel (the clock of every ``ms`` in PERF.md); ``device_ms``
+   (and ``library_device_ms`` for SDPA) queues each timed launch behind a
+   ~1 ms device sleep, so it is the card's own time, and ``ms -
+   device_ms`` is about the host's share;
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
    flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
@@ -131,21 +133,20 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
 SLEEP_CYCLES = 2_000_000
 
 
-def median_ms(fn, warmup: int = 5, reps: int = 25, idle_start: bool = False) -> float:
-    """Median over ``reps`` calls of the card's time between two CUDA events
-    around one call of ``fn``. Each call is enqueued behind a ~1 ms device
-    sleep, so the host's time to reach the launch is off the clock and the
-    reading is the card's own time. ``idle_start=True`` starts the clock on
-    an idle card instead (no sleep), the clock of the earlier times in
-    PERF.md: that reading also holds the wrapper's host time up to the
-    launch."""
+def median_ms(fn, warmup: int = 5, reps: int = 25, device_clock: bool = False) -> float:
+    """Median over ``reps`` calls of the time between two CUDA events around
+    one call of ``fn``. The clock starts on an idle card, so the reading
+    holds the host's time from the first event to the launch as well as the
+    kernel. ``device_clock=True`` enqueues each call behind a ~1 ms device
+    sleep instead: the host's time is then off the clock and the reading is
+    the card's own time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        if not idle_start:
+        if device_clock:
             torch.cuda._sleep(SLEEP_CYCLES)
         e0.record()
         fn()
@@ -258,7 +259,7 @@ def phase_kernels(fa, peaks):
             }
             for kind, (kern, plain) in timings.items():
                 res[kind]["ms"] = median_ms(kern)
-                res[kind]["idle_start_ms"] = median_ms(kern, idle_start=True)
+                res[kind]["device_ms"] = median_ms(kern, device_clock=True)
                 res[kind]["plain_ms"] = median_ms(plain, warmup=2, reps=20)
                 res[kind]["bound_ms"], res[kind]["bound_by"] = bound(kind, sh, peaks)
                 res[kind]["library_ms"] = None
@@ -266,6 +267,8 @@ def phase_kernels(fa, peaks):
             qs, ks, vs = (t.unsqueeze(0).detach().requires_grad_(True) for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
             res["fwd"]["library_ms"] = median_ms(lambda: sdpa(qs, ks, vs, is_causal=c))
+            res["fwd"]["library_device_ms"] = median_ms(lambda: sdpa(qs, ks, vs, is_causal=c),
+                                                        device_clock=True)
             do4 = do.unsqueeze(0)
             res["fwd"]["library_fwd_bwd_ms"] = median_ms(
                 lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=c), (qs, ks, vs), do4))
@@ -426,7 +429,7 @@ def phase_ring_kernels(fa, ra, peaks):
         res = {}
         for kind, (kern, plain) in timings.items():
             res[kind] = dict(max_abs_err=errs[kind], ms=median_ms(kern),
-                             idle_start_ms=median_ms(kern, idle_start=True),
+                             device_ms=median_ms(kern, device_clock=True),
                              plain_ms=median_ms(plain, warmup=2, reps=20), library_ms=None)
             res[kind]["bound_ms"], res[kind]["bound_by"] = bound_ms(
                 kind, D, live, nbytes[kind], r, peaks)
@@ -436,6 +439,8 @@ def phase_ring_kernels(fa, ra, peaks):
         mask = (rows[:, None] >= cols[None, :]) if c else None
         sdpa = torch.nn.functional.scaled_dot_product_attention
         res["fwd"]["library_ms"] = median_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask))
+        res["fwd"]["library_device_ms"] = median_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask),
+                                                    device_clock=True)
         res["fwd"]["library_note"] = ("SDPA forward, rate 0, on the same block; it returns "
                                       "a normalized output, K4 an unnormalized one")
         log(f"[6] ({key}) shard {my} hop {t}, {live / (BH * Sl * Sl):.3f} live, times (ms, "
@@ -572,6 +577,7 @@ def phase_fwd_variants(fa, fv, peaks):
             bound = bound_ms("fwd", D, live, 4 * BH * S * D * 2, 0.0, peaks)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             sdpa_ms = median_ms(lambda: sdpa(q[None], k[None], v[None]))
+            sdpa_device_ms = median_ms(lambda: sdpa(q[None], k[None], v[None]), device_clock=True)
             # K8 in two calls: bf16(scale * q.k^T), then its product with v.
             buf = torch.empty(BH, S, S, dtype=q.dtype, device=q.device)
             two_calls_ms = median_ms(lambda: torch.bmm(
@@ -579,6 +585,7 @@ def phase_fwd_variants(fa, fv, peaks):
             for n, a in args.items():
                 r = results[n]
                 r["ms"] = median_ms(lambda: fv.WRAPPERS[n](*a))
+                r["device_ms"] = median_ms(lambda: fv.WRAPPERS[n](*a), device_clock=True)
                 r["plain_ms"] = median_ms(lambda: fv.PLAIN[n](*a), warmup=2, reps=20)
                 r["bound_ms"], r["bound_by"] = bound
                 if n == "fwd_matmul_only":
@@ -588,11 +595,15 @@ def phase_fwd_variants(fa, fv, peaks):
                                          "alpha=scale) then torch.bmm, two calls")
                 else:
                     r["library_ms"] = sdpa_ms
+                    r["library_device_ms"] = sdpa_device_ms
                     r["exp_bound_ms"] = 1e3 * live / H100_EXP_OPS
             k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
+            k1_device_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0),
+                                     device_clock=True)
             log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; its own wgmma "
-                f"mainloop, not K5's wmma loop) {k1_ms:.5f} ms; "
-                f"SDPA {sdpa_ms:.5f} ms; K8 as baddbmm + bmm {two_calls_ms:.5f} ms")
+                f"mainloop, not K5's wmma loop) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); "
+                f"SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
+                f"{two_calls_ms:.5f} ms")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(
                 {n: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in r.items()
                      if nm != "library_note"} for n, r in results.items()}))
@@ -697,10 +708,11 @@ def main() -> int:
                 "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"],
-                "idle_start_ms": r["idle_start_ms"],
+                "device_ms": r["device_ms"],
             }
-            if "library_fwd_bwd_ms" in r:
-                entry["library_fwd_bwd_ms"] = r["library_fwd_bwd_ms"]
+            for nm in ("library_device_ms", "library_fwd_bwd_ms"):
+                if nm in r:
+                    entry[nm] = r[nm]
             kernels.append(entry)
     ring_kernels = {
         "fwd": ("ring_fwd_block", "ring_fwd_block",
@@ -723,11 +735,12 @@ def main() -> int:
                 "source": source,
                 "replaces": replaces,
                 "launches": ring_launches[sh["row"]][count],
-                **{nm: r[nm] for nm in ("max_abs_err", "ms", "idle_start_ms", "plain_ms",
+                **{nm: r[nm] for nm in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
             }
-            if "library_note" in r:
-                entry["library_note"] = r["library_note"]
+            for nm in ("library_device_ms", "library_note"):
+                if nm in r:
+                    entry[nm] = r[nm]
             kernels.append(entry)
     sh = FWD_SHAPES["f"]
     for n in fv.VARIANTS:

@@ -28,9 +28,6 @@
 
 namespace flash {
 
-using sm90::bf16;
-using sm90::kTile;
-
 // K1's coordinates: flash's own, every k tile below the causal limit live.
 struct FlashCoords {
   int q_off, n_kt;
@@ -68,7 +65,7 @@ __global__ void __launch_bounds__(sm90::kThreads)
             __floats2bfloat162_rn(o[b][4 * j + 2 * h] / l_safe,
                                   o[b][4 * j + 2 * h + 1] / l_safe);
     if (tid % 4 == 0) {
-      const float m_out = m[h] == sm90::kNegInf ? sm90::kNegInf : m[h] * scale;
+      const float m_out = m[h] == kNegInf ? kNegInf : m[h] * scale;
       lse[(size_t)bh * S + row] = m_out + logf(l_safe);
     }
   }

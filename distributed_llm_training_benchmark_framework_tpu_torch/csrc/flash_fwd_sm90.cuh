@@ -48,15 +48,12 @@
 #include <stdint.h>
 
 #include "dropout_hash.cuh"
+#include "flash_common.cuh"
 
 namespace flash {
 namespace sm90 {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTile = 64;          // rows of a q tile and of a k tile
-constexpr int kThreads = 128;      // one warpgroup
-constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
+constexpr int kThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockBytes = kTile * 128;  // 64 rows x 64 bf16 columns, 128-byte swizzled
 
@@ -91,24 +88,39 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t byt
                : "memory");
 }
 
-// Spin until the barrier's phase of the given parity has completed. A copy
-// that never lands traps (a launch failure the wrapper reports) after about
-// 2^24 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
-  uint32_t polls = 0;
-  do {
-    if (++polls == (1u << 24)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// A wait longer than this is a copy that never lands.
+constexpr uint64_t kWaitLimitNs = 1000000000ull;  // 1 s
+
+// Spin until the barrier's phase of the given parity has completed. A copy
+// that never lands traps after kWaitLimitNs of the card's global timer
+// instead of hanging the card. The trap is asynchronous: the launch itself
+// reports success, and the error surfaces at the next synchronization as a
+// sticky error that ends the process's CUDA context.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = globaltimer_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (globaltimer_ns() - t0 > kWaitLimitNs) __trap();
 }
 
 // Copy the 64 x 64 box at (col, row) of a 2-D tensor map into shared memory

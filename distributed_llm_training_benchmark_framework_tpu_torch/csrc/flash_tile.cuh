@@ -19,15 +19,13 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace flash {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTile = 64;                    // rows of a q tile and of a k tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = kTile / kWarps;  // 16
-constexpr float kNegInf = -1e30f;             // NEG_INF of the JAX kernels
 
 // Shared-memory strides (elements) and sizes (bytes) for head dim D.
 template <int D>

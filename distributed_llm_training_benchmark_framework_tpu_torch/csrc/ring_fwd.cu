@@ -38,9 +38,6 @@
 
 namespace flash {
 
-using sm90::bf16;
-using sm90::kTile;
-
 // K4's coordinates: global tile bases from qoff / koff; a k tile is live
 // unless causal and wholly in the q tile's future.
 template <bool CAUSAL>
@@ -85,7 +82,7 @@ __global__ void __launch_bounds__(sm90::kThreads)
         *reinterpret_cast<float2*>(dst + 64 * b + sm90::frag_col(tid, j)) =
             make_float2(o[b][4 * j + 2 * h], o[b][4 * j + 2 * h + 1]);
     if (tid % 4 == 0) {
-      m_out[row] = m[h] == sm90::kNegInf ? sm90::kNegInf : m[h] * scale;
+      m_out[row] = m[h] == kNegInf ? kNegInf : m[h] * scale;
       l_out[row] = l[h];
     }
   }

@@ -47,6 +47,7 @@ one and transposes to (B*H, S, Dh) for the kernels.
 
 from __future__ import annotations
 
+import functools
 import math
 import warnings
 from typing import Optional, Tuple
@@ -295,19 +296,30 @@ def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int):
     return out, lse
 
 
-def _identity_offsets(BH: int, S: int, device):
+@functools.lru_cache(maxsize=64)
+def _identity_offsets(BH: int, S: int, device: torch.device):
+    """Plain flash's tile bases and batch*head ids, made once per shape and
+    device: a wrapper passes them on every launch, and making them anew is
+    three more device operations per launch on the host's critical path."""
     tiles = torch.arange(S // TILE, dtype=torch.int32, device=device) * TILE
     return tiles, tiles, torch.arange(BH, dtype=torch.int32, device=device)
 
 
 def _offset_args(q, qoff, koff, bhv):
+    """The int32 tile bases and batch*head ids a kernel takes: the given
+    vectors (the ring's), or plain flash's identity where one is None."""
     BH, S, _ = q.shape
-    iq, ik, ib = _identity_offsets(BH, S, q.device)
+    given = (qoff, koff, bhv)
+    ident = (_identity_offsets(BH, S, q.device) if any(t is None for t in given)
+             else (None, None, None))
     out = []
-    for given, ident in ((qoff, iq), (koff, ik), (bhv, ib)):
-        t = ident if given is None else given.to(device=q.device, dtype=torch.int32).contiguous()
-        if t.shape != ident.shape:
-            raise ValueError(f"offset vector of shape {tuple(t.shape)}, expected {tuple(ident.shape)}")
+    for t, want, idn in zip(given, (S // TILE, S // TILE, BH), ident):
+        if t is None:
+            t = idn
+        elif t.dtype != torch.int32 or t.device != q.device or not t.is_contiguous():
+            t = t.to(device=q.device, dtype=torch.int32).contiguous()
+        if t.shape != (want,):
+            raise ValueError(f"offset vector of shape {tuple(t.shape)}, expected {(want,)}")
         out.append(t)
     return out
 

@@ -123,3 +123,24 @@ def test_plain_backward_honours_tile_offsets():
         for cols in (slice(0, 64), slice(64, 128))
     )
     np.testing.assert_allclose(part.numpy(), full[:, half].numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("given", ["identity", "ring vectors"])
+def test_offset_args_make_the_identity_once_and_pass_ring_vectors_through(given):
+    """The kernels' int32 tile bases and batch*head ids: plain flash's
+    identity is made once per shape and device (a launch adds no device
+    operation for it), the ring's vectors go through as int32, and a
+    vector of the wrong length is refused."""
+    q = torch.zeros(3, 128, 64, dtype=torch.bfloat16)
+    if given == "identity":
+        first = tfa._offset_args(q, None, None, None)
+        again = tfa._offset_args(q, None, None, None)
+        assert [t.tolist() for t in first] == [[0, 64], [0, 64], [0, 1, 2]]
+        assert all(a is b for a, b in zip(first, again))
+    else:
+        qoff, koff, bhv = torch.tensor([128, 192]), torch.tensor([0, 320]), torch.tensor([5, 6, 7])
+        out = tfa._offset_args(q, qoff, koff, bhv)
+        assert [t.dtype for t in out] == [torch.int32] * 3
+        assert [t.tolist() for t in out] == [[128, 192], [0, 320], [5, 6, 7]]
+    with pytest.raises(ValueError, match="offset vector"):
+        tfa._offset_args(q, None, None, torch.arange(4, dtype=torch.int32))
