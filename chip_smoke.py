@@ -8,8 +8,9 @@ and fails, printing no result, if any phase fails:
 
 0. prints the card's name and power limit (nvidia-smi), turns TF32 off,
    builds the CUDA kernels from ``csrc/`` with nvcc and prints the build time
-   and ptxas's register / spill report, per template instance for K1 and K4
-   (the shared wgmma mainloop, ``csrc/flash_fwd_sm90.cuh``);
+   and ptxas's register / spill report, per template instance for the wgmma
+   kernels K1-K4 (``csrc/flash_fwd_sm90.cuh``'s mainloop and
+   ``csrc/flash_bwd.cu``'s pair), with any ptxas line about wgmma;
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
@@ -23,7 +24,12 @@ and fails, printing no result, if any phase fails:
    as the kernel (the clock of every ``ms`` in PERF.md); ``device_ms``
    (and ``library_device_ms`` for SDPA) queues each timed launch behind a
    ~1 ms device sleep, so it is the card's own time, and ``ms -
-   device_ms`` is about the host's share;
+   device_ms`` is about the host's share. The backward pair's yardstick
+   is torch's flash-attention backward (``aten.
+   _scaled_dot_product_flash_attention_backward``, rate 0, dq, dk and dv
+   in one call, delta computed inside; its out and logsumexp from the
+   matching forward op), set beside the pair's own dq + dk/dv +
+   ``attention_delta`` on both clocks;
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
    flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
@@ -45,9 +51,12 @@ the flagship ring row trains at), shards of 2048 as zigzag half-chunks of
    and 3 of 4, at (d) and (e): rel-Frobenius <= 2e-2 on o, dq, dk, dv, max
    abs <= 1e-3 on m and l;
 6. times them at one hop (shard 1, hop 1) of (d) and (e) as in phase 2, the
-   bound from the live score elements of that hop, and, as a yardstick,
-   SDPA's forward on the same block at rate 0 (with the block's causal mask;
-   SDPA returns a normalized output);
+   bound from the live score elements of that hop, and, as yardsticks at
+   rate 0, SDPA's forward on the same block (with the block's causal mask;
+   SDPA returns a normalized output) and, for the backward pair, at (d)
+   torch's flash-attention backward as in phase 2 and at (e), whose
+   zigzag mask that op cannot take, SDPA's masked forward + backward
+   (``torch.autograd.grad``) less its forward;
 7. holds ``ring_attention`` over 4 shards against ``flash_attention`` over
    the whole S 8192 on the card: out, dq, dk, dv within rel-Frobenius 2e-2,
    both layouts, rate 0 and 0.1, same seed;
@@ -186,6 +195,38 @@ def bound_ms(kind: str, D: int, live: int, nbytes: int, rate: float,
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def library_flash_bwd(q, k, v, do, causal: bool):
+    """The backward pair's yardstick: a thunk of one call of torch's
+    flash-attention backward (``aten._scaled_dot_product_flash_attention_backward``,
+    rate 0: it cannot draw the coordinate-hash mask) on the (1, BH, S, Dh)
+    layout, with its out and logsumexp from the matching forward op on the
+    same inputs. It returns (dq, dk, dv) and computes delta inside."""
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (t.unsqueeze(0) for t in (q, k, v, do))
+    out, lse, cum_q, cum_k, max_q, max_k, philox_seed, philox_offset = (
+        aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal)[:8])
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, philox_seed,
+        philox_offset)
+
+
+def time_pair(res, fa, out, do, library) -> None:
+    """Put the backward pair's yardstick on ``res``: the library call's time on
+    both clocks on the dk/dv entry, beside the pair's own dq + dk/dv +
+    attention_delta (the library computes delta inside); a note on dq."""
+    delta_ms = median_ms(lambda: fa.attention_delta(out, do))
+    delta_device_ms = median_ms(lambda: fa.attention_delta(out, do), device_clock=True)
+    lib_ms, lib_device_ms, note = library
+    res["dkv"].update(
+        library_ms=lib_ms, library_device_ms=lib_device_ms, attention_delta_ms=delta_ms,
+        attention_delta_device_ms=delta_device_ms,
+        pair_ms=res["dq"]["ms"] + res["dkv"]["ms"] + delta_ms,
+        pair_device_ms=res["dq"]["device_ms"] + res["dkv"]["device_ms"] + delta_device_ms,
+        library_note=note)
+    res["dq"]["library_note"] = ("one library call computes dq, dk and dv together: its time "
+                                 "is on this row's flash_bwd_dkv entry beside the pair's")
+
+
 def bound(kind: str, shape, peaks) -> tuple[float, str]:
     """``bound_ms`` of a flash kernel (K1-K3, bf16 outputs) at a shape."""
     BH, S, D = shape["BH"], shape["S"], shape["D"]
@@ -196,21 +237,27 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
     return bound_ms(kind, D, live, nbytes, shape["rate"], peaks)
 
 
-# The sources built on the shared wgmma mainloop (csrc/flash_fwd_sm90.cuh):
-# phase 0 prints each of their template instances' registers and spills.
-FWD_SM90_LIBS = ("flash_fwd", "ring_fwd")
+# The sources of the wgmma kernels (K1 / K4 on csrc/flash_fwd_sm90.cuh, the
+# backward pair K2 / K3 in csrc/flash_bwd.cu): phase 0 prints each of their
+# template instances' registers and spills.
+WGMMA_LIBS = ("flash_fwd", "ring_fwd", "flash_bwd")
+WGMMA_KERNELS = ("ring_fwd_block_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
 
 
 def ptxas_instances(report: list[str]) -> dict:
-    """{kernel<Dh, causal, dropout>: (registers, spill line)} from ptxas -v."""
+    """{kernel<Dh, causal, dropout[, out type]>: (registers, spill line)} from
+    ptxas -v."""
     out, name, spill = {}, None, ""
     for ln in report:
         if "Compiling entry function" in ln:
             mangled = ln.split("'")[1]
-            kernel = "ring_fwd_block_kernel" if "ring_fwd_block_kernel" in mangled else "flash_fwd_kernel"
-            args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E", mangled)
-            name = (f"{kernel}<Dh {args[1]}, causal {args[2]}, dropout {args[3]}>" if args
-                    else mangled)
+            kernel = next((k for k in WGMMA_KERNELS if k in mangled), mangled)
+            args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E(f|13__nv_bfloat16)?E", mangled)
+            out_type = {"f": ", fp32 out", "13__nv_bfloat16": ", bf16 out"}.get(
+                args[4] if args else None, "")
+            name = (f"{kernel}<Dh {args[1]}, causal {args[2]}, dropout {args[3]}{out_type}>"
+                    if args else mangled)
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name is not None:
@@ -272,9 +319,20 @@ def phase_kernels(fa, peaks):
             do4 = do.unsqueeze(0)
             res["fwd"]["library_fwd_bwd_ms"] = median_ms(
                 lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=c), (qs, ks, vs), do4))
+            lib = library_flash_bwd(q, k, v, do, c)
+            if r == 0.0:
+                lib_dq, lib_dk, lib_dv = (t[0] for t in lib())
+                log(f"[2] shape ({key}) library backward vs the kernels, rel-Frobenius: dq "
+                    f"{rel_err(lib_dq, dq):.2e}, dk {rel_err(lib_dk, dk):.2e}, dv "
+                    f"{rel_err(lib_dv, dv):.2e}")
+            time_pair(res, fa, p_out, do, (
+                median_ms(lib), median_ms(lib, device_clock=True),
+                "torch's flash-attention backward (aten._scaled_dot_product_flash_attention_"
+                "backward), rate 0, one call for dq, dk and dv; pair_ms is dq + dk/dv + "
+                "attention_delta"))
             log(f"[2] shape ({key}) times (ms, median of 25): " + json.dumps(
-                {kind: {n: (round(x, 5) if isinstance(x, float) else x) for n, x in d.items()}
-                 for kind, d in res.items()}))
+                {kind: {n: (round(x, 5) if isinstance(x, float) else x) for n, x in d.items()
+                        if n != "library_note"} for kind, d in res.items()}))
             results[key] = res
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -443,6 +501,30 @@ def phase_ring_kernels(fa, ra, peaks):
                                                     device_clock=True)
         res["fwd"]["library_note"] = ("SDPA forward, rate 0, on the same block; it returns "
                                       "a normalized output, K4 an unnormalized one")
+        # The backward pair's yardstick at rate 0: torch's flash-attention
+        # backward where the block's mask is none (d); the flash op cannot
+        # take the zigzag block's half-live mask (e), so there SDPA's masked
+        # forward + backward less its forward.
+        out = (o / l_safe[..., None]).to(q.dtype)
+        if mask is None:
+            lib = library_flash_bwd(q, k, v, do, False)
+            library = (median_ms(lib), median_ms(lib, device_clock=True),
+                       "torch's flash-attention backward (aten._scaled_dot_product_flash_"
+                       "attention_backward), rate 0, one call for dq, dk and dv; pair_ms is "
+                       "dq + dk/dv + attention_delta")
+        else:
+            qg, kg, vg = (t_.detach().requires_grad_(True) for t_ in (qs, ks, vs))
+            do4 = do.unsqueeze(0)
+            fwd = lambda: sdpa(qg, kg, vg, attn_mask=mask)  # noqa: E731
+            fwd_bwd = lambda: torch.autograd.grad(sdpa(qg, kg, vg, attn_mask=mask),  # noqa: E731
+                                                  (qg, kg, vg), do4)
+            library = (median_ms(fwd_bwd) - median_ms(fwd),
+                       median_ms(fwd_bwd, device_clock=True) - median_ms(fwd, device_clock=True),
+                       "SDPA with the block's causal mask, rate 0: torch.autograd.grad of "
+                       "scaled_dot_product_attention(attn_mask=mask) less that call's forward "
+                       "(the flash backward op takes no mask); pair_ms is dq + dk/dv + "
+                       "attention_delta")
+        time_pair(res, fa, out, do, library)
         log(f"[6] ({key}) shard {my} hop {t}, {live / (BH * Sl * Sl):.3f} live, times (ms, "
             "median of 25): " + json.dumps(
                 {kind: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in d.items()
@@ -631,6 +713,11 @@ def phase_microbench(build, mb):
     return counts
 
 
+# Keys a kernel's entry in the kernels line carries where its phase measured them.
+OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "attention_delta_ms",
+                 "attention_delta_device_ms", "pair_ms", "pair_device_ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -667,9 +754,12 @@ def main() -> int:
         spills = [ln.strip() for ln in report
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[0] {lib}: {len(regs)} kernels, {sorted(set(regs))}; spills: {spills or 'none'}")
-        if lib in FWD_SM90_LIBS:
+        if lib in WGMMA_LIBS:
             for inst, (nregs, spill) in ptxas_instances(report).items():
                 log(f"[0]   {inst}: {nregs} registers, {spill}")
+            for ln in report:
+                if "wgmma" in ln.lower() and "Compiling entry function" not in ln:
+                    log(f"[0]   ptxas: {ln.strip()}")
 
     timing = phase_kernels(fa, peaks)
     launches = phase_train(fa, ra, run_benchmark)
@@ -710,9 +800,7 @@ def main() -> int:
                 "library_ms": r["library_ms"],
                 "device_ms": r["device_ms"],
             }
-            for nm in ("library_device_ms", "library_fwd_bwd_ms"):
-                if nm in r:
-                    entry[nm] = r[nm]
+            entry.update({nm: r[nm] for nm in OPTIONAL_KEYS if nm in r})
             kernels.append(entry)
     ring_kernels = {
         "fwd": ("ring_fwd_block", "ring_fwd_block",
@@ -738,9 +826,7 @@ def main() -> int:
                 **{nm: r[nm] for nm in ("max_abs_err", "ms", "device_ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
             }
-            for nm in ("library_device_ms", "library_note"):
-                if nm in r:
-                    entry[nm] = r[nm]
+            entry.update({nm: r[nm] for nm in OPTIONAL_KEYS if nm in r})
             kernels.append(entry)
     sh = FWD_SHAPES["f"]
     for n in fv.VARIANTS:

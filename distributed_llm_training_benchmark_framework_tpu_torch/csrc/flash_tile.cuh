@@ -1,8 +1,8 @@
-// Shared pieces of the first-design flash-attention kernels (flash_bwd.cu,
-// fwd_variants.cu; the forward K1 / K4 run flash_fwd_sm90.cuh's wgmma
-// mainloop instead): the tile geometry, the shared-memory layout
-// of one tile, the global -> shared tile copies, warp reductions and the
-// tensor-core tile products.
+// Shared pieces of the first-design attention kernels of fwd_variants.cu
+// (the microbench's forward variants K5-K9): the tile geometry, the
+// shared-memory layout of one tile, the global -> shared tile copies, warp
+// reductions and the tensor-core tile products. The training path's kernels
+// (K1-K4, flash_fwd_sm90.cuh and flash_bwd.cu) run wgmma mainloops instead.
 //
 // Design (first, simple version): one CTA of 4 warps works on 64-row tiles.
 // Each warp owns 16 rows of every 64-row tile it produces, so the softmax
@@ -165,22 +165,6 @@ __device__ __forceinline__ void warp_mm_ab(float* c, const bf16* a, const bf16* 
       wm::mma_sync(acc, fa, fb, acc);
     }
     wm::store_matrix_sync(c + n * 16, acc, Layout<D>::ld_score, wm::mem_row_major);
-  }
-}
-
-__device__ __forceinline__ void store_out(bf16* dst, float x) { *dst = __float2bfloat16(x); }
-__device__ __forceinline__ void store_out(float* dst, float x) { *dst = x; }
-
-// Write a warp's 16 rows of an fp32 accumulator to global memory as OutT:
-// bf16 (the flash backward's gradients) or fp32 (the per-hop partials of
-// the ring backward, summed over hops before one final cast).
-template <int D, typename OutT>
-__device__ __forceinline__ void store_rows(OutT* __restrict__ dst, const float* acc, int r0,
-                                           int lane) {
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = r0 + rr;
-    for (int d = lane; d < D; d += 32)
-      store_out(dst + (size_t)r * D + d, acc[r * Layout<D>::ld_acc + d]);
   }
 }
 

@@ -96,7 +96,8 @@ cudaError_t launch_ring_fwd(const void* q, const void* k, const void* v, void* m
   auto kern = ring_fwd_block_kernel<D, CAUSAL, DROPOUT>;
   constexpr int smem = sm90::smem_bytes<D>();
   CUtensorMap maps[3];
-  cudaError_t e = sm90::make_qkv_maps(maps, q, k, v, BH * S, D);
+  const void* ptrs[3] = {q, k, v};
+  cudaError_t e = sm90::make_tile_maps(maps, ptrs, BH * S, D);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;

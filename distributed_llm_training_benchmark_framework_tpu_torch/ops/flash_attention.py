@@ -22,13 +22,16 @@ count those launches apart, as the modes ``flash_bwd_dq_fp32`` and
 Each count halves when causal; with dropout each kernel also evaluates the
 coordinate hash (about 10 integer operations) per live score element. The
 bytes each kernel must move (its inputs once, its outputs once) take a few
-microseconds at 3.35 TB/s, so all three are bound by operations. The
-forward (and the ring's block forward K4) runs the Hopper mainloop of
-``csrc/flash_fwd_sm90.cuh``: TMA-fed K/V stages, wgmma products, scores,
-probabilities and the output accumulator in registers. The backward pair
-is still the first design (wmma tiles staged through shared memory, 64x64
-tiles, 4 warps per CTA), simple and correct, not fast; the source notes in
-``csrc/`` say so.
+microseconds at 3.35 TB/s, so all three are bound by operations. All
+three run Hopper wgmma mainloops on the PTX helpers of
+``csrc/sm90_ptx.cuh``: one warpgroup per 64-row tile, the tiles it walks
+TMA-fed through two shared-memory stages, both products over the head dim
+with operands in shared memory, and the probabilities, ds and the fp32
+accumulators (out; dq; dk and dv) in registers, the bf16 p or ds being the
+register operand of the product that follows. The forward (and the ring's
+block forward K4) is ``csrc/flash_fwd_sm90.cuh``; the backward pair,
+``csrc/flash_bwd.cu``, keeps JAX's two kernels (no atomics), whose source
+note gives the bound and the design.
 
 Every wrapper works on (BH, S, Dh) tensors. On a CPU tensor it runs its
 plain PyTorch version (the tests' path); on a CUDA tensor it launches the

@@ -19,21 +19,28 @@ wrapper             replaces (JAX package, ``ops/ring_attention.py``)       boun
 ==================  ======================================================  ===================
 ``ring_fwd_block``  K4 ``_ring_fwd_block_kernel`` (``csrc/ring_fwd.cu``)    4*BH*live*Dh FLOPs
 ``flash_bwd_dq``    K2′ ``_bwd_dq_kernel`` via ``_block_bwd_kernel``        6*BH*live*Dh FLOPs
+                    (``csrc/flash_bwd.cu``)
 ``flash_bwd_dkv``   K3′ ``_bwd_dkv_kernel`` via ``_block_bwd_kernel``       8*BH*live*Dh FLOPs
+                    (``csrc/flash_bwd.cu``)
 ==================  ======================================================  ===================
 
 K2′ and K3′ are the flash backward kernels (``ops/flash_attention.py``) in
 their fp32-output mode: the ring adds n per-hop partials in fp32 and casts
-once at the end, as JAX does. With dropout each kernel also evaluates the
-coordinate hash per live element, keyed by the GLOBAL batch*head id and
-global row and column, so ring and flash draw the same mask for the same
-seed whatever the sharding. On CPU tensors the wrappers run their plain
-versions (``_block_stats_plain``, the port of ``_block_stats_jnp``, and the
-flash backward's plain versions, which are JAX's ``block_bwd``); on CUDA
-tensors they launch the kernel or raise. Each launch adds one to its count
-(``launch_counts``; K2′ and K3′ count as the backward kernels' fp32 modes). Unlike JAX, whose backward takes the kernels only from
-local shards of 4096 up (a TPU v5e crossover), the port launches them at
-every shard length.
+once at the end, as JAX does. All three are Hopper wgmma mainloops with
+TMA-fed tile stages and their accumulators in registers (K4 shares K1's
+loop, K2′ / K3′ are K2 / K3); each walks only the block's live tiles, and
+a block wholly in the q shard's future loads nothing and writes exact
+zeros (K4: m = NEG_INF, l = 0, o = 0). With dropout each kernel also
+evaluates the coordinate hash per live element, keyed by the GLOBAL
+batch*head id and global row and column, so ring and flash draw the same
+mask for the same seed whatever the sharding. On CPU tensors the wrappers
+run their plain versions (``_block_stats_plain``, the port of
+``_block_stats_jnp``, and the flash backward's plain versions, which are
+JAX's ``block_bwd``); on CUDA tensors they launch the kernel or raise.
+Each launch adds one to its count (``launch_counts``; K2′ and K3′ count as
+the backward kernels' fp32 modes). Unlike JAX, whose backward takes the
+kernels only from local shards of 4096 up (a TPU v5e crossover), the port
+launches them at every shard length.
 
 Two forms share the hop, merge and exchange code (``_ring_fwd`` and
 ``_ring_bwd`` over a ring "transport"):

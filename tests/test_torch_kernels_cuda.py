@@ -189,9 +189,10 @@ def test_fwd_qscaled_equals_fwd_current_bitwise_at_dh64(cuda):
     assert torch.equal(fv.fwd_qscaled(q, k, v), fv.fwd_current(q, k, v))
 
 
-# The dropout mask read back out of K1 and K4 (tests/torch_dropout_probe.py):
-# the register fragment layout decides which (row, col) each element hashes,
-# so a wrong coordinate shows here bit for bit.
+# The dropout mask read back out of K1-K4 and K2′ / K3′
+# (tests/torch_dropout_probe.py): the register fragment layout decides which
+# (row, col) each element hashes, so a wrong coordinate shows here bit for
+# bit (in dk/dv the fragment is transposed: its rows are keys).
 
 
 @pytest.mark.parametrize("s,causal,rate", [(64, False, 0.1), (64, True, 0.1), (64, False, 0.5),
@@ -246,3 +247,71 @@ def test_ring_fwd_block_dropout_mask_is_the_hash_bit_for_bit(cuda, name, causal,
         assert torch.equal(m, want_m)
         if name == "wholly in the future" and causal:
             assert m.eq(ra.NEG_INF).all() and l.eq(0).all() and o.eq(0).all()
+
+
+def _bwd_keep(kernel, seed, bh, qoff, koff, tile, rate, causal, cuda):
+    """The hash's keep & live mask in the layout of a backward probe's read-back."""
+    rows, cols, transposed = probe.bwd_coords(kernel, qoff, koff, tile, cuda)
+    keep = fa.dropout_keep(seed, bh[:, None, None], rows[None, :, None], cols[None, None, :],
+                           fa.dropout_threshold(rate)) & probe.live_mask(rows, cols, causal)
+    return keep.transpose(1, 2) if transposed else keep
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("s,causal,rate", [(64, False, 0.1), (64, True, 0.1), (64, False, 0.5),
+                                           (64, True, 0.5), (128, True, 0.3), (128, False, 0.1)])
+def test_flash_bwd_dropout_mask_is_the_hash_bit_for_bit(cuda, kernel, s, causal, rate):
+    """K2 reads back the dropped ds, K3 the dropped p^T (dk exactly 0), with
+    plain flash's identity offsets, bf16 outputs."""
+    seed, bh = 0x2545F491, 3
+    tiles = torch.arange(s // 64, device=cuda) * 64
+    bh_ids = torch.arange(bh, device=cuda)
+    for t in range(s // 64):
+        got, value, dk = probe.bwd_probe(kernel, bh, s, t, causal, rate, seed, cuda)
+        keep = _bwd_keep(kernel, seed, bh_ids, tiles, tiles, t, rate, causal, cuda)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.float(), keep * value)
+        assert dk is None or dk.eq(0).all()
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("name", ["contiguous past shard", "zigzag half-chunk pair",
+                                  "diagonal", "wholly in the future"])
+@pytest.mark.parametrize("causal,rate", [(True, 0.1), (True, 0.5), (False, 0.3)])
+def test_ring_bwd_dropout_mask_is_the_hash_bit_for_bit(cuda, kernel, name, causal, rate):
+    """K2′ / K3′ (fp32 outputs) at the ring's global offsets; a block wholly
+    in the q shard's future writes exact zeros."""
+    seed = 0x9E3779B9
+    qo, ko = _ring_case(name, cuda)
+    bhv = ra._global_bh_vec(1, 3, 1, 2, 8, cuda)  # global batch*head ids 10, 11, 12
+    for t in range(ko.numel()):
+        got, value, dk = probe.bwd_probe(kernel, 3, 128, t, causal, rate, seed, cuda,
+                                         (qo, ko, bhv), torch.float32)
+        keep = _bwd_keep(kernel, seed, bhv.long(), qo, ko, t, rate, causal, cuda)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, keep * value)
+        assert dk is None or dk.eq(0).all()
+        if name == "wholly in the future" and causal:
+            assert got.eq(0).all()
+
+
+@pytest.mark.parametrize("s", [64, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernels_match_plain_at_dh128(cuda, s, causal, rate, out_dtype):
+    """K2 / K3 at Dh 128, the register-tight instances (dk and dv take 64
+    fp32 registers each per thread), in both output types."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn(3, s, 128, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    _, lse = fa.flash_forward_plain(q, k, v, causal, rate, 21)
+    delta = 0.1 * torch.randn(3, s, device=cuda, generator=g)
+    args = (q, k, v, do, lse, delta, causal, rate, 21)
+    dq = fa.flash_bwd_dq(*args, out_dtype=out_dtype)
+    dk, dv = fa.flash_bwd_dkv(*args, out_dtype=out_dtype)
+    want = (fa.flash_bwd_dq_plain(*args, out_dtype=out_dtype),
+            *fa.flash_bwd_dkv_plain(*args, out_dtype=out_dtype))
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == out_dtype and got.shape == q.shape
+        assert _rel(got, ref) <= 2e-2
