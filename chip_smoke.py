@@ -8,9 +8,10 @@ and fails, printing no result, if any phase fails:
 
 0. prints the card's name and power limit (nvidia-smi), turns TF32 off,
    builds the CUDA kernels from ``csrc/`` with nvcc and prints the build time
-   and ptxas's register / spill report, per template instance for the wgmma
-   kernels K1-K4 (``csrc/flash_fwd_sm90.cuh``'s mainloop and
-   ``csrc/flash_bwd.cu``'s pair), with any ptxas line about wgmma;
+   and ptxas's register / spill report, per template instance of every
+   kernel (the wgmma kernels K1, K4, K6 and K7 on ``csrc/flash_fwd_sm90.cuh``'s
+   mainloop and ``csrc/flash_bwd.cu``'s pair; the wmma K5, K8 and K9), with
+   any ptxas line about wgmma;
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
@@ -29,7 +30,9 @@ and fails, printing no result, if any phase fails:
    _scaled_dot_product_flash_attention_backward``, rate 0, dq, dk and dv
    in one call, delta computed inside; its out and logsumexp from the
    matching forward op), set beside the pair's own dq + dk/dv +
-   ``attention_delta`` on both clocks;
+   ``attention_delta`` on both clocks. At (a), whose row drops, K1 and
+   the pair are timed again at rate 0, as the library runs, for a like-for-
+   like factor (``rate0_*``);
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
    flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
@@ -56,7 +59,8 @@ the flagship ring row trains at), shards of 2048 as zigzag half-chunks of
    SDPA returns a normalized output) and, for the backward pair, at (d)
    torch's flash-attention backward as in phase 2 and at (e), whose
    zigzag mask that op cannot take, SDPA's masked forward + backward
-   (``torch.autograd.grad``) less its forward;
+   (``torch.autograd.grad``) less its forward; at (d) K4 and the pair
+   again at rate 0, as in phase 2;
 7. holds ``ring_attention`` over 4 shards against ``flash_attention`` over
    the whole S 8192 on the card: out, dq, dk, dv within rel-Frobenius 2e-2,
    both layouts, rate 0 and 0.1, same seed;
@@ -76,12 +80,14 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 0) and (g) BH 4, S 256, Dh 128.
 
 10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
-    <= 2e-2), K9 against K5 bit for bit at Dh 64, prints max |Δ| of K5, K6
-    and K7 against each other and of K5 against K1 at rate 0 (K1 is the
-    wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` and K5 the first wmma
-    design, so that line compares two designs, not one loop built twice),
-    and times each at (f) as in phase 2, beside SDPA on the same block (for
-    K8, which no one call computes, the two calls baddbmm and bmm);
+    <= 2e-2), K9 against K5 bit for bit at Dh 64, and K6 (in both its
+    schedules) and K7 against K1 at rate 0 bit for bit (the three run the
+    wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` with one arithmetic);
+    prints max |Δ| between the kernels (K5-K1 compares the first wmma
+    design with that loop), and times each at (f) as in phase 2, beside
+    SDPA on the same block (for K8, which no one call computes, the two
+    calls baddbmm and bmm, on both clocks), K6 and K7 also against K1 on
+    the device clock, and K6's two schedules in turns;
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
 
@@ -227,6 +233,23 @@ def time_pair(res, fa, out, do, library) -> None:
                                  "is on this row's flash_bwd_dkv entry beside the pair's")
 
 
+def time_rate0(res, fwd, dq, dkv) -> None:
+    """Where a row drops (rate 0.1), time its forward and backward pair again
+    at rate 0 on both clocks, so that the factor against the library (which
+    runs at rate 0: it cannot draw the hash) is like for like: the forward's
+    on the fwd entry, the pair's (dq + dk/dv + attention_delta) on the dk/dv
+    entry."""
+    for kind, fn in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
+        res[kind]["rate0_ms"] = median_ms(fn)
+        res[kind]["rate0_device_ms"] = median_ms(fn, device_clock=True)
+    res["fwd"]["rate0_library_factor"] = (res["fwd"]["rate0_device_ms"]
+                                          / res["fwd"]["library_device_ms"])
+    pair = (res["dq"]["rate0_device_ms"] + res["dkv"]["rate0_device_ms"]
+            + res["dkv"]["attention_delta_device_ms"])
+    res["dkv"]["rate0_pair_device_ms"] = pair
+    res["dkv"]["rate0_pair_library_factor"] = pair / res["dkv"]["library_device_ms"]
+
+
 def bound(kind: str, shape, peaks) -> tuple[float, str]:
     """``bound_ms`` of a flash kernel (K1-K3, bf16 outputs) at a shape."""
     BH, S, D = shape["BH"], shape["S"], shape["D"]
@@ -237,27 +260,48 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
     return bound_ms(kind, D, live, nbytes, shape["rate"], peaks)
 
 
-# The sources of the wgmma kernels (K1 / K4 on csrc/flash_fwd_sm90.cuh, the
-# backward pair K2 / K3 in csrc/flash_bwd.cu): phase 0 prints each of their
-# template instances' registers and spills.
-WGMMA_LIBS = ("flash_fwd", "ring_fwd", "flash_bwd")
-WGMMA_KERNELS = ("ring_fwd_block_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel")
+# The template parameters of every kernel template in csrc/, by name: phase 0
+# prints each instance's registers and spills under them. The wgmma kernels
+# are K1 / K4 and K6 / K7 (fwd_layout_kernel) on csrc/flash_fwd_sm90.cuh and
+# the backward pair K2 / K3 in csrc/flash_bwd.cu (None: the output type);
+# fwd_variant_kernel is the first (wmma) design of K5, K8 and K9, variant 0,
+# 1, 2 in that order (csrc/fwd_variants.cu).
+KERNEL_PARAMS = {
+    "flash_fwd_kernel": ("Dh", "causal", "dropout"),
+    "ring_fwd_block_kernel": ("Dh", "causal", "dropout"),
+    "flash_bwd_dq_kernel": ("Dh", "causal", "dropout", None),
+    "flash_bwd_dkv_kernel": ("Dh", "causal", "dropout", None),
+    "fwd_layout_kernel": ("Dh", "k transposed", "warpgroups", "ping-pong"),
+    "fwd_variant_kernel": ("Dh", "variant"),
+}
+# One Itanium-mangled template argument: an int or bool literal, or a type.
+TEMPLATE_ARG = re.compile(r"L[ib](\d+)E|(f)|(13__nv_bfloat16)")
+
+
+def instance_name(mangled: str) -> str:
+    """``kernel<Dh 64, causal 0, ...>`` for an instance of a KERNEL_PARAMS
+    template; any other entry keeps its mangled name."""
+    kernel = next((k for k in KERNEL_PARAMS if f"{len(k)}{k}I" in mangled), None)
+    if kernel is None:
+        return mangled
+    head = f"{len(kernel)}{kernel}I"
+    pos, args = mangled.index(head) + len(head), []
+    for label in KERNEL_PARAMS[kernel]:
+        m = TEMPLATE_ARG.match(mangled, pos)
+        if m is None:
+            return mangled
+        pos = m.end()
+        args.append(f"{label} {m[1]}" if m[1] is not None
+                    else "fp32 out" if m[2] else "bf16 out")
+    return f"{kernel}<{', '.join(args)}>"
 
 
 def ptxas_instances(report: list[str]) -> dict:
-    """{kernel<Dh, causal, dropout[, out type]>: (registers, spill line)} from
-    ptxas -v."""
+    """{instance name (``instance_name``): (registers, spill line)} from ptxas -v."""
     out, name, spill = {}, None, ""
     for ln in report:
         if "Compiling entry function" in ln:
-            mangled = ln.split("'")[1]
-            kernel = next((k for k in WGMMA_KERNELS if k in mangled), mangled)
-            args = re.search(r"ILi(\d+)ELb(\d)ELb(\d)E(f|13__nv_bfloat16)?E", mangled)
-            out_type = {"f": ", fp32 out", "13__nv_bfloat16": ", bf16 out"}.get(
-                args[4] if args else None, "")
-            name = (f"{kernel}<Dh {args[1]}, causal {args[2]}, dropout {args[3]}{out_type}>"
-                    if args else mangled)
+            name = instance_name(ln.split("'")[1])
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name is not None:
@@ -330,6 +374,11 @@ def phase_kernels(fa, peaks):
                 "torch's flash-attention backward (aten._scaled_dot_product_flash_attention_"
                 "backward), rate 0, one call for dq, dk and dv; pair_ms is dq + dk/dv + "
                 "attention_delta"))
+            if r > 0:
+                out0, lse0 = fa.flash_fwd(q, k, v, c, 0.0, seed)
+                bwd0 = (q, k, v, do, lse0, fa.attention_delta(out0, do), c, 0.0, seed)
+                time_rate0(res, lambda: fa.flash_fwd(q, k, v, c, 0.0, seed),
+                           lambda: fa.flash_bwd_dq(*bwd0), lambda: fa.flash_bwd_dkv(*bwd0))
             log(f"[2] shape ({key}) times (ms, median of 25): " + json.dumps(
                 {kind: {n: (round(x, 5) if isinstance(x, float) else x) for n, x in d.items()
                         if n != "library_note"} for kind, d in res.items()}))
@@ -525,6 +574,14 @@ def phase_ring_kernels(fa, ra, peaks):
                        "(the flash backward op takes no mask); pair_ms is dq + dk/dv + "
                        "attention_delta")
         time_pair(res, fa, out, do, library)
+        if r > 0:
+            m0, l0, o0 = ra.ring_fwd_block(q, k, v, c, 0.0, seed, qo, ko, bhv)
+            l0 = torch.where(l0 == 0, 1.0, l0)
+            delta0 = fa.attention_delta((o0 / l0[..., None]).to(q.dtype), do)
+            bwd0 = (q, k, v, do, m0 + torch.log(l0), delta0, c, 0.0, seed, qo, ko, bhv)
+            time_rate0(res, lambda: ra.ring_fwd_block(q, k, v, c, 0.0, seed, qo, ko, bhv),
+                       lambda: fa.flash_bwd_dq(*bwd0, out_dtype=f32),
+                       lambda: fa.flash_bwd_dkv(*bwd0, out_dtype=f32))
         log(f"[6] ({key}) shard {my} hop {t}, {live / (BH * Sl * Sl):.3f} live, times (ms, "
             "median of 25): " + json.dumps(
                 {kind: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in d.items()
@@ -626,9 +683,13 @@ FWD_REPLACES = {"fwd_current": 83, "fwd_headpair": 140, "fwd_kt": 199,
                 "fwd_matmul_only": 258, "fwd_qscaled": 303}
 
 
+HEADPAIR_SCHEDULES = {"free": False, "pingpong": True}
+
+
 def phase_fwd_variants(fa, fv, peaks):
     """Phase 10: K5-K9 against their plain versions at (f) and (g), K9 == K5
-    bitwise at Dh 64, cross-variant differences, times at (f)."""
+    bitwise at Dh 64, K6 (both schedules) and K7 == K1 bitwise, cross-variant
+    differences, times at (f)."""
     results = {n: {"max_abs_err": 0.0} for n in fv.VARIANTS}
     for key, sh in FWD_SHAPES.items():
         BH, S, D = sh["BH"], sh["S"], sh["D"]
@@ -637,15 +698,19 @@ def phase_fwd_variants(fa, fv, peaks):
         args = {n: (q, kt, v) if n == "fwd_kt" else (q, k, v) for n in fv.VARIANTS}
         outs = {n: fv.WRAPPERS[n](*a) for n, a in args.items()}
         k1, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
+        schedules = {nm: fv.fwd_headpair_schedule(q, k, v, pp)
+                     for nm, pp in HEADPAIR_SCHEDULES.items()}
         torch.cuda.synchronize()
         plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
         errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
         cur = outs["fwd_current"]
-        # K1 runs its own wgmma mainloop (csrc/flash_fwd_sm90.cuh), not K5's
-        # wmma loop: "K5-K1" compares two designs, not two builds of one loop.
+        # K1, K6 and K7 run one wgmma mainloop (csrc/flash_fwd_sm90.cuh), K5
+        # and K9 the first wmma design: "K5-K1" compares two designs.
         cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
                  "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
-                 "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1)}
+                 "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1),
+                 "K1-K6": max_abs(k1, outs["fwd_headpair"]), "K1-K7": max_abs(k1, outs["fwd_kt"]),
+                 **{f"K1-K6 {nm}": max_abs(k1, o) for nm, o in schedules.items()}}
         log(f"[10] ({key}) BH={BH} S={S} Dh={D}: rel-Frobenius vs plain "
             + json.dumps({n: f"{e:.2e}" for n, e in errs.items()})
             + "; max abs between kernels " + json.dumps({n: f"{e:.2e}" for n, e in cross.items()}))
@@ -654,6 +719,11 @@ def phase_fwd_variants(fa, fv, peaks):
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], max_abs(outs[n], plains[n]))
         if D == 64:
             assert torch.equal(outs["fwd_qscaled"], cur), f"({key}) K9 differs from K5 at Dh 64"
+        # K6 and K7 are K1's loop with K1's arithmetic (K7 only reads k
+        # through a transposed descriptor): K1's output bit for bit.
+        for nm, o in {"fwd_headpair": outs["fwd_headpair"], "fwd_kt": outs["fwd_kt"],
+                      **{f"fwd_headpair {sc}": o for sc, o in schedules.items()}}.items():
+            assert torch.equal(o, k1), f"({key}) {nm} differs from K1: max abs {max_abs(o, k1)}"
         if key == "f":
             live = BH * S * S
             bound = bound_ms("fwd", D, live, 4 * BH * S * D * 2, 0.0, peaks)
@@ -662,8 +732,10 @@ def phase_fwd_variants(fa, fv, peaks):
             sdpa_device_ms = median_ms(lambda: sdpa(q[None], k[None], v[None]), device_clock=True)
             # K8 in two calls: bf16(scale * q.k^T), then its product with v.
             buf = torch.empty(BH, S, S, dtype=q.dtype, device=q.device)
-            two_calls_ms = median_ms(lambda: torch.bmm(
-                torch.baddbmm(buf, q, k.transpose(1, 2), beta=0.0, alpha=D ** -0.5), v))
+            two_calls = lambda: torch.bmm(  # noqa: E731
+                torch.baddbmm(buf, q, k.transpose(1, 2), beta=0.0, alpha=D ** -0.5), v)
+            two_calls_ms = median_ms(two_calls)
+            two_calls_device_ms = median_ms(two_calls, device_clock=True)
             for n, a in args.items():
                 r = results[n]
                 r["ms"] = median_ms(lambda: fv.WRAPPERS[n](*a))
@@ -673,8 +745,10 @@ def phase_fwd_variants(fa, fv, peaks):
                 if n == "fwd_matmul_only":
                     r["library_ms"] = None
                     r["library_two_calls_ms"] = two_calls_ms
+                    r["library_device_ms"] = two_calls_device_ms
                     r["library_note"] = ("no one call computes K8: torch.baddbmm(beta=0, "
-                                         "alpha=scale) then torch.bmm, two calls")
+                                         "alpha=scale) then torch.bmm, two calls, on both "
+                                         "clocks (library_two_calls_ms, library_device_ms)")
                 else:
                     r["library_ms"] = sdpa_ms
                     r["library_device_ms"] = sdpa_device_ms
@@ -682,10 +756,25 @@ def phase_fwd_variants(fa, fv, peaks):
             k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
             k1_device_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0),
                                      device_clock=True)
-            log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; its own wgmma "
-                f"mainloop, not K5's wmma loop) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); "
-                f"SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
-                f"{two_calls_ms:.5f} ms")
+            # K6's two schedules in turns (free, ping-pong, ping-pong, free).
+            sched = {nm: [] for nm in HEADPAIR_SCHEDULES}
+            for nm in (*HEADPAIR_SCHEDULES, *reversed(HEADPAIR_SCHEDULES)):
+                sched[nm].append(median_ms(lambda: fv.fwd_headpair_schedule(
+                    q, k, v, HEADPAIR_SCHEDULES[nm]), device_clock=True))
+            r6 = results["fwd_headpair"]
+            for nm, times in sched.items():
+                r6[f"{nm}_device_ms"] = statistics.mean(times)
+            for n in ("fwd_headpair", "fwd_kt"):
+                results[n]["flash_fwd_device_ms"] = k1_device_ms
+                results[n]["vs_flash_fwd_device"] = results[n]["device_ms"] / k1_device_ms
+            log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; the wgmma "
+                f"mainloop K6 and K7 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); K6 / K1 "
+                f"{results['fwd_headpair']['vs_flash_fwd_device']:.3f}, K7 / K1 "
+                f"{results['fwd_kt']['vs_flash_fwd_device']:.3f} on the device clock; K6 "
+                "schedules (device, two runs each, in turns) "
+                + json.dumps({nm: [round(t, 5) for t in ts] for nm, ts in sched.items()})
+                + f"; SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
+                f"{two_calls_ms:.5f} ms (device {two_calls_device_ms:.5f})")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(
                 {n: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in r.items()
                      if nm != "library_note"} for n, r in results.items()}))
@@ -715,7 +804,9 @@ def phase_microbench(build, mb):
 
 # Keys a kernel's entry in the kernels line carries where its phase measured them.
 OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "attention_delta_ms",
-                 "attention_delta_device_ms", "pair_ms", "pair_device_ms")
+                 "attention_delta_device_ms", "pair_ms", "pair_device_ms", "rate0_ms",
+                 "rate0_device_ms", "rate0_library_factor", "rate0_pair_device_ms",
+                 "rate0_pair_library_factor")
 
 
 def main() -> int:
@@ -754,12 +845,11 @@ def main() -> int:
         spills = [ln.strip() for ln in report
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[0] {lib}: {len(regs)} kernels, {sorted(set(regs))}; spills: {spills or 'none'}")
-        if lib in WGMMA_LIBS:
-            for inst, (nregs, spill) in ptxas_instances(report).items():
-                log(f"[0]   {inst}: {nregs} registers, {spill}")
-            for ln in report:
-                if "wgmma" in ln.lower() and "Compiling entry function" not in ln:
-                    log(f"[0]   ptxas: {ln.strip()}")
+        for inst, (nregs, spill) in ptxas_instances(report).items():
+            log(f"[0]   {inst}: {nregs} registers, {spill}")
+        for ln in report:
+            if "wgmma" in ln.lower() and "Compiling entry function" not in ln:
+                log(f"[0]   ptxas: {ln.strip()}")
 
     timing = phase_kernels(fa, peaks)
     launches = phase_train(fa, ra, run_benchmark)

@@ -28,13 +28,6 @@
 
 namespace flash {
 
-// K1's coordinates: flash's own, every k tile below the causal limit live.
-struct FlashCoords {
-  int q_off, n_kt;
-  __device__ int k_off(int kt) const { return kt * kTile; }
-  __device__ int next_live(int kt) const { return kt; }
-};
-
 template <int D, bool CAUSAL, bool DROPOUT>
 __global__ void __launch_bounds__(sm90::kThreads)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
@@ -44,7 +37,8 @@ __global__ void __launch_bounds__(sm90::kThreads)
                      uint32_t threshold, float inv_keep) {
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;
-  const FlashCoords co{qt * kTile, CAUSAL ? qt + 1 : S / kTile};
+  // Every k tile below the causal limit is live.
+  const sm90::FlashCoords co{qt * kTile, CAUSAL ? qt + 1 : S / kTile};
   float o[D / 64][32], m[2], l[2];
   sm90::fwd_mainloop<D, CAUSAL, DROPOUT>(
       &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, scale,

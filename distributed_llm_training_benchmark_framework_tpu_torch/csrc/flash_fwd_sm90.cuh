@@ -1,12 +1,13 @@
 // The attention forward mainloop for Hopper (sm_90a), shared by the flash
-// forward K1 (flash_fwd.cu) and the ring block forward K4 (ring_fwd.cu).
+// forward K1 (flash_fwd.cu), the ring block forward K4 (ring_fwd.cu) and the
+// microbench's layouts K6 and K7 (fwd_variants.cu).
 //
-// One CTA is one warpgroup (128 threads) on one 64-row q tile of one
-// batch*head; it walks that head's 64-row k/v tiles with an online softmax.
-// The two kernels differ only in their coordinates (which k tiles are live,
-// where each lies in the global sequence, which batch*head id keys the
-// dropout hash) and their epilogues, so the loop is one template over a
-// `Coords` type that gives
+// One warpgroup (128 threads) runs on one 64-row q tile of one batch*head;
+// it walks that head's 64-row k/v tiles with an online softmax. The kernels
+// differ only in their coordinates (which k tiles are live, where each lies
+// in the global sequence, which batch*head id keys the dropout hash), the
+// layout of k, the number of warpgroups in a CTA and their epilogues, so
+// the loop is one template over a `Coords` type that gives
 //     int q_off;                      global row of the q tile's first row
 //     int n_kt;                       k tiles in the block
 //     __device__ int k_off(int kt);   global column of k tile kt's first key
@@ -40,6 +41,19 @@
 //     diagonal of some row; tiles wholly in the future are never loaded.
 //   - Dropout hashes each element from its global (row, col): the row base
 //     of a thread's two rows is computed once per CTA.
+//   - K_T (K7): k arrives transposed, (BH, D, S), mapped as a (BH * D, S)
+//     matrix; a k tile is D rows x 64 keys, D / 64 boxes of 64 x 64, and
+//     S = Q.K^T reads it through an MN-major descriptor exactly as P.V reads
+//     V. No transposed copy exists and a stage holds the same bytes.
+//   - WG = 2 (K6): two warpgroups share a CTA, each on its own head of the
+//     same q tile, each with its own shared-memory region (Q, the K/V
+//     stages, the mbarriers), its own producer thread and its own named
+//     barrier in place of __syncthreads, so neither waits for the other.
+//     With PINGPONG the two take turns at the tensor cores (FA3's order):
+//     a warpgroup issues P.V of its previous tile and Q.K^T of this one
+//     together, hands the turn over with a named barrier and runs its
+//     softmax while the other's products run; a stage is then refilled one
+//     turn later, after the P.V that reads it.
 //
 // The PTX helpers (mbarriers, TMA, wgmma, descriptors) and the tensor-map
 // encoder live in sm90_ptx.cuh, shared with the backward pair (flash_bwd.cu).
@@ -57,12 +71,42 @@ namespace sm90 {
 // their products; a third stage gave no gain.
 constexpr int kStages = 2;
 
-// Q, kStages x (K, V), one mbarrier per stage and one for Q, and 1 KB of
-// slack to align the tiles to the 1024-byte period of the swizzle.
+// One warpgroup's region: Q, kStages x (K, V), one mbarrier per stage and
+// one for Q. A second warpgroup's region starts on the next 1024-byte
+// boundary after the first's barriers.
 template <int D>
-__host__ __device__ constexpr int smem_bytes() {
-  return (D / 64) * kBlockBytes * (1 + 2 * kStages) + 8 * (kStages + 1) + 1024;
+__host__ __device__ constexpr int region_stride() {
+  return (D / 64) * kBlockBytes * (1 + 2 * kStages) + 1024;
 }
+
+// WG regions and 1 KB of slack to align the tiles to the 1024-byte period
+// of the swizzle: 41 KB (one warpgroup) or 82 KB (two) at D 64, 81 KB or
+// 162 KB at D 128.
+template <int D, int WG = 1>
+__host__ __device__ constexpr int smem_bytes() {
+  return (WG - 1) * region_stride<D>() + (D / 64) * kBlockBytes * (1 + 2 * kStages) +
+         8 * (kStages + 1) + 1024;
+}
+
+// Named barriers: 1 + wg is warpgroup wg's own (in place of __syncthreads
+// when a CTA holds two), kTurnBar + wg the ping-pong turn of warpgroup wg.
+constexpr int kTurnBar = 3;
+
+// Every warp of the calling warpgroup has arrived.
+template <int WG>
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  if (WG == 1)
+    __syncthreads();
+  else
+    named_bar_sync(1 + wg, kThreads);
+}
+
+// Every k tile of the row range is live (K1 and the microbench's layouts).
+struct FlashCoords {
+  int q_off, n_kt;
+  __device__ int k_off(int kt) const { return kt * kTile; }
+  __device__ int next_live(int kt) const { return kt; }
+};
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -78,30 +122,69 @@ __device__ __forceinline__ float quad_sum(float x) {
 // The mainloop
 // ---------------------------------------------------------------------------
 
+// S = Q . K^T over the head dim, one wgmma group. Q (64 x D) is K-major: a
+// k step of 16 columns is 32 bytes inside a 64-column block, and the next
+// block starts 8 KB on. K (64 keys x D) is K-major as Q; K^T (D x 64 keys,
+// K_T) is MN-major and read as V is: 16 rows of the head dim are 2 KB on.
+template <int D, bool K_T>
+__device__ __forceinline__ void score_product(float (&sc)[32], uint64_t q_desc, uint64_t k_desc,
+                                              uint32_t sK) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t off = ((kk / 4) * kBlockBytes + (kk % 4) * 32) >> 4;
+    if (K_T)
+      wgmma_ss<1>(sc, q_desc + off,
+                  sw128_desc(sK + (kk / 4) * kBlockBytes + (kk % 4) * 2048, kBlockBytes, 1024),
+                  kk > 0);
+    else
+      wgmma_ss(sc, q_desc + off, k_desc + off, kk > 0);
+  }
+}
+
+// O += P . V, one wgmma group: V (64 keys x D) is MN-major; 16 keys are 2 KB
+// on, and each 64-column block of V is its own 8 KB block (one n64 product
+// each). P is the bf16 register operand.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 64][32], const uint32_t (&pa)[4][4],
+                                           uint32_t sV) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b)
+      wgmma_rs(o[b], pa[kk], sw128_desc(sV + b * kBlockBytes + kk * 2048, kBlockBytes, 1024));
+}
+
 // Runs the online softmax of one q tile over every live k tile of `co`.
 // q_row / kv_row: the tile's row in the (BH*S, D) q tensor map, and the row
-// of k tile 0 in the k and v maps. On return o holds the unnormalized
+// of k tile 0 in the k and v maps; with K_T, kt_row is the head's first row
+// in the (BH*D, S) k^T map instead of kv_row. On return o holds the unnormalized
 // accumulator (fragment layout: element 4j + c of block b is row
 // frag_row(tid, c / 2), column 64 b + frag_col(tid, j) + c % 2), m the
 // running max of the RAW scores of the thread's two rows (exactly kNegInf
 // where a row met no live key) and l their full row sums of the UN-dropped
-// p. Must be called by all 128 threads; returns early, CTA-uniformly and
-// with no copy in flight, when no k tile is live.
-template <int D, bool CAUSAL, bool DROPOUT, class Coords>
+// p. Must be called by all 128 threads of each of the CTA's WG warpgroups
+// (warpgroup wg = threadIdx.x / 128); returns early, uniformly over the
+// warpgroup and with no copy in flight, when no k tile is live. PINGPONG
+// needs both warpgroups to walk the same number of tiles (no early return).
+template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1,
+          bool PINGPONG = false, class Coords>
 __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtensorMap* tk,
                                              const CUtensorMap* tv, const Coords& co,
                                              int q_row, int kv_row, float scale,
                                              uint32_t bh_hash, uint32_t threshold,
                                              float inv_keep, float (&o)[D / 64][32],
-                                             float (&m)[2], float (&l)[2]) {
+                                             float (&m)[2], float (&l)[2], int kt_row = 0) {
+  static_assert(WG == 1 || WG == 2, "one or two warpgroups per CTA");
+  static_assert(!PINGPONG || WG == 2, "ping-pong takes two warpgroups");
   constexpr int kBlocks = D / 64;
   constexpr uint32_t kTileBytes = kBlocks * kBlockBytes;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int wg = WG == 1 ? 0 : threadIdx.x / kThreads;
+  const int tid = WG == 1 ? threadIdx.x : threadIdx.x % kThreads;
+  const uint32_t base = ((smem_addr(smem_raw) + 1023u) & ~1023u) + wg * region_stride<D>();
   const uint32_t sQ = base;
   const uint32_t bars = base + kTileBytes * (1 + 2 * kStages);  // full[s], then Q's
   const uint32_t q_bar = bars + 8 * kStages;
-  const int tid = threadIdx.x;
 
 #pragma unroll
   for (int b = 0; b < kBlocks; ++b)
@@ -118,14 +201,15 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  warpgroup_sync<WG>(wg);
 
   int kt = co.next_live(0);
-  // Uniform over the CTA: a block with no live tile issues no copy and
+  // Uniform over the warpgroup: a block with no live tile issues no copy and
   // leaves with the empty statistics; nothing of shared memory is read.
   if (kt >= co.n_kt) return;
 
-  // Thread 0 is also the producer: its cursor runs kStages live tiles ahead.
+  // The warpgroup's thread 0 is also its producer: its cursor runs kStages
+  // live tiles ahead.
   int kt_load = kt;
   auto load_kv = [&](int s, int t) {
     const uint32_t bar = bars + 8 * s;
@@ -133,7 +217,10 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     mbar_arrive_expect_tx(bar, 2 * kTileBytes);
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) {
-      tma_load(sK + b * kBlockBytes, tk, bar, 64 * b, kv_row + t * kTile);
+      if (K_T)  // rows 64b .. 64b + 63 of the head dim, keys of tile t
+        tma_load(sK + b * kBlockBytes, tk, bar, t * kTile, kt_row + 64 * b);
+      else
+        tma_load(sK + b * kBlockBytes, tk, bar, 64 * b, kv_row + t * kTile);
       tma_load(sK + kTileBytes + b * kBlockBytes, tv, bar, 64 * b, kv_row + t * kTile);
     }
   };
@@ -160,6 +247,24 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
   // 8-row stride (SBO) is 1024 bytes; LBO is unused by swizzled K-major.
   const uint64_t q_desc = sw128_desc(sQ, 16, 1024);
 
+  // Ping-pong: warpgroup 0 takes the first turn.
+  if (PINGPONG && wg == 0) named_bar_arrive(kTurnBar, 2 * kThreads);
+
+  // P as the bf16 A operand of P . V: 16 keys per k step, fragment
+  // registers {row r, cols 0-7 of the step}, {r + 8, 0-7}, {r, 8-15},
+  // {r + 8, 8-15}, which are accumulator chunks j = 2 kk and 2 kk + 1.
+  // With PINGPONG it carries the previous tile's P into the next turn; the
+  // first turn adds P = 0 times the first V tile, which leaves O exactly 0
+  // and keeps the products off a divergent path (ptxas serializes wgmma
+  // there).
+  uint32_t pa[4][4];
+  if (PINGPONG) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
+  }
+  uint32_t sV_prev = base + 2 * kTileBytes;  // stage 0's V
   mbar_wait(q_bar, 0);
   for (int it = 0; kt < co.n_kt; ++it) {
     const int s = it % kStages;
@@ -167,19 +272,37 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     const uint32_t sV = sK + kTileBytes;
     mbar_wait(bars + 8 * s, (it / kStages) & 1);
 
-    // S = Q . K^T over the head dim.
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     const uint64_t k_desc = sw128_desc(sK, 16, 1024);
-    wgmma_fence();
+    if (PINGPONG) {
+      // One turn: the previous tile's P . V (O is already rescaled for this
+      // tile's max) and this tile's Q . K^T.
+      named_bar_sync(kTurnBar + wg, 2 * kThreads);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint64_t off = ((kk / 4) * kBlockBytes + (kk % 4) * 32) >> 4;
-      wgmma_ss(sc, q_desc + off, k_desc + off, kk > 0);
+      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+      wgmma_fence();
+      pv_product<D>(o, pa, sV_prev);
+      score_product<D, K_T>(sc, q_desc, k_desc, sK);
+      wgmma_commit();
+      named_bar_arrive(kTurnBar + 1 - wg, 2 * kThreads);
+      wgmma_wait_all();
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+      if (it > 0) {  // the previous tile's stage is read: refill it
+        warpgroup_sync<WG>(wg);
+        if (tid == 0 && kt_load < co.n_kt) {
+          load_kv((it - 1) % kStages, kt_load);
+          kt_load = co.next_live(kt_load + 1);
+        }
+      }
+    } else {
+      wgmma_fence();
+      score_product<D, K_T>(sc, q_desc, k_desc, sK);
+      wgmma_commit();
+      wgmma_wait_all();
     }
-    wgmma_commit();
-    wgmma_wait_all();
     fence_regs(sc);
 
     // Online softmax on the fragment.
@@ -202,10 +325,6 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
       mb[h] = mx[h] * sl2;
       l[h] *= alpha[h];
     }
-    // P as the bf16 A operand of P . V: 16 keys per k step, fragment
-    // registers {row r, cols 0-7 of the step}, {r + 8, 0-7}, {r, 8-15},
-    // {r + 8, 8-15}, which are accumulator chunks j = 2 kk and 2 kk + 1.
-    uint32_t pa[4][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -232,28 +351,40 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[b][i] *= alpha[(i % 4) / 2];
 
-    // O += P . V: V (64 keys x D) is MN-major; 16 keys are 2 KB on, and each
-    // 64-column block of V is its own 8 KB block (one n64 product each).
+    if (PINGPONG) {
+      sV_prev = sV;
+    } else {
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+      wgmma_fence();
+      pv_product<D>(o, pa, sV);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+
+      // Every warp of the warpgroup has finished reading stage s: refill it.
+      warpgroup_sync<WG>(wg);
+      if (tid == 0 && kt_load < co.n_kt) {
+        load_kv(s, kt_load);
+        kt_load = co.next_live(kt_load + 1);
+      }
+    }
+    kt = co.next_live(kt + 1);
+  }
+  if (PINGPONG) {
+    // The last tile's P . V in a turn of its own. Warpgroup 1 hands no turn
+    // on: warpgroup 0 has taken its last.
+    named_bar_sync(kTurnBar + wg, 2 * kThreads);
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b)
-        wgmma_rs(o[b], pa[kk], sw128_desc(sV + b * kBlockBytes + kk * 2048, kBlockBytes, 1024));
+    pv_product<D>(o, pa, sV_prev);
     wgmma_commit();
+    if (wg == 0) named_bar_arrive(kTurnBar + 1, 2 * kThreads);
     wgmma_wait_all();
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
-
-    // Every warp has finished reading stage s: refill it.
-    __syncthreads();
-    if (tid == 0 && kt_load < co.n_kt) {
-      load_kv(s, kt_load);
-      kt_load = co.next_live(kt_load + 1);
-    }
-    kt = co.next_live(kt + 1);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);

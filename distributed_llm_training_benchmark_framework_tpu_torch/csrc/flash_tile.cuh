@@ -1,8 +1,8 @@
 // Shared pieces of the first-design attention kernels of fwd_variants.cu
-// (the microbench's forward variants K5-K9): the tile geometry, the
+// (the microbench's forward variants K5, K8 and K9): the tile geometry, the
 // shared-memory layout of one tile, the global -> shared tile copies, warp
-// reductions and the tensor-core tile products. The training path's kernels
-// (K1-K4, flash_fwd_sm90.cuh and flash_bwd.cu) run wgmma mainloops instead.
+// reductions and the tensor-core tile products. The other attention kernels
+// (K1-K4, K6, K7: flash_fwd_sm90.cuh and flash_bwd.cu) run wgmma mainloops.
 //
 // Design (first, simple version): one CTA of 4 warps works on 64-row tiles.
 // Each warp owns 16 rows of every 64-row tile it produces, so the softmax
@@ -118,53 +118,6 @@ __device__ __forceinline__ void warp_mm_ab_acc(float* c, const bf16* a, const bf
       wm::mma_sync(acc, fa, fb, acc);
     }
     wm::store_matrix_sync(c + n * 16, acc, ldc, wm::mem_row_major);
-  }
-}
-
-// A k tile given transposed: (D, 64) bf16, row-major in shared memory with
-// the operand-tile padding of a (64, 64) tile (ld_prob), so fragment
-// pointers stay 32-byte aligned.
-template <int D>
-struct LayoutT {
-  static constexpr int ld = kTile + 8;
-  static constexpr int bytes = D * ld * 2;
-};
-
-// Copy a (D, 64) bf16 tile from a row-major (D, S) global matrix (columns
-// col0 .. col0 + 63 of every row) into padded shared memory, 16 bytes per
-// thread per step: 8 chunks of 8 columns per row.
-template <int D>
-__device__ __forceinline__ void load_tile_t(bf16* dst, const bf16* __restrict__ src, int S,
-                                            int tid) {
-  constexpr int chunks = kTile / 8;
-#pragma unroll 4
-  for (int i = tid; i < D * chunks; i += kThreads) {
-    const int r = i / chunks, c = i % chunks;
-    *reinterpret_cast<uint4*>(dst + r * LayoutT<D>::ld + c * 8) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * S + c * 8);
-  }
-}
-
-// One warp: C(16, 64) = A(16, D) . B(D, 64), scores from a k tile that
-// arrives transposed (load_tile_t): B is read row-major, so no transposed
-// operand. A is a padded bf16 tile (ld_tile); C is fp32 (ld_score).
-template <int D>
-__device__ __forceinline__ void warp_mm_ab(float* c, const bf16* a, const bf16* b) {
-  constexpr int lda = Layout<D>::ld_tile;
-  constexpr int ldb = LayoutT<D>::ld;
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC acc;
-    wm::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int k = 0; k < D; k += 16) {
-      FragA fa;
-      FragB fb;
-      wm::load_matrix_sync(fa, a + k, lda);
-      wm::load_matrix_sync(fb, b + k * ldb + n * 16, ldb);
-      wm::mma_sync(acc, fa, fb, acc);
-    }
-    wm::store_matrix_sync(c + n * 16, acc, Layout<D>::ld_score, wm::mem_row_major);
   }
 }
 

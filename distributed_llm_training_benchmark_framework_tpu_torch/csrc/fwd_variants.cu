@@ -10,75 +10,164 @@
 //                                             into q (q*bf16(scale) in bf16)
 // All non-causal, no dropout, bf16 in and out, no lse, scale 1/sqrt(Dh).
 //
-// One kernel template serves all five: K1's non-causal, no-dropout loop
-// (flash_fwd.cu) over 64-row tiles, 4 warps per head, each warp owning 16
-// rows, so a row's max and sum are warp shuffles. Per k tile: s = q.k^T on
-// the tensor cores (fp32), then
-//   - softmax variants: online max / sum in fp32, p rounded to bf16, the fp32
-//     accumulator rescaled and p.v added; out = bf16(acc / l) at the end;
-//   - matmul-only: acc += bf16(s * scale).v, no max or sum; out = bf16(acc).
-// The variants differ only where their Pallas kernels do:
-//   - qscaled multiplies the q tile in shared memory once by bf16(scale)
-//     (bf16 x bf16 -> bf16, as q_ref[0] * jnp.asarray(scale, q.dtype)) and
-//     leaves the scores unscaled. At Dh 64 the scale is 2^-3, every product
-//     and partial sum of q.k^T scales exactly, and the output is bit-equal
-//     to fwd_current's;
-//   - kt reads k as (BH, D, S): its tile is D rows of 64 contiguous columns
-//     (load_tile_t), and the score product reads that tile row-major
-//     (warp_mm_ab) instead of transposing a (64, D) tile;
-//   - headpair runs 8 warps per CTA, warps 0-3 on head 2p and 4-7 on head
-//     2p + 1 of the same q tile, each group with its own shared memory
-//     (2 x 70 KB at Dh 64, 2 x 110 KB = 225,280 bytes at Dh 128, under the
-//     232,448-byte limit). It is the Hopper reading of "two heads per
-//     program": the two heads share a CTA, nothing else.
-// The TPU's 1024-wide blocks, (bq, 8) lane-broadcast scratch and sequential
-// k grid axis do not carry over: the k-tile loop runs inside the CTA and the
-// grid is (S / 64, BH) (BH / 2 for headpair).
-//
 // Bound on the H100: 4*BH*S^2*Dh tensor FLOPs (bf16, 989 TFLOP/s); the
 // softmax variants also take BH*S^2 exponentials (16 per SM per clock, about
 // as long as the products at Dh 64); the bytes moved (q, k, v, out once) are
-// a third of either at S 2048. This design does nothing about either bound
-// yet: wmma 16x16x16 products staged through shared memory, no copy/compute
-// overlap, one exp per score element in plain expf. It exists to split a
-// forward's time between the products (matmul-only) and the softmax around
-// them on this card; wgmma, TMA and warp specialisation come later.
+// a third of either at S 2048.
+//
+// Two designs, until every variant has moved to the second:
+//
+// fwd_headpair and fwd_kt run the Hopper forward mainloop of K1 and K4
+// (flash_fwd_sm90.cuh: TMA-fed K/V stages, wgmma for both products, the
+// scores, probabilities and output accumulator in registers, exp2 on the
+// fragment) at rate 0, non-causal, with an epilogue that writes
+// out = bf16(o / l) and no lse (JAX's acc / l). Their arithmetic is K1's, so
+// their output is K1's bit for bit:
+//   - fwd_kt reads k^T as a (BH * D, S) matrix: a k tile is D rows x 64 keys
+//     loaded as D / 64 TMA boxes, and Q.K^T reads it through an MN-major
+//     wgmma descriptor, as P.V reads V. No transposed copy is made; a stage
+//     holds the bytes K1's does. This is the Hopper reading of feeding k
+//     pre-transposed: the tensor core takes either major-ness at one rate.
+//   - fwd_headpair puts two warpgroups in a CTA, on heads 2p and 2p + 1 of
+//     the same q tile, each with its own shared-memory region, producer
+//     thread and named barrier (82 KB at Dh 64, 162 KB at Dh 128). It is the
+//     Hopper reading of "two contractions per pass": one warpgroup's softmax
+//     can run under the other's products. The two either run free or take
+//     turns at the tensor cores (FA3's ping-pong, named barriers around each
+//     turn); kHeadpairPingPong is the faster schedule on the card (PERF.md),
+//     and fwd_headpair_schedule launches either, for that comparison.
+//
+// fwd_current, fwd_matmul_only and fwd_qscaled are still the first design:
+// K1's non-causal, no-dropout loop over 64-row tiles with wmma 16x16x16
+// products staged through shared memory (flash_tile.cuh), 4 warps per head,
+// each warp owning 16 rows, so a row's max and sum are warp shuffles; no
+// copy/compute overlap, one exp per score element in plain expf. Per k tile:
+// s = q.k^T on the tensor cores (fp32), then
+//   - softmax variants: online max / sum in fp32, p rounded to bf16, the fp32
+//     accumulator rescaled and p.v added; out = bf16(acc / l) at the end;
+//   - matmul-only: acc += bf16(s * scale).v, no max or sum; out = bf16(acc).
+//   qscaled multiplies the q tile in shared memory once by bf16(scale)
+//   (bf16 x bf16 -> bf16, as q_ref[0] * jnp.asarray(scale, q.dtype)) and
+//   leaves the scores unscaled. At Dh 64 the scale is 2^-3, every product
+//   and partial sum of q.k^T scales exactly, and the output is bit-equal to
+//   fwd_current's.
+// The TPU's 1024-wide blocks, (bq, 8) lane-broadcast scratch and sequential
+// k grid axis do not carry over: the k-tile loop runs inside the CTA.
+#include "flash_fwd_sm90.cuh"
 #include "flash_tile.cuh"
 
 namespace flash {
 
-enum Variant { kCurrent = 0, kKt = 1, kMatmulOnly = 2, kQScaled = 3 };
+// ---------------------------------------------------------------------------
+// fwd_headpair and fwd_kt: the wgmma mainloop
+// ---------------------------------------------------------------------------
 
-// Shared memory of one head: q tile, v tile, k tile (transposed for kt);
-// fp32 scores; bf16 probabilities; fp32 output accumulator. Every size is a
-// multiple of 32 bytes, so each region (and the second head's copy) stays
-// aligned.
-template <int D, int V>
+// The schedule fwd_headpair launches: ping-pong (true) or free-running.
+constexpr bool kHeadpairPingPong = false;
+
+// Writes bf16(o / l) for the thread's two rows of the 64 x D tile whose
+// first row is `dst` (row-major, D columns), l == 0 read as 1 (JAX's
+// acc / l with its safe denominator).
+template <int D>
+__device__ __forceinline__ void store_normalized(bf16* dst, int tid, const float (&o)[D / 64][32],
+                                                 const float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l_safe = l[h] == 0.f ? 1.f : l[h];
+    bf16* row = dst + (size_t)sm90::frag_row(tid, h) * D;
+#pragma unroll
+    for (int b = 0; b < D / 64; ++b)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 64 * b + sm90::frag_col(tid, j)) =
+            __floats2bfloat162_rn(o[b][4 * j + 2 * h] / l_safe, o[b][4 * j + 2 * h + 1] / l_safe);
+  }
+}
+
+// WG warpgroups per CTA, warpgroup wg on batch*head WG * blockIdx.x + wg and
+// q tile blockIdx.y; k as (BH * S, D), or as k^T (BH * D, S) with K_T.
+template <int D, bool K_T, int WG, bool PINGPONG>
+__global__ void __launch_bounds__(WG * sm90::kThreads)
+    fwd_layout_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int S,
+                      float scale) {
+  const int bh = WG * blockIdx.x + threadIdx.x / sm90::kThreads;
+  const int qt = blockIdx.y;
+  const sm90::FlashCoords co{qt * kTile, S / kTile};
+  float o[D / 64][32], m[2], l[2];
+  sm90::fwd_mainloop<D, false, false, K_T, WG, PINGPONG>(
+      &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, scale, 0u, 0u, 1.f, o, m, l, bh * D);
+  store_normalized<D>(out + ((size_t)bh * S + qt * kTile) * D,
+                      threadIdx.x % sm90::kThreads, o, l);
+}
+
+template <int D, bool K_T, int WG, bool PINGPONG>
+cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                          float scale, cudaStream_t stream) {
+  auto kern = fwd_layout_kernel<D, K_T, WG, PINGPONG>;
+  constexpr int smem = sm90::smem_bytes<D, WG>();
+  CUtensorMap maps[3];
+  cudaError_t e = sm90::make_tile_map(&maps[0], q, BH * S, D);
+  if (e == cudaSuccess)
+    e = K_T ? sm90::make_tile_map(&maps[1], k, BH * D, S)
+            : sm90::make_tile_map(&maps[1], k, BH * S, D);
+  if (e == cudaSuccess) e = sm90::make_tile_map(&maps[2], v, BH * S, D);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3(BH / WG, S / kTile), WG * sm90::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), S, scale);
+  return cudaGetLastError();
+}
+
+template <bool K_T, int WG, bool PINGPONG>
+int dispatch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
+                    int Dh, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dh == 64) return launch_layout<64, K_T, WG, PINGPONG>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 128) return launch_layout<128, K_T, WG, PINGPONG>(q, k, v, out, BH, S, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// fwd_current, fwd_matmul_only, fwd_qscaled: the first (wmma) design
+// ---------------------------------------------------------------------------
+
+enum Variant { kCurrent = 0, kMatmulOnly = 1, kQScaled = 2 };
+
+// Shared memory: q tile, v tile, k tile; fp32 scores; bf16 probabilities;
+// fp32 output accumulator. Every size is a multiple of 32 bytes, so each
+// region stays aligned.
+template <int D>
 struct VariantSmem {
-  static constexpr int k_bytes = V == kKt ? LayoutT<D>::bytes : Layout<D>::tile_bytes;
-  static constexpr int bytes = 2 * Layout<D>::tile_bytes + k_bytes + Layout<D>::score_bytes +
+  static constexpr int bytes = 3 * Layout<D>::tile_bytes + Layout<D>::score_bytes +
                                Layout<D>::prob_bytes + Layout<D>::acc_bytes;
 };
 
-template <int D, int V, int HEADS>
-__global__ void __launch_bounds__(kThreads * HEADS)
+template <int D, int V>
+__global__ void __launch_bounds__(kThreads)
     fwd_variant_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out, int S,
                        float scale) {
   typedef Layout<D> L;
   constexpr bool SOFTMAX = V != kMatmulOnly;
+  // One warpgroup per CTA. Its index (threadIdx.x / kThreads, always 0)
+  // stays in the addressing: without it ptxas allocates 127 registers
+  // instead of 86 at Dh 64, and fwd_current takes 0.50 ms instead of 0.39 at
+  // BH 16, S 2048 on an H100 (PERF.md).
+  const int group = threadIdx.x / kThreads;
   extern __shared__ __align__(128) unsigned char smem_all[];
-  const int group = threadIdx.x / kThreads;  // which head of the CTA's HEADS
-  unsigned char* smem = smem_all + group * VariantSmem<D, V>::bytes;
+  unsigned char* smem = smem_all + group * VariantSmem<D>::bytes;
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::tile_bytes);
   bf16* sK = reinterpret_cast<bf16*>(smem + 2 * L::tile_bytes);
-  unsigned char* rest = smem + 2 * L::tile_bytes + VariantSmem<D, V>::k_bytes;
+  unsigned char* rest = smem + 3 * L::tile_bytes;
   float* sS = reinterpret_cast<float*>(rest);
   bf16* sP = reinterpret_cast<bf16*>(rest + L::score_bytes);
   float* sO = reinterpret_cast<float*>(rest + L::score_bytes + L::prob_bytes);
 
-  const int qt = blockIdx.x, bh = blockIdx.y * HEADS + group;
+  const int qt = blockIdx.x, bh = blockIdx.y + group;
   const int tid = threadIdx.x % kThreads, warp = tid / 32, lane = tid % 32;
   const int r0 = warp * kRowsPerWarp;
   const int q0 = qt * kTile;
@@ -106,17 +195,11 @@ __global__ void __launch_bounds__(kThreads * HEADS)
 
   for (int kt = 0; kt < S / kTile; ++kt) {
     __syncthreads();  // every warp is done reading the previous k/v tiles
-    if (V == kKt)
-      load_tile_t<D>(sK, k + base + (size_t)kt * kTile, S, tid);
-    else
-      load_tile<D>(sK, k + base + (size_t)kt * kTile * D, tid);
+    load_tile<D>(sK, k + base + (size_t)kt * kTile * D, tid);
     load_tile<D>(sV, v + base + (size_t)kt * kTile * D, tid);
     __syncthreads();
 
-    if (V == kKt)
-      warp_mm_ab<D>(sS + r0 * L::ld_score, sQ + r0 * L::ld_tile, sK);
-    else
-      warp_mm_abt<D>(sS + r0 * L::ld_score, sQ + r0 * L::ld_tile, sK);
+    warp_mm_abt<D>(sS + r0 * L::ld_score, sQ + r0 * L::ld_tile, sK);
     __syncwarp();
 
 #pragma unroll
@@ -160,27 +243,26 @@ __global__ void __launch_bounds__(kThreads * HEADS)
   }
 }
 
-template <int D, int V, int HEADS>
+template <int D, int V>
 cudaError_t launch_variant(const void* q, const void* k, const void* v, void* out, int BH,
                            int S, float scale, cudaStream_t stream) {
-  auto kern = fwd_variant_kernel<D, V, HEADS>;
-  constexpr int smem = HEADS * VariantSmem<D, V>::bytes;
+  auto kern = fwd_variant_kernel<D, V>;
+  constexpr int smem = VariantSmem<D>::bytes;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(S / kTile, BH / HEADS);
-  kern<<<grid, kThreads * HEADS, smem, stream>>>(
+  kern<<<dim3(S / kTile, BH), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), S, scale);
   return cudaGetLastError();
 }
 
-template <int V, int HEADS>
+template <int V>
 int dispatch_variant(const void* q, const void* k, const void* v, void* out, int BH, int S,
                      int Dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_variant<64, V, HEADS>(q, k, v, out, BH, S, scale, st);
-  if (Dh == 128) return launch_variant<128, V, HEADS>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 64) return launch_variant<64, V>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 128) return launch_variant<128, V>(q, k, v, out, BH, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -191,17 +273,27 @@ int dispatch_variant(const void* q, const void* k, const void* v, void* out, int
 // or 128, and BH even for fwd_headpair (the Python wrappers check all
 // three). `scale` is 1/sqrt(Dh). Each launches on `stream` and returns
 // cudaGetLastError() of the launch (0 on success).
-#define FWD_VARIANT_ENTRY(NAME, V, HEADS)                                                   \
+#define FWD_ENTRY(NAME, ...)                                                                 \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* out, int BH, int S, \
                       int Dh, float scale, void* stream) {                                  \
-    return flash::dispatch_variant<V, HEADS>(q, k, v, out, BH, S, Dh, scale, stream);       \
+    return flash::__VA_ARGS__(q, k, v, out, BH, S, Dh, scale, stream);                      \
   }
 
-FWD_VARIANT_ENTRY(fwd_current, flash::kCurrent, 1)
-FWD_VARIANT_ENTRY(fwd_headpair, flash::kCurrent, 2)
-FWD_VARIANT_ENTRY(fwd_kt, flash::kKt, 1)
-FWD_VARIANT_ENTRY(fwd_matmul_only, flash::kMatmulOnly, 1)
-FWD_VARIANT_ENTRY(fwd_qscaled, flash::kQScaled, 1)
+FWD_ENTRY(fwd_current, dispatch_variant<flash::kCurrent>)
+FWD_ENTRY(fwd_headpair, dispatch_layout<false, 2, flash::kHeadpairPingPong>)
+FWD_ENTRY(fwd_kt, dispatch_layout<true, 1, false>)
+FWD_ENTRY(fwd_matmul_only, dispatch_variant<flash::kMatmulOnly>)
+FWD_ENTRY(fwd_qscaled, dispatch_variant<flash::kQScaled>)
+
+// fwd_headpair's kernel in either schedule: free-running (pingpong 0) or
+// ping-pong (1), for timing the two side by side.
+extern "C" int fwd_headpair_schedule(const void* q, const void* k, const void* v, void* out,
+                                     int BH, int S, int Dh, float scale, int pingpong,
+                                     void* stream) {
+  return pingpong ? flash::dispatch_layout<false, 2, true>(q, k, v, out, BH, S, Dh, scale, stream)
+                  : flash::dispatch_layout<false, 2, false>(q, k, v, out, BH, S, Dh, scale,
+                                                           stream);
+}
 
 extern "C" const char* fwd_variants_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

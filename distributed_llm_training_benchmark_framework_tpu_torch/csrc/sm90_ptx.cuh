@@ -1,10 +1,11 @@
 // PTX and host helpers of the Hopper (sm_90a) attention kernels, shared by
-// the forward mainloop (flash_fwd_sm90.cuh: K1, K4) and the backward pair
+// the forward mainloop (flash_fwd_sm90.cuh: K1, K4, K6, K7) and the backward pair
 // (flash_bwd.cu: K2/K2', K3/K3'): mbarriers with a bounded wait, TMA tile
-// and bulk copies, the 128-byte-swizzle wgmma descriptor, the two wgmma
-// m64n64k16 forms the kernels use (both operands from shared memory; A from
-// registers against an MN-major B), the accumulator fragment's coordinates,
-// and the host's tensor-map encoder.
+// and bulk copies, named barriers, the 128-byte-swizzle wgmma descriptor,
+// the two wgmma m64n64k16 forms the kernels use (both operands from shared
+// memory, B K-major or MN-major; A from registers against an MN-major B),
+// the accumulator fragment's coordinates, and the host's tensor-map
+// encoder.
 #pragma once
 
 #include <cuda.h>
@@ -95,6 +96,16 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a
+// multiple of 32: bar.sync waits for all of them, bar.arrive counts the
+// calling warp in and goes on.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
 // address, leading and stride byte offsets (all in 16-byte units), layout
 // type 1 (SWIZZLE_128B) in bits 62-63. Base offset 0: every tile starts on
@@ -123,8 +134,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (64 x 64 fp32) = [d +] A . B: A 64 x 16 and B 64 x 16, both K-major in
-// shared memory (descriptors a and b); accumulate != 0 adds to d.
+// d (64 x 64 fp32) = [d +] A . B: A 64 x 16, K-major in shared memory
+// (descriptor a); B 16 x 64 in shared memory (descriptor b), K-major, or
+// MN-major (transposed operand) when TRANS_B is 1; accumulate != 0 adds to
+// d.
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                          int accumulate) {
   asm volatile(
@@ -134,7 +148,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
+      "%32, %33, p, 1, 1, 0, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
@@ -142,7 +156,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
 }
 
 // d (64 x 64 fp32) += A . B: A 64 x 16 bf16 from registers (four b32 per
@@ -216,7 +230,7 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A 2-D tensor map over a row-major (rows, D) bf16 matrix with 64 x 64 boxes
-// in the 128-byte swizzle.
+// in the 128-byte swizzle (for K7's k^T: rows BH * Dh, D the sequence).
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* ptr, int rows, int D) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;

@@ -12,7 +12,12 @@ Tolerance: rel-Frobenius 1e-2 against the Pallas kernels. The plain
 versions take the softmax in one pass where the kernels rescale online over
 k blocks, so p is rounded to bf16 at a different running max; at these
 sizes the two agree to about 2e-3 (6e-5 for the matmul-only variant, which
-has no softmax).
+has no softmax). K6's and K7's plain versions equal the port's plain flash
+forward (rate 0, non-causal) bit for bit: the same operations in the same
+order, as on the card K6 and K7 run K1's mainloop.
+
+Also here: ``chip_smoke.ptxas_instances``, which names every kernel
+instance of the build's ptxas report, on a sample report.
 """
 
 import functools
@@ -27,8 +32,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from distributed_llm_training_benchmark_framework_tpu_torch.microbench import flash_fwd as mb
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
+from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
 
 SCRIPT = Path(__file__).resolve().parents[1] / "scripts" / "microbench_flash_fwd.py"
@@ -117,6 +124,68 @@ def test_wrappers_run_the_plain_version_on_cpu(name):
     _build.reset_launch_counts()
     assert torch.equal(fv.WRAPPERS[name](q, k, v), fv.PLAIN[name](q, k, v))
     assert set(fv.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("name", ["fwd_headpair", "fwd_kt"])
+def test_layout_plain_equals_flash_forward_plain(name, d):
+    """The identity phase 10 of chip_smoke.py asserts on the card (K6, K7 ==
+    K1 at rate 0, non-causal), held here between the plain versions."""
+    _, (q, k, v) = _inputs(d, seed=4)
+    args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
+    want, _ = fa.flash_forward_plain(q, k, v, False, 0.0, 0)
+    assert torch.equal(fv.PLAIN[name](*args), want)
+
+
+@pytest.mark.parametrize("pingpong", [False, True])
+def test_headpair_schedule_runs_the_plain_version_on_cpu(pingpong):
+    _, (q, k, v) = _inputs(64, seed=3)
+    _build.reset_launch_counts()
+    assert torch.equal(fv.fwd_headpair_schedule(q, k, v, pingpong), fv.fwd_headpair_plain(q, k, v))
+    assert _build.LAUNCHES["fwd_headpair_schedule"] == 0
+    with pytest.raises(ValueError, match="even"):
+        fv.fwd_headpair_schedule(q[:3], k[:3], v[:3], pingpong)
+
+
+# ptxas -v as nvcc prints it for the package's kernels: a wgmma mainloop
+# instance (K1), a fwd_layout_kernel instance (K6, ping-pong), a wmma
+# variant (K9) with a spill, a backward instance with its output type, and
+# an entry no template of the package names.
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN5flash16flash_fwd_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifjjf' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash16flash_fwd_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifjjf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5flash17fwd_layout_kernelILi128ELb0ELi2ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash17fwd_layout_kernelILi128ELb0ELi2ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 5 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5flash18fwd_variant_kernelILi128ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash18fwd_variant_kernelILi128ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_if
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5flash19flash_bwd_dq_kernelILi64ELb1ELb0EfEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_S5_Pfiifjjf' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash19flash_bwd_dq_kernelILi64ELb1ELb0EfEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_S5_Pfiifjjf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 127 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function 'other_entry' for 'sm_90a'
+ptxas info    : Function properties for other_entry
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers, 380 bytes cmem[0]
+"""
+
+
+def test_ptxas_instances_names_every_kernel_form():
+    none = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    assert chip_smoke.ptxas_instances(PTXAS_SAMPLE.splitlines()) == {
+        "flash_fwd_kernel<Dh 64, causal 0, dropout 1>": (96, none),
+        "fwd_layout_kernel<Dh 128, k transposed 0, warpgroups 2, ping-pong 1>": (168, none),
+        "fwd_variant_kernel<Dh 128, variant 2>":
+            (255, "16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads"),
+        "flash_bwd_dq_kernel<Dh 64, causal 1, dropout 0, fp32 out>": (127, none),
+        "other_entry": (8, none),
+    }
 
 
 def _bf16(*shape, dtype=torch.bfloat16):

@@ -172,7 +172,7 @@ def _fwd_inputs(cuda, d, bh=4, s=256, seed=4):
 
 @pytest.mark.parametrize("name,d", FWD_CASES)
 def test_fwd_variants_match_plain_and_count_one_launch(cuda, name, d):
-    """K5-K9 against their plain versions (K6 fits at Dh 128: 2 x 110 KB of
+    """K5-K9 against their plain versions (K6 fits at Dh 128: 2 x 81 KB of
     shared memory, under the 227 KB a CTA may take), one launch per call."""
     q, k, v = _fwd_inputs(cuda, d)
     args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
@@ -187,6 +187,33 @@ def test_fwd_variants_match_plain_and_count_one_launch(cuda, name, d):
 def test_fwd_qscaled_equals_fwd_current_bitwise_at_dh64(cuda):
     q, k, v = _fwd_inputs(cuda, 64, bh=2, s=512, seed=5)
     assert torch.equal(fv.fwd_qscaled(q, k, v), fv.fwd_current(q, k, v))
+
+
+# K6 and K7 run K1's wgmma mainloop with K1's arithmetic (K7 reads k through
+# a transposed descriptor, K6 runs two warpgroups per CTA): at rate 0,
+# non-causal, their output is K1's bit for bit. S 64 is one k tile, 256
+# several, 2048 the microbench's length (at its BH 16).
+@pytest.mark.parametrize("name,d,s", [(name, d, s) for name in ("fwd_headpair", "fwd_kt")
+                                      for d in (64, 128) for s in (64, 256, 2048)])
+def test_fwd_layouts_equal_flash_fwd_bitwise(cuda, name, d, s):
+    q, k, v = _fwd_inputs(cuda, d, bh=16 if s == 2048 else 4, s=s, seed=6)
+    args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
+    want, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
+    assert torch.equal(fv.WRAPPERS[name](*args), want)
+
+
+# BH 2 is one CTA per q tile; BH 266 gives 133 head pairs, so the grid is not
+# a whole number of waves over the 132 SMs.
+@pytest.mark.parametrize("pingpong", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bh", [2, 266])
+def test_fwd_headpair_schedules_equal_flash_fwd_bitwise(cuda, bh, d, pingpong):
+    q, k, v = _fwd_inputs(cuda, d, bh=bh, s=128, seed=7)
+    want, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
+    before = fv.launch_counts()
+    assert torch.equal(fv.fwd_headpair_schedule(q, k, v, pingpong), want)
+    assert fv.launch_counts() == before  # counted apart, as fwd_headpair_schedule
+    assert torch.equal(fv.fwd_headpair(q, k, v), want)
 
 
 # The dropout mask read back out of K1-K4 and K2′ / K3′
