@@ -80,14 +80,14 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 0) and (g) BH 4, S 256, Dh 128.
 
 10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
-    <= 2e-2), K9 against K5 bit for bit at Dh 64, and K6 (in both its
-    schedules) and K7 against K1 at rate 0 bit for bit (the three run the
-    wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` with one arithmetic);
+    <= 2e-2), K9 against K5 bit for bit at Dh 64, and K6 and K7 against K1
+    at rate 0 bit for bit (the three run the wgmma mainloop of
+    ``csrc/flash_fwd_sm90.cuh`` with one arithmetic);
     prints max |Δ| between the kernels (K5-K1 compares the first wmma
     design with that loop), and times each at (f) as in phase 2, beside
     SDPA on the same block (for K8, which no one call computes, the two
     calls baddbmm and bmm, on both clocks), K6 and K7 also against K1 on
-    the device clock, and K6's two schedules in turns;
+    the device clock;
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
 
@@ -271,7 +271,7 @@ KERNEL_PARAMS = {
     "ring_fwd_block_kernel": ("Dh", "causal", "dropout"),
     "flash_bwd_dq_kernel": ("Dh", "causal", "dropout", None),
     "flash_bwd_dkv_kernel": ("Dh", "causal", "dropout", None),
-    "fwd_layout_kernel": ("Dh", "k transposed", "warpgroups", "ping-pong"),
+    "fwd_layout_kernel": ("Dh", "k transposed", "warpgroups"),
     "fwd_variant_kernel": ("Dh", "variant"),
 }
 # One Itanium-mangled template argument: an int or bool literal, or a type.
@@ -683,12 +683,9 @@ FWD_REPLACES = {"fwd_current": 83, "fwd_headpair": 140, "fwd_kt": 199,
                 "fwd_matmul_only": 258, "fwd_qscaled": 303}
 
 
-HEADPAIR_SCHEDULES = {"free": False, "pingpong": True}
-
-
 def phase_fwd_variants(fa, fv, peaks):
     """Phase 10: K5-K9 against their plain versions at (f) and (g), K9 == K5
-    bitwise at Dh 64, K6 (both schedules) and K7 == K1 bitwise, cross-variant
+    bitwise at Dh 64, K6 and K7 == K1 bitwise, cross-variant
     differences, times at (f)."""
     results = {n: {"max_abs_err": 0.0} for n in fv.VARIANTS}
     for key, sh in FWD_SHAPES.items():
@@ -698,8 +695,6 @@ def phase_fwd_variants(fa, fv, peaks):
         args = {n: (q, kt, v) if n == "fwd_kt" else (q, k, v) for n in fv.VARIANTS}
         outs = {n: fv.WRAPPERS[n](*a) for n, a in args.items()}
         k1, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
-        schedules = {nm: fv.fwd_headpair_schedule(q, k, v, pp)
-                     for nm, pp in HEADPAIR_SCHEDULES.items()}
         torch.cuda.synchronize()
         plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
         errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
@@ -709,8 +704,7 @@ def phase_fwd_variants(fa, fv, peaks):
         cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
                  "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
                  "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1),
-                 "K1-K6": max_abs(k1, outs["fwd_headpair"]), "K1-K7": max_abs(k1, outs["fwd_kt"]),
-                 **{f"K1-K6 {nm}": max_abs(k1, o) for nm, o in schedules.items()}}
+                 "K1-K6": max_abs(k1, outs["fwd_headpair"]), "K1-K7": max_abs(k1, outs["fwd_kt"])}
         log(f"[10] ({key}) BH={BH} S={S} Dh={D}: rel-Frobenius vs plain "
             + json.dumps({n: f"{e:.2e}" for n, e in errs.items()})
             + "; max abs between kernels " + json.dumps({n: f"{e:.2e}" for n, e in cross.items()}))
@@ -721,9 +715,9 @@ def phase_fwd_variants(fa, fv, peaks):
             assert torch.equal(outs["fwd_qscaled"], cur), f"({key}) K9 differs from K5 at Dh 64"
         # K6 and K7 are K1's loop with K1's arithmetic (K7 only reads k
         # through a transposed descriptor): K1's output bit for bit.
-        for nm, o in {"fwd_headpair": outs["fwd_headpair"], "fwd_kt": outs["fwd_kt"],
-                      **{f"fwd_headpair {sc}": o for sc, o in schedules.items()}}.items():
-            assert torch.equal(o, k1), f"({key}) {nm} differs from K1: max abs {max_abs(o, k1)}"
+        for nm in ("fwd_headpair", "fwd_kt"):
+            assert torch.equal(outs[nm], k1), \
+                f"({key}) {nm} differs from K1: max abs {max_abs(outs[nm], k1)}"
         if key == "f":
             live = BH * S * S
             bound = bound_ms("fwd", D, live, 4 * BH * S * D * 2, 0.0, peaks)
@@ -756,24 +750,14 @@ def phase_fwd_variants(fa, fv, peaks):
             k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
             k1_device_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0),
                                      device_clock=True)
-            # K6's two schedules in turns (free, ping-pong, ping-pong, free).
-            sched = {nm: [] for nm in HEADPAIR_SCHEDULES}
-            for nm in (*HEADPAIR_SCHEDULES, *reversed(HEADPAIR_SCHEDULES)):
-                sched[nm].append(median_ms(lambda: fv.fwd_headpair_schedule(
-                    q, k, v, HEADPAIR_SCHEDULES[nm]), device_clock=True))
-            r6 = results["fwd_headpair"]
-            for nm, times in sched.items():
-                r6[f"{nm}_device_ms"] = statistics.mean(times)
             for n in ("fwd_headpair", "fwd_kt"):
                 results[n]["flash_fwd_device_ms"] = k1_device_ms
                 results[n]["vs_flash_fwd_device"] = results[n]["device_ms"] / k1_device_ms
             log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; the wgmma "
                 f"mainloop K6 and K7 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); K6 / K1 "
                 f"{results['fwd_headpair']['vs_flash_fwd_device']:.3f}, K7 / K1 "
-                f"{results['fwd_kt']['vs_flash_fwd_device']:.3f} on the device clock; K6 "
-                "schedules (device, two runs each, in turns) "
-                + json.dumps({nm: [round(t, 5) for t in ts] for nm, ts in sched.items()})
-                + f"; SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
+                f"{results['fwd_kt']['vs_flash_fwd_device']:.3f} on the device clock; "
+                f"SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
                 f"{two_calls_ms:.5f} ms (device {two_calls_device_ms:.5f})")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(
                 {n: {nm: (round(x, 5) if isinstance(x, float) else x) for nm, x in r.items()

@@ -49,11 +49,6 @@
 //     same q tile, each with its own shared-memory region (Q, the K/V
 //     stages, the mbarriers), its own producer thread and its own named
 //     barrier in place of __syncthreads, so neither waits for the other.
-//     With PINGPONG the two take turns at the tensor cores (FA3's order):
-//     a warpgroup issues P.V of its previous tile and Q.K^T of this one
-//     together, hands the turn over with a named barrier and runs its
-//     softmax while the other's products run; a stage is then refilled one
-//     turn later, after the P.V that reads it.
 //
 // The PTX helpers (mbarriers, TMA, wgmma, descriptors) and the tensor-map
 // encoder live in sm90_ptx.cuh, shared with the backward pair (flash_bwd.cu).
@@ -88,11 +83,8 @@ __host__ __device__ constexpr int smem_bytes() {
          8 * (kStages + 1) + 1024;
 }
 
-// Named barriers: 1 + wg is warpgroup wg's own (in place of __syncthreads
-// when a CTA holds two), kTurnBar + wg the ping-pong turn of warpgroup wg.
-constexpr int kTurnBar = 3;
-
-// Every warp of the calling warpgroup has arrived.
+// Every warp of the calling warpgroup has arrived. Named barrier 1 + wg is
+// warpgroup wg's own, in place of __syncthreads when a CTA holds two.
 template <int WG>
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   if (WG == 1)
@@ -164,10 +156,8 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 64][32], const uint32_
 // where a row met no live key) and l their full row sums of the UN-dropped
 // p. Must be called by all 128 threads of each of the CTA's WG warpgroups
 // (warpgroup wg = threadIdx.x / 128); returns early, uniformly over the
-// warpgroup and with no copy in flight, when no k tile is live. PINGPONG
-// needs both warpgroups to walk the same number of tiles (no early return).
-template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1,
-          bool PINGPONG = false, class Coords>
+// warpgroup and with no copy in flight, when no k tile is live.
+template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1, class Coords>
 __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtensorMap* tk,
                                              const CUtensorMap* tv, const Coords& co,
                                              int q_row, int kv_row, float scale,
@@ -175,7 +165,6 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
                                              float inv_keep, float (&o)[D / 64][32],
                                              float (&m)[2], float (&l)[2], int kt_row = 0) {
   static_assert(WG == 1 || WG == 2, "one or two warpgroups per CTA");
-  static_assert(!PINGPONG || WG == 2, "ping-pong takes two warpgroups");
   constexpr int kBlocks = D / 64;
   constexpr uint32_t kTileBytes = kBlocks * kBlockBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -247,24 +236,18 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
   // 8-row stride (SBO) is 1024 bytes; LBO is unused by swizzled K-major.
   const uint64_t q_desc = sw128_desc(sQ, 16, 1024);
 
-  // Ping-pong: warpgroup 0 takes the first turn.
-  if (PINGPONG && wg == 0) named_bar_arrive(kTurnBar, 2 * kThreads);
-
   // P as the bf16 A operand of P . V: 16 keys per k step, fragment
   // registers {row r, cols 0-7 of the step}, {r + 8, 0-7}, {r, 8-15},
   // {r + 8, 8-15}, which are accumulator chunks j = 2 kk and 2 kk + 1.
-  // With PINGPONG it carries the previous tile's P into the next turn; the
-  // first turn adds P = 0 times the first V tile, which leaves O exactly 0
-  // and keeps the products off a divergent path (ptxas serializes wgmma
-  // there).
+  // Every tile writes all of it before P . V reads it. It is declared and
+  // zeroed here, not in the loop: declared in the loop, ptxas selects other
+  // instructions for K1 and K4 (same count) than those of the machine code
+  // their times in PERF.md were taken on.
   uint32_t pa[4][4];
-  if (PINGPONG) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
-  }
-  uint32_t sV_prev = base + 2 * kTileBytes;  // stage 0's V
+    for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
   mbar_wait(q_bar, 0);
   for (int it = 0; kt < co.n_kt; ++it) {
     const int s = it % kStages;
@@ -275,34 +258,11 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     float sc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-    const uint64_t k_desc = sw128_desc(sK, 16, 1024);
-    if (PINGPONG) {
-      // One turn: the previous tile's P . V (O is already rescaled for this
-      // tile's max) and this tile's Q . K^T.
-      named_bar_sync(kTurnBar + wg, 2 * kThreads);
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
-      wgmma_fence();
-      pv_product<D>(o, pa, sV_prev);
-      score_product<D, K_T>(sc, q_desc, k_desc, sK);
-      wgmma_commit();
-      named_bar_arrive(kTurnBar + 1 - wg, 2 * kThreads);
-      wgmma_wait_all();
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
-      if (it > 0) {  // the previous tile's stage is read: refill it
-        warpgroup_sync<WG>(wg);
-        if (tid == 0 && kt_load < co.n_kt) {
-          load_kv((it - 1) % kStages, kt_load);
-          kt_load = co.next_live(kt_load + 1);
-        }
-      }
-    } else {
-      wgmma_fence();
-      score_product<D, K_T>(sc, q_desc, k_desc, sK);
-      wgmma_commit();
-      wgmma_wait_all();
-    }
+    // S = Q . K^T over the head dim.
+    wgmma_fence();
+    score_product<D, K_T>(sc, q_desc, sw128_desc(sK, 16, 1024), sK);
+    wgmma_commit();
+    wgmma_wait_all();
     fence_regs(sc);
 
     // Online softmax on the fragment.
@@ -351,40 +311,23 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[b][i] *= alpha[(i % 4) / 2];
 
-    if (PINGPONG) {
-      sV_prev = sV;
-    } else {
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
-      wgmma_fence();
-      pv_product<D>(o, pa, sV);
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
-
-      // Every warp of the warpgroup has finished reading stage s: refill it.
-      warpgroup_sync<WG>(wg);
-      if (tid == 0 && kt_load < co.n_kt) {
-        load_kv(s, kt_load);
-        kt_load = co.next_live(kt_load + 1);
-      }
-    }
-    kt = co.next_live(kt + 1);
-  }
-  if (PINGPONG) {
-    // The last tile's P . V in a turn of its own. Warpgroup 1 hands no turn
-    // on: warpgroup 0 has taken its last.
-    named_bar_sync(kTurnBar + wg, 2 * kThreads);
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+    // O += P . V.
     wgmma_fence();
-    pv_product<D>(o, pa, sV_prev);
+    pv_product<D>(o, pa, sV);
     wgmma_commit();
-    if (wg == 0) named_bar_arrive(kTurnBar + 1, 2 * kThreads);
     wgmma_wait_all();
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
+
+    // Every warp of the warpgroup has finished reading stage s: refill it.
+    warpgroup_sync<WG>(wg);
+    if (tid == 0 && kt_load < co.n_kt) {
+      load_kv(s, kt_load);
+      kt_load = co.next_live(kt_load + 1);
+    }
+    kt = co.next_live(kt + 1);
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);

@@ -32,10 +32,9 @@
 //     the same q tile, each with its own shared-memory region, producer
 //     thread and named barrier (82 KB at Dh 64, 162 KB at Dh 128). It is the
 //     Hopper reading of "two contractions per pass": one warpgroup's softmax
-//     can run under the other's products. The two either run free or take
-//     turns at the tensor cores (FA3's ping-pong, named barriers around each
-//     turn); kHeadpairPingPong is the faster schedule on the card (PERF.md),
-//     and fwd_headpair_schedule launches either, for that comparison.
+//     can run under the other's products. The two run free: FA3's ping-pong
+//     order (turns at the tensor cores handed over by named barriers) was
+//     slower on the card (PERF.md).
 //
 // fwd_current, fwd_matmul_only and fwd_qscaled are still the first design:
 // K1's non-causal, no-dropout loop over 64-row tiles with wmma 16x16x16
@@ -62,9 +61,6 @@ namespace flash {
 // fwd_headpair and fwd_kt: the wgmma mainloop
 // ---------------------------------------------------------------------------
 
-// The schedule fwd_headpair launches: ping-pong (true) or free-running.
-constexpr bool kHeadpairPingPong = false;
-
 // Writes bf16(o / l) for the thread's two rows of the 64 x D tile whose
 // first row is `dst` (row-major, D columns), l == 0 read as 1 (JAX's
 // acc / l with its safe denominator).
@@ -86,7 +82,7 @@ __device__ __forceinline__ void store_normalized(bf16* dst, int tid, const float
 
 // WG warpgroups per CTA, warpgroup wg on batch*head WG * blockIdx.x + wg and
 // q tile blockIdx.y; k as (BH * S, D), or as k^T (BH * D, S) with K_T.
-template <int D, bool K_T, int WG, bool PINGPONG>
+template <int D, bool K_T, int WG>
 __global__ void __launch_bounds__(WG * sm90::kThreads)
     fwd_layout_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -96,16 +92,16 @@ __global__ void __launch_bounds__(WG * sm90::kThreads)
   const int qt = blockIdx.y;
   const sm90::FlashCoords co{qt * kTile, S / kTile};
   float o[D / 64][32], m[2], l[2];
-  sm90::fwd_mainloop<D, false, false, K_T, WG, PINGPONG>(
+  sm90::fwd_mainloop<D, false, false, K_T, WG>(
       &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, scale, 0u, 0u, 1.f, o, m, l, bh * D);
   store_normalized<D>(out + ((size_t)bh * S + qt * kTile) * D,
                       threadIdx.x % sm90::kThreads, o, l);
 }
 
-template <int D, bool K_T, int WG, bool PINGPONG>
+template <int D, bool K_T, int WG>
 cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                           float scale, cudaStream_t stream) {
-  auto kern = fwd_layout_kernel<D, K_T, WG, PINGPONG>;
+  auto kern = fwd_layout_kernel<D, K_T, WG>;
   constexpr int smem = sm90::smem_bytes<D, WG>();
   CUtensorMap maps[3];
   cudaError_t e = sm90::make_tile_map(&maps[0], q, BH * S, D);
@@ -121,12 +117,12 @@ cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out
   return cudaGetLastError();
 }
 
-template <bool K_T, int WG, bool PINGPONG>
+template <bool K_T, int WG>
 int dispatch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                     int Dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_layout<64, K_T, WG, PINGPONG>(q, k, v, out, BH, S, scale, st);
-  if (Dh == 128) return launch_layout<128, K_T, WG, PINGPONG>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 64) return launch_layout<64, K_T, WG>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 128) return launch_layout<128, K_T, WG>(q, k, v, out, BH, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -280,20 +276,10 @@ int dispatch_variant(const void* q, const void* k, const void* v, void* out, int
   }
 
 FWD_ENTRY(fwd_current, dispatch_variant<flash::kCurrent>)
-FWD_ENTRY(fwd_headpair, dispatch_layout<false, 2, flash::kHeadpairPingPong>)
-FWD_ENTRY(fwd_kt, dispatch_layout<true, 1, false>)
+FWD_ENTRY(fwd_headpair, dispatch_layout<false, 2>)
+FWD_ENTRY(fwd_kt, dispatch_layout<true, 1>)
 FWD_ENTRY(fwd_matmul_only, dispatch_variant<flash::kMatmulOnly>)
 FWD_ENTRY(fwd_qscaled, dispatch_variant<flash::kQScaled>)
-
-// fwd_headpair's kernel in either schedule: free-running (pingpong 0) or
-// ping-pong (1), for timing the two side by side.
-extern "C" int fwd_headpair_schedule(const void* q, const void* k, const void* v, void* out,
-                                     int BH, int S, int Dh, float scale, int pingpong,
-                                     void* stream) {
-  return pingpong ? flash::dispatch_layout<false, 2, true>(q, k, v, out, BH, S, Dh, scale, stream)
-                  : flash::dispatch_layout<false, 2, false>(q, k, v, out, BH, S, Dh, scale,
-                                                           stream);
-}
 
 extern "C" const char* fwd_variants_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -97,13 +97,9 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a
-// multiple of 32: bar.sync waits for all of them, bar.arrive counts the
-// calling warp in and goes on.
+// multiple of 32: waits for all of them.
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start

@@ -70,7 +70,6 @@ SIGNATURES = {
     "fwd_variants": {
         **{fn: [_P] * 4 + [_I] * 3 + [_F, _P] for fn in (
             "fwd_current", "fwd_headpair", "fwd_kt", "fwd_matmul_only", "fwd_qscaled")},
-        "fwd_headpair_schedule": [_P] * 4 + [_I] * 3 + [_F, _I, _P],
         "fwd_variants_error_string": [_I],
     },
 }

@@ -26,9 +26,7 @@ K1's (``flash_attention.flash_fwd`` at rate 0, non-causal) bit for bit: K7
 reads kᵀ through a transposed (MN-major) operand descriptor, K6 runs two
 warpgroups per CTA, one per head of the pair. ``fwd_current`` (K5),
 ``fwd_matmul_only`` (K8) and ``fwd_qscaled`` (K9) are still the first design
-(wmma 16×16×16 through shared memory). ``fwd_headpair_schedule`` launches
-K6's kernel in either of its two schedules, free-running or ping-pong, so
-that the two can be timed side by side.
+(wmma 16×16×16 through shared memory).
 
 Every plain version keeps its Pallas kernel's roundings: fp32 scores, fp32
 max and sum, p rounded to bf16 before p·v, fp32 accumulation, one cast of
@@ -153,24 +151,18 @@ def _check(q, k, v, kt: bool = False) -> None:
         raise ValueError(f"sequence length {S} must be a multiple of the tile size {TILE}")
 
 
-def _launch(name: str, q, k, v, *extra: int) -> torch.Tensor:
-    """Launch the kernel entry ``name`` (``extra``: its int arguments after
-    the scale) and count it under ``name``."""
-    BH, S, D = q.shape
-    out = torch.empty_like(q)
-    lib = _build.load()["fwd_variants"]
-    code = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                              BH, S, D, _scale(q), *extra, _stream(q))
-    _build.check("fwd_variants", code, f"{name} launch")
-    _build.launched(name)
-    return out
-
-
 def _run(name: str, q, k, v) -> torch.Tensor:
     """The plain version for CPU tensors; else launch the kernel ``name``."""
     if q.device.type == "cpu":
         return PLAIN[name](q, k, v)
-    return _launch(name, q, k, v)
+    BH, S, D = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load()["fwd_variants"]
+    code = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                              BH, S, D, _scale(q), _stream(q))
+    _build.check("fwd_variants", code, f"{name} launch")
+    _build.launched(name)
+    return out
 
 
 def fwd_current(q, k, v) -> torch.Tensor:
@@ -185,17 +177,6 @@ def fwd_headpair(q, k, v) -> torch.Tensor:
     _check(q, k, v)
     _check_even_bh(q)
     return _run("fwd_headpair", q, k, v)
-
-
-def fwd_headpair_schedule(q, k, v, pingpong: bool) -> torch.Tensor:
-    """K6's kernel with its warpgroups free-running (``pingpong=False``) or
-    taking turns at the tensor cores (``True``); ``fwd_headpair`` launches
-    the faster of the two. Counted as ``fwd_headpair_schedule``."""
-    _check(q, k, v)
-    _check_even_bh(q)
-    if q.device.type == "cpu":
-        return fwd_headpair_plain(q, k, v)
-    return _launch("fwd_headpair_schedule", q, k, v, int(pingpong))
 
 
 def fwd_kt(q, kt, v) -> torch.Tensor:

@@ -17,12 +17,14 @@ forward (rate 0, non-causal) bit for bit: the same operations in the same
 order, as on the card K6 and K7 run K1's mainloop.
 
 Also here: ``chip_smoke.ptxas_instances``, which names every kernel
-instance of the build's ptxas report, on a sample report.
+instance of the build's ptxas report, on a sample report; and the C
+signatures ``_build`` binds, against the entry points each source defines.
 """
 
 import functools
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import jax
@@ -137,18 +139,30 @@ def test_layout_plain_equals_flash_forward_plain(name, d):
     assert torch.equal(fv.PLAIN[name](*args), want)
 
 
-@pytest.mark.parametrize("pingpong", [False, True])
-def test_headpair_schedule_runs_the_plain_version_on_cpu(pingpong):
-    _, (q, k, v) = _inputs(64, seed=3)
-    _build.reset_launch_counts()
-    assert torch.equal(fv.fwd_headpair_schedule(q, k, v, pingpong), fv.fwd_headpair_plain(q, k, v))
-    assert _build.LAUNCHES["fwd_headpair_schedule"] == 0
-    with pytest.raises(ValueError, match="even"):
-        fv.fwd_headpair_schedule(q[:3], k[:3], v[:3], pingpong)
+def _c_entries(source: str) -> dict:
+    """{name: parameter count} of every ``extern "C"`` function a csrc file
+    defines, directly or through a ``#define ENTRY(NAME, ...)`` macro."""
+    text = source.replace("\\\n", " ")
+    arity = lambda params: len([p for p in params.split(",") if p.strip()])  # noqa: E731
+    entries = {m[1]: arity(m[2])
+               for m in re.finditer(r'extern "C" [\w\s*]*?\b(\w+)\(([^)]*)\)', text)}
+    for m in re.finditer(r'#define (\w+)\(NAME, \.\.\.\)\s*extern "C" [\w\s*]*?NAME\(([^)]*)\)',
+                         text):
+        entries.pop("NAME")
+        entries.update({n: arity(m[2]) for n in re.findall(rf"^{m[1]}\((\w+),", text, re.M)})
+    return entries
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SIGNATURES))
+def test_signatures_bind_exactly_the_entries_each_source_defines(lib):
+    """ctypes calls an entry with the argument list SIGNATURES gives it: a
+    name or a count that drifted from the source would call it wrongly."""
+    want = _c_entries((_build.CSRC / f"{lib}.cu").read_text())
+    assert {n: len(a) for n, a in _build.SIGNATURES[lib].items()} == want
 
 
 # ptxas -v as nvcc prints it for the package's kernels: a wgmma mainloop
-# instance (K1), a fwd_layout_kernel instance (K6, ping-pong), a wmma
+# instance (K1), a fwd_layout_kernel instance (K6), a wmma
 # variant (K9) with a spill, a backward instance with its output type, and
 # an entry no template of the package names.
 PTXAS_SAMPLE = """\
@@ -157,8 +171,8 @@ ptxas info    : Compiling entry function '_ZN5flash16flash_fwd_kernelILi64ELb0EL
 ptxas info    : Function properties for _ZN5flash16flash_fwd_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifjjf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 1024 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN5flash17fwd_layout_kernelILi128ELb0ELi2ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if' for 'sm_90a'
-ptxas info    : Function properties for _ZN5flash17fwd_layout_kernelILi128ELb0ELi2ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
+ptxas info    : Compiling entry function '_ZN5flash17fwd_layout_kernelILi128ELb0ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash17fwd_layout_kernelILi128ELb0ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 5 barriers, 1024 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN5flash18fwd_variant_kernelILi128ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_if' for 'sm_90a'
@@ -180,7 +194,7 @@ def test_ptxas_instances_names_every_kernel_form():
     none = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
     assert chip_smoke.ptxas_instances(PTXAS_SAMPLE.splitlines()) == {
         "flash_fwd_kernel<Dh 64, causal 0, dropout 1>": (96, none),
-        "fwd_layout_kernel<Dh 128, k transposed 0, warpgroups 2, ping-pong 1>": (168, none),
+        "fwd_layout_kernel<Dh 128, k transposed 0, warpgroups 2>": (168, none),
         "fwd_variant_kernel<Dh 128, variant 2>":
             (255, "16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads"),
         "flash_bwd_dq_kernel<Dh 64, causal 1, dropout 0, fp32 out>": (127, none),
