@@ -9,9 +9,9 @@ and fails, printing no result, if any phase fails:
 0. prints the card's name and power limit (nvidia-smi), turns TF32 off,
    builds the CUDA kernels from ``csrc/`` with nvcc and prints the build time
    and ptxas's register / spill report, per template instance of every
-   kernel (the wgmma kernels K1, K4, K6 and K7 on ``csrc/flash_fwd_sm90.cuh``'s
-   mainloop and ``csrc/flash_bwd.cu``'s pair; the wmma K5, K8 and K9), with
-   any ptxas line about wgmma;
+   kernel (the wgmma kernels K1, K4, K5, K6, K7 and K9 on
+   ``csrc/flash_fwd_sm90.cuh``'s mainloop and ``csrc/flash_bwd.cu``'s pair;
+   the wmma K8), with any ptxas line about wgmma;
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
@@ -80,13 +80,13 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 0) and (g) BH 4, S 256, Dh 128.
 
 10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
-    <= 2e-2), K9 against K5 bit for bit at Dh 64, and K6 and K7 against K1
-    at rate 0 bit for bit (the three run the wgmma mainloop of
-    ``csrc/flash_fwd_sm90.cuh`` with one arithmetic);
-    prints max |Δ| between the kernels (K5-K1 compares the first wmma
-    design with that loop), and times each at (f) as in phase 2, beside
-    SDPA on the same block (for K8, which no one call computes, the two
-    calls baddbmm and bmm, on both clocks), K6 and K7 also against K1 on
+    <= 2e-2), K5, K6 and K7 against K1 at rate 0 bit for bit (the four run
+    the wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` with one arithmetic)
+    and K9 against K5 bit for bit at Dh 64 (K9 scales q in bf16 by 2^-3
+    there, which commutes with every rounding of that loop); prints max |Δ|
+    between the kernels, and times each at (f) as in phase 2, beside SDPA
+    on the same block (for K8, which no one call computes, the two calls
+    baddbmm and bmm, on both clocks), K5, K6, K7 and K9 also against K1 on
     the device clock;
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
@@ -262,16 +262,17 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
 
 # The template parameters of every kernel template in csrc/, by name: phase 0
 # prints each instance's registers and spills under them. The wgmma kernels
-# are K1 / K4 and K6 / K7 (fwd_layout_kernel) on csrc/flash_fwd_sm90.cuh and
-# the backward pair K2 / K3 in csrc/flash_bwd.cu (None: the output type);
-# fwd_variant_kernel is the first (wmma) design of K5, K8 and K9, variant 0,
-# 1, 2 in that order (csrc/fwd_variants.cu).
+# are K1 / K4, K5 / K6 / K7 (fwd_layout_kernel) and K9 (fwd_qscaled_kernel)
+# on csrc/flash_fwd_sm90.cuh and the backward pair K2 / K3 in
+# csrc/flash_bwd.cu (None: the output type); fwd_variant_kernel is K8 on the
+# first (wmma) design, variant 1 (csrc/fwd_variants.cu).
 KERNEL_PARAMS = {
     "flash_fwd_kernel": ("Dh", "causal", "dropout"),
     "ring_fwd_block_kernel": ("Dh", "causal", "dropout"),
     "flash_bwd_dq_kernel": ("Dh", "causal", "dropout", None),
     "flash_bwd_dkv_kernel": ("Dh", "causal", "dropout", None),
     "fwd_layout_kernel": ("Dh", "k transposed", "warpgroups"),
+    "fwd_qscaled_kernel": ("Dh",),
     "fwd_variant_kernel": ("Dh", "variant"),
 }
 # One Itanium-mangled template argument: an int or bool literal, or a type.
@@ -684,8 +685,8 @@ FWD_REPLACES = {"fwd_current": 83, "fwd_headpair": 140, "fwd_kt": 199,
 
 
 def phase_fwd_variants(fa, fv, peaks):
-    """Phase 10: K5-K9 against their plain versions at (f) and (g), K9 == K5
-    bitwise at Dh 64, K6 and K7 == K1 bitwise, cross-variant
+    """Phase 10: K5-K9 against their plain versions at (f) and (g), K5, K6
+    and K7 == K1 bitwise, K9 == K5 bitwise at Dh 64, cross-variant
     differences, times at (f)."""
     results = {n: {"max_abs_err": 0.0} for n in fv.VARIANTS}
     for key, sh in FWD_SHAPES.items():
@@ -699,8 +700,8 @@ def phase_fwd_variants(fa, fv, peaks):
         plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
         errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
         cur = outs["fwd_current"]
-        # K1, K6 and K7 run one wgmma mainloop (csrc/flash_fwd_sm90.cuh), K5
-        # and K9 the first wmma design: "K5-K1" compares two designs.
+        # K1, K5, K6, K7 and K9 run one wgmma mainloop
+        # (csrc/flash_fwd_sm90.cuh); K8 is the first wmma design.
         cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
                  "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
                  "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1),
@@ -713,9 +714,9 @@ def phase_fwd_variants(fa, fv, peaks):
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], max_abs(outs[n], plains[n]))
         if D == 64:
             assert torch.equal(outs["fwd_qscaled"], cur), f"({key}) K9 differs from K5 at Dh 64"
-        # K6 and K7 are K1's loop with K1's arithmetic (K7 only reads k
+        # K5, K6 and K7 are K1's loop with K1's arithmetic (K7 only reads k
         # through a transposed descriptor): K1's output bit for bit.
-        for nm in ("fwd_headpair", "fwd_kt"):
+        for nm in ("fwd_current", "fwd_headpair", "fwd_kt"):
             assert torch.equal(outs[nm], k1), \
                 f"({key}) {nm} differs from K1: max abs {max_abs(outs[nm], k1)}"
         if key == "f":
@@ -750,13 +751,17 @@ def phase_fwd_variants(fa, fv, peaks):
             k1_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0))
             k1_device_ms = median_ms(lambda: fa.flash_fwd(q, k, v, False, 0.0, 0),
                                      device_clock=True)
-            for n in ("fwd_headpair", "fwd_kt"):
+            on_k1 = {"K5": "fwd_current", "K6": "fwd_headpair", "K7": "fwd_kt",
+                     "K9": "fwd_qscaled"}
+            for n in on_k1.values():
                 results[n]["flash_fwd_device_ms"] = k1_device_ms
                 results[n]["vs_flash_fwd_device"] = results[n]["device_ms"] / k1_device_ms
+            vs_k1 = ", ".join(f"{kn} / K1 {results[n]['vs_flash_fwd_device']:.3f}"
+                              for kn, n in on_k1.items())
             log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; the wgmma "
-                f"mainloop K6 and K7 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); K6 / K1 "
-                f"{results['fwd_headpair']['vs_flash_fwd_device']:.3f}, K7 / K1 "
-                f"{results['fwd_kt']['vs_flash_fwd_device']:.3f} on the device clock; "
+                f"mainloop K5, K6, K7 and K9 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); "
+                f"{vs_k1} on the device clock; K9 / K5 "
+                f"{results['fwd_qscaled']['device_ms'] / results['fwd_current']['device_ms']:.3f}; "
                 f"SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
                 f"{two_calls_ms:.5f} ms (device {two_calls_device_ms:.5f})")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(

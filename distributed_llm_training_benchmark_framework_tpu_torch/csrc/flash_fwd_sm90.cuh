@@ -1,6 +1,6 @@
 // The attention forward mainloop for Hopper (sm_90a), shared by the flash
 // forward K1 (flash_fwd.cu), the ring block forward K4 (ring_fwd.cu) and the
-// microbench's layouts K6 and K7 (fwd_variants.cu).
+// microbench's softmax forwards K5, K6, K7 and K9 (fwd_variants.cu).
 //
 // One warpgroup (128 threads) runs on one 64-row q tile of one batch*head;
 // it walks that head's 64-row k/v tiles with an online softmax. The kernels
@@ -49,6 +49,12 @@
 //     same q tile, each with its own shared-memory region (Q, the K/V
 //     stages, the mbarriers), its own producer thread and its own named
 //     barrier in place of __syncthreads, so neither waits for the other.
+//   - Q_SCALE (K9): once Q has landed, the warpgroup rewrites it in shared
+//     memory as bf16(q * bf16(q_scale)), 16 bytes per thread per step (the
+//     operation is elementwise, so the swizzle does not matter), and each
+//     writer fences its writes over to the async proxy that wgmma reads
+//     through before the warpgroup meets and the first product is issued.
+//     The caller passes scale 1, so the scores are left unscaled.
 //
 // The PTX helpers (mbarriers, TMA, wgmma, descriptors) and the tensor-map
 // encoder live in sm90_ptx.cuh, shared with the backward pair (flash_bwd.cu).
@@ -156,14 +162,17 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 64][32], const uint32_
 // where a row met no live key) and l their full row sums of the UN-dropped
 // p. Must be called by all 128 threads of each of the CTA's WG warpgroups
 // (warpgroup wg = threadIdx.x / 128); returns early, uniformly over the
-// warpgroup and with no copy in flight, when no k tile is live.
-template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1, class Coords>
+// warpgroup and with no copy in flight, when no k tile is live. With Q_SCALE,
+// q_scale multiplies Q in bf16 before the first product (see above).
+template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1, bool Q_SCALE = false,
+          class Coords>
 __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtensorMap* tk,
                                              const CUtensorMap* tv, const Coords& co,
                                              int q_row, int kv_row, float scale,
                                              uint32_t bh_hash, uint32_t threshold,
                                              float inv_keep, float (&o)[D / 64][32],
-                                             float (&m)[2], float (&l)[2], int kt_row = 0) {
+                                             float (&m)[2], float (&l)[2], int kt_row = 0,
+                                             float q_scale = 1.f) {
   static_assert(WG == 1 || WG == 2, "one or two warpgroups per CTA");
   constexpr int kBlocks = D / 64;
   constexpr uint32_t kTileBytes = kBlocks * kBlockBytes;
@@ -249,6 +258,21 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
 #pragma unroll
     for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
   mbar_wait(q_bar, 0);
+  if constexpr (Q_SCALE) {
+    const float qs = __bfloat162float(__float2bfloat16(q_scale));
+    uint4* q16 = reinterpret_cast<uint4*>(smem_raw + (sQ - smem_addr(smem_raw)));
+#pragma unroll
+    for (int j = 0; j < kTileBytes / 16 / kThreads; ++j) {
+      uint4 x = q16[j * kThreads + tid];
+      x.x = scale_bf16x2(x.x, qs);
+      x.y = scale_bf16x2(x.y, qs);
+      x.z = scale_bf16x2(x.z, qs);
+      x.w = scale_bf16x2(x.w, qs);
+      q16[j * kThreads + tid] = x;
+    }
+    fence_proxy_async_smem();
+    warpgroup_sync<WG>(wg);
+  }
   for (int it = 0; kt < co.n_kt; ++it) {
     const int s = it % kStages;
     const uint32_t sK = base + kTileBytes * (1 + 2 * s);

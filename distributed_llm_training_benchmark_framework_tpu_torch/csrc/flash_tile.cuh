@@ -1,17 +1,16 @@
-// Shared pieces of the first-design attention kernels of fwd_variants.cu
-// (the microbench's forward variants K5, K8 and K9): the tile geometry, the
-// shared-memory layout of one tile, the global -> shared tile copies, warp
-// reductions and the tensor-core tile products. The other attention kernels
-// (K1-K4, K6, K7: flash_fwd_sm90.cuh and flash_bwd.cu) run wgmma mainloops.
+// Shared pieces of the one first-design kernel left in fwd_variants.cu (the
+// microbench's matmul-only forward K8): the tile geometry, the shared-memory
+// layout of one tile, the global -> shared tile copies and the tensor-core
+// tile products. The other attention kernels (K1-K7, K9: flash_fwd_sm90.cuh
+// and flash_bwd.cu) run wgmma mainloops.
 //
 // Design (first, simple version): one CTA of 4 warps works on 64-row tiles.
-// Each warp owns 16 rows of every 64-row tile it produces, so the softmax
-// statistics of a row live in one warp and no inter-warp reduction exists.
-// Products run on the tensor cores through nvcuda::wmma (bf16 operands,
-// fp32 accumulation, 16x16x16 fragments) with operands and accumulators
-// staged in shared memory. Rows are padded (+8 bf16 / +4 fp32) to spread
-// the row starts over the banks; every fragment pointer stays 32-byte
-// aligned, as wmma::load_matrix_sync requires.
+// Each warp owns 16 rows of every 64-row tile it produces. Products run on
+// the tensor cores through nvcuda::wmma (bf16 operands, fp32 accumulation,
+// 16x16x16 fragments) with operands and accumulators staged in shared
+// memory. Rows are padded (+8 bf16 / +4 fp32) to spread the row starts over
+// the banks; every fragment pointer stays 32-byte aligned, as
+// wmma::load_matrix_sync requires.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,18 +58,6 @@ __device__ __forceinline__ void zero_acc(float* acc, int tid) {
   for (int i = tid; i < kTile * Layout<D>::ld_acc; i += kThreads) acc[i] = 0.f;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 namespace wm = nvcuda::wmma;
 typedef wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> FragA;
 typedef wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::col_major> FragBt;
@@ -78,7 +65,7 @@ typedef wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> FragB;
 typedef wm::fragment<wm::accumulator, 16, 16, 16, float> FragC;
 
 // One warp: C(16, 64) = A(16, D) . B(64, D)^T, a product over the head dim
-// (scores q.k^T, or dO.v^T). A and B are padded bf16 tiles; C is fp32.
+// (the scores q.k^T). A and B are padded bf16 tiles; C is fp32.
 template <int D>
 __device__ __forceinline__ void warp_mm_abt(float* c, const bf16* a, const bf16* b) {
   constexpr int lda = Layout<D>::ld_tile;
@@ -99,7 +86,7 @@ __device__ __forceinline__ void warp_mm_abt(float* c, const bf16* a, const bf16*
 }
 
 // One warp: C(16, D) += A(16, 64) . B(64, D), a product over the 64 columns
-// of a probability tile (p.v, ds.k, p^T.dO, ds^T.q). C is an fp32 shared
+// of a score tile (bf16(scale s).v). C is an fp32 shared
 // accumulator, A a padded bf16 (64, 64) tile, B a padded bf16 (64, D) tile.
 template <int D>
 __device__ __forceinline__ void warp_mm_ab_acc(float* c, const bf16* a, const bf16* b) {

@@ -17,12 +17,14 @@
 //
 // Two designs, until every variant has moved to the second:
 //
-// fwd_headpair and fwd_kt run the Hopper forward mainloop of K1 and K4
-// (flash_fwd_sm90.cuh: TMA-fed K/V stages, wgmma for both products, the
-// scores, probabilities and output accumulator in registers, exp2 on the
-// fragment) at rate 0, non-causal, with an epilogue that writes
-// out = bf16(o / l) and no lse (JAX's acc / l). Their arithmetic is K1's, so
-// their output is K1's bit for bit:
+// fwd_current, fwd_headpair, fwd_kt and fwd_qscaled run the Hopper forward
+// mainloop of K1 and K4 (flash_fwd_sm90.cuh: TMA-fed K/V stages, wgmma for
+// both products, the scores, probabilities and output accumulator in
+// registers, exp2 on the fragment) at rate 0, non-causal, with an epilogue
+// that writes out = bf16(o / l) and no lse (JAX's acc / l). Their
+// arithmetic is K1's, so their output is K1's bit for bit:
+//   - fwd_current is the loop's plain instance: one warpgroup per CTA on
+//     one q tile of one head, k as (BH * S, D).
 //   - fwd_kt reads k^T as a (BH * D, S) matrix: a k tile is D rows x 64 keys
 //     loaded as D / 64 TMA boxes, and Q.K^T reads it through an MN-major
 //     wgmma descriptor, as P.V reads V. No transposed copy is made; a stage
@@ -35,21 +37,20 @@
 //     can run under the other's products. The two run free: FA3's ping-pong
 //     order (turns at the tensor cores handed over by named barriers) was
 //     slower on the card (PERF.md).
+//   - fwd_qscaled sets the loop's Q_SCALE: once the q tile has landed, the
+//     warpgroup multiplies it in shared memory by bf16(scale) (bf16 x bf16
+//     -> bf16, as q_ref[0] * jnp.asarray(scale, q.dtype)), fences those
+//     writes over to the async proxy wgmma reads through, and runs the loop
+//     with scale 1, the scores unscaled. At Dh 64 the scale is 2^-3, which
+//     commutes with every rounding of the loop, so the output is
+//     fwd_current's (and K1's) bit for bit. It has its own kernel,
+//     fwd_qscaled_kernel, so the layout kernel's instances keep their names.
 //
-// fwd_current, fwd_matmul_only and fwd_qscaled are still the first design:
-// K1's non-causal, no-dropout loop over 64-row tiles with wmma 16x16x16
-// products staged through shared memory (flash_tile.cuh), 4 warps per head,
-// each warp owning 16 rows, so a row's max and sum are warp shuffles; no
-// copy/compute overlap, one exp per score element in plain expf. Per k tile:
-// s = q.k^T on the tensor cores (fp32), then
-//   - softmax variants: online max / sum in fp32, p rounded to bf16, the fp32
-//     accumulator rescaled and p.v added; out = bf16(acc / l) at the end;
-//   - matmul-only: acc += bf16(s * scale).v, no max or sum; out = bf16(acc).
-//   qscaled multiplies the q tile in shared memory once by bf16(scale)
-//   (bf16 x bf16 -> bf16, as q_ref[0] * jnp.asarray(scale, q.dtype)) and
-//   leaves the scores unscaled. At Dh 64 the scale is 2^-3, every product
-//   and partial sum of q.k^T scales exactly, and the output is bit-equal to
-//   fwd_current's.
+// fwd_matmul_only is still the first design: K1's non-causal loop over
+// 64-row tiles with wmma 16x16x16 products staged through shared memory
+// (flash_tile.cuh), 4 warps per head, each warp owning 16 rows, no
+// copy/compute overlap. Per k tile: s = q.k^T on the tensor cores (fp32),
+// then acc += bf16(s * scale).v, no max or sum; out = bf16(acc).
 // The TPU's 1024-wide blocks, (bq, 8) lane-broadcast scratch and sequential
 // k grid axis do not carry over: the k-tile loop runs inside the CTA.
 #include "flash_fwd_sm90.cuh"
@@ -58,7 +59,7 @@
 namespace flash {
 
 // ---------------------------------------------------------------------------
-// fwd_headpair and fwd_kt: the wgmma mainloop
+// fwd_current, fwd_headpair, fwd_kt, fwd_qscaled: the wgmma mainloop
 // ---------------------------------------------------------------------------
 
 // Writes bf16(o / l) for the thread's two rows of the 64 x D tile whose
@@ -98,10 +99,30 @@ __global__ void __launch_bounds__(WG * sm90::kThreads)
                       threadIdx.x % sm90::kThreads, o, l);
 }
 
-template <int D, bool K_T, int WG>
+// K9: K5's kernel with the mainloop's Q pass; q_scale scales q in bf16 and
+// the scores are left unscaled.
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads)
+    fwd_qscaled_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int S,
+                       float q_scale) {
+  const int bh = blockIdx.x;
+  const int qt = blockIdx.y;
+  const sm90::FlashCoords co{qt * kTile, S / kTile};
+  float o[D / 64][32], m[2], l[2];
+  sm90::fwd_mainloop<D, false, false, false, 1, true>(
+      &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, 1.f, 0u, 0u, 1.f, o, m, l, 0, q_scale);
+  store_normalized<D>(out + ((size_t)bh * S + qt * kTile) * D, threadIdx.x, o, l);
+}
+
+// QS launches fwd_qscaled_kernel (K_T false, WG 1) in place of the layout
+// kernel.
+template <int D, bool K_T, int WG, bool QS>
 cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                           float scale, cudaStream_t stream) {
   auto kern = fwd_layout_kernel<D, K_T, WG>;
+  if constexpr (QS) kern = fwd_qscaled_kernel<D>;
   constexpr int smem = sm90::smem_bytes<D, WG>();
   CUtensorMap maps[3];
   cudaError_t e = sm90::make_tile_map(&maps[0], q, BH * S, D);
@@ -117,24 +138,27 @@ cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out
   return cudaGetLastError();
 }
 
-template <bool K_T, int WG>
+template <bool K_T, int WG, bool QS = false>
 int dispatch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                     int Dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_layout<64, K_T, WG>(q, k, v, out, BH, S, scale, st);
-  if (Dh == 128) return launch_layout<128, K_T, WG>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 64) return launch_layout<64, K_T, WG, QS>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 128) return launch_layout<128, K_T, WG, QS>(q, k, v, out, BH, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
-// fwd_current, fwd_matmul_only, fwd_qscaled: the first (wmma) design
+// fwd_matmul_only: the first (wmma) design
 // ---------------------------------------------------------------------------
 
-enum Variant { kCurrent = 0, kMatmulOnly = 1, kQScaled = 2 };
+// K8's variant number, a template argument so that K8's instances keep
+// their names, by which scripts/torch_sass_compare.py pairs them across
+// source trees.
+enum Variant { kMatmulOnly = 1 };
 
-// Shared memory: q tile, v tile, k tile; fp32 scores; bf16 probabilities;
-// fp32 output accumulator. Every size is a multiple of 32 bytes, so each
-// region stays aligned.
+// Shared memory: q tile, v tile, k tile; fp32 scores; their bf16 scaled
+// copies; fp32 output accumulator. Every size is a multiple of 32 bytes, so
+// each region stays aligned.
 template <int D>
 struct VariantSmem {
   static constexpr int bytes = 3 * Layout<D>::tile_bytes + Layout<D>::score_bytes +
@@ -147,11 +171,11 @@ __global__ void __launch_bounds__(kThreads)
                        const bf16* __restrict__ v, bf16* __restrict__ out, int S,
                        float scale) {
   typedef Layout<D> L;
-  constexpr bool SOFTMAX = V != kMatmulOnly;
   // One warpgroup per CTA. Its index (threadIdx.x / kThreads, always 0)
-  // stays in the addressing: without it ptxas allocates 127 registers
-  // instead of 86 at Dh 64, and fwd_current takes 0.50 ms instead of 0.39 at
-  // BH 16, S 2048 on an H100 (PERF.md).
+  // stays in the addressing: without it ptxas allocated 127 registers
+  // instead of 86 at Dh 64 to the softmax variant this template once also
+  // held, which then took 0.50 ms instead of 0.39 at BH 16, S 2048 on an
+  // H100 (PERF.md); K8 keeps the machine code its times were taken on.
   const int group = threadIdx.x / kThreads;
   extern __shared__ __align__(128) unsigned char smem_all[];
   unsigned char* smem = smem_all + group * VariantSmem<D>::bytes;
@@ -171,23 +195,6 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<D>(sQ, q + base + (size_t)q0 * D, tid);
   zero_acc<D>(sO, tid);
-  if (V == kQScaled) {
-    __syncthreads();  // the whole q tile is in shared memory
-    const float qs = __bfloat162float(__float2bfloat16(scale));
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      bf16* x = sQ + (i / D) * L::ld_tile + i % D;
-      // A bf16 x bf16 product is exact in fp32; one rounding back to bf16.
-      *x = __float2bfloat16(__bfloat162float(*x) * qs);
-    }
-  }
-  const float s_scale = V == kQScaled ? 1.f : scale;
-
-  float m_row[kRowsPerWarp], l_row[kRowsPerWarp];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m_row[rr] = kNegInf;
-    l_row[rr] = 0.f;
-  }
 
   for (int kt = 0; kt < S / kTile; ++kt) {
     __syncthreads();  // every warp is done reading the previous k/v tiles
@@ -203,25 +210,9 @@ __global__ void __launch_bounds__(kThreads)
       const int r = r0 + rr;
       float s[2];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) s[h] = sS[r * L::ld_score + lane + 32 * h] * s_scale;
-      if (!SOFTMAX) {
+      for (int h = 0; h < 2; ++h) s[h] = sS[r * L::ld_score + lane + 32 * h] * scale;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) sP[r * L::ld_prob + lane + 32 * h] = __float2bfloat16(s[h]);
-        continue;
-      }
-      const float m_prev = m_row[rr];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s[0], s[1])));
-      const float alpha = expf(m_prev - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float p = expf(s[h] - m_new);
-        psum += p;
-        sP[r * L::ld_prob + lane + 32 * h] = __float2bfloat16(p);
-      }
-      l_row[rr] = alpha * l_row[rr] + warp_sum(psum);
-      m_row[rr] = m_new;
-      for (int d = lane; d < D; d += 32) sO[r * L::ld_acc + d] *= alpha;
+      for (int h = 0; h < 2; ++h) sP[r * L::ld_prob + lane + 32 * h] = __float2bfloat16(s[h]);
     }
     __syncwarp();
     warp_mm_ab_acc<D>(sO + r0 * L::ld_acc, sP + r0 * L::ld_prob, sV);
@@ -232,10 +223,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int r = r0 + rr;
     bf16* dst = out + base + (size_t)(q0 + r) * D;
-    for (int d = lane; d < D; d += 32) {
-      const float acc = sO[r * L::ld_acc + d];
-      dst[d] = __float2bfloat16(SOFTMAX ? acc / l_row[rr] : acc);
-    }
+    for (int d = lane; d < D; d += 32) dst[d] = __float2bfloat16(sO[r * L::ld_acc + d]);
   }
 }
 
@@ -275,11 +263,11 @@ int dispatch_variant(const void* q, const void* k, const void* v, void* out, int
     return flash::__VA_ARGS__(q, k, v, out, BH, S, Dh, scale, stream);                      \
   }
 
-FWD_ENTRY(fwd_current, dispatch_variant<flash::kCurrent>)
+FWD_ENTRY(fwd_current, dispatch_layout<false, 1>)
 FWD_ENTRY(fwd_headpair, dispatch_layout<false, 2>)
 FWD_ENTRY(fwd_kt, dispatch_layout<true, 1>)
 FWD_ENTRY(fwd_matmul_only, dispatch_variant<flash::kMatmulOnly>)
-FWD_ENTRY(fwd_qscaled, dispatch_variant<flash::kQScaled>)
+FWD_ENTRY(fwd_qscaled, dispatch_layout<false, 1, true>)
 
 extern "C" const char* fwd_variants_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

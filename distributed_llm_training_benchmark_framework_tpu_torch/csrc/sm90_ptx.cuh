@@ -1,11 +1,11 @@
 // PTX and host helpers of the Hopper (sm_90a) attention kernels, shared by
-// the forward mainloop (flash_fwd_sm90.cuh: K1, K4, K6, K7) and the backward pair
-// (flash_bwd.cu: K2/K2', K3/K3'): mbarriers with a bounded wait, TMA tile
-// and bulk copies, named barriers, the 128-byte-swizzle wgmma descriptor,
-// the two wgmma m64n64k16 forms the kernels use (both operands from shared
-// memory, B K-major or MN-major; A from registers against an MN-major B),
-// the accumulator fragment's coordinates, and the host's tensor-map
-// encoder.
+// the forward mainloop (flash_fwd_sm90.cuh: K1, K4, K5-K7, K9) and the backward
+// pair (flash_bwd.cu: K2/K2', K3/K3'): mbarriers with a bounded wait, TMA tile
+// and bulk copies, the generic-to-async proxy fence, named barriers, the
+// 128-byte-swizzle wgmma descriptor, the two wgmma m64n64k16 forms the
+// kernels use (both operands from shared memory, B K-major or MN-major; A
+// from registers against an MN-major B), the accumulator fragment's
+// coordinates, and the host's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>
@@ -94,6 +94,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Make the calling thread's ordinary (generic-proxy) writes to shared memory
+// visible to the async proxy, which wgmma and TMA read through. Issued by
+// every writing thread, then a barrier, before a wgmma reads what they
+// wrote.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads, a
@@ -186,6 +194,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Both bf16 halves of w times s, each rounded once to bf16. With s itself a
+// bf16 value the fp32 product is exact, so this is bf16 x bf16 -> bf16.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  return pack_bf16(f.x * s, f.y * s);
 }
 
 // The (row, column) a thread's accumulator element 4j + c stands for, local

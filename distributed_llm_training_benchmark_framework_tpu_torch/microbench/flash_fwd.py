@@ -13,14 +13,15 @@ Times, by default at the tier-A attention block (BH 16, S 2048, Dh 64, bf16):
   flash_qscaled      K9, K5 with the scale folded into q
   flash_production   K1 through ``ops.flash_attention`` (rate 0, non-causal):
                      the forward the training rows run
-
-K6 and K7 run K1's Hopper wgmma mainloop (``csrc/flash_fwd_sm90.cuh``), so
-their layouts are measured against ``flash_production``, the same design;
-K5, K8 and K9 are still the first design (wmma through shared memory), so
-``matmul_floor`` splits K5's time, not K1's.
   sdpa_materialized  the plain reference: fp32 scores, softmax, bf16 p·v
   torch_sdpa         torch's scaled_dot_product_attention, a yardstick that
                      no path of the port calls
+
+K5, K6, K7 and K9 run K1's Hopper wgmma mainloop
+(``csrc/flash_fwd_sm90.cuh``), so their layouts are measured against
+``flash_production``, the same design. K8 is still the first design (wmma
+through shared memory), so ``matmul_floor`` against K5 sets the products of
+one design beside the softmax of another.
 
 Each line gives the time in ms (CUDA events around each launch, median of
 ``--reps`` after 5 warmup launches), its share of the card's bf16 peak for

@@ -12,9 +12,10 @@ Tolerance: rel-Frobenius 1e-2 against the Pallas kernels. The plain
 versions take the softmax in one pass where the kernels rescale online over
 k blocks, so p is rounded to bf16 at a different running max; at these
 sizes the two agree to about 2e-3 (6e-5 for the matmul-only variant, which
-has no softmax). K6's and K7's plain versions equal the port's plain flash
-forward (rate 0, non-causal) bit for bit: the same operations in the same
-order, as on the card K6 and K7 run K1's mainloop.
+has no softmax). K5's, K6's and K7's plain versions, and K9's at Dh 64,
+equal the port's plain flash forward (rate 0, non-causal) bit for bit: the
+same operations in the same order, as on the card all four run K1's
+mainloop.
 
 Also here: ``chip_smoke.ptxas_instances``, which names every kernel
 instance of the build's ptxas report, on a sample report; and the C
@@ -128,11 +129,14 @@ def test_wrappers_run_the_plain_version_on_cpu(name):
     assert set(fv.launch_counts().values()) == {0}
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("name", ["fwd_headpair", "fwd_kt"])
+@pytest.mark.parametrize("name,d", [
+    *((name, d) for name in ("fwd_headpair", "fwd_kt", "fwd_current") for d in (64, 128)),
+    ("fwd_qscaled", 64),
+])
 def test_layout_plain_equals_flash_forward_plain(name, d):
-    """The identity phase 10 of chip_smoke.py asserts on the card (K6, K7 ==
-    K1 at rate 0, non-causal), held here between the plain versions."""
+    """The identities phase 10 of chip_smoke.py asserts on the card (K5, K6,
+    K7 == K1 at rate 0, non-causal; K9 == K5 at Dh 64), held here between
+    the plain versions."""
     _, (q, k, v) = _inputs(d, seed=4)
     args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
     want, _ = fa.flash_forward_plain(q, k, v, False, 0.0, 0)
@@ -162,8 +166,8 @@ def test_signatures_bind_exactly_the_entries_each_source_defines(lib):
 
 
 # ptxas -v as nvcc prints it for the package's kernels: a wgmma mainloop
-# instance (K1), a fwd_layout_kernel instance (K6), a wmma
-# variant (K9) with a spill, a backward instance with its output type, and
+# instance (K1), a fwd_layout_kernel instance (K6), K9's kernel, the wmma
+# variant (K8) with a spill, a backward instance with its output type, and
 # an entry no template of the package names.
 PTXAS_SAMPLE = """\
 ptxas info    : 0 bytes gmem
@@ -175,8 +179,12 @@ ptxas info    : Compiling entry function '_ZN5flash17fwd_layout_kernelILi128ELb0
 ptxas info    : Function properties for _ZN5flash17fwd_layout_kernelILi128ELb0ELi2EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 5 barriers, 1024 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN5flash18fwd_variant_kernelILi128ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_if' for 'sm_90a'
-ptxas info    : Function properties for _ZN5flash18fwd_variant_kernelILi128ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_if
+ptxas info    : Compiling entry function '_ZN5flash18fwd_qscaled_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash18fwd_qscaled_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers, 1024 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN5flash18fwd_variant_kernelILi128ELi1EEEvPK13__nv_bfloat16S3_S3_PS1_if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash18fwd_variant_kernelILi128ELi1EEEvPK13__nv_bfloat16S3_S3_PS1_if
     16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN5flash19flash_bwd_dq_kernelILi64ELb1ELb0EfEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_S5_Pfiifjjf' for 'sm_90a'
@@ -195,7 +203,8 @@ def test_ptxas_instances_names_every_kernel_form():
     assert chip_smoke.ptxas_instances(PTXAS_SAMPLE.splitlines()) == {
         "flash_fwd_kernel<Dh 64, causal 0, dropout 1>": (96, none),
         "fwd_layout_kernel<Dh 128, k transposed 0, warpgroups 2>": (168, none),
-        "fwd_variant_kernel<Dh 128, variant 2>":
+        "fwd_qscaled_kernel<Dh 64>": (90, none),
+        "fwd_variant_kernel<Dh 128, variant 1>":
             (255, "16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads"),
         "flash_bwd_dq_kernel<Dh 64, causal 1, dropout 0, fp32 out>": (127, none),
         "other_entry": (8, none),

@@ -189,17 +189,31 @@ def test_fwd_qscaled_equals_fwd_current_bitwise_at_dh64(cuda):
     assert torch.equal(fv.fwd_qscaled(q, k, v), fv.fwd_current(q, k, v))
 
 
-# K6 and K7 run K1's wgmma mainloop with K1's arithmetic (K7 reads k through
-# a transposed descriptor, K6 runs two warpgroups per CTA): at rate 0,
-# non-causal, their output is K1's bit for bit. S 64 is one k tile, 256
-# several, 2048 the microbench's length (at its BH 16).
-@pytest.mark.parametrize("name,d,s", [(name, d, s) for name in ("fwd_headpair", "fwd_kt")
-                                      for d in (64, 128) for s in (64, 256, 2048)])
+# K5, K6 and K7 run K1's wgmma mainloop with K1's arithmetic (K5 is its
+# plain instance, K7 reads k through a transposed descriptor, K6 runs two
+# warpgroups per CTA): at rate 0, non-causal, their output is K1's bit for
+# bit. So is K9's at Dh 64, where its bf16 q scale is 2^-3. S 64 is one k
+# tile, 256 several, 2048 the microbench's length (at its BH 16).
+@pytest.mark.parametrize("name,d,s", [
+    *((name, d, s) for name in ("fwd_headpair", "fwd_kt", "fwd_current") for d in (64, 128)
+      for s in (64, 256, 2048)),
+    *(("fwd_qscaled", 64, s) for s in (64, 256, 2048)),
+])
 def test_fwd_layouts_equal_flash_fwd_bitwise(cuda, name, d, s):
     q, k, v = _fwd_inputs(cuda, d, bh=16 if s == 2048 else 4, s=s, seed=6)
     args = (q, k.transpose(1, 2).contiguous(), v) if name == "fwd_kt" else (q, k, v)
     want, _ = fa.flash_fwd(q, k, v, False, 0.0, 0)
     assert torch.equal(fv.WRAPPERS[name](*args), want)
+
+
+def test_fwd_qscaled_single_tile_matches_plain_at_dh128(cuda):
+    """K9 at Dh 128 (bf16 scale 0.08837890625, not a power of two) on one k
+    tile: the in-kernel pass over q is all the work before the first
+    product, so q read unscaled by that product would show here."""
+    q, k, v = _fwd_inputs(cuda, 128, bh=4, s=64, seed=8)
+    out = fv.fwd_qscaled(q, k, v)
+    assert _rel(out, fv.fwd_qscaled_plain(q, k, v)) <= 2e-2
+    assert not torch.equal(out, fv.fwd_current(q, k, v))
 
 
 # BH 2 is one CTA per q tile; BH 266 gives 133 head pairs, so the grid is not
