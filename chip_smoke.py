@@ -9,9 +9,9 @@ and fails, printing no result, if any phase fails:
 0. prints the card's name and power limit (nvidia-smi), turns TF32 off,
    builds the CUDA kernels from ``csrc/`` with nvcc and prints the build time
    and ptxas's register / spill report, per template instance of every
-   kernel (the wgmma kernels K1, K4, K5, K6, K7 and K9 on
-   ``csrc/flash_fwd_sm90.cuh``'s mainloop and ``csrc/flash_bwd.cu``'s pair;
-   the wmma K8), with any ptxas line about wgmma;
+   kernel (the wgmma kernels K1, K4 and K5-K9 on
+   ``csrc/flash_fwd_sm90.cuh``'s mainloop and ``csrc/flash_bwd.cu``'s pair),
+   with any ptxas line about wgmma;
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
@@ -80,14 +80,19 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 0) and (g) BH 4, S 256, Dh 128.
 
 10. holds K5-K9 against their plain versions at (f) and (g) (rel-Frobenius
-    <= 2e-2), K5, K6 and K7 against K1 at rate 0 bit for bit (the four run
-    the wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` with one arithmetic)
-    and K9 against K5 bit for bit at Dh 64 (K9 scales q in bf16 by 2^-3
-    there, which commutes with every rounding of that loop); prints max |Δ|
-    between the kernels, and times each at (f) as in phase 2, beside SDPA
-    on the same block (for K8, which no one call computes, the two calls
-    baddbmm and bmm, on both clocks), K5, K6, K7 and K9 also against K1 on
-    the device clock;
+    <= 2e-2; K8, which has no softmax and so no online-rescale gap, also
+    <= 2e-3), K5, K6 and K7 against K1 at rate 0 bit for bit (the four run
+    the wgmma mainloop of ``csrc/flash_fwd_sm90.cuh`` with one arithmetic),
+    K9 against K5 bit for bit at Dh 64 (K9 scales q in bf16 by 2^-3 there,
+    which commutes with every rounding of that loop), and K8 against its
+    plain version bit for bit on integer inputs in {-2, ..., 2} at (f)
+    (every score, every bf16(score * 2^-3) and every fp32 sum of P.V is
+    exact there, so any difference is a fault of the kernel); prints max
+    |Δ| between the kernels, and times each at (f) as in phase 2, beside
+    SDPA on the same block (for K8, which no one call computes, the two
+    calls baddbmm and bmm, on both clocks), K5, K6, K7 and K9 also against
+    K1 and K8 against K5 on the device clock (the microbench's split of one
+    forward into its products and its softmax);
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
 
@@ -261,11 +266,10 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
 
 
 # The template parameters of every kernel template in csrc/, by name: phase 0
-# prints each instance's registers and spills under them. The wgmma kernels
-# are K1 / K4, K5 / K6 / K7 (fwd_layout_kernel) and K9 (fwd_qscaled_kernel)
-# on csrc/flash_fwd_sm90.cuh and the backward pair K2 / K3 in
-# csrc/flash_bwd.cu (None: the output type); fwd_variant_kernel is K8 on the
-# first (wmma) design, variant 1 (csrc/fwd_variants.cu).
+# prints each instance's registers and spills under them. K1 / K4, K5 / K6 /
+# K7 (fwd_layout_kernel), K8 (fwd_matmul_kernel) and K9 (fwd_qscaled_kernel)
+# run csrc/flash_fwd_sm90.cuh's mainloop; K2 / K3 are the backward pair in
+# csrc/flash_bwd.cu (None: the output type).
 KERNEL_PARAMS = {
     "flash_fwd_kernel": ("Dh", "causal", "dropout"),
     "ring_fwd_block_kernel": ("Dh", "causal", "dropout"),
@@ -273,7 +277,7 @@ KERNEL_PARAMS = {
     "flash_bwd_dkv_kernel": ("Dh", "causal", "dropout", None),
     "fwd_layout_kernel": ("Dh", "k transposed", "warpgroups"),
     "fwd_qscaled_kernel": ("Dh",),
-    "fwd_variant_kernel": ("Dh", "variant"),
+    "fwd_matmul_kernel": ("Dh",),
 }
 # One Itanium-mangled template argument: an int or bool literal, or a type.
 TEMPLATE_ARG = re.compile(r"L[ib](\d+)E|(f)|(13__nv_bfloat16)")
@@ -686,8 +690,8 @@ FWD_REPLACES = {"fwd_current": 83, "fwd_headpair": 140, "fwd_kt": 199,
 
 def phase_fwd_variants(fa, fv, peaks):
     """Phase 10: K5-K9 against their plain versions at (f) and (g), K5, K6
-    and K7 == K1 bitwise, K9 == K5 bitwise at Dh 64, cross-variant
-    differences, times at (f)."""
+    and K7 == K1 bitwise, K9 == K5 bitwise at Dh 64, K8 == its plain version
+    bitwise on integer inputs, cross-variant differences, times at (f)."""
     results = {n: {"max_abs_err": 0.0} for n in fv.VARIANTS}
     for key, sh in FWD_SHAPES.items():
         BH, S, D = sh["BH"], sh["S"], sh["D"]
@@ -700,8 +704,8 @@ def phase_fwd_variants(fa, fv, peaks):
         plains = {n: fv.PLAIN[n](*a) for n, a in args.items()}
         errs = {n: rel_err(outs[n], plains[n]) for n in fv.VARIANTS}
         cur = outs["fwd_current"]
-        # K1, K5, K6, K7 and K9 run one wgmma mainloop
-        # (csrc/flash_fwd_sm90.cuh); K8 is the first wmma design.
+        # K1 and K5-K9 run one wgmma mainloop (csrc/flash_fwd_sm90.cuh); K8
+        # is its matmul-only instance and computes another function.
         cross = {"K5-K6": max_abs(cur, outs["fwd_headpair"]), "K5-K7": max_abs(cur, outs["fwd_kt"]),
                  "K6-K7": max_abs(outs["fwd_headpair"], outs["fwd_kt"]),
                  "K5-K9": max_abs(cur, outs["fwd_qscaled"]), "K5-K1": max_abs(cur, k1),
@@ -712,8 +716,22 @@ def phase_fwd_variants(fa, fv, peaks):
         for n, e in errs.items():
             assert e <= 2e-2, f"({key}) {n}: rel error {e} > 2e-2"
             results[n]["max_abs_err"] = max(results[n]["max_abs_err"], max_abs(outs[n], plains[n]))
+        # No softmax, so no online-rescale gap: only the sums' order differs.
+        assert errs["fwd_matmul_only"] <= 2e-3, \
+            f"({key}) fwd_matmul_only: rel error {errs['fwd_matmul_only']} > 2e-3"
         if D == 64:
             assert torch.equal(outs["fwd_qscaled"], cur), f"({key}) K9 differs from K5 at Dh 64"
+            # Integers in {-2, ..., 2}: |s| <= 256 fits bf16's 8 bits, s * 2^-3
+            # is exact, and every fp32 sum of P.V (multiples of 2^-3 below
+            # 2^17) is exact in any order, so the kernel must equal its plain
+            # version bit for bit.
+            g = torch.Generator(device="cuda").manual_seed(11)
+            qi, ki, vi = (torch.randint(-2, 3, (BH, S, D), device="cuda", generator=g)
+                          .to(torch.bfloat16) for _ in range(3))
+            got, want = fv.fwd_matmul_only(qi, ki, vi), fv.fwd_matmul_only_plain(qi, ki, vi)
+            log(f"[10] ({key}) K8 on integer inputs: max abs vs plain {max_abs(got, want):.2e}")
+            assert torch.equal(got, want), f"({key}) K8 differs from its plain version on integers"
+            del qi, ki, vi, got, want
         # K5, K6 and K7 are K1's loop with K1's arithmetic (K7 only reads k
         # through a transposed descriptor): K1's output bit for bit.
         for nm in ("fwd_current", "fwd_headpair", "fwd_kt"):
@@ -756,12 +774,17 @@ def phase_fwd_variants(fa, fv, peaks):
             for n in on_k1.values():
                 results[n]["flash_fwd_device_ms"] = k1_device_ms
                 results[n]["vs_flash_fwd_device"] = results[n]["device_ms"] / k1_device_ms
+            # The microbench's split of one forward: its products (K8)
+            # against products and softmax (K5), one design.
+            k8 = results["fwd_matmul_only"]
+            k8["vs_fwd_current_device"] = k8["device_ms"] / results["fwd_current"]["device_ms"]
             vs_k1 = ", ".join(f"{kn} / K1 {results[n]['vs_flash_fwd_device']:.3f}"
                               for kn, n in on_k1.items())
             log(f"[10] ({key}) K1 (flash_fwd, rate 0, non-causal, lse written; the wgmma "
-                f"mainloop K5, K6, K7 and K9 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); "
+                f"mainloop K5-K9 share) {k1_ms:.5f} ms (device {k1_device_ms:.5f}); "
                 f"{vs_k1} on the device clock; K9 / K5 "
                 f"{results['fwd_qscaled']['device_ms'] / results['fwd_current']['device_ms']:.3f}; "
+                f"K8 / K5 {k8['vs_fwd_current_device']:.3f}; "
                 f"SDPA {sdpa_ms:.5f} ms (device {sdpa_device_ms:.5f}); K8 as baddbmm + bmm "
                 f"{two_calls_ms:.5f} ms (device {two_calls_device_ms:.5f})")
             log(f"[10] ({key}) times (ms, median of 25): " + json.dumps(

@@ -1,6 +1,6 @@
 // The attention forward mainloop for Hopper (sm_90a), shared by the flash
 // forward K1 (flash_fwd.cu), the ring block forward K4 (ring_fwd.cu) and the
-// microbench's softmax forwards K5, K6, K7 and K9 (fwd_variants.cu).
+// microbench's five forwards K5-K9 (fwd_variants.cu).
 //
 // One warpgroup (128 threads) runs on one 64-row q tile of one batch*head;
 // it walks that head's 64-row k/v tiles with an online softmax. The kernels
@@ -55,6 +55,12 @@
 //     writer fences its writes over to the async proxy that wgmma reads
 //     through before the warpgroup meets and the first product is issued.
 //     The caller passes scale 1, so the scores are left unscaled.
+//   - MATMUL_ONLY (K8): the two products alone. Each tile's P is
+//     bf16(s * scale), the fp32 score times the fp32 scale rounded once;
+//     there is no mask, running max, exponential, rescale of O or row sum,
+//     so m and l keep their initial values (kNegInf, 0). The scale is not
+//     folded into Q: at D 128 it is not a power of two, and bf16(q * scale)
+//     would be another function.
 //
 // The PTX helpers (mbarriers, TMA, wgmma, descriptors) and the tensor-map
 // encoder live in sm90_ptx.cuh, shared with the backward pair (flash_bwd.cu).
@@ -163,9 +169,10 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 64][32], const uint32_
 // p. Must be called by all 128 threads of each of the CTA's WG warpgroups
 // (warpgroup wg = threadIdx.x / 128); returns early, uniformly over the
 // warpgroup and with no copy in flight, when no k tile is live. With Q_SCALE,
-// q_scale multiplies Q in bf16 before the first product (see above).
+// q_scale multiplies Q in bf16 before the first product; with MATMUL_ONLY, o
+// is sum_k bf16(scale * s) . v and m, l stay as initialised (see above).
 template <int D, bool CAUSAL, bool DROPOUT, bool K_T = false, int WG = 1, bool Q_SCALE = false,
-          class Coords>
+          bool MATMUL_ONLY = false, class Coords>
 __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtensorMap* tk,
                                              const CUtensorMap* tv, const Coords& co,
                                              int q_row, int kv_row, float scale,
@@ -289,51 +296,62 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     wgmma_wait_all();
     fence_regs(sc);
 
-    // Online softmax on the fragment.
-    const int k_off = co.k_off(kt);
-    const bool diag = CAUSAL && co.q_off < k_off + kTile - 1;  // some element is masked
-    float mx[2] = {m[0], m[1]};
+    if constexpr (MATMUL_ONLY) {
+      // P = bf16(s * scale), rounded once from the fp32 product.
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (diag && rows[c / 2] < k_off + frag_col(tid, j) + c % 2) sc[4 * j + c] = kNegInf;
-        mx[c / 2] = fmaxf(mx[c / 2], sc[4 * j + c]);
-      }
-    float alpha[2], mb[2];
+        for (int h = 0; h < 2; ++h)
+          pa[j / 2][2 * (j % 2) + h] =
+              pack_bf16(sc[4 * j + 2 * h] * scale, sc[4 * j + 2 * h + 1] * scale);
+    } else {
+      // Online softmax on the fragment.
+      const int k_off = co.k_off(kt);
+      const bool diag = CAUSAL && co.q_off < k_off + kTile - 1;  // some element is masked
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = quad_max(mx[h]);
-      alpha[h] = fast_exp2((m[h] - mx[h]) * sl2);
-      m[h] = mx[h];
-      mb[h] = mx[h] * sl2;
-      l[h] *= alpha[h];
-    }
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+        for (int c = 0; c < 4; ++c) {
+          if (diag && rows[c / 2] < k_off + frag_col(tid, j) + c % 2) sc[4 * j + c] = kNegInf;
+          mx[c / 2] = fmaxf(mx[c / 2], sc[4 * j + c]);
+        }
+      float alpha[2], mb[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int col = k_off + frag_col(tid, j);
-        float p0 = fast_exp2(fmaf(sc[4 * j + 2 * h], sl2, -mb[h]));
-        float p1 = fast_exp2(fmaf(sc[4 * j + 2 * h + 1], sl2, -mb[h]));
-        if (diag) {
-          if (rows[h] < col) p0 = 0.f;
-          if (rows[h] < col + 1) p1 = 0.f;
-        }
-        l[h] += p0 + p1;
-        if (DROPOUT) {
-          p0 = dropout_keep(row_base[h], static_cast<uint32_t>(col), threshold) ? p0 * inv_keep
-                                                                                : 0.f;
-          p1 = dropout_keep(row_base[h], static_cast<uint32_t>(col + 1), threshold)
-                   ? p1 * inv_keep
-                   : 0.f;
-        }
-        pa[j / 2][2 * (j % 2) + h] = pack_bf16(p0, p1);
+        mx[h] = quad_max(mx[h]);
+        alpha[h] = fast_exp2((m[h] - mx[h]) * sl2);
+        m[h] = mx[h];
+        mb[h] = mx[h] * sl2;
+        l[h] *= alpha[h];
       }
 #pragma unroll
-    for (int b = 0; b < kBlocks; ++b)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[b][i] *= alpha[(i % 4) / 2];
+        for (int h = 0; h < 2; ++h) {
+          const int col = k_off + frag_col(tid, j);
+          float p0 = fast_exp2(fmaf(sc[4 * j + 2 * h], sl2, -mb[h]));
+          float p1 = fast_exp2(fmaf(sc[4 * j + 2 * h + 1], sl2, -mb[h]));
+          if (diag) {
+            if (rows[h] < col) p0 = 0.f;
+            if (rows[h] < col + 1) p1 = 0.f;
+          }
+          l[h] += p0 + p1;
+          if (DROPOUT) {
+            p0 = dropout_keep(row_base[h], static_cast<uint32_t>(col), threshold)
+                     ? p0 * inv_keep
+                     : 0.f;
+            p1 = dropout_keep(row_base[h], static_cast<uint32_t>(col + 1), threshold)
+                     ? p1 * inv_keep
+                     : 0.f;
+          }
+          pa[j / 2][2 * (j % 2) + h] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int b = 0; b < kBlocks; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[b][i] *= alpha[(i % 4) / 2];
+    }
 
 #pragma unroll
     for (int b = 0; b < kBlocks; ++b) fence_regs(o[b]);
@@ -353,8 +371,10 @@ __device__ __forceinline__ void fwd_mainloop(const CUtensorMap* tq, const CUtens
     }
     kt = co.next_live(kt + 1);
   }
+  if constexpr (!MATMUL_ONLY) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+    for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+  }
 }
 
 }  // namespace sm90

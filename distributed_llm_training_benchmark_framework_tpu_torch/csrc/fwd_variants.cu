@@ -15,14 +15,14 @@
 // as long as the products at Dh 64); the bytes moved (q, k, v, out once) are
 // a third of either at S 2048.
 //
-// Two designs, until every variant has moved to the second:
-//
-// fwd_current, fwd_headpair, fwd_kt and fwd_qscaled run the Hopper forward
-// mainloop of K1 and K4 (flash_fwd_sm90.cuh: TMA-fed K/V stages, wgmma for
-// both products, the scores, probabilities and output accumulator in
-// registers, exp2 on the fragment) at rate 0, non-causal, with an epilogue
-// that writes out = bf16(o / l) and no lse (JAX's acc / l). Their
-// arithmetic is K1's, so their output is K1's bit for bit:
+// All five run the Hopper forward mainloop of K1 and K4
+// (flash_fwd_sm90.cuh: TMA-fed K/V stages, wgmma for both products, the
+// scores, probabilities and output accumulator in registers), one warpgroup
+// per head on one 64-row q tile, and walk the k tiles inside the CTA (the
+// TPU's 1024-wide blocks and sequential k grid axis do not carry over). The
+// four softmax variants run it at rate 0, non-causal, with an epilogue that
+// writes out = bf16(o / l) and no lse (JAX's acc / l). Their arithmetic is
+// K1's, so their output is K1's bit for bit:
 //   - fwd_current is the loop's plain instance: one warpgroup per CTA on
 //     one q tile of one head, k as (BH * S, D).
 //   - fwd_kt reads k^T as a (BH * D, S) matrix: a k tile is D rows x 64 keys
@@ -45,26 +45,20 @@
 //     commutes with every rounding of the loop, so the output is
 //     fwd_current's (and K1's) bit for bit. It has its own kernel,
 //     fwd_qscaled_kernel, so the layout kernel's instances keep their names.
-//
-// fwd_matmul_only is still the first design: K1's non-causal loop over
-// 64-row tiles with wmma 16x16x16 products staged through shared memory
-// (flash_tile.cuh), 4 warps per head, each warp owning 16 rows, no
-// copy/compute overlap. Per k tile: s = q.k^T on the tensor cores (fp32),
-// then acc += bf16(s * scale).v, no max or sum; out = bf16(acc).
-// The TPU's 1024-wide blocks, (bq, 8) lane-broadcast scratch and sequential
-// k grid axis do not carry over: the k-tile loop runs inside the CTA.
+// fwd_matmul_only sets the loop's MATMUL_ONLY: per k tile, s = q.k^T (fp32),
+// then o += bf16(s * scale).v, no mask, max, exponential or sum; out =
+// bf16(o). It is fwd_current's loop less the softmax, so fwd_matmul_only
+// beside fwd_current splits one design's forward into its products and its
+// softmax. Its own kernel, fwd_matmul_kernel, keeps the other names as they
+// are.
 #include "flash_fwd_sm90.cuh"
-#include "flash_tile.cuh"
 
 namespace flash {
 
-// ---------------------------------------------------------------------------
-// fwd_current, fwd_headpair, fwd_kt, fwd_qscaled: the wgmma mainloop
-// ---------------------------------------------------------------------------
-
 // Writes bf16(o / l) for the thread's two rows of the 64 x D tile whose
 // first row is `dst` (row-major, D columns), l == 0 read as 1 (JAX's
-// acc / l with its safe denominator).
+// acc / l with its safe denominator; K8's loop leaves l at 0, so for K8 this
+// is bf16(o)).
 template <int D>
 __device__ __forceinline__ void store_normalized(bf16* dst, int tid, const float (&o)[D / 64][32],
                                                  const float (&l)[2]) {
@@ -116,13 +110,32 @@ __global__ void __launch_bounds__(sm90::kThreads)
   store_normalized<D>(out + ((size_t)bh * S + qt * kTile) * D, threadIdx.x, o, l);
 }
 
-// QS launches fwd_qscaled_kernel (K_T false, WG 1) in place of the layout
-// kernel.
-template <int D, bool K_T, int WG, bool QS>
+// K8: K5's kernel with the mainloop's MATMUL_ONLY; o is left unnormalized.
+template <int D>
+__global__ void __launch_bounds__(sm90::kThreads)
+    fwd_matmul_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int S,
+                      float scale) {
+  const int bh = blockIdx.x;
+  const int qt = blockIdx.y;
+  const sm90::FlashCoords co{qt * kTile, S / kTile};
+  float o[D / 64][32], m[2], l[2];
+  sm90::fwd_mainloop<D, false, false, false, 1, false, true>(
+      &tq, &tk, &tv, co, bh * S + qt * kTile, bh * S, scale, 0u, 0u, 1.f, o, m, l);
+  store_normalized<D>(out + ((size_t)bh * S + qt * kTile) * D, threadIdx.x, o, l);
+}
+
+// The kernel launch_layout launches: the layout kernel, or K9's or K8's
+// (both with K_T false and WG 1).
+enum Kernel { kLayout, kQScaled, kMatmulOnly };
+
+template <int D, bool K_T, int WG, Kernel KERN>
 cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                           float scale, cudaStream_t stream) {
   auto kern = fwd_layout_kernel<D, K_T, WG>;
-  if constexpr (QS) kern = fwd_qscaled_kernel<D>;
+  if constexpr (KERN == kQScaled) kern = fwd_qscaled_kernel<D>;
+  if constexpr (KERN == kMatmulOnly) kern = fwd_matmul_kernel<D>;
   constexpr int smem = sm90::smem_bytes<D, WG>();
   CUtensorMap maps[3];
   cudaError_t e = sm90::make_tile_map(&maps[0], q, BH * S, D);
@@ -138,115 +151,12 @@ cudaError_t launch_layout(const void* q, const void* k, const void* v, void* out
   return cudaGetLastError();
 }
 
-template <bool K_T, int WG, bool QS = false>
+template <bool K_T, int WG, Kernel KERN = kLayout>
 int dispatch_layout(const void* q, const void* k, const void* v, void* out, int BH, int S,
                     int Dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_layout<64, K_T, WG, QS>(q, k, v, out, BH, S, scale, st);
-  if (Dh == 128) return launch_layout<128, K_T, WG, QS>(q, k, v, out, BH, S, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// ---------------------------------------------------------------------------
-// fwd_matmul_only: the first (wmma) design
-// ---------------------------------------------------------------------------
-
-// K8's variant number, a template argument so that K8's instances keep
-// their names, by which scripts/torch_sass_compare.py pairs them across
-// source trees.
-enum Variant { kMatmulOnly = 1 };
-
-// Shared memory: q tile, v tile, k tile; fp32 scores; their bf16 scaled
-// copies; fp32 output accumulator. Every size is a multiple of 32 bytes, so
-// each region stays aligned.
-template <int D>
-struct VariantSmem {
-  static constexpr int bytes = 3 * Layout<D>::tile_bytes + Layout<D>::score_bytes +
-                               Layout<D>::prob_bytes + Layout<D>::acc_bytes;
-};
-
-template <int D, int V>
-__global__ void __launch_bounds__(kThreads)
-    fwd_variant_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, int S,
-                       float scale) {
-  typedef Layout<D> L;
-  // One warpgroup per CTA. Its index (threadIdx.x / kThreads, always 0)
-  // stays in the addressing: without it ptxas allocated 127 registers
-  // instead of 86 at Dh 64 to the softmax variant this template once also
-  // held, which then took 0.50 ms instead of 0.39 at BH 16, S 2048 on an
-  // H100 (PERF.md); K8 keeps the machine code its times were taken on.
-  const int group = threadIdx.x / kThreads;
-  extern __shared__ __align__(128) unsigned char smem_all[];
-  unsigned char* smem = smem_all + group * VariantSmem<D>::bytes;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::tile_bytes);
-  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * L::tile_bytes);
-  unsigned char* rest = smem + 3 * L::tile_bytes;
-  float* sS = reinterpret_cast<float*>(rest);
-  bf16* sP = reinterpret_cast<bf16*>(rest + L::score_bytes);
-  float* sO = reinterpret_cast<float*>(rest + L::score_bytes + L::prob_bytes);
-
-  const int qt = blockIdx.x, bh = blockIdx.y + group;
-  const int tid = threadIdx.x % kThreads, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * kRowsPerWarp;
-  const int q0 = qt * kTile;
-  const size_t base = (size_t)bh * S * D;
-
-  load_tile<D>(sQ, q + base + (size_t)q0 * D, tid);
-  zero_acc<D>(sO, tid);
-
-  for (int kt = 0; kt < S / kTile; ++kt) {
-    __syncthreads();  // every warp is done reading the previous k/v tiles
-    load_tile<D>(sK, k + base + (size_t)kt * kTile * D, tid);
-    load_tile<D>(sV, v + base + (size_t)kt * kTile * D, tid);
-    __syncthreads();
-
-    warp_mm_abt<D>(sS + r0 * L::ld_score, sQ + r0 * L::ld_tile, sK);
-    __syncwarp();
-
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = r0 + rr;
-      float s[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) s[h] = sS[r * L::ld_score + lane + 32 * h] * scale;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) sP[r * L::ld_prob + lane + 32 * h] = __float2bfloat16(s[h]);
-    }
-    __syncwarp();
-    warp_mm_ab_acc<D>(sO + r0 * L::ld_acc, sP + r0 * L::ld_prob, sV);
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int r = r0 + rr;
-    bf16* dst = out + base + (size_t)(q0 + r) * D;
-    for (int d = lane; d < D; d += 32) dst[d] = __float2bfloat16(sO[r * L::ld_acc + d]);
-  }
-}
-
-template <int D, int V>
-cudaError_t launch_variant(const void* q, const void* k, const void* v, void* out, int BH,
-                           int S, float scale, cudaStream_t stream) {
-  auto kern = fwd_variant_kernel<D, V>;
-  constexpr int smem = VariantSmem<D>::bytes;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3(S / kTile, BH), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), S, scale);
-  return cudaGetLastError();
-}
-
-template <int V>
-int dispatch_variant(const void* q, const void* k, const void* v, void* out, int BH, int S,
-                     int Dh, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Dh == 64) return launch_variant<64, V>(q, k, v, out, BH, S, scale, st);
-  if (Dh == 128) return launch_variant<128, V>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 64) return launch_layout<64, K_T, WG, KERN>(q, k, v, out, BH, S, scale, st);
+  if (Dh == 128) return launch_layout<128, K_T, WG, KERN>(q, k, v, out, BH, S, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -266,8 +176,8 @@ int dispatch_variant(const void* q, const void* k, const void* v, void* out, int
 FWD_ENTRY(fwd_current, dispatch_layout<false, 1>)
 FWD_ENTRY(fwd_headpair, dispatch_layout<false, 2>)
 FWD_ENTRY(fwd_kt, dispatch_layout<true, 1>)
-FWD_ENTRY(fwd_matmul_only, dispatch_variant<flash::kMatmulOnly>)
-FWD_ENTRY(fwd_qscaled, dispatch_layout<false, 1, true>)
+FWD_ENTRY(fwd_matmul_only, dispatch_layout<false, 1, flash::kMatmulOnly>)
+FWD_ENTRY(fwd_qscaled, dispatch_layout<false, 1, flash::kQScaled>)
 
 extern "C" const char* fwd_variants_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,11 +17,10 @@ Times, by default at the tier-A attention block (BH 16, S 2048, Dh 64, bf16):
   torch_sdpa         torch's scaled_dot_product_attention, a yardstick that
                      no path of the port calls
 
-K5, K6, K7 and K9 run K1's Hopper wgmma mainloop
-(``csrc/flash_fwd_sm90.cuh``), so their layouts are measured against
-``flash_production``, the same design. K8 is still the first design (wmma
-through shared memory), so ``matmul_floor`` against K5 sets the products of
-one design beside the softmax of another.
+K5-K9 run K1's Hopper wgmma mainloop (``csrc/flash_fwd_sm90.cuh``), so
+the layouts are measured against ``flash_production``, the same design, and
+``matmul_floor`` (K8, the loop's matmul-only instance) against
+``flash_current`` sets one design's products beside its softmax.
 
 Each line gives the time in ms (CUDA events around each launch, median of
 ``--reps`` after 5 warmup launches), its share of the card's bf16 peak for

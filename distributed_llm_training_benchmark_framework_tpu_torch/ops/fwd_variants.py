@@ -20,16 +20,16 @@ All are non-causal with no dropout, bf16 in and out, scale 1/sqrt(Dh), and
 no lse. On the H100 each is bound by its 4*BH*S^2*Dh tensor FLOPs; the
 softmax variants' BH*S^2 exponentials come close behind at Dh 64.
 
-``fwd_current`` (K5), ``fwd_headpair`` (K6), ``fwd_kt`` (K7) and
-``fwd_qscaled`` (K9) run the flash forward's Hopper wgmma mainloop
+All five run the flash forward's Hopper wgmma mainloop
 (``csrc/flash_fwd_sm90.cuh``, K1's). K5, K6 and K7 give K1's output
-(``flash_attention.flash_fwd`` at rate 0, non-causal) bit for bit: K5 is the
-loop's plain instance, K7 reads kᵀ through a transposed (MN-major) operand
-descriptor, K6 runs two warpgroups per CTA, one per head of the pair. K9
+(``flash_attention.flash_fwd`` at rate 0, non-causal) bit for bit: K5
+(``fwd_current``) is the loop's plain instance, K7 (``fwd_kt``) reads kᵀ
+through a transposed (MN-major) operand descriptor, K6 (``fwd_headpair``)
+runs two warpgroups per CTA, one per head of the pair. K9 (``fwd_qscaled``)
 multiplies the q tile in shared memory by bf16(scale) before the first
 product and leaves the scores unscaled; at Dh 64 (scale 2⁻³) it equals K5
-bit for bit. ``fwd_matmul_only`` (K8) is still the first design (wmma
-16×16×16 through shared memory).
+bit for bit. K8 (``fwd_matmul_only``) is the loop's matmul-only instance:
+K5's tiles and products with P = bf16(scale·s) in place of the softmax.
 
 Every plain version keeps its Pallas kernel's roundings: fp32 scores, fp32
 max and sum, p rounded to bf16 before p·v, fp32 accumulation, one cast of

@@ -18,8 +18,10 @@ same operations in the same order, as on the card all four run K1's
 mainloop.
 
 Also here: ``chip_smoke.ptxas_instances``, which names every kernel
-instance of the build's ptxas report, on a sample report; and the C
-signatures ``_build`` binds, against the entry points each source defines.
+instance of the build's ptxas report, on a sample report;
+``chip_smoke.KERNEL_PARAMS``, against the kernel templates the sources
+define; and the C signatures ``_build`` binds, against the entry points
+each source defines.
 """
 
 import functools
@@ -166,9 +168,10 @@ def test_signatures_bind_exactly_the_entries_each_source_defines(lib):
 
 
 # ptxas -v as nvcc prints it for the package's kernels: a wgmma mainloop
-# instance (K1), a fwd_layout_kernel instance (K6), K9's kernel, the wmma
-# variant (K8) with a spill, a backward instance with its output type, and
-# an entry no template of the package names.
+# instance (K1), a fwd_layout_kernel instance (K6), K9's kernel, K8's kernel
+# (given a spill line here, so that the spill parse stays covered), a
+# backward instance with its output type, and an entry no template of the
+# package names.
 PTXAS_SAMPLE = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN5flash16flash_fwd_kernelILi64ELb0ELb1EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifjjf' for 'sm_90a'
@@ -183,10 +186,10 @@ ptxas info    : Compiling entry function '_ZN5flash18fwd_qscaled_kernelILi64EEEv
 ptxas info    : Function properties for _ZN5flash18fwd_qscaled_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 90 registers, used 1 barriers, 1024 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN5flash18fwd_variant_kernelILi128ELi1EEEvPK13__nv_bfloat16S3_S3_PS1_if' for 'sm_90a'
-ptxas info    : Function properties for _ZN5flash18fwd_variant_kernelILi128ELi1EEEvPK13__nv_bfloat16S3_S3_PS1_if
+ptxas info    : Compiling entry function '_ZN5flash17fwd_matmul_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if' for 'sm_90a'
+ptxas info    : Function properties for _ZN5flash17fwd_matmul_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16if
     16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
-ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Used 255 registers, used 1 barriers, 1024 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN5flash19flash_bwd_dq_kernelILi64ELb1ELb0EfEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_S5_Pfiifjjf' for 'sm_90a'
 ptxas info    : Function properties for _ZN5flash19flash_bwd_dq_kernelILi64ELb1ELb0EfEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiS5_S5_Pfiifjjf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -204,11 +207,28 @@ def test_ptxas_instances_names_every_kernel_form():
         "flash_fwd_kernel<Dh 64, causal 0, dropout 1>": (96, none),
         "fwd_layout_kernel<Dh 128, k transposed 0, warpgroups 2>": (168, none),
         "fwd_qscaled_kernel<Dh 64>": (90, none),
-        "fwd_variant_kernel<Dh 128, variant 1>":
+        "fwd_matmul_kernel<Dh 128>":
             (255, "16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads"),
         "flash_bwd_dq_kernel<Dh 64, causal 1, dropout 0, fp32 out>": (127, none),
         "other_entry": (8, none),
     }
+
+
+KERNEL_TEMPLATE = re.compile(
+    r"template\s*<([^>]*)>\s*__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def test_kernel_params_name_every_kernel_template():
+    """Phase 0 of chip_smoke.py names each ptxas instance by KERNEL_PARAMS:
+    a kernel renamed, added or given another template parameter in csrc/
+    would print under its mangled name or with its arguments mislabelled."""
+    templates = {}
+    for f in sorted(_build.CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            for m in KERNEL_TEMPLATE.finditer(f.read_text()):
+                templates[m[2]] = len([p for p in m[1].split(",") if p.strip()])
+    assert templates, "no __global__ template found in csrc/"
+    assert {k: len(v) for k, v in chip_smoke.KERNEL_PARAMS.items()} == templates
 
 
 def _bf16(*shape, dtype=torch.bfloat16):

@@ -11,6 +11,8 @@ kernels and the microbench's forward variants K5-K9) and for the ring
 kernels' fp32 o and partials, 1e-3 absolute for the fp32 lse and the
 ring block's m and l (the kernels and the plain versions sum in different
 orders; a dropout mask that differed anywhere would show as an O(1) error).
+The matmul-only forward K8 has no softmax, so no online-rescale gap: 2e-3,
+and bit for bit on integer inputs, where every sum is exact.
 """
 
 import pytest
@@ -214,6 +216,30 @@ def test_fwd_qscaled_single_tile_matches_plain_at_dh128(cuda):
     out = fv.fwd_qscaled(q, k, v)
     assert _rel(out, fv.fwd_qscaled_plain(q, k, v)) <= 2e-2
     assert not torch.equal(out, fv.fwd_current(q, k, v))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [64, 256, 2048])
+def test_fwd_matmul_only_matches_plain_tightly(cuda, monkeypatch, s, d):
+    """K8 sums in another order than the plain version's fp32 products, and
+    nothing else differs: no online rescale, one rounding of P."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v = _fwd_inputs(cuda, d, bh=16 if s == 2048 else 4, s=s, seed=9)
+    assert _rel(fv.fwd_matmul_only(q, k, v), fv.fwd_matmul_only_plain(q, k, v)) <= 2e-3
+
+
+@pytest.mark.parametrize("s", [64, 256, 2048])
+def test_fwd_matmul_only_exact_on_integer_inputs(cuda, monkeypatch, s):
+    """q, k, v in {-2, ..., 2} at Dh 64: every score (|s| <= 256) and every
+    bf16(s * 2^-3) is exact, and every fp32 sum of P.V (multiples of 2^-3
+    below 2^17) is exact in any order. A lost tile, a wrong fragment layout
+    or the scale applied in the wrong place shows as a difference."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    bh = 16 if s == 2048 else 4
+    q, k, v = (torch.randint(-2, 3, (bh, s, 64), device=cuda, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    assert torch.equal(fv.fwd_matmul_only(q, k, v), fv.fwd_matmul_only_plain(q, k, v))
 
 
 # BH 2 is one CTA per q tile; BH 266 gives 133 head pairs, so the grid is not
