@@ -15,8 +15,11 @@ and fails, printing no result, if any phase fails:
 1. holds each kernel (flash forward K1, backward dq K2, backward dk/dv K3)
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
-   (b) BH 16, S 2048, Dh 128, causal, no dropout (the flagship row), and
-   (c) BH 4, S 256, Dh 64, causal with dropout;
+   (b) BH 16, S 2048, Dh 128, causal, no dropout (the flagship row),
+   (c) BH 4, S 256, Dh 64, causal with dropout, and (h) (a) with batch
+   offset 3, as a data-parallel rank holds its rows: the mask keyed by
+   global batch*head ids 48-63 (K1 through its offset seed, K2 and K3
+   through their id vector), which must change the output;
 2. times each kernel, its plain version and, as a yardstick the port never
    calls, torch's scaled_dot_product_attention (rate 0: it cannot draw the
    coordinate-hash mask) with CUDA events, median of 25 launches after 5
@@ -96,6 +99,22 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 11. runs the microbench once through its module at (f), printing its table,
     and checks every kernel's launch count equals the launches it made.
 
+The strategy arms (``parallel/strategies.py``) on the parity row:
+
+12. runs one tier-A micro-batch at dropout 0.1 under remat none, dots and
+    full with the same seeds and generator (gradients within 1e-5
+    relative, K1 launched twice per layer under remat), then trains the
+    parity row 3 warmup + 10 timed steps under each arm (ddp, fsdp, zero2,
+    zero3) without a process group, and again inside a single-rank NCCL
+    group made by ``runtime.setup_distributed``, where each arm lays the
+    model out (DDP, FSDP2's DTensors, zero2's flat buffers; checked), and
+    checks the losses fall, each step's loss under the group within 1e-3
+    relative of the no-group run, and K1-K3's launch counts equal layers x
+    micro-batches x steps (K1 twice that under remat); prints each arm's
+    resolved remat, tokens/s, peak memory and ``world_size``. At world 1
+    these measure each wrapper's cost on one card, not scaling. The group
+    is torn down at the end.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it), the nvidia-smi line, and, last,
@@ -105,6 +124,8 @@ no CUDA device is available.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import re
@@ -180,6 +201,9 @@ SHAPES = {
     "a": dict(BH=16, S=2048, D=64, causal=False, rate=0.1, row="parity"),
     "b": dict(BH=16, S=2048, D=128, causal=True, rate=0.0, row="flagship"),
     "c": dict(BH=4, S=256, D=64, causal=True, rate=0.1, row=None),
+    # (a) as rank 1 of a data-parallel pair holding 3 rows of batch each:
+    # the mask keyed by global batch*head ids 48..63.
+    "h": dict(BH=16, S=2048, D=64, causal=False, rate=0.1, row=None, batch_offset=3),
 }
 
 
@@ -317,30 +341,38 @@ def ptxas_instances(report: list[str]) -> dict:
 
 def phase_kernels(fa, peaks):
     """Phases 1 and 2: kernel vs plain at shapes a, b, c; times at a and b."""
-    results = {}
+    results, outs = {}, {}
     for key, sh in SHAPES.items():
         q, k, v, do = make_inputs(sh)
         c, r, seed = sh["causal"], sh["rate"], 0x2545F491
-        out, lse = fa.flash_fwd(q, k, v, c, r, seed)
-        p_out, p_lse = fa.flash_forward_plain(q, k, v, c, r, seed)
+        # One batch of BH heads: batch offset b keys the rows as ids b*BH + i.
+        b_off = sh.get("batch_offset", 0)
+        bhv = fa._global_bh_vec(1, sh["BH"], b_off, 0, sh["BH"], "cuda") if b_off else None
+        out, lse = fa.flash_fwd(q, k, v, c, r, seed, b_off * sh["BH"])
+        p_out, p_lse = fa.flash_forward_plain(q, k, v, c, r, seed, b_off * sh["BH"])
+        outs[key] = out
         delta = fa.attention_delta(p_out, do)
         bwd = (q, k, v, do, p_lse, delta, c, r, seed)
-        dq = fa.flash_bwd_dq(*bwd)
-        dk, dv = fa.flash_bwd_dkv(*bwd)
+        dq = fa.flash_bwd_dq(*bwd, bhv=bhv)
+        dk, dv = fa.flash_bwd_dkv(*bwd, bhv=bhv)
         torch.cuda.synchronize()
-        p_dq = fa.flash_bwd_dq_plain(*bwd)
-        p_dk, p_dv = fa.flash_bwd_dkv_plain(*bwd)
+        p_dq = fa.flash_bwd_dq_plain(*bwd, bhv=bhv)
+        p_dk, p_dv = fa.flash_bwd_dkv_plain(*bwd, bhv=bhv)
         errs = {
             "out": rel_err(out, p_out), "dq": rel_err(dq, p_dq),
             "dk": rel_err(dk, p_dk), "dv": rel_err(dv, p_dv),
         }
         lse_err = max_abs(lse, p_lse)
         log(f"[1] shape ({key}) BH={sh['BH']} S={sh['S']} Dh={sh['D']} causal={c} "
-            f"rate={r}: rel-Frobenius {json.dumps({n: f'{e:.2e}' for n, e in errs.items()})}"
+            f"rate={r}{f' batch offset {b_off}' if b_off else ''}: rel-Frobenius "
+            f"{json.dumps({n: f'{e:.2e}' for n, e in errs.items()})}"
             f", lse max abs {lse_err:.2e}, out max abs {max_abs(out, p_out):.2e}")
         for name, e in errs.items():
             assert e <= 2e-2, f"shape ({key}): {name} rel error {e} > 2e-2"
         assert lse_err <= 1e-3, f"shape ({key}): lse max abs error {lse_err} > 1e-3"
+        if b_off:
+            # Same inputs as (a): another mask must give another output.
+            assert not torch.equal(out, outs["a"]), f"shape ({key}): the offset changed nothing"
         res = {
             "fwd": dict(max_abs_err=max(max_abs(out, p_out), lse_err)),
             "dq": dict(max_abs_err=max_abs(dq, p_dq)),
@@ -814,6 +846,133 @@ def phase_microbench(build, mb):
     return counts
 
 
+ARMS = ("ddp", "fsdp", "zero2", "zero3")
+# The parity row, trained under each arm.
+ARM_ROW = dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16)
+# Largest relative difference allowed between a step's loss under the
+# single-rank group and without a group (same seeds, same kernels).
+ARM_LOSS_RTOL = 1e-3
+# Remat recomputes with the same kernels on the same inputs; a recompute
+# that drew another dropout mask would differ by O(1).
+REMAT_GRAD_RTOL = 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_remat(fa, models):
+    """Phase 12, first part: one tier-A micro-batch of the parity model at
+    dropout 0.1 under remat none, dots and full, same seeds and generator:
+    equal gradients, and K1 launched once more per layer under remat."""
+    cfg = models.get_config("tinygpt", "A", 2048, dropout=0.1, attention_impl="flash")
+    batch = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(5))
+    grads = {}
+    for remat in ("none", "dots", "full"):
+        with torch.device("cuda"):
+            model = models.TinyGPT(dataclasses.replace(cfg, remat=remat))
+        model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        fa.reset_launch_counts()
+        _, loss = model(batch, batch, attn_seeds=list(range(1, 17)),
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+        loss.backward()
+        counts = fa.launch_counts()
+        want = {"flash_fwd": 16 * (1 if remat == "none" else 2), "flash_bwd_dq": 16,
+                "flash_bwd_dkv": 16}
+        assert counts == want, f"remat {remat}: launches {counts}, want {want}"
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    for remat in ("dots", "full"):
+        worst = max(max_abs(grads[remat][n], g) for n, g in grads["none"].items())
+        rel = max(rel_err(grads[remat][n], g) for n, g in grads["none"].items())
+        log(f"[12] remat {remat} vs none, tier A micro-batch at dropout 0.1: gradients max abs "
+            f"{worst:.2e}, worst rel-Frobenius {rel:.2e} (limit {REMAT_GRAD_RTOL}); K1 twice "
+            "per layer")
+        assert rel <= REMAT_GRAD_RTOL, f"remat {remat}: gradients differ from none by {rel}"
+    del grads
+    torch.cuda.empty_cache()
+
+
+def phase_arms(fa, models, make_mesh, get_strategy, rt, memory, loop):
+    """Phase 12: the four arms on the parity row, first without a process
+    group, then under a single-rank NCCL group, where each arm wraps the
+    model; per-step losses agree, K1-K3 launch what the arm issues."""
+    import torch.distributed as dist
+
+    run_benchmark, build_run, DATASET_SIZE = loop.run_benchmark, loop.build_run, loop.DATASET_SIZE
+    phase_remat(fa, models)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    runs = {}
+    for grouped in (False, True):
+        if grouped:
+            assert rt.setup_distributed(num_processes=1, process_id=0, master_port=free_port())
+            assert dist.is_initialized() and dist.get_backend() == "nccl"
+            assert dist.get_world_size() == 1
+        for arm in ARMS:
+            mesh = make_mesh()
+            assert (mesh.device_mesh is not None) == grouped
+            cfg = models.get_config("tinygpt", "A", 2048, attention_impl="flash")
+            remat = memory.resolve_auto_remat(
+                cfg, get_strategy(arm), mesh, ARM_ROW["per_device_batch"], 2048,
+                DATASET_SIZE, torch.cuda.get_device_name(0)).remat
+            fa.reset_launch_counts()
+            losses = []
+            res = run_benchmark(
+                strategy=arm, tier="A", seq_len=2048, model_family=ARM_ROW["model_family"],
+                steps=steps, warmup_steps=WARMUP_STEPS,
+                per_device_batch=ARM_ROW["per_device_batch"],
+                grad_accum=ARM_ROW["grad_accum"], attention_impl="flash", sync_every=5,
+                device="cuda", loss_log=losses)
+            counts = fa.launch_counts()
+            micro = ARM_ROW["layers"] * ARM_ROW["grad_accum"] * steps
+            want = {"flash_fwd": micro * (1 if remat == "none" else 2),
+                    "flash_bwd_dq": micro, "flash_bwd_dkv": micro}
+            log(f"[12] {arm} {'single-rank NCCL group' if grouped else 'no group'}: remat "
+                f"{remat}, world_size {res.world_size}, {res.tokens_per_sec:.1f} tok/s, step "
+                f"{1e3 * res.mean_step_time_sec:.2f} ms, MFU {res.mfu_pct:.2f}%, peak "
+                f"{res.peak_hbm_gb:.2f} GB ({res.peak_hbm_method}), loss first "
+                f"{res.loss_first_window:.4f} last {res.loss_last_window:.4f}, launches {counts}")
+            assert res.world_size == 1 and len(losses) == steps
+            assert all(math.isfinite(x) for x in losses)
+            assert res.loss_last_window < res.loss_first_window, f"{arm}: loss did not fall"
+            assert counts == want, f"{arm}: launches {counts}, want {want}"
+            runs[arm, grouped] = dict(res=res, losses=losses, remat=remat, launches=counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if grouped:
+            # What each arm laid out under the group (no fallback to the plain model).
+            for arm in ARMS:
+                run = build_run(strategy=arm, tier="S", seq_len=256, device="cuda")
+                inner = getattr(run.model, "module", run.model)
+                kinds = {type(p).__name__ for p in inner.parameters()}
+                opt = type(run.step_fn.optimizer).__name__
+                log(f"[12] {arm} under the group: model {type(run.model).__name__}, params "
+                    f"{sorted(kinds)}, optimizer {opt}")
+                assert {"ddp": isinstance(run.model, torch.nn.parallel.DistributedDataParallel),
+                        "fsdp": kinds == {"DTensor"}, "zero3": kinds == {"DTensor"},
+                        "zero2": opt == "_Zero2Optimizer"}[arm], f"{arm}: not laid out"
+                del run
+                gc.collect()
+            rt.cleanup_distributed()
+            assert not dist.is_initialized()
+    out = {}
+    for arm in ARMS:
+        plain, group = runs[arm, False], runs[arm, True]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(group["losses"], plain["losses"]))
+        log(f"[12] {arm}: per-step loss, group vs no group, max relative difference "
+            f"{rel:.2e} (limit {ARM_LOSS_RTOL}); tok/s {plain['res'].tokens_per_sec:.1f} -> "
+            f"{group['res'].tokens_per_sec:.1f}, peak {plain['res'].peak_hbm_gb:.2f} -> "
+            f"{group['res'].peak_hbm_gb:.2f} GB")
+        assert rel <= ARM_LOSS_RTOL, f"{arm}: group vs no-group loss differs by {rel}"
+        out[arm] = dict(plain=plain, group=group, loss_rel=rel)
+    return out
+
+
 # Keys a kernel's entry in the kernels line carries where its phase measured them.
 OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "attention_delta_ms",
                  "attention_delta_device_ms", "pair_ms", "pair_device_ms", "rate0_ms",
@@ -832,9 +991,14 @@ def main() -> int:
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
-    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import (
+        get_strategy,
+        make_mesh,
+    )
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import loop
     from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
-    from distributed_llm_training_benchmark_framework_tpu_torch.utils import flops, platform
+    from distributed_llm_training_benchmark_framework_tpu_torch.utils import flops, memory, platform
 
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
@@ -872,6 +1036,7 @@ def main() -> int:
     phase_ring_whole_model(fa, models, SyntheticDataset, make_mesh)
     fwd_timing = phase_fwd_variants(fa, fv, peaks)
     mb_launches = phase_microbench(_build, mb)
+    arms = phase_arms(fa, models, make_mesh, get_strategy, rt, memory, loop)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -943,7 +1108,16 @@ def main() -> int:
             "launches_on": "the microbench path (phase 11)",
             **r,
         })
-    log(f"[12] total {time.perf_counter() - t0:.1f} s")
+    log("[12] the arms at world 1 (parity row; tokens/s measure each wrapper's overhead on "
+        "one card, nothing about scaling): " + json.dumps({
+            arm: {"remat": a["group"]["remat"], "world_size": a["group"]["res"].world_size,
+                  "tokens_per_sec_no_group": a["plain"]["res"].tokens_per_sec,
+                  "tokens_per_sec_group": a["group"]["res"].tokens_per_sec,
+                  "peak_gb_no_group": a["plain"]["res"].peak_hbm_gb,
+                  "peak_gb_group": a["group"]["res"].peak_hbm_gb,
+                  "loss_max_rel_diff": a["loss_rel"], "launches_group": a["group"]["launches"]}
+            for arm, a in arms.items()}) + f" on {smi}")
+    log(f"[13] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

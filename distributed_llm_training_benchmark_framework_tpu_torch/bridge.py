@@ -9,6 +9,11 @@ mapping is fixed: ``params[name]`` <-> ``model.<name>`` and
 
 A caller turns the JAX tree into numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+
+Under a strategy arm (``parallel.strategies.apply_strategy``) weights are
+loaded before the arm lays the model out; ``export_params`` takes the
+model as the arm returns it (a DDP wrapper, or FSDP2's sharded leaves,
+which it gathers: a collective that every rank of the group must call).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .models.tinygpt import TinyGPT
 
@@ -66,13 +72,17 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
     return model
 
 
-def export_params(model: TinyGPT) -> Dict:
+def export_params(model: torch.nn.Module) -> Dict:
     """The reverse direction: the model's parameters as a JAX-shaped numpy
-    tree (block leaves stacked on a leading layer axis)."""
+    tree (block leaves stacked on a leading layer axis), whole leaves on
+    every rank, copied (later steps do not change them)."""
     out: Dict = {}
     stacks: Dict[str, list] = {}
-    for path, p in leaf_map(model):
-        arr = p.detach().to("cpu", torch.float32).numpy()
+    for path, p in leaf_map(getattr(model, "module", model)):
+        p = p.detach()
+        if isinstance(p, DTensor):
+            p = p.full_tensor()
+        arr = p.to("cpu", torch.float32, copy=True).numpy()
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))
         else:

@@ -1,8 +1,8 @@
 """TinyGPT: the benchmark transformer, as ``nn.Module``s.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/models/tinygpt.py``
-(the forward path and the loss, and the dispatch to sequence-parallel ring
-attention; sharding hooks, MoE and remat are not ported yet). One config
+(the forward path and the loss, per-layer remat, and the dispatch to
+sequence-parallel ring attention; MoE is not ported yet). One config
 covers both families: the reference TinyGPT (learned positions, LayerNorm, exact-erf
 GELU, biases, tied head, non-causal, dropout 0.1) and, through
 ``models.llama``, the Llama family (RMSNorm, RoPE, SwiGLU, GQA, no bias,
@@ -18,6 +18,15 @@ stay fp32 and are cast to the compute dtype where they are used; the
 residual stream is in the compute dtype; norm statistics, the softmax of the
 reference attention, the logits and the loss are fp32.
 
+Remat (``config.remat``, JAX's policies) wraps each block in
+``torch.utils.checkpoint`` (non-reentrant): ``full`` recomputes the whole
+block in the backward; ``dots`` keeps the outputs of the x @ W products
+(``aten.mm`` / ``aten.addmm``, JAX's ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest, attention included. A block's MLP dropout mask is
+drawn from the explicit generator before the block runs and passed in, so
+a recompute reuses it (checkpoint restores only the default generators);
+the attention mask is a hash of a host seed and needs nothing.
+
 The LM head gives fp32 logits from bf16 operands without rounding them to
 bf16. On a CUDA device it is one bf16 GEMM with fp32 output
 (``torch.mm(..., out_dtype=torch.float32)``; its backward is two bf16 GEMMs
@@ -27,6 +36,7 @@ formula). Elsewhere it upcasts the bf16 operands and multiplies in fp32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -35,6 +45,11 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..ops.flash_attention import (
     dropout_keep,
@@ -45,6 +60,21 @@ from ..ops.ring_attention import ring_attention
 from ..parallel.mesh import AXES, Mesh
 
 ATTENTION_IMPLS = ("reference", "flash", "ring")
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def normalize_remat(value) -> str:
+    """Normalize a remat policy: accepts "none"/"dots"/"full" or a legacy
+    bool (True = "full"). "auto" must be resolved
+    (``utils.memory.resolve_auto_remat``) before it reaches the model."""
+    if isinstance(value, bool):
+        return "full" if value else "none"
+    if value in REMAT_POLICIES:
+        return value
+    raise ValueError(
+        f"invalid remat policy {value!r} (expected one of {REMAT_POLICIES}, "
+        "a bool, or 'auto' resolved upstream)"
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +102,8 @@ class TinyGPTConfig:
     # Zigzag causal load balancing of ring attention: None = auto (on for
     # causal rings with even shards), True = force, False = contiguous.
     ring_zigzag: Optional[bool] = None
+    # Per-layer rematerialization policy (REMAT_POLICIES, or a bool).
+    remat: object = "none"
 
     @property
     def head_dim(self) -> int:
@@ -152,22 +184,36 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1).to(x.dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Inverted dropout with a mask drawn from an explicit generator."""
+def _dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                  device) -> Optional[torch.Tensor]:
+    """Keep mask of inverted dropout, drawn from an explicit generator (None:
+    no dropout)."""
     if rate == 0.0 or generator is None:
+        return None
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def _apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float):
+    if mask is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout with a mask drawn from an explicit generator."""
+    return _apply_dropout(x, _dropout_mask(x.shape, rate, generator, x.device), rate)
+
+
 def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None) -> torch.Tensor:
+                        dropout_seed: Optional[int] = None,
+                        batch_offset: int = 0) -> torch.Tensor:
     """Materialized softmax(q k^T / sqrt(Dh)) v with fp32 softmax, (B, S, H, Dh).
 
     Attention-probability dropout uses the flash kernels' coordinate-hash mask
     for ``dropout_seed`` (the JAX 'reference' path draws a bernoulli mask from
-    its own key, which no torch generator reproduces)."""
+    its own key, which no torch generator reproduces), keyed from the global
+    batch index ``batch_offset`` of row 0 as in flash."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     S = q.shape[1]
@@ -178,7 +224,8 @@ def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0
     if dropout_rate > 0.0 and dropout_seed is not None:
         B, H = q.shape[0], q.shape[2]
         idx = torch.arange(S, device=q.device)
-        keep = dropout_keep(int(dropout_seed), torch.arange(B * H, device=q.device)[:, None, None],
+        bh = batch_offset * H + torch.arange(B * H, device=q.device)
+        keep = dropout_keep(int(dropout_seed), bh[:, None, None],
                             idx[None, :, None], idx[None, None, :],
                             dropout_threshold(dropout_rate)).reshape(B, H, S, S)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
@@ -287,7 +334,9 @@ class Block(nn.Module):
         return out if b is None else out + b.to(cd)
 
     def forward(self, x, attention: AttentionFn, attn_seed: Optional[int],
-                generator: Optional[torch.Generator]):
+                drop_mask: Optional[torch.Tensor], batch_offset: int = 0):
+        """One layer; ``drop_mask`` is the MLP dropout's keep mask (None: no
+        dropout) and ``batch_offset`` the global batch index of row 0."""
         c = self.c
         B, S, D = x.shape
         h = self._norm(x, "ln1")
@@ -307,7 +356,8 @@ class Block(nn.Module):
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         rate = c.dropout if attn_seed is not None else 0.0
-        attn = attention(q, k, v, causal=c.causal, dropout_rate=rate, dropout_seed=attn_seed)
+        attn = attention(q, k, v, causal=c.causal, dropout_rate=rate, dropout_seed=attn_seed,
+                         batch_offset=batch_offset)
         x = x + self._proj(attn.reshape(B, S, D), self.wo, getattr(self, "bo", None))
 
         h = self._norm(x, "ln2")
@@ -317,8 +367,22 @@ class Block(nn.Module):
         else:
             h = F.gelu(self._proj(h, self.wfc, getattr(self, "bfc", None)))  # exact erf
         h = self._proj(h, self.wproj, getattr(self, "bproj", None))
-        h = _dropout(h, c.dropout, generator)
+        h = _apply_dropout(h, drop_mask, c.dropout)
         return x + h
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective checkpoint policy of remat "dots": keep x @ W outputs."""
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    if policy == "dots":
+        return create_selective_checkpoint_contexts(_save_dots)
+    return contextlib.nullcontext(), contextlib.nullcontext()
 
 
 class TinyGPT(nn.Module):
@@ -373,12 +437,15 @@ class TinyGPT(nn.Module):
         *,
         attn_seeds: Optional[Sequence[int]] = None,
         generator: Optional[torch.Generator] = None,
+        batch_offset: int = 0,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (fp32 logits (B, S, V), fp32 loss or None).
 
         ``attn_seeds`` gives one uint32 attention-dropout seed per layer and
         ``generator`` draws the embedding / MLP dropout masks; both None means
-        deterministic (no dropout anywhere), as in JAX without a key."""
+        deterministic (no dropout anywhere), as in JAX without a key.
+        ``batch_offset`` is the global batch index of row 0 of ``idx`` (a
+        data-parallel rank's first row), which keys the attention mask."""
         c = self.config
         B, S = idx.shape
         if S > c.block_size:
@@ -392,8 +459,15 @@ class TinyGPT(nn.Module):
         seeds: List[Optional[int]] = (
             list(attn_seeds) if attn_seeds is not None else [None] * c.n_layer
         )
+        remat = normalize_remat(c.remat)
         for block, seed in zip(self.blocks, seeds):
-            x = block(x, self.attention, seed if c.dropout > 0.0 else None, generator)
+            args = (x, self.attention, seed if c.dropout > 0.0 else None,
+                    _dropout_mask(x.shape, c.dropout, generator, x.device), batch_offset)
+            if remat == "none":
+                x = block(*args)
+            else:
+                x = checkpoint(block, *args, use_reentrant=False,
+                               context_fn=functools.partial(_remat_context, remat))
         if c.norm == "rmsnorm":
             x = _rms_norm(x, self.lnf_scale, c.norm_eps)
         else:

@@ -46,6 +46,15 @@ every multiply (an int64 product that wraps keeps the right low 32 bits).
 
 Layout: the public :func:`flash_attention` takes (B, S, H, Dh) like the JAX
 one and transposes to (B*H, S, Dh) for the kernels.
+
+Under data parallelism a rank holds rows ``[b_off, b_off + B)`` of the
+global batch and passes ``batch_offset=b_off``: the mask is keyed by the
+global batch*head id ``(b_off + b) * H + h``, so each rank drops what one
+process on the whole batch would. K2 and K3 take those ids as their
+``bhv`` vector (:func:`_global_bh_vec`). K1 takes none: the hash adds
+``bh * 0x9E3779B9`` to the seed before its first mix, so K1 runs on the
+seed ``seed + bh_offset * 0x9E3779B9`` (mod 2^32), which keys local id
+``bh`` exactly as the global id ``bh + bh_offset``.
 """
 
 from __future__ import annotations
@@ -111,13 +120,22 @@ def _tile_coords(offsets: Optional[torch.Tensor], S: int, device) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+def _global_bh_vec(B: int, H: int, b_off: int, h_off: int, n_heads: int,
+                   device=None) -> torch.Tensor:
+    """(B*H,) int32 of GLOBAL batch*heads indices, flash's b*H + h keying."""
+    b = b_off + torch.arange(B, dtype=torch.int32, device=device)
+    hh = h_off + torch.arange(H, dtype=torch.int32, device=device)
+    return (b[:, None] * n_heads + hh[None, :]).reshape(B * H)
+
+
 def flash_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    causal: bool, dropout_rate: float, seed: int,
+    causal: bool, dropout_rate: float, seed: int, bh_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialized forward with the kernel's exact mask and normalizer
     semantics (JAX ``_jnp_reference_forward``): (BH, S, Dh) -> (out, lse).
-    Differentiable with ordinary autograd."""
+    The mask keys row ``i`` of q by the global batch*head id
+    ``bh_offset + i``. Differentiable with ordinary autograd."""
     BH, S, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
@@ -132,7 +150,7 @@ def flash_forward_plain(
         p = torch.where(mask, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        bh = torch.arange(BH, device=q.device)[:, None, None]
+        bh = bh_offset + torch.arange(BH, device=q.device)[:, None, None]
         keep = dropout_keep(seed, bh, rows[None], cols[None], dropout_threshold(dropout_rate))
         p_acc = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     else:
@@ -280,15 +298,22 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int):
-    """K1: (BH, S, Dh) q, k, v -> (out bf16 (BH, S, Dh), lse fp32 (BH, S))."""
+def offset_seed(seed: int, bh_offset: int) -> int:
+    """The seed that keys local batch*head id ``bh`` as the hash keys
+    ``bh + bh_offset`` under ``seed`` (see the module docstring)."""
+    return (seed + bh_offset * 0x9E3779B9) & _M32
+
+
+def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int, bh_offset: int = 0):
+    """K1: (BH, S, Dh) q, k, v -> (out bf16 (BH, S, Dh), lse fp32 (BH, S)).
+    Row ``i`` of q is the global batch*head ``bh_offset + i`` for the mask."""
     if _on_cpu(q):
-        return flash_forward_plain(q, k, v, causal, dropout_rate, seed)
+        return flash_forward_plain(q, k, v, causal, dropout_rate, seed, bh_offset)
     _check_cuda(q, k, v)
     BH, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-    dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
+    dropout, seed32, thr, inv = _dropout_args(dropout_rate, offset_seed(seed, bh_offset))
     lib = _build.load()["flash_fwd"]
     code = lib.flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -297,6 +322,13 @@ def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int):
     _build.check("flash_fwd", code, "flash_fwd launch")
     _build.launched("flash_fwd")
     return out, lse
+
+
+@functools.lru_cache(maxsize=64)
+def _offset_bh_ids(BH: int, bh_offset: int, device: torch.device) -> torch.Tensor:
+    """Global batch*head ids ``bh_offset + arange(BH)`` (a rank's rows), made
+    once per shape, offset and device (as ``_identity_offsets``)."""
+    return _global_bh_vec(1, BH, 0, bh_offset, BH, device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -399,13 +431,17 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(BH, S, Dh) flash attention: K1 forward; delta in plain torch, then K2
-    and K3 backward. Saves (q, k, v, out, lse) and the seed."""
+    and K3 backward. Saves (q, k, v, out, lse), the seed and ``bh_offset``,
+    the global batch*head id of row 0 (at 0 the kernels take their identity
+    ids)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, dropout_rate: float, seed: int):
-        out, lse = flash_fwd(q, k, v, causal, dropout_rate, seed)
+    def forward(ctx, q, k, v, causal: bool, dropout_rate: float, seed: int,
+                bh_offset: int = 0):
+        out, lse = flash_fwd(q, k, v, causal, dropout_rate, seed, bh_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
+        ctx.bh_offset = bh_offset
         return out
 
     @staticmethod
@@ -413,10 +449,11 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = attention_delta(out, dout)
+        bhv = _offset_bh_ids(q.shape[0], ctx.bh_offset, q.device) if ctx.bh_offset else None
         args = (q, k, v, dout, lse, delta, ctx.causal, ctx.dropout_rate, ctx.seed)
-        dq = flash_bwd_dq(*args)
-        dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None
+        dq = flash_bwd_dq(*args, bhv=bhv)
+        dk, dv = flash_bwd_dkv(*args, bhv=bhv)
+        return dq, dk, dv, None, None, None, None
 
 
 def _to_bhsd(t: torch.Tensor) -> torch.Tensor:
@@ -444,26 +481,30 @@ def _resolve_dropout(dropout_rate: float, dropout_seed: Optional[int], api: str)
 
 
 def flash_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None, batch_offset: int = 0) -> torch.Tensor:
     """Multi-head flash attention over (B, S, H, Dh) inputs -> (B, S, H, Dh).
 
     ``dropout_rate`` > 0 with a uint32 ``dropout_seed`` drops attention
     probabilities inside the kernels with the coordinate-hash mask; with
-    ``dropout_seed=None`` the rate is ignored (with a warning), as in JAX."""
+    ``dropout_seed=None`` the rate is ignored (with a warning), as in JAX.
+    ``batch_offset``: the global batch index of row 0 (a data-parallel
+    rank's first row), which keys the mask (see the module docstring)."""
     B, S, H, D = q.shape
     rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention")
     out = FlashAttentionFunction.apply(
-        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed,
+        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed, batch_offset * H,
     )
     return _from_bhsd(out, B, H)
 
 
 def flash_attention_plain(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                          dropout_seed: Optional[int] = None) -> torch.Tensor:
+                          dropout_seed: Optional[int] = None,
+                          batch_offset: int = 0) -> torch.Tensor:
     """The plain PyTorch version of :func:`flash_attention` on any device,
     differentiated by ordinary autograd. Never on the training path: it is
     what a check on the card compares the kernels with."""
     B, S, H, D = q.shape
     rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention_plain")
-    out, _ = flash_forward_plain(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed)
+    out, _ = flash_forward_plain(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed,
+                                 batch_offset * H)
     return _from_bhsd(out, B, H)

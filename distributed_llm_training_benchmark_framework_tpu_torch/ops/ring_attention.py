@@ -71,6 +71,7 @@ import torch.distributed as dist
 
 from . import _build
 from . import flash_attention as fa
+from .flash_attention import _global_bh_vec
 
 NEG_INF = fa.NEG_INF
 TILE = fa.TILE
@@ -176,14 +177,6 @@ def _bases_to_tiles(bases: Sequence[int], h: int, b: int, device=None) -> torch.
 def _bases_to_rows(bases: Sequence[int], h: int, device=None) -> torch.Tensor:
     """Per-row global index vector from per-chunk bases."""
     return _bases_to_tiles(bases, h, 1, device)
-
-
-def _global_bh_vec(B: int, H: int, b_off: int, h_off: int, n_heads: int,
-                   device=None) -> torch.Tensor:
-    """(B*H,) int32 of GLOBAL batch*heads indices, flash's b*H + h keying."""
-    b = b_off + torch.arange(B, dtype=torch.int32, device=device)
-    hh = h_off + torch.arange(H, dtype=torch.int32, device=device)
-    return (b[:, None] * n_heads + hh[None, :]).reshape(B * H)
 
 
 def _ring_perm(n: int) -> List[Tuple[int, int]]:
@@ -433,7 +426,7 @@ def _resolve_zigzag(zigzag: Optional[bool], causal: bool, n: int, Sl: int, on_ca
 
 def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
                    dropout_seed: Optional[int] = None, seq_shards: int = 1,
-                   zigzag: Optional[bool] = None) -> torch.Tensor:
+                   zigzag: Optional[bool] = None, batch_offset: int = 0) -> torch.Tensor:
     """Ring attention over full (B, S, H, Dh) tensors -> (B, S, H, Dh).
 
     Cuts the sequence into ``seq_shards`` shards, all held on the tensors'
@@ -442,16 +435,17 @@ def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
     ``seq_shards == 1`` it is :func:`flash_attention`, as JAX falls back
     without a ``seq`` axis. ``zigzag``: None (auto: on for causal rings with
     even shards), True or False. Dropout (``dropout_rate`` with a uint32
-    ``dropout_seed``) draws flash's global-coordinate mask."""
+    ``dropout_seed``) draws flash's global-coordinate mask, keyed from the
+    global batch index ``batch_offset`` of row 0 as in flash."""
     if seq_shards == 1:
         return fa.flash_attention(q, k, v, causal=causal, dropout_rate=dropout_rate,
-                                  dropout_seed=dropout_seed)
+                                  dropout_seed=dropout_seed, batch_offset=batch_offset)
     B, S, H, D = q.shape
     if seq_shards < 1 or S % seq_shards:
         raise ValueError(f"sequence length {S} does not split into seq_shards={seq_shards}")
     rate, seed = fa._resolve_dropout(dropout_rate, dropout_seed, "ring_attention")
     zig = _resolve_zigzag(zigzag, causal, seq_shards, S // seq_shards, q.device.type == "cuda")
-    bhv = _global_bh_vec(B, H, 0, 0, H, q.device)
+    bhv = _global_bh_vec(B, H, batch_offset, 0, H, q.device)
     out3 = RingAttentionFunction.apply(
         fa._to_bhsd(q), fa._to_bhsd(k), fa._to_bhsd(v), _LocalRing(seq_shards), causal, rate,
         seed, zig, bhv,

@@ -1,7 +1,15 @@
-from .mesh import AXES, Mesh, MeshAxes, make_mesh
-from .strategies import STRATEGIES, Optimizer, StrategyConfig, get_strategy, make_optimizer
+from .mesh import AXES, Mesh, MeshAxes, make_mesh, mesh_axes_dict
+from .strategies import (
+    STRATEGIES,
+    Optimizer,
+    StrategyConfig,
+    apply_strategy,
+    check_ported,
+    get_strategy,
+    make_optimizer,
+)
 
 __all__ = [
-    "AXES", "Mesh", "MeshAxes", "STRATEGIES", "Optimizer", "StrategyConfig", "get_strategy",
-    "make_mesh", "make_optimizer",
+    "AXES", "Mesh", "MeshAxes", "STRATEGIES", "Optimizer", "StrategyConfig", "apply_strategy",
+    "check_ported", "get_strategy", "make_mesh", "make_optimizer", "mesh_axes_dict",
 ]

@@ -85,8 +85,9 @@ class BenchmarkResult:
     time_in_init_sec: float = 0.0
     time_in_warmup_sec: float = 0.0
     time_in_timed_sec: float = 0.0
-    # Sequence shards of ring attention; the port holds them all on one
-    # device, so world_size stays 1.
+    # Sequence shards of ring attention. The port holds them all in one
+    # process on its card, so they add nothing to world_size, which counts
+    # the processes (cards) of the data-parallel group.
     sequence_parallel: int = 1
     # Ring-attention zigzag layout mode ('auto'/'on'/'off'), run identity.
     ring_zigzag: str = "auto"

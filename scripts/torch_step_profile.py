@@ -2,6 +2,7 @@
 """Where one training step of the PyTorch port spends its time on the card.
 
     python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring]
+                                          [--arms ddp fsdp zero2 zero3]
                                           [--steps 3]
                                           [--out chiprun_out/torch_step_profile.json]
 
@@ -16,14 +17,20 @@ step: the wall time, the device-busy time (sum of kernel, memcpy and memset
 time on the card), the idle share (1 - busy / unprofiled wall), the device time by
 class (the ring block kernel, the three flash kernels, whose backward pair
 the ring launches in its fp32 mode, GEMMs, everything else) and the ten
-longest kernels. Needs a CUDA device.
+longest kernels. The rows run without a process group, as the bench
+does on one card. ``--arms`` then profiles the parity row once more under
+each named strategy arm inside a single-rank NCCL group
+(``runtime.setup_distributed``), where the arm wraps the model (rows
+``parity:<arm>+group``). Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -42,6 +49,12 @@ ROWS = {
                           seq_len=8192, attention_impl="ring", sequence_parallel=4),
 }
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def kernel_class(name: str) -> str:
@@ -71,10 +84,10 @@ def device_events(prof):
     return out
 
 
-def profile_row(name: str, steps: int) -> dict:
+def profile_row(name: str, steps: int, strategy: str = "zero2") -> dict:
     from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 
-    run = build_run(tier="A", device="cuda", **ROWS[name])
+    run = build_run(tier="A", device="cuda", strategy=strategy, **ROWS[name])
     step = 0
     for _ in range(3):
         run.step_fn(run.table, step).item()
@@ -106,6 +119,9 @@ def profile_row(name: str, steps: int) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return {
         "row": name,
+        "strategy": strategy,
+        "remat": run.strategy.remat,
+        "world_size": run.mesh.size("data"),
         **ROWS[name],
         "steps_timed": steps,
         "wall_ms_per_step": wall_ms,
@@ -117,6 +133,9 @@ def profile_row(name: str, steps: int) -> dict:
         "idle_share_profiled": (1.0 - busy / prof_wall_ms) if events else None,
         "device_ms_per_step_by_class": dict(by_class),
         "kernel_launches_per_step": len(events) / steps,
+        # Every device operation's count per step, by name: two trees'
+        # operations compare name by name.
+        "calls_per_step_by_kernel": {k[:160]: v[1] / steps for k, v in sorted(by_kernel.items())},
         "top_kernels": [
             {"name": k[:120], "ms_per_step": v[0], "calls_per_step": v[1] / steps}
             for k, v in top
@@ -126,7 +145,8 @@ def profile_row(name: str, steps: int) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--rows", nargs="+", default=list(ROWS), choices=list(ROWS))
+    p.add_argument("--rows", nargs="*", default=list(ROWS), choices=list(ROWS))
+    p.add_argument("--arms", nargs="*", default=[], choices=["ddp", "fsdp", "zero2", "zero3"])
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--out", default="chiprun_out/torch_step_profile.json")
     args = p.parse_args()
@@ -138,9 +158,17 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+
     report = {"card": smi, "torch": torch.__version__, "rows": []}
-    for name in args.rows:
-        r = profile_row(name, args.steps)
+    todo = [(name, "zero2") for name in args.rows] + [("parity", arm) for arm in args.arms]
+    for i, (name, strategy) in enumerate(todo):
+        if i == len(args.rows):
+            assert rt.setup_distributed(num_processes=1, process_id=0,
+                                        master_port=_free_port())
+        r = profile_row(name, args.steps, strategy)
+        if i >= len(args.rows):
+            r["row"] = name = f"{name}:{strategy}+group"
         report["rows"].append(r)
         print(f"{name}: wall {r['wall_ms_per_step']:.2f} ms/step (profiled "
               f"{r['profiled_wall_ms_per_step']:.2f}), device busy "
@@ -150,7 +178,10 @@ def main() -> int:
             {k: round(v, 3) for k, v in r["device_ms_per_step_by_class"].items()}), flush=True)
         for k in r["top_kernels"]:
             print(f"    {k['ms_per_step']:9.3f} ms  x{k['calls_per_step']:.0f}  {k['name']}")
+        gc.collect()
         torch.cuda.empty_cache()
+    if args.arms:
+        rt.cleanup_distributed()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)

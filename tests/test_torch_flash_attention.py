@@ -144,3 +144,52 @@ def test_offset_args_make_the_identity_once_and_pass_ring_vectors_through(given)
         assert [t.tolist() for t in out] == [[128, 192], [0, 320], [5, 6, 7]]
     with pytest.raises(ValueError, match="offset vector"):
         tfa._offset_args(q, None, None, torch.arange(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_batch_offset_keys_the_mask_by_global_batch_head(causal):
+    """A data-parallel rank's rows with ``batch_offset`` = its first global
+    row drop exactly what one process drops on the whole batch: forward,
+    and (through the autograd function, K2 / K3's plain versions with the
+    global ids) every gradient."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, S, H, 64)).astype(np.float32))
+                   for _ in range(4))
+    whole = tfa.flash_attention_plain(q, k, v, causal=causal, dropout_rate=0.1,
+                                      dropout_seed=SEED)
+    qw, kw, vw = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out_w = tfa.flash_attention(qw, kw, vw, causal=causal, dropout_rate=0.1, dropout_seed=SEED)
+    grads_w = torch.autograd.grad(out_w, (qw, kw, vw), do)
+    pd = 2
+    for r in range(2):
+        rows = slice(r * pd, (r + 1) * pd)
+        part = tfa.flash_attention_plain(q[rows], k[rows], v[rows], causal=causal,
+                                         dropout_rate=0.1, dropout_seed=SEED,
+                                         batch_offset=r * pd)
+        assert torch.equal(part, whole[rows])
+        qr, kr, vr = (t[rows].clone().requires_grad_(True) for t in (q, k, v))
+        out_r = tfa.flash_attention(qr, kr, vr, causal=causal, dropout_rate=0.1,
+                                    dropout_seed=SEED, batch_offset=r * pd)
+        assert torch.equal(out_r, out_w[rows])
+        for g, gw in zip(torch.autograd.grad(out_r, (qr, kr, vr), do[rows]), grads_w):
+            torch.testing.assert_close(g, gw[rows], rtol=1e-6, atol=1e-7)
+    other = tfa.flash_attention_plain(q[2:], k[2:], v[2:], causal=causal, dropout_rate=0.1,
+                                      dropout_seed=SEED)
+    assert not torch.equal(other, whole[2:])  # without the offset rank 1 drops rank 0's mask
+
+
+def test_k1_offset_seed_keys_local_ids_as_global_ones():
+    """K1 takes no batch*head vector: it runs on ``offset_seed(seed, o)``,
+    which must key local id bh exactly as the plain version keys bh + o."""
+    q, k, v = (torch.from_numpy(a[0].transpose(1, 0, 2).copy()) for a in _inputs(64, 3))
+    for o in (0, 2, 7, 2**31 + 5):
+        direct, lse = tfa.flash_forward_plain(q, k, v, False, 0.25, SEED, bh_offset=o)
+        folded, lse_f = tfa.flash_forward_plain(q, k, v, False, 0.25, tfa.offset_seed(SEED, o))
+        assert torch.equal(direct, folded) and torch.equal(lse, lse_f)
+    bh = torch.arange(6)[:, None, None]
+    rows = torch.arange(8)[None, :, None]
+    cols = torch.arange(8)[None, None, :]
+    thr = tfa.dropout_threshold(0.5)
+    for o in (1, 3, 1000):
+        assert torch.equal(tfa.dropout_keep(SEED, bh + o, rows, cols, thr),
+                           tfa.dropout_keep(tfa.offset_seed(SEED, o), bh, rows, cols, thr))
