@@ -16,10 +16,13 @@ and fails, printing no result, if any phase fails:
    against its plain PyTorch version on the card at the main path's shapes:
    (a) BH 16, S 2048, Dh 64, non-causal, dropout 0.1 (the parity row),
    (b) BH 16, S 2048, Dh 128, causal, no dropout (the flagship row),
-   (c) BH 4, S 256, Dh 64, causal with dropout, and (h) (a) with batch
+   (c) BH 4, S 256, Dh 64, causal with dropout, (h) (a) with batch
    offset 3, as a data-parallel rank holds its rows: the mask keyed by
    global batch*head ids 48-63 (K1 through its offset seed, K2 and K3
-   through their id vector), which must change the output;
+   through their id vector), which must change the output, and the
+   Ulysses rows' one head group per launch at S 8192: (u) BH 4 (B 1 x
+   16/4 heads), Dh 64, non-causal, rate 0.1, and (v) BH 2 (B 1 x 8/4
+   heads), Dh 128, causal, rate 0;
 2. times each kernel, its plain version and, as a yardstick the port never
    calls, torch's scaled_dot_product_attention (rate 0: it cannot draw the
    coordinate-hash mask) with CUDA events, median of 25 launches after 5
@@ -35,7 +38,7 @@ and fails, printing no result, if any phase fails:
    matching forward op), set beside the pair's own dq + dk/dv +
    ``attention_delta`` on both clocks. At (a), whose row drops, K1 and
    the pair are timed again at rate 0, as the library runs, for a like-for-
-   like factor (``rate0_*``);
+   like factor (``rate0_*``). (u) and (v) are timed the same way;
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
    flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
@@ -114,6 +117,38 @@ The strategy arms (``parallel/strategies.py``) on the parity row:
     resolved remat, tokens/s, peak memory and ``world_size``. At world 1
     these measure each wrapper's cost on one card, not scaling. The group
     is torn down at the end.
+
+Ulysses attention (``ops/ulysses_attention.py``: an all-to-all around
+K1-K3, no kernel of its own), at full tier-A width and S 8192 over 4
+sequence shards, (u) and (v) above:
+
+13. holds ``ulysses_attention(seq_shards=4)``, forward and backward on the
+    kernels, against the same function over ``flash_attention_plain``: out,
+    dq, dk, dv within phase 1's rel-Frobenius 2e-2; at rate 0 (v) its
+    output and gradients equal ``flash_attention``'s bit for bit (each
+    head's tiles are flash's); at rate 0.1 (u) the kept share of the masks
+    its folded seeds draw (the coordinate hash, which phase 1 holds the
+    kernels to) lies within 6 binomial sigmas of the hash's keep
+    probability, and the mask and output differ from flash's;
+14. trains the two Ulysses rows through ``run_benchmark`` with
+    ``sequence_parallel=4, attention_impl="ulysses"``, all shards on the one
+    card (parity Ulysses: TinyGPT b1 x accum 1, dropout 0.1; flagship
+    Ulysses: Llama b1 x accum 2, causal), 3 warmup + 10 timed steps, and
+    checks the losses fall, K1-K3 each launched layers x micro-batches x
+    steps x 4 times (64 / 128 per step) and the ring kernels not at all;
+15. inside phase 12's single-rank NCCL group, runs the group forms once,
+    forward and backward: ``ring_attention_sharded`` and
+    ``ulysses_attention_sharded`` on the group at (a) and (b), against
+    ``flash_attention_plain`` (a one-shard ring is attention over the whole
+    sequence; the sharded Ulysses folds its seed even at one shard, as JAX
+    does, so its plain version draws with the folded seed) within phase 1's
+    limits, and the sharded Ulysses equal to ``flash_attention`` bit for bit
+    at (b), rate 0; then ``run_benchmark(attention_impl="ulysses")`` on the
+    parity row (zero2, ``seq`` width 1, where Ulysses is flash), whose
+    per-step losses must equal phase 12's no-group zero2 run's within
+    1e-3. At world 1 this launches NCCL's ``all_to_all_single`` on the
+    card; the one-shard ring sends nothing and no ``seq`` reduction runs,
+    and nothing here says anything about scaling.
 
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
@@ -205,6 +240,20 @@ SHAPES = {
     # the mask keyed by global batch*head ids 48..63.
     "h": dict(BH=16, S=2048, D=64, causal=False, rate=0.1, row=None, batch_offset=3),
 }
+ULYSSES_ROWS = {
+    "parity ulysses": dict(model_family="tinygpt", per_device_batch=1, grad_accum=1, layers=16),
+    "flagship ulysses": dict(model_family="llama", per_device_batch=1, grad_accum=2, layers=16),
+}
+# The Ulysses rows' attention at full width, S 8192 over 4 shards (the ring
+# rows' geometry): each head group of H/4 heads is one K1-K3 launch over the
+# whole sequence. Llama's k/v are repeated to its 8 query heads before.
+ULYSSES_SHAPES = {
+    "u": dict(B=1, H=16, S=8192, n=4, D=64, causal=False, rate=0.1, row="parity ulysses"),
+    "v": dict(B=1, H=8, S=8192, n=4, D=128, causal=True, rate=0.0, row="flagship ulysses"),
+}
+for _key, _sh in ULYSSES_SHAPES.items():
+    SHAPES[_key] = dict(BH=_sh["B"] * _sh["H"] // _sh["n"], S=_sh["S"], D=_sh["D"],
+                        causal=_sh["causal"], rate=_sh["rate"], row=_sh["row"])
 
 
 def make_inputs(shape, seed: int = 0):
@@ -846,6 +895,180 @@ def phase_microbench(build, mb):
     return counts
 
 
+def fwd_bwd(attn, q, k, v, do):
+    """(out, dq, dk, dv) of ``attn`` on fresh leaves of q, k, v, with do as
+    the output's cotangent."""
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = attn(qq, kk, vv)
+    return (out.detach(), *torch.autograd.grad(out, (qq, kk, vv), do))
+
+
+def ulysses_mask_stats(fa, ua, sh, seed: int) -> tuple[float, float, float]:
+    """(kept share, keep probability, share of elements whose keep differs
+    from flash's) of the masks Ulysses' folded seeds draw at a non-causal
+    shape, by the coordinate hash: head group g keys local batch*head ids
+    from 0 under seed _shard_seed(seed, g), flash global ids under seed."""
+    B, H, S, n = sh["B"], sh["H"], sh["S"], sh["n"]
+    thr = fa.dropout_threshold(sh["rate"])
+    idx = torch.arange(S, device="cuda", dtype=torch.int64)
+    kept = differ = 0
+    Hg = H // n
+    for g in range(n):
+        seed_g = ua._shard_seed(seed, ua._global_shard_index(g, n))
+        for b in range(B):
+            for h in range(Hg):
+                keep = fa.dropout_keep(seed_g, b * Hg + h, idx[:, None], idx[None, :], thr)
+                flash = fa.dropout_keep(seed, b * H + g * Hg + h, idx[:, None], idx[None, :], thr)
+                kept += int(keep.sum())
+                differ += int((keep != flash).sum())
+                del keep, flash
+    total = B * H * S * S
+    return kept / total, thr / 2**32, differ / total
+
+
+def phase_ulysses(fa, ua):
+    """Phase 13: ulysses_attention over 4 head groups at (u) and (v) on the
+    kernels against the same function over flash_attention_plain; bit
+    equality with flash at rate 0; the kept share at rate 0.1."""
+    import unittest.mock
+
+    for key, sh in ULYSSES_SHAPES.items():
+        B, H, S, D, n, c, r = (sh[x] for x in ("B", "H", "S", "D", "n", "causal", "rate"))
+        g = torch.Generator(device="cuda").manual_seed(4)
+        q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        seed = 7
+
+        def ulysses(a, b, d):
+            return ua.ulysses_attention(a, b, d, causal=c, dropout_rate=r, dropout_seed=seed,
+                                        seq_shards=n)
+
+        kern = fwd_bwd(ulysses, q, k, v, do)
+        with unittest.mock.patch.object(ua, "flash_attention", fa.flash_attention_plain):
+            plain = fwd_bwd(ulysses, q, k, v, do)
+        errs = {nm: rel_err(a, b) for nm, a, b in zip(("out", "dq", "dk", "dv"), kern, plain)}
+        flash = fwd_bwd(lambda a, b, d: fa.flash_attention(a, b, d, causal=c, dropout_rate=r,
+                                                           dropout_seed=seed), q, k, v, do)
+        vs_flash = {nm: max_abs(a, b) for nm, a, b in zip(("out", "dq", "dk", "dv"), kern, flash)}
+        log(f"[13] ({key}) ulysses_attention B {B} S {S} H {H} Dh {D} causal {c} rate {r} "
+            f"over {n} head groups: kernels vs plain rel-Frobenius "
+            + json.dumps({nm: f"{e:.2e}" for nm, e in errs.items()})
+            + "; max abs vs flash_attention " + json.dumps({nm: f"{e:.2e}"
+                                                             for nm, e in vs_flash.items()}))
+        for nm, e in errs.items():
+            assert e <= 2e-2, f"({key}) ulysses {nm}: rel error {e} > 2e-2"
+        if r == 0.0:
+            for nm, e in vs_flash.items():
+                assert e == 0.0, f"({key}) ulysses {nm} differs from flash's at rate 0 by {e}"
+        else:
+            share, p_keep, differ = ulysses_mask_stats(fa, ua, sh, seed)
+            bound = 6 * math.sqrt(p_keep * (1 - p_keep) / (B * H * S * S))
+            log(f"[13] ({key}) kept share {share:.6f} (keep probability {p_keep:.6f}, 6 sigma "
+                f"{bound:.2e}); {differ:.4f} of the elements keep otherwise than flash's mask")
+            assert abs(share - p_keep) <= bound, f"({key}) kept share {share} vs {p_keep}"
+            assert differ > 0.1 and vs_flash["out"] > 1e-2, f"({key}) the mask is flash's"
+        del q, k, v, do, kern, plain, flash
+        torch.cuda.empty_cache()
+
+
+def phase_ulysses_train(fa, ra, run_benchmark):
+    """Phase 14: both Ulysses rows through run_benchmark on the one card."""
+    out = {}
+    for name, row in ULYSSES_ROWS.items():
+        steps = WARMUP_STEPS + TIMED_STEPS
+        fa.reset_launch_counts()
+        res = run_benchmark(
+            strategy="zero2", tier="A", seq_len=8192, model_family=row["model_family"],
+            steps=steps, warmup_steps=WARMUP_STEPS, per_device_batch=row["per_device_batch"],
+            grad_accum=row["grad_accum"], attention_impl="ulysses", sequence_parallel=4,
+            sync_every=5, device="cuda",
+        )
+        counts, ring_counts = fa.launch_counts(), ra.launch_counts()
+        per_step = row["layers"] * row["grad_accum"] * 4
+        want = per_step * steps
+        log(f"[14] {name}: {res.model_family} tier A S 8192 sp {res.sequence_parallel} causal "
+            f"{res.causal} b{res.per_device_batch}x{res.grad_accum} dropout {res.dropout}: "
+            f"{res.tokens_per_sec:.1f} tok/s, step {1e3 * res.mean_step_time_sec:.2f} ms, MFU "
+            f"{res.mfu_pct:.2f}% ({res.device_kind}), world_size {res.world_size}, peak "
+            f"{res.peak_hbm_gb:.2f} GB ({res.peak_hbm_method}), loss first "
+            f"{res.loss_first_window:.4f} last {res.loss_last_window:.4f}, launches {counts} "
+            f"(want {want} each, {per_step} per step), ring launches {ring_counts}")
+        assert math.isfinite(res.loss_first_window) and math.isfinite(res.loss_last_window)
+        assert res.loss_last_window < res.loss_first_window, f"{name}: loss did not fall"
+        for kernel, n in counts.items():
+            assert n == want, f"{name}: {kernel} launched {n} times, want {want}"
+        assert set(ring_counts.values()) == {0}, f"{name}: ring kernels ran: {ring_counts}"
+        out[name] = counts
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_group_forms(fa, ra, ua, run_benchmark, no_group_losses):
+    """Phase 15, inside the single-rank NCCL group: the sharded ring and
+    Ulysses at (a) and (b) against their plain versions, and the bench's
+    Ulysses (seq width 1) on the parity row against the no-group run."""
+    import torch.distributed as dist
+
+    group = dist.group.WORLD
+    for key in ("a", "b"):
+        sh = SHAPES[key]
+        H, S, D, c, r, seed = sh["BH"], sh["S"], sh["D"], sh["causal"], sh["rate"], 0x2545F491
+        g = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v, do = (torch.randn(1, S, H, D, device="cuda", generator=g).to(torch.bfloat16)
+                       for _ in range(4))
+        folded = ua._shard_seed(seed, ua._global_shard_index(0, 1))
+        forms = {
+            "ring_attention_sharded": (
+                lambda a, b, d: ra.ring_attention_sharded(a, b, d, group=group, causal=c,
+                                                          dropout_rate=r, dropout_seed=seed),
+                lambda a, b, d: fa.flash_attention_plain(a, b, d, causal=c, dropout_rate=r,
+                                                         dropout_seed=seed)),
+            "ulysses_attention_sharded": (
+                lambda a, b, d: ua.ulysses_attention_sharded(a, b, d, group=group, causal=c,
+                                                             dropout_rate=r, dropout_seed=seed),
+                lambda a, b, d: fa.flash_attention_plain(a, b, d, causal=c, dropout_rate=r,
+                                                         dropout_seed=folded)),
+        }
+        fa.reset_launch_counts()
+        outs = {}
+        for name, (form, plain) in forms.items():
+            got, want = fwd_bwd(form, q, k, v, do), fwd_bwd(plain, q, k, v, do)
+            errs = {nm: rel_err(a, b) for nm, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+            log(f"[15] ({key}) {name} over the single-rank NCCL group, causal {c} rate {r}: "
+                "vs plain rel-Frobenius " + json.dumps({nm: f"{e:.2e}" for nm, e in errs.items()}))
+            for nm, e in errs.items():
+                assert e <= 2e-2, f"({key}) {name} {nm}: rel error {e} > 2e-2"
+            outs[name] = got
+        counts = {**fa.launch_counts(), **ra.launch_counts()}
+        log(f"[15] ({key}) launches: {counts}")
+        assert set(counts.values()) == {1}, f"({key}) launches {counts}"
+        if r == 0.0:
+            flash = fwd_bwd(lambda a, b, d: fa.flash_attention(a, b, d, causal=c), q, k, v, do)
+            for nm, a, b in zip(("out", "dq", "dk", "dv"), outs["ulysses_attention_sharded"],
+                                flash):
+                assert torch.equal(a, b), f"({key}) sharded ulysses {nm} is not flash's"
+        del q, k, v, do, outs
+        torch.cuda.empty_cache()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    fa.reset_launch_counts()
+    losses = []
+    res = run_benchmark(
+        strategy="zero2", tier="A", seq_len=2048, model_family=ARM_ROW["model_family"],
+        steps=steps, warmup_steps=WARMUP_STEPS, per_device_batch=ARM_ROW["per_device_batch"],
+        grad_accum=ARM_ROW["grad_accum"], attention_impl="ulysses", sync_every=5,
+        device="cuda", loss_log=losses)
+    counts = fa.launch_counts()
+    want = ARM_ROW["layers"] * ARM_ROW["grad_accum"] * steps
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, no_group_losses))
+    log(f"[15] run_benchmark(attention_impl='ulysses') parity row, zero2, single-rank NCCL "
+        f"group, world_size {res.world_size}, sequence_parallel {res.sequence_parallel}: "
+        f"{res.tokens_per_sec:.1f} tok/s, per-step loss vs the no-group flash run max relative "
+        f"difference {rel:.2e} (limit {ARM_LOSS_RTOL}), launches {counts}")
+    assert res.attention_impl == "ulysses" and len(losses) == steps
+    assert rel <= ARM_LOSS_RTOL, f"ulysses under the group vs no group: {rel}"
+    assert set(counts.values()) == {want}, f"launches {counts}, want {want} each"
+
+
 ARMS = ("ddp", "fsdp", "zero2", "zero3")
 # The parity row, trained under each arm.
 ARM_ROW = dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16)
@@ -898,10 +1121,11 @@ def phase_remat(fa, models):
     torch.cuda.empty_cache()
 
 
-def phase_arms(fa, models, make_mesh, get_strategy, rt, memory, loop):
+def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop):
     """Phase 12: the four arms on the parity row, first without a process
     group, then under a single-rank NCCL group, where each arm wraps the
-    model; per-step losses agree, K1-K3 launch what the arm issues."""
+    model; per-step losses agree, K1-K3 launch what the arm issues. Phase
+    15 runs inside the group."""
     import torch.distributed as dist
 
     run_benchmark, build_run, DATASET_SIZE = loop.run_benchmark, loop.build_run, loop.DATASET_SIZE
@@ -958,6 +1182,9 @@ def phase_arms(fa, models, make_mesh, get_strategy, rt, memory, loop):
                         "zero2": opt == "_Zero2Optimizer"}[arm], f"{arm}: not laid out"
                 del run
                 gc.collect()
+            phase_group_forms(fa, ra, ua, run_benchmark, runs["zero2", False]["losses"])
+            gc.collect()
+            torch.cuda.empty_cache()
             rt.cleanup_distributed()
             assert not dist.is_initialized()
     out = {}
@@ -991,6 +1218,7 @@ def main() -> int:
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import ulysses_attention as ua
     from distributed_llm_training_benchmark_framework_tpu_torch.parallel import (
         get_strategy,
         make_mesh,
@@ -1036,7 +1264,9 @@ def main() -> int:
     phase_ring_whole_model(fa, models, SyntheticDataset, make_mesh)
     fwd_timing = phase_fwd_variants(fa, fv, peaks)
     mb_launches = phase_microbench(_build, mb)
-    arms = phase_arms(fa, models, make_mesh, get_strategy, rt, memory, loop)
+    phase_ulysses(fa, ua)
+    launches.update(phase_ulysses_train(fa, ra, run_benchmark))
+    arms = phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -1048,7 +1278,7 @@ def main() -> int:
                 "distributed_llm_training_benchmark_framework_tpu/ops/flash_attention.py:396"),
     }
     kernels = []
-    for key in ("a", "b"):
+    for key in ("a", "b", "u", "v"):
         sh = SHAPES[key]
         for kind in ("fwd", "dq", "dkv"):
             r = timing[key][kind]
@@ -1059,6 +1289,8 @@ def main() -> int:
                 "source": sources[kind][0],
                 "replaces": sources[kind][1],
                 "launches": launches[sh["row"]][names[kind]],
+                "launches_per_step": launches[sh["row"]][names[kind]] / (WARMUP_STEPS
+                                                                         + TIMED_STEPS),
                 "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"],
                 "plain_ms": r["plain_ms"],
@@ -1117,7 +1349,7 @@ def main() -> int:
                   "peak_gb_group": a["group"]["res"].peak_hbm_gb,
                   "loss_max_rel_diff": a["loss_rel"], "launches_group": a["group"]["launches"]}
             for arm, a in arms.items()}) + f" on {smi}")
-    log(f"[13] total {time.perf_counter() - t0:.1f} s")
+    log(f"[16] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,10 @@ here, with its defaults: ``--strategy`` (zero2), ``--per-device-batch`` (1),
 ``--grad-accum`` (4), ``--world-size`` (the process group's size: one card
 per process, 1 without a launcher; another value is refused),
 ``--model-family``, ``--flagship auto|on|off`` (auto: the flagship row
-runs when the top row is tinygpt), ``--attention`` (ulysses is refused, as
-the loop refuses it), ``--dropout`` (the family's own by default) and
-``--sync-every``. The flagship row pins flash, the family's dropout and its
+runs when the top row is tinygpt), ``--attention``, ``--dropout`` (the
+family's own by default) and ``--sync-every``. Like the JAX bench, it has
+no sequence-parallel flag, so ``--attention ulysses`` runs at ``seq`` width
+1, where Ulysses is flash attention bit for bit. The flagship row pins flash, the family's dropout and its
 b2 x accum 2, under the same strategy. Under a launcher (torchrun's
 ``WORLD_SIZE``, or the JAX package's ``NUM_PROCESSES``) the bench joins the
 process group (``runtime.setup_distributed``: NCCL, or gloo with
@@ -111,8 +112,6 @@ def main(argv=None):
     """Run the rows and print the line (rank 0); returns the result rows
     the line was made from."""
     args = build_parser().parse_args(argv)
-    if args.attention == "ulysses":
-        raise SystemExit("--attention ulysses is not ported yet (ROADMAP Queue 1 item 11)")
     made_group = dist_rt.setup_distributed(device=args.device)
     try:
         top, payload = measure_row(args, model_family=args.model_family,

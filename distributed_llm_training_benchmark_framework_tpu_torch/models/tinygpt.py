@@ -2,7 +2,7 @@
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/models/tinygpt.py``
 (the forward path and the loss, per-layer remat, and the dispatch to
-sequence-parallel ring attention; MoE is not ported yet). One config
+sequence-parallel ring and Ulysses attention; MoE is not ported yet). One config
 covers both families: the reference TinyGPT (learned positions, LayerNorm, exact-erf
 GELU, biases, tied head, non-causal, dropout 0.1) and, through
 ``models.llama``, the Llama family (RMSNorm, RoPE, SwiGLU, GQA, no bias,
@@ -56,10 +56,11 @@ from ..ops.flash_attention import (
     dropout_threshold,
     flash_attention,
 )
-from ..ops.ring_attention import ring_attention
+from ..ops.ring_attention import ring_attention, ring_attention_sharded
+from ..ops.ulysses_attention import ulysses_attention, ulysses_attention_sharded
 from ..parallel.mesh import AXES, Mesh
 
-ATTENTION_IMPLS = ("reference", "flash", "ring")
+ATTENTION_IMPLS = ("reference", "flash", "ring", "ulysses")
 REMAT_POLICIES = ("none", "dots", "full")
 
 
@@ -170,13 +171,15 @@ def _rms_norm(x, scale, eps):
     return (y * scale.float()).to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding, rotate-half convention, fp32 math; x (B, S, H, Dh)."""
+def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+    """Rotary embedding, rotate-half convention, fp32 math; x (B, S, H, Dh)
+    holds the positions [offset, offset + S) of the sequence."""
     S, Dh = x.shape[1], x.shape[-1]
     half = Dh // 2
     inv_freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device)
                                 * 2.0 / Dh))
-    freqs = torch.arange(S, dtype=torch.float32, device=x.device)[:, None] * inv_freq[None, :]
+    pos = torch.arange(offset, offset + S, dtype=torch.float32, device=x.device)
+    freqs = pos[:, None] * inv_freq[None, :]
     cos = torch.cos(freqs)[None, :, None, :]
     sin = torch.sin(freqs)[None, :, None, :]
     xf = x.float()
@@ -185,12 +188,14 @@ def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def _dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
-                  device) -> Optional[torch.Tensor]:
+                  device, window: Optional[Tuple[slice, slice]] = None) -> Optional[torch.Tensor]:
     """Keep mask of inverted dropout, drawn from an explicit generator (None:
-    no dropout)."""
+    no dropout). ``window`` (rows, columns): the mask is drawn at ``shape``,
+    the global (batch, sequence, ...) one, and this slice of it is kept."""
     if rate == 0.0 or generator is None:
         return None
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return keep if window is None else keep[window]
 
 
 def _apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float):
@@ -198,11 +203,6 @@ def _apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float):
         return x
     keep = 1.0 - rate
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Inverted dropout with a mask drawn from an explicit generator."""
-    return _apply_dropout(x, _dropout_mask(x.shape, rate, generator, x.device), rate)
 
 
 def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
@@ -334,9 +334,10 @@ class Block(nn.Module):
         return out if b is None else out + b.to(cd)
 
     def forward(self, x, attention: AttentionFn, attn_seed: Optional[int],
-                drop_mask: Optional[torch.Tensor], batch_offset: int = 0):
+                drop_mask: Optional[torch.Tensor], batch_offset: int = 0, pos_offset: int = 0):
         """One layer; ``drop_mask`` is the MLP dropout's keep mask (None: no
-        dropout) and ``batch_offset`` the global batch index of row 0."""
+        dropout), ``batch_offset`` the global batch index of row 0 and
+        ``pos_offset`` the global position of column 0."""
         c = self.c
         B, S, D = x.shape
         h = self._norm(x, "ln1")
@@ -350,7 +351,7 @@ class Block(nn.Module):
             k = kv[:, :, 0].reshape(B, S, c.kv_heads, c.head_dim)
             v = kv[:, :, 1].reshape(B, S, c.kv_heads, c.head_dim)
         if c.pos_embed == "rope":
-            q, k = _rope(q, c.rope_theta), _rope(k, c.rope_theta)
+            q, k = _rope(q, c.rope_theta, pos_offset), _rope(k, c.rope_theta, pos_offset)
         if c.kv_heads != c.n_head:
             rep = c.n_head // c.kv_heads
             k = k.repeat_interleave(rep, dim=2)
@@ -385,12 +386,27 @@ def _remat_context(policy: str):
     return contextlib.nullcontext(), contextlib.nullcontext()
 
 
+def _ulysses_group(q, k, v, causal, dropout_rate, dropout_seed, batch_offset, group,
+                   batch_shard):
+    """Ulysses' group form under the blocks' attention signature: its mask is
+    keyed by the seed folded from ``batch_shard``, with no batch offset (JAX
+    calls flash there with none)."""
+    return ulysses_attention_sharded(q, k, v, group, causal, dropout_rate, dropout_seed,
+                                     batch_shard)
+
+
 class TinyGPT(nn.Module):
     """Embedding (+ learned positions) -> blocks -> final norm -> LM head.
 
-    ``mesh`` gives the width of the ``seq`` axis that ring attention shards
-    the sequence over (None: width 1, where ring attention is flash, as in
-    JAX without a ``seq`` axis)."""
+    ``mesh`` gives the width of the ``seq`` axis that ring and Ulysses
+    attention shard the sequence over (None: width 1, where both are flash,
+    as in JAX without a ``seq`` axis). When ``seq`` rides the process group
+    (``Mesh.seq_in_process`` false), this rank's forward runs on its
+    contiguous columns ``[s*S/n, (s+1)*S/n)`` of the sequence, s its ``seq``
+    index: positions (learned, or RoPE's) are global, and the attention
+    exchanges blocks over the ``seq`` group; the zigzag layout of a causal
+    ring stays inside the ring. Otherwise all n shards run in this process
+    on full-length activations."""
 
     def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None):
         super().__init__()
@@ -408,12 +424,23 @@ class TinyGPT(nn.Module):
         # The attention every block calls; the config picks it. A check that
         # compares against another implementation assigns this attribute.
         self.attention: AttentionFn = reference_attention
+        seq = mesh.size(AXES.seq) if mesh is not None else 1
+        over_group = mesh is not None and not mesh.seq_in_process
+        self.seq_shard = mesh.seq_shard if mesh is not None else (0, 1)
         if c.attention_impl == "flash":
             self.attention = flash_attention
+        elif c.attention_impl == "ring" and over_group:
+            self.attention = functools.partial(ring_attention_sharded, group=mesh.seq_group,
+                                               zigzag=c.ring_zigzag)
         elif c.attention_impl == "ring":
-            seq = mesh.size(AXES.seq) if mesh is not None else 1
             self.attention = functools.partial(ring_attention, seq_shards=seq,
                                                zigzag=c.ring_zigzag)
+        elif c.attention_impl == "ulysses" and over_group:
+            self.attention = functools.partial(
+                _ulysses_group, group=mesh.seq_group,
+                batch_shard=(mesh.data_rank, mesh.size(AXES.data)))
+        elif c.attention_impl == "ulysses":
+            self.attention = functools.partial(ulysses_attention, seq_shards=seq)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TinyGPT":
@@ -438,31 +465,48 @@ class TinyGPT(nn.Module):
         attn_seeds: Optional[Sequence[int]] = None,
         generator: Optional[torch.Generator] = None,
         batch_offset: int = 0,
+        global_batch: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """-> (fp32 logits (B, S, V), fp32 loss or None).
+        """-> (fp32 logits (B, S, V), fp32 loss or None), over this rank's
+        columns of the sequence when ``seq`` rides the group (the loss is
+        then the mean over them).
 
         ``attn_seeds`` gives one uint32 attention-dropout seed per layer and
         ``generator`` draws the embedding / MLP dropout masks; both None means
         deterministic (no dropout anywhere), as in JAX without a key.
         ``batch_offset`` is the global batch index of row 0 of ``idx`` (a
-        data-parallel rank's first row), which keys the attention mask."""
+        data-parallel rank's first row), which keys the attention mask.
+        ``global_batch``: the rows of the global batch; the embedding and MLP
+        masks are drawn for all of them at the full sequence length and
+        sliced to rows ``[batch_offset, batch_offset + B)`` and this rank's
+        columns, so every layout of the same global batch draws the same
+        masks (None: this call's B rows are the whole batch)."""
         c = self.config
         B, S = idx.shape
-        if S > c.block_size:
-            raise ValueError(f"Sequence {S} exceeds block size {c.block_size}")
+        s, n = self.seq_shard
+        pos0 = s * S
+        if S * n > c.block_size:
+            raise ValueError(f"Sequence {S * n} exceeds block size {c.block_size}")
         tok = self.wte[idx]
         if c.pos_embed == "learned":
-            x = (tok + self.wpe[:S][None]).to(c.compute_dtype)
+            x = (tok + self.wpe[pos0:pos0 + S][None]).to(c.compute_dtype)
         else:
             x = tok.to(c.compute_dtype)
-        x = _dropout(x, c.dropout, generator)
+        mask_shape, window = x.shape, None
+        if (global_batch or B) != B or n > 1:
+            row0 = batch_offset if global_batch is not None else 0
+            mask_shape = (global_batch or B, S * n, x.shape[-1])
+            window = (slice(row0, row0 + B), slice(pos0, pos0 + S))
+        x = _apply_dropout(x, _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
+                           c.dropout)
         seeds: List[Optional[int]] = (
             list(attn_seeds) if attn_seeds is not None else [None] * c.n_layer
         )
         remat = normalize_remat(c.remat)
         for block, seed in zip(self.blocks, seeds):
             args = (x, self.attention, seed if c.dropout > 0.0 else None,
-                    _dropout_mask(x.shape, c.dropout, generator, x.device), batch_offset)
+                    _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
+                    batch_offset, pos0)
             if remat == "none":
                 x = block(*args)
             else:

@@ -455,16 +455,20 @@ def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
 
 def ring_attention_sharded(q, k, v, group=None, causal: bool = False,
                            dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
-                           zigzag: Optional[bool] = None) -> torch.Tensor:
+                           zigzag: Optional[bool] = None, batch_offset: int = 0) -> torch.Tensor:
     """Ring attention on this rank's (B, S/n, H, Dh) sequence shard, rank r of
     ``group`` (default: the world) holding shard r; blocks move between ranks
     point to point. Same options and result as :func:`ring_attention`, one
-    shard per rank (JAX ``ring_attention_sharded`` inside ``shard_map``)."""
+    shard per rank (JAX ``ring_attention_sharded`` inside ``shard_map``).
+    ``batch_offset`` is the global batch index of row 0 (the rank's place on
+    ``data`` times its rows), which keys the dropout mask as JAX's
+    ``_ring_offsets`` does for ``batch_axis``: without it every ``data`` rank
+    of a (data, seq) mesh would draw the same mask for other examples."""
     ring = _GroupRing(group)
     B, Sl, H, D = q.shape
     rate, seed = fa._resolve_dropout(dropout_rate, dropout_seed, "ring_attention_sharded")
     zig = _resolve_zigzag(zigzag, causal, ring.n, Sl, q.device.type == "cuda")
-    bhv = _global_bh_vec(B, H, 0, 0, H, q.device)
+    bhv = _global_bh_vec(B, H, batch_offset, 0, H, q.device)
     out3 = RingAttentionFunction.apply(
         fa._to_bhsd(q), fa._to_bhsd(k), fa._to_bhsd(v), ring, causal, rate, seed, zig, bhv,
     )

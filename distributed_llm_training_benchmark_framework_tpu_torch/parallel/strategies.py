@@ -27,6 +27,21 @@ ddp and fsdp run bare AdamW; zero2 and zero3 add the 5-step warmup and the
 clip. Without a process group (one device, no launcher) every arm is its
 optimizer recipe on the plain model, with no wrapper.
 
+When ``seq`` rides the group (a (data, seq) mesh of dp * n ranks,
+``parallel/mesh.py``), the ranks of a ``seq`` group hold parts of one
+example: parameters are replicated over ``seq`` and, for fsdp / zero3,
+sharded over ``data`` only, and the AdamW state is sharded over ``data``
+only, as JAX's ``param_partition_specs`` puts only ``data`` on a leaf. The
+gradients are averaged over all dp * n ranks, which is JAX's global-mean
+gradient because every rank's loss is a mean over the same count of
+targets (``train/step.py``). ddp is DDP over the whole group; fsdp / zero3
+are FSDP2 over a 2-D mesh whose replicate dim is ``seq`` and whose shard
+dim is ``data`` (``mesh.replicate_seq_shard_data``: FSDP2 takes (replicate,
+shard) while the ranks are data-major); zero2 reduce-scatters over
+``data``, all-reduces over ``seq`` and divides once by dp * n. The clip's
+norm is the full gradient's in every arm: each rank's shards are summed
+over ``data``, whose ranks together hold the whole gradient.
+
 The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 
 - clip: with g_norm = sqrt(sum of squares over every gradient), each
@@ -56,7 +71,7 @@ from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
-from .mesh import Mesh
+from .mesh import Mesh, replicate_seq_shard_data
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,9 +275,9 @@ class _Zero2Optimizer(Optimizer):
     replicated params in place; the all-gather fills in the other shards."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
-                 group: dist.ProcessGroup):
+                 group: dist.ProcessGroup, seq_group: Optional[dist.ProcessGroup] = None):
         dp, rank = dist.get_world_size(group), dist.get_rank(group)
-        self.group = group
+        self.group, self.seq_group = group, seq_group
         self.buckets = []  # (flat params, flat grads, shard of the grads)
         shards = []
         by_dtype: Dict[torch.dtype, List[torch.nn.Parameter]] = {}
@@ -295,9 +310,15 @@ class _Zero2Optimizer(Optimizer):
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
+        # Sum the shard over data (and over seq when it rides the group),
+        # then divide once by every rank that contributed.
+        ranks = dist.get_world_size(self.group) * (
+            dist.get_world_size(self.seq_group) if self.seq_group is not None else 1)
         for _, grads, shard_grad in self.buckets:
-            dist.reduce_scatter_tensor(shard_grad, grads, op=dist.ReduceOp.AVG,
-                                       group=self.group)
+            dist.reduce_scatter_tensor(shard_grad, grads, group=self.group)
+            if self.seq_group is not None:
+                dist.all_reduce(shard_grad, group=self.seq_group)
+            shard_grad.div_(ranks)
         super().finish_grads(grad_accum)
 
     def step(self) -> None:
@@ -314,24 +335,26 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
 
 def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
                    mesh: Optional[Mesh]) -> Tuple[torch.nn.Module, Optimizer]:
-    """Lay the model out as the arm asks over ``mesh``'s ``data`` axis and
-    return (the model to call, its optimizer). Without a process group
-    (no ``mesh.device_mesh``) the model is returned as it is. Weights must
-    be loaded before this call (``bridge.load_jax_params``)."""
+    """Lay the model out as the arm asks over ``mesh``'s ``data`` axis, and
+    its ``seq`` axis when that rides the group, and return (the model to
+    call, its optimizer). Without a process group (no ``mesh.device_mesh``)
+    the model is returned as it is. Weights must be loaded before this call
+    (``bridge.load_jax_params``)."""
     check_ported(strategy)
     if mesh is None or mesh.device_mesh is None:
         return model, make_optimizer(strategy, model.parameters())
-    group = mesh.data_group
+    group, seq_group = mesh.data_group, mesh.seq_group
     if strategy.shard_params:
+        shard_mesh = mesh.device_mesh if seq_group is None else replicate_seq_shard_data(mesh)
         for block in model.blocks:
-            fully_shard(block, mesh=mesh.device_mesh)
-        fully_shard(model, mesh=mesh.device_mesh)
+            fully_shard(block, mesh=shard_mesh)
+        fully_shard(model, mesh=shard_mesh)
         return model, Optimizer(strategy, model.parameters(), norm_group=group)
     if strategy.shard_grads:
-        return model, _Zero2Optimizer(strategy, model, group)
+        return model, _Zero2Optimizer(strategy, model, group, seq_group)
     device = next(model.parameters()).device
     ddp = DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        process_group=group, broadcast_buffers=False, gradient_as_bucket_view=True,
+        process_group=mesh.group, broadcast_buffers=False, gradient_as_bucket_view=True,
     )
     return ddp, _DDPOptimizer(strategy, ddp)

@@ -10,16 +10,19 @@ window is charged the window's mean), and compute the result row.
 Telemetry, checkpoints, fault injection, the numerics sentinel and the
 streaming input path are not ported yet.
 
-``world_size`` is the width of the ``data`` axis: the size of the process
-group the caller (``runtime.setup_distributed``, or torchrun through the
-bench entry) made, one card per process, or 1 without a group. Every rank
-runs this loop; rank 0 alone prints and emits the row, which carries the
-group's size and the highest peak memory of any rank.
+``world_size`` is the size of the process group the caller
+(``runtime.setup_distributed``, or torchrun through the bench entry) made,
+one card per process, or 1 without a group. Every rank runs this loop;
+rank 0 alone prints and emits the row, which carries the group's size and
+the highest peak memory of any rank.
 
-``sequence_parallel`` > 1 runs ring attention over that many sequence
-shards. In this port all of them are held on the one device, in one process
-(``ops/ring_attention.py``), so it composes with a ``data`` width of 1
-only, and the row stamps ``sequence_parallel`` beside ``world_size``.
+``sequence_parallel`` n > 1 runs ring or Ulysses attention over n sequence
+shards, by the mesh's rule (``parallel/mesh.py``): with a group of
+world > 1 the shards ride the group (``world % n == 0``, ``data`` width
+``world // n``, each rank holding S/n of the sequence); without a group, or
+at world 1, all n are held in one process on its card. The row stamps
+``sequence_parallel`` beside ``world_size`` either way
+(``utils/metrics.py`` says how each form is accounted).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
 no explicit ``cpu`` it raises.
@@ -36,6 +39,7 @@ import torch.distributed as dist
 
 from ..data.synthetic import SyntheticDataset
 from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
+from ..ops.ulysses_attention import check_heads
 from ..parallel.mesh import AXES, Mesh, make_mesh
 from ..parallel.strategies import StrategyConfig, apply_strategy, check_ported, get_strategy
 from ..utils import flops as flops_mod
@@ -72,10 +76,10 @@ def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
     (``train/loop.py:482-530``) and the config overrides they give."""
     if sequence_parallel < 1:
         raise ValueError(f"sequence_parallel must be >= 1, got {sequence_parallel}")
-    if sequence_parallel > 1 and attention_impl != "ring":
+    if sequence_parallel > 1 and attention_impl not in ("ring", "ulysses"):
         raise ValueError(
-            "sequence_parallel > 1 requires attention_impl 'ring' (the port has no "
-            f"Ulysses attention yet); got {attention_impl!r}"
+            "sequence_parallel > 1 requires attention_impl 'ring' or 'ulysses'; got "
+            f"{attention_impl!r}"
         )
     overrides = {}
     if causal:
@@ -113,32 +117,28 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
-    mesh = make_mesh((sequence_parallel,), (AXES.seq,))
-    dp = mesh.size(AXES.data)
-    if world_size is not None and world_size != dp:
+    group_size = dist.get_world_size() if dist.is_initialized() else 1
+    if world_size is not None and world_size != group_size:
         raise ValueError(
-            f"world_size={world_size} but the process group has {dp} process"
-            f"{'es' if dp > 1 else ''} (one card each); launch {world_size} processes "
+            f"world_size={world_size} but the process group has {group_size} process"
+            f"{'es' if group_size > 1 else ''} (one card each); launch {world_size} processes "
             "(torchrun --nproc_per_node) or leave world_size unset"
-        )
-    if sequence_parallel > 1 and dp > 1:
-        raise ValueError(
-            "sequence_parallel > 1 with world_size > 1 is not ported yet: the port holds "
-            "every sequence shard in one process (ROADMAP Queue 1 item 11, the "
-            "multi-process sequence-parallel trainer)"
         )
     overrides = {"attention_impl": attention_impl,
                  "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
+    mesh = make_mesh((sequence_parallel,), (AXES.seq,))
     if dropout is not None:
         overrides["dropout"] = dropout
     cfg = get_config(model_family, tier, seq_len, **overrides)
+    if attention_impl == "ulysses":
+        check_heads(cfg.n_head, sequence_parallel)
     kind = device_kind(dev)
     strat = memory_mod.resolve_auto_remat(cfg, strat, mesh, per_device_batch, seq_len,
                                           DATASET_SIZE, kind)
     cfg = dataclasses.replace(cfg, remat=strat.remat)
     est = memory_mod.estimate_hbm(cfg, strat, mesh, per_device_batch, seq_len, DATASET_SIZE)
-    if mesh.data_rank == 0:
+    if mesh.rank == 0:
         print(f"Strategy: {strat.describe()}")
         print(f"Mesh: {mesh.shape} over {kind!r}")
         print(memory_mod.format_breakdown(est, kind))
@@ -156,11 +156,11 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
 
 
 def _max_over_ranks(value: float, mesh: Mesh, dev: torch.device) -> float:
-    if mesh.data_group is None:
+    if mesh.group is None:
         return value
     t = torch.tensor([value], dtype=torch.float64,
                      device=dev if dist.get_backend() == "nccl" else "cpu")
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.data_group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
     return float(t.item())
 
 
@@ -203,7 +203,7 @@ def run_benchmark(
                     world_size=world_size)
     dev, cfg, strat, model, table, step_fn, mesh = (
         run.device, run.config, run.strategy, run.model, run.table, run.step_fn, run.mesh)
-    is_main = mesh.data_rank == 0
+    is_main = mesh.rank == 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _sync(dev)
@@ -238,7 +238,7 @@ def run_benchmark(
     peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
     peak_gb = _max_over_ranks(peak_gb, mesh, dev)
     result = metrics_mod.compute_result(
-        strategy=strat.name, world_size=mesh.size(AXES.data), seq_len=seq_len, tier=tier,
+        strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
         steps=steps,
         per_device_batch=per_device_batch, grad_accum=grad_accum,
         step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,

@@ -6,20 +6,29 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
 - the step's global batch is gathered from the device-resident table,
   rows ``(step*G + arange(G)) % size`` laid out (accum, global micro, S),
   G = accum * global micro and global micro = per-device batch * dp; rank
-  r of the ``data`` axis takes rows ``[r*pd, (r+1)*pd)`` of each micro-batch
-  (JAX shards that dimension over ``data``) and keys the attention mask
-  from its first global row;
-- targets are the inputs, unshifted;
+  (d, s) of the (``data``, ``seq``) mesh takes rows ``[d*pd, (d+1)*pd)``
+  of each micro-batch (JAX shards that dimension over ``data``) and, when
+  ``seq`` rides the group, columns ``[s*S/n, (s+1)*S/n)`` (JAX shards the
+  sequence over ``seq``); it keys the attention mask from its first global
+  row;
+- targets are the inputs, unshifted, so no token crosses a shard boundary
+  and every rank counts the same pd * S/n targets: the mean of the ranks'
+  mean losses is the global mean, and so is the mean of their gradients;
 - one forward/backward per micro-batch; ``.grad`` sums the gradients in the
-  parameter dtype (the arm reduces them over ``data``: ``Optimizer``'s
-  ``sync_context`` and ``finish_grads``), then they are divided by accum;
-  the loss is the mean of the micro losses, and over ranks;
+  parameter dtype (the arm reduces them over ``data`` x ``seq``:
+  ``Optimizer``'s ``sync_context`` and ``finish_grads``), then they are
+  divided by accum; the loss is the mean of the micro losses, and over every
+  rank of the group;
 - clip and AdamW (``parallel.strategies.Optimizer``).
 
 Dropout randomness comes from explicit generators seeded from ``seed``: one
 uint32 attention-dropout seed per (step, micro, layer) from a CPU generator
-(a host integer, so no device sync, and the same on every rank), and the
-embedding / MLP masks from a generator on the training device. JAX draws
+(a host integer, so no device sync, and the same on every rank, as the
+ranks of a ring must agree), and the embedding / MLP masks from a generator
+on the training device, drawn for the whole global micro-batch at the full
+sequence length and sliced to this rank's rows and columns
+(``TinyGPT.forward``'s ``global_batch``): a run over a (data, seq) group
+draws the masks of the one-process run of the same global batch. JAX draws
 from its own PRNG, which no torch generator reproduces, so with dropout > 0
 the two agree only statistically; with dropout 0 they agree step for step.
 """
@@ -49,7 +58,9 @@ class TrainStep:
         self.device = device
         self.dp = mesh.size(AXES.data) if mesh is not None else 1
         self.rank = mesh.data_rank if mesh is not None else 0
-        self.loss_group = mesh.data_group if mesh is not None else None
+        self.seq_shard = mesh.seq_shard if mesh is not None else (0, 1)
+        self.loss_group = mesh.group if mesh is not None else None
+        self.world = mesh.world if mesh is not None else 1
         self.seed_gen = torch.Generator().manual_seed(seed)
         self.mask_gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -63,21 +74,27 @@ class TrainStep:
     def __call__(self, table: torch.Tensor, step: int) -> torch.Tensor:
         """Run optimizer step ``step``; returns the mean loss as a 0-d tensor
         on the device (reading it is the caller's sync point)."""
-        batch = step_batch(table, step, self.grad_accum, self.micro_batch * self.dp)
+        global_micro = self.micro_batch * self.dp
+        batch = step_batch(table, step, self.grad_accum, global_micro)
         if self.dp > 1:
             batch = batch[:, self.rank * self.micro_batch:(self.rank + 1) * self.micro_batch]
+        s, n = self.seq_shard
+        if n > 1:
+            cols = batch.shape[-1] // n
+            batch = batch[..., s * cols:(s + 1) * cols]
         gen = self.mask_gen if self.config.dropout > 0.0 else None
         self.optimizer.zero_grad()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for j, micro in enumerate(batch):
             with self.optimizer.sync_context(last=j == self.grad_accum - 1):
                 _, loss = self.model(micro, micro, attn_seeds=self._attn_seeds(), generator=gen,
-                                     batch_offset=self.rank * self.micro_batch)
+                                     batch_offset=self.rank * self.micro_batch,
+                                     global_batch=global_micro)
                 loss.backward()
             loss_sum += loss.detach()
         self.optimizer.finish_grads(self.grad_accum)
         self.optimizer.step()
         if self.loss_group is not None:
             dist.all_reduce(loss_sum, op=dist.ReduceOp.SUM, group=self.loss_group)
-            return loss_sum / (self.grad_accum * self.dp)
+            return loss_sum / (self.grad_accum * self.world)
         return loss_sum / self.grad_accum

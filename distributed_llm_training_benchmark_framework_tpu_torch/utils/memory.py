@@ -20,6 +20,11 @@ counterpart, since there is no XLA here).
   layer ``(10 + F/D widths of the MLP) * B * S * D`` compute-dtype bytes,
   the O(S^2) scores only for the materialized 'reference' attention, remat
   collapsing the per-layer term, and the fp32 logits plus their cotangent.
+- **Under a (data, seq) mesh** (``seq`` over the group) the layout is
+  sharded over ``data`` only, as the arms lay it out, and the activation
+  term keeps JAX's formula at the global ``seq_len``: it does not divide by
+  ``seq``, though each rank holds S/n of the sequence. That over-count is
+  the JAX package's, kept as it is.
 - The device-resident synthetic table is int64 here.
 """
 

@@ -10,6 +10,19 @@ transfer proxy, ``batch*accum*seq*4`` bytes per step time. Peak device memory is
 ``torch.cuda.max_memory_allocated`` (``peak_hbm_method =
 "torch_cuda_max_memory_allocated"``); a CPU run reports 0.0 and
 ``"unavailable"``.
+
+Chip accounting follows JAX's ``compute_result``: a step consumes
+``per_device_batch * grad_accum`` sequences per data-parallel replica, and
+tokens/s/chip is tokens/s over ``world_size``, the processes (cards) of the
+group. A sequence-parallel run is one of two forms (``parallel/mesh.py``):
+
+- ``seq`` over the group (``world_size`` > 1): the ``seq`` ranks jointly
+  compute one example, so ``dp = world_size // sequence_parallel``;
+- ``seq`` in one process (``world_size`` 1): the n shards share the one
+  card, ``dp = 1``, and ``sequence_parallel`` is stamped beside it.
+
+Both are ``dp = max(world_size // sequence_parallel, 1)``, the validator's
+formula (``analysis/validate_results.py``).
 """
 
 from __future__ import annotations
@@ -85,9 +98,9 @@ class BenchmarkResult:
     time_in_init_sec: float = 0.0
     time_in_warmup_sec: float = 0.0
     time_in_timed_sec: float = 0.0
-    # Sequence shards of ring attention. The port holds them all in one
-    # process on its card, so they add nothing to world_size, which counts
-    # the processes (cards) of the data-parallel group.
+    # Sequence shards of ring / Ulysses attention: over the group when
+    # world_size > 1 (world_size = dp * sequence_parallel), else all held in
+    # one process on its card (world_size 1). See the module docstring.
     sequence_parallel: int = 1
     # Ring-attention zigzag layout mode ('auto'/'on'/'off'), run identity.
     ring_zigzag: str = "auto"
@@ -117,7 +130,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         loss_first, loss_last = sum(losses[:lw]) / lw, sum(losses[-lw:]) / lw
     else:
         lw, loss_first, loss_last = 0, 0.0, 0.0
-    step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, world_size)
+    dp = max(world_size // sequence_parallel, 1)
+    step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, dp)
     tps = step_tokens / mean_step if mean_step > 0 else 0.0
     h2d = per_device_batch * grad_accum * seq_len * 4 / mean_step / 1e9 if mean_step > 0 else 0.0
     tps_per_chip = tps / world_size if world_size else 0.0

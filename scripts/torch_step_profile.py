@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Where one training step of the PyTorch port spends its time on the card.
 
-    python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring]
+    python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring
+                                                  parity_ulysses flagship_ulysses
+                                                  parity_s8192 flagship_s8192]
                                           [--arms ddp fsdp zero2 zero3]
                                           [--steps 3]
                                           [--out chiprun_out/torch_step_profile.json]
 
 For each row (parity: TinyGPT tier A b1 x accum 4, dropout 0.1; flagship:
 Llama tier A b2 x accum 2; both S 2048, zero2, flash attention; and the
-sequence-parallel rows parity_ring: TinyGPT b1 x accum 1 and flagship_ring:
-Llama b1 x accum 2, both S 8192 over 4 ring shards on the one card)
+sequence-parallel rows parity_ring: TinyGPT b1 x accum 1, dropout 0.1 and
+flagship_ring: Llama b1 x accum 2, both S 8192 over 4 ring shards on the
+one card, parity_ulysses / flagship_ulysses, the same geometry over 4
+Ulysses head groups, and parity_s8192 / flagship_s8192, the same geometry
+through flash attention with no sequence shards: the work Ulysses does
+around the same kernels, in one process, is the difference)
 it builds the run exactly as ``train.loop.run_benchmark`` does, takes 3
 warmup steps, times ``--steps`` steps on the host clock (synchronised), and
 profiles the same number of steps with ``torch.profiler``. It reports, per
@@ -47,6 +53,14 @@ ROWS = {
                         seq_len=8192, attention_impl="ring", sequence_parallel=4),
     "flagship_ring": dict(model_family="llama", per_device_batch=1, grad_accum=2,
                           seq_len=8192, attention_impl="ring", sequence_parallel=4),
+    "parity_ulysses": dict(model_family="tinygpt", per_device_batch=1, grad_accum=1,
+                           seq_len=8192, attention_impl="ulysses", sequence_parallel=4),
+    "flagship_ulysses": dict(model_family="llama", per_device_batch=1, grad_accum=2,
+                             seq_len=8192, attention_impl="ulysses", sequence_parallel=4),
+    "parity_s8192": dict(model_family="tinygpt", per_device_batch=1, grad_accum=1,
+                         seq_len=8192),
+    "flagship_s8192": dict(model_family="llama", per_device_batch=1, grad_accum=2,
+                           seq_len=8192),
 }
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 

@@ -204,8 +204,6 @@ def test_bench_refuses_a_world_size_that_is_not_the_groups():
     with pytest.raises(ValueError, match="world_size=2 but the process group has 1"):
         tbench.main(["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps", "2",
                      "--warmup-steps", "1", "--world-size", "2", "--flagship", "off"])
-    with pytest.raises(SystemExit, match="ulysses"):
-        tbench.main(["--device", "cpu", "--attention", "ulysses"])
     args = tbench.build_parser().parse_args([])
     assert (args.strategy, args.per_device_batch, args.grad_accum, args.world_size,
             args.model_family, args.flagship, args.attention, args.dropout,

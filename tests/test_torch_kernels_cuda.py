@@ -21,6 +21,7 @@ import torch
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import fwd_variants as fv
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as ra
+from distributed_llm_training_benchmark_framework_tpu_torch.ops import ulysses_attention as ua
 
 import torch_dropout_probe as probe
 
@@ -151,6 +152,46 @@ def test_ring_attention_matches_flash_on_the_card(cuda, causal, zigzag, rate):
     assert _rel(out, ref) <= 2e-2
     for a, b in zip(grads, ref_grads):
         assert _rel(a, b) <= 2e-2
+
+
+# The Ulysses rows' attention (chip_smoke.py's (u) and (v)): B 1, S 8192,
+# 4 head groups of 4 heads at Dh 64 (non-causal, rate 0.1) or of 2 heads at
+# Dh 128 (causal, rate 0).
+ULYSSES_CASES = {"u": (16, 64, False, 0.1), "v": (8, 128, True, 0.0)}
+
+
+def _fwd_bwd(attn, q, k, v, do):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = attn(q, k, v)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+@pytest.mark.parametrize("shape", sorted(ULYSSES_CASES))
+def test_ulysses_matches_plain_and_is_flash_at_rate_0(cuda, monkeypatch, shape):
+    """K1-K3 under the one-process Ulysses (4 launches each) against the same
+    function over flash_attention_plain; at rate 0 the output and gradients
+    are flash_attention's bit for bit (each head's tiles are flash's)."""
+    H, d, causal, rate = ULYSSES_CASES[shape]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, do = (torch.randn(1, 8192, H, d, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+
+    def ulysses(a, b, c):
+        return ua.ulysses_attention(a, b, c, causal=causal, dropout_rate=rate, dropout_seed=5,
+                                    seq_shards=4)
+
+    fa.reset_launch_counts()
+    got = _fwd_bwd(ulysses, q, k, v, do)
+    assert fa.launch_counts() == {"flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    flash = _fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, causal=causal,
+                                                        dropout_rate=rate, dropout_seed=5),
+                     q, k, v, do)
+    monkeypatch.setattr(ua, "flash_attention", fa.flash_attention_plain)
+    want = _fwd_bwd(ulysses, q, k, v, do)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 2e-2
+    for a, b in zip(got, flash):
+        assert torch.equal(a, b) == (rate == 0.0)
 
 
 def test_ring_refuses_chunks_the_kernels_cannot_tile(cuda):

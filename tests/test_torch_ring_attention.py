@@ -38,6 +38,8 @@ from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_atte
 from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
 
+from torch_seq_parallel_worker import spawn_ranks, wait_ranks
+
 REPO = Path(__file__).resolve().parents[1]
 N = 4  # sequence shards
 SEED = 555
@@ -348,3 +350,25 @@ def test_run_benchmark_ring_row_validates(family, causal, zigzag, stamp):
 def test_run_benchmark_refuses_what_jax_refuses(kw, match):
     with pytest.raises(ValueError, match=match):
         run_benchmark(tier="S", seq_len=64, steps=2, warmup_steps=1, device="cpu", **kw)
+
+
+def test_sharded_form_over_data_and_seq_keys_the_batch_offset(tmp_path):
+    """Four gloo ranks laid out (data 2, seq 2) by ``make_mesh``
+    (``tests/torch_seq_parallel_worker.py``): rank (d, s) runs
+    ``ring_attention_sharded`` on row d and columns s of the batch over its
+    ``seq`` group, keyed by its batch offset d, at rate 0.1. Together they
+    equal the one-process ring over both rows, bit for bit (the same blocks
+    in the same order). This case fails on the parent tree, whose sharded
+    ring keyed every rank's rows from batch index 0, so that both ``data``
+    ranks drew row 0's mask."""
+    q, k, v, do = _inputs(2, 64, 4, 16, seed=3)
+    np.savez(tmp_path / "inputs.npz", q=q, k=k, v=v, do=do)
+    wait_ranks(spawn_ranks(4, tmp_path / "inputs.npz", tmp_path / "w4", "attention"))
+    ranks = [np.load(tmp_path / f"w4.rank{r}.npz") for r in range(4)]
+    want = _torch_out_and_grads(
+        lambda a, b, c: tra.ring_attention(a, b, c, dropout_rate=0.1, dropout_seed=SEED,
+                                           seq_shards=2), q, k, v, do)
+    for i, name in enumerate(("out", "dq", "dk", "dv")):
+        got = np.concatenate([np.concatenate([ranks[2 * d + s][f"dseq.ring.{name}"]
+                                              for s in range(2)], axis=1) for d in range(2)])
+        np.testing.assert_array_equal(got, want[0] if i == 0 else want[1][i - 1], err_msg=name)
