@@ -150,6 +150,34 @@ sequence shards, (u) and (v) above:
     card; the one-shard ring sends nothing and no ``seq`` reduction runs,
     and nothing here says anything about scaling.
 
+Tensor parallelism (``parallel/tensor.py``, the ``model`` axis over the
+group): each ``model`` rank runs K1-K3 on its H/tp heads, keyed by global
+batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
+
+16. (a) one process: at (t) = the parity row's attention at B 2 x 16
+    heads of 64 (S 2048, non-causal, rate 0.1) over tp 2 and 4, and the
+    flagship's, B 2 x 8 query heads of 128 (4 kv heads repeated), causal,
+    over tp 2 (the kv heads split) and 8 (they do not), every shard's K1
+    (``bhv`` instance), K2 and K3 launches equal the matching rows of the
+    one whole-layer launch bit for bit (out, lse, dq, dk, dv) and their
+    plain versions within phase 1's limits; the ring at (d)'s geometry (S
+    8192 over 4 shards, Dh 64, rate 0.1) at B 2 over tp 2, each head shard
+    with its head offset, equals the whole ring's rows bit for bit (out,
+    dq, dk, dv); K1's ``bhv`` instance is timed at (t) as in phase 2,
+    beside K1's offset instance on the same inputs (device clock), and at
+    the flagship's shard (BH 8, Dh 128, causal); (b) two processes on the
+    one card, joined over gloo (NCCL takes one rank per device; gloo
+    carries the collectives of CUDA tensors through the host), train both
+    rows at full tier-A width, S 2048, at ``tensor_parallel=2`` ((data 1,
+    model 2)), under ddp and zero2, ``TP_STEPS`` steps: per-step losses
+    within ``TP_LOSS_RTOL`` of the no-group run on one card (phases 3 and
+    12 and a no-group ddp flagship run), both ranks equal, K1's ``bhv``
+    instance, K2 and K3 each launched layers x micro-batches x steps times
+    per rank and K1's offset instance not at all, and each rank's peak
+    memory beside ``estimate_hbm``'s figure for it. The collective matmul
+    needs point-to-point sends, which one card cannot carry over NCCL: it
+    runs on the CPU only (its tests).
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it), the nvidia-smi line, and, last,
@@ -163,10 +191,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -345,6 +375,7 @@ def bound(kind: str, shape, peaks) -> tuple[float, str]:
 # csrc/flash_bwd.cu (None: the output type).
 KERNEL_PARAMS = {
     "flash_fwd_kernel": ("Dh", "causal", "dropout"),
+    "flash_fwd_bhv_kernel": ("Dh", "causal", "dropout"),
     "ring_fwd_block_kernel": ("Dh", "causal", "dropout"),
     "flash_bwd_dq_kernel": ("Dh", "causal", "dropout", None),
     "flash_bwd_dkv_kernel": ("Dh", "causal", "dropout", None),
@@ -480,14 +511,16 @@ def phase_train(fa, ra, run_benchmark):
         "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16),
         "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
     }
-    out = {}
+    out, losses = {}, {}
     for name, row in rows.items():
         steps = WARMUP_STEPS + TIMED_STEPS
         fa.reset_launch_counts()
+        losses[name] = []
         res = run_benchmark(
             strategy="zero2", tier="A", seq_len=2048, model_family=row["model_family"],
             steps=steps, warmup_steps=WARMUP_STEPS, per_device_batch=row["per_device_batch"],
             grad_accum=row["grad_accum"], attention_impl="flash", sync_every=5, device="cuda",
+            loss_log=losses[name],
         )
         counts = fa.launch_counts()
         want = row["layers"] * row["grad_accum"] * steps
@@ -504,7 +537,7 @@ def phase_train(fa, ra, run_benchmark):
         assert set(ra.launch_counts().values()) == {0}, f"{name}: ring kernels ran"
         out[name] = counts
         torch.cuda.empty_cache()
-    return out
+    return out, losses
 
 
 def phase_whole_model(fa, models, SyntheticDataset):
@@ -1200,6 +1233,262 @@ def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop):
     return out
 
 
+# Phase 16 (a): whole layers at B 2 cut into head shards. "parity" at tp 2
+# is (t), one rank's attention in the tp-2 parity row.
+TP_SHAPES = {
+    "parity": dict(B=2, H=16, Hkv=16, S=2048, D=64, causal=False, rate=0.1, tps=(2, 4)),
+    "flagship": dict(B=2, H=8, Hkv=4, S=2048, D=128, causal=True, rate=0.0, tps=(2, 8)),
+}
+# The ring at (d)'s geometry, B 2, over tp 2.
+TP_RING = dict(B=2, H=16, S=8192, n=4, D=64, rate=0.1, tp=2)
+# Phase 16 (b): the bench rows at tensor_parallel 2 in two processes.
+TP_ROWS = {
+    "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16),
+    "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
+}
+TP_ARMS = ("ddp", "zero2")
+TP_STEPS, TP_WARMUP, TP_WIDTH = 5, 2, 2
+# Largest relative difference allowed between a step's loss at tp 2 and on
+# one card without a group (same seeds and masks; bf16, where the tp path
+# sums each row-parallel product's fp32 halves over the group before
+# rounding, and the loss is the vocab-parallel one).
+TP_LOSS_RTOL = 5e-3
+
+
+def head_rows(B: int, H: int, m: int, Hl: int) -> torch.Tensor:
+    """Rows of a (B*H, S, Dh) layer that ``model`` rank m holds at H/Hl ranks."""
+    return torch.cat([torch.arange(b * H + m * Hl, b * H + (m + 1) * Hl)
+                      for b in range(B)]).cuda()
+
+
+def tp_layer_inputs(sh, seed: int = 16):
+    """q, do (B*H, S, Dh) and k, v from Hkv heads repeated to the H query
+    heads (the model's consecutive-block repeat), bf16 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, Hkv, S, D = sh["B"], sh["H"], sh["Hkv"], sh["S"], sh["D"]
+
+    def randn(heads):
+        return torch.randn(B * heads, S, D, device="cuda", generator=g).to(torch.bfloat16)
+
+    q, do = randn(H), randn(H)
+    k, v = (randn(Hkv).view(B, Hkv, S, D).repeat_interleave(H // Hkv, dim=1)
+            .reshape(B * H, S, D).contiguous() for _ in range(2))
+    return q, k, v, do
+
+
+def phase_tp_kernels(fa, ra, peaks):
+    """Phase 16 (a): head shards of K1-K3 and of the ring against the whole
+    layer's rows, and K1's bhv instance timed."""
+    seed = 0x2545F491
+    timing = {}
+    for key, sh in TP_SHAPES.items():
+        B, H, c, r = sh["B"], sh["H"], sh["causal"], sh["rate"]
+        q, k, v, do = tp_layer_inputs(sh)
+        out, lse = fa.flash_fwd(q, k, v, c, r, seed)
+        delta = fa.attention_delta(out, do)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, c, r, seed)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, c, r, seed)
+        for tp in sh["tps"]:
+            Hl, worst = H // tp, {}
+            for m in range(tp):
+                rows = head_rows(B, H, m, Hl)
+                bhv = fa._global_bh_vec(B, Hl, 0, m * Hl, H, "cuda")
+                qs, ks, vs, dos = (t[rows].contiguous() for t in (q, k, v, do))
+                fa.reset_launch_counts()
+                o, l = fa.flash_fwd(qs, ks, vs, c, r, seed, bhv=bhv)
+                args = (qs, ks, vs, dos, l, delta[rows].contiguous(), c, r, seed)
+                sdq = fa.flash_bwd_dq(*args, bhv=bhv)
+                sdk, sdv = fa.flash_bwd_dkv(*args, bhv=bhv)
+                counts = fa.head_shard_launch_counts()
+                assert counts == {"flash_fwd_bhv": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}, \
+                    f"({key}) tp {tp}: launches {counts}"
+                for nm, a, b in (("out", o, out), ("lse", l, lse), ("dq", sdq, dq),
+                                 ("dk", sdk, dk), ("dv", sdv, dv)):
+                    assert torch.equal(a, b[rows]), f"({key}) tp {tp} rank {m}: {nm} is not " \
+                                                    "the whole layer's rows"
+                po, pl = fa.flash_forward_plain(qs, ks, vs, c, r, seed, bhv=bhv)
+                pargs = (qs, ks, vs, dos, pl, fa.attention_delta(po, dos), c, r, seed)
+                pdq = fa.flash_bwd_dq_plain(*pargs, bhv=bhv)
+                pdk, pdv = fa.flash_bwd_dkv_plain(*pargs, bhv=bhv)
+                errs = {"out": rel_err(o, po), "dq": rel_err(sdq, pdq), "dk": rel_err(sdk, pdk),
+                        "dv": rel_err(sdv, pdv)}
+                for nm, e in errs.items():
+                    assert e <= 2e-2, f"({key}) tp {tp} rank {m}: {nm} rel error {e} > 2e-2"
+                    worst[nm] = max(worst.get(nm, 0.0), e)
+                lse_err = max_abs(l, pl)
+                assert lse_err <= 1e-3, f"({key}) tp {tp} rank {m}: lse error {lse_err}"
+                worst["lse max abs"] = max(worst.get("lse max abs", 0.0), lse_err)
+                if key == "parity" and tp == TP_WIDTH and m == 1:
+                    timing["parity"] = dict(inputs=(qs, ks, vs, bhv), max_abs_err=max(
+                        max_abs(o, po), lse_err))
+                if key == "flagship" and tp == TP_WIDTH and m == 1:
+                    timing["flagship"] = dict(inputs=(qs, ks, vs, bhv), max_abs_err=max(
+                        max_abs(o, po), lse_err))
+            log(f"[16] ({key}) B {B} x {H} heads (kv {sh['Hkv']}) Dh {sh['D']} causal {c} rate "
+                f"{r} over tp {tp}: every shard's K1 (bhv) / K2 / K3 == the whole layer's rows "
+                f"bit for bit (out, lse, dq, dk, dv); vs plain, worst " + json.dumps(
+                    {nm: f"{e:.2e}" for nm, e in worst.items()}))
+        del q, k, v, do, out, lse, dq, dk, dv
+        torch.cuda.empty_cache()
+    # The ring at (d)'s geometry, B 2: each head shard with its offset.
+    sh = TP_RING
+    g = torch.Generator(device="cuda").manual_seed(17)
+    B, H, S, D = sh["B"], sh["H"], sh["S"], sh["D"]
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(dropout_rate=sh["rate"], dropout_seed=seed, seq_shards=sh["n"])
+    whole = fwd_bwd(lambda a, b, d: ra.ring_attention(a, b, d, **kw), q, k, v, do)
+    Hl = H // sh["tp"]
+    for m in range(sh["tp"]):
+        heads = slice(m * Hl, (m + 1) * Hl)
+        part = fwd_bwd(lambda a, b, d: ra.ring_attention(a, b, d, head_offset=m * Hl,
+                                                         n_heads=H, **kw),
+                       *(t[:, :, heads].contiguous() for t in (q, k, v, do)))
+        for nm, a, b in zip(("out", "dq", "dk", "dv"), part, whole):
+            assert torch.equal(a, b[:, :, heads]), f"ring tp rank {m}: {nm} differs"
+    log(f"[16] ring B {B} x {H} heads S {S} over {sh['n']} shards Dh {D} rate {sh['rate']} "
+        f"over tp {sh['tp']}: each head shard (head offset, global ids) == the whole ring's "
+        "rows bit for bit (out, dq, dk, dv)")
+    del q, k, v, do, whole, part
+    torch.cuda.empty_cache()
+    # K1's bhv instance at (t) and at the flagship's shard, as in phase 2.
+    out = {}
+    for key, t in timing.items():
+        sh = TP_SHAPES[key]
+        qs, ks, vs, bhv = t["inputs"]
+        c, r = sh["causal"], sh["rate"]
+        shape = dict(BH=qs.shape[0], S=sh["S"], D=sh["D"], causal=c, rate=r)
+        kern = lambda: fa.flash_fwd(qs, ks, vs, c, r, seed, bhv=bhv)  # noqa: E731
+        res = dict(max_abs_err=t["max_abs_err"], ms=median_ms(kern),
+                   device_ms=median_ms(kern, device_clock=True),
+                   offset_instance_device_ms=median_ms(
+                       lambda: fa.flash_fwd(qs, ks, vs, c, r, seed, 8), device_clock=True),
+                   plain_ms=median_ms(lambda: fa.flash_forward_plain(qs, ks, vs, c, r, seed,
+                                                                     bhv=bhv),
+                                      warmup=2, reps=20))
+        res["bound_ms"], res["bound_by"] = bound("fwd", shape, peaks)
+        q4, k4, v4 = (x.unsqueeze(0) for x in (qs, ks, vs))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        res["library_ms"] = median_ms(lambda: sdpa(q4, k4, v4, is_causal=c))
+        res["library_device_ms"] = median_ms(lambda: sdpa(q4, k4, v4, is_causal=c),
+                                             device_clock=True)
+        res["shape"] = shape
+        log(f"[16] ({key}) K1 bhv instance BH {shape['BH']} S {shape['S']} Dh {shape['D']} "
+            f"causal {c} rate {r} (ms, median of 25): " + json.dumps(
+                {n: (round(x, 5) if isinstance(x, float) else x) for n, x in res.items()
+                 if n != "shape"}))
+        out[key] = res
+    del timing
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_worker(rank: int, port: int, outdir: str) -> int:
+    """Phase 16 (b), one rank: ``chip_smoke.py --tp-worker RANK PORT DIR``."""
+    from distributed_llm_training_benchmark_framework_tpu_torch import models
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import get_strategy
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.mesh import Mesh
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import loop
+    from distributed_llm_training_benchmark_framework_tpu_torch.utils import memory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert rt.setup_distributed(num_processes=TP_WIDTH, process_id=rank, master_port=port,
+                                device="cuda", backend="gloo")
+    out = {}
+    try:
+        for row, spec in TP_ROWS.items():
+            for arm in TP_ARMS:
+                fa.reset_launch_counts()
+                losses = []
+                res = loop.run_benchmark(
+                    strategy=arm, tier="A", seq_len=2048, model_family=spec["model_family"],
+                    steps=TP_STEPS, warmup_steps=TP_WARMUP,
+                    per_device_batch=spec["per_device_batch"], grad_accum=spec["grad_accum"],
+                    attention_impl="flash", sync_every=5, device="cuda", loss_log=losses,
+                    tensor_parallel=TP_WIDTH)
+                counts = {**fa.head_shard_launch_counts(),
+                          "flash_fwd": fa.launch_counts()["flash_fwd"]}
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                cfg = models.get_config(spec["model_family"], "A", 2048, attention_impl="flash")
+                est = memory.estimate_hbm(cfg, get_strategy(arm), Mesh({"data": 1,
+                                                                        "model": TP_WIDTH}),
+                                          spec["per_device_batch"], 2048, loop.DATASET_SIZE)
+                out[f"{row}.{arm}"] = dict(
+                    losses=losses, launches=counts, peak_gb=peak, estimate_gb=est.total / 1e9,
+                    tokens_per_sec=res.tokens_per_sec, world_size=res.world_size,
+                    tensor_parallel=res.tensor_parallel, n_params=res.n_params)
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        rt.cleanup_distributed()
+    with open(os.path.join(outdir, f"tp.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_tp_train(no_group_losses: dict) -> dict:
+    """Phase 16 (b): two ranks of tensor_parallel 2 on the one card over
+    gloo, both rows, ddp and zero2, against the no-group run's losses."""
+    outdir = tempfile.mkdtemp(prefix="tp_smoke_")
+    env = dict(os.environ, LOCAL_RANK="0",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
+                               str(r), str(port), outdir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_WIDTH)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"tp rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    ranks = [json.load(open(os.path.join(outdir, f"tp.rank{r}.json")))
+             for r in range(TP_WIDTH)]
+    launches = {}
+    for label, run in ranks[0].items():
+        row, arm = label.split(".")
+        spec = TP_ROWS[row]
+        want = spec["layers"] * spec["grad_accum"] * TP_STEPS
+        base = no_group_losses[row, arm][:TP_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+        peaks = [f"{rk[label]['peak_gb']:.2f}" for rk in ranks]
+        log(f"[16] {row} {arm} at tensor_parallel {TP_WIDTH} (two ranks on one card over "
+            f"gloo): world_size {run['world_size']}, {run['tokens_per_sec']:.1f} tok/s, "
+            f"losses {[round(x, 5) for x in run['losses']]}, max relative difference to the "
+            f"no-group run {rel:.2e} (limit {TP_LOSS_RTOL}), peak per rank {peaks} GB, "
+            f"estimate_hbm per rank {run['estimate_gb']:.2f} GB, launches per rank "
+            f"{run['launches']} (want {want} each, flash_fwd 0)")
+        assert all(math.isfinite(x) for x in run["losses"]) and len(run["losses"]) == TP_STEPS
+        assert all(rk[label]["losses"] == run["losses"] for rk in ranks), f"{label}: ranks differ"
+        assert rel <= TP_LOSS_RTOL, f"{label}: tp-2 loss differs from one card's by {rel}"
+        assert run["launches"] == {"flash_fwd_bhv": want, "flash_bwd_dq": want,
+                                   "flash_bwd_dkv": want, "flash_fwd": 0}, \
+            f"{label}: launches {run['launches']}"
+        assert (run["world_size"], run["tensor_parallel"]) == (TP_WIDTH, TP_WIDTH)
+        launches[label] = run["launches"]["flash_fwd_bhv"]
+    return launches
+
+
+def no_group_ddp_flagship(run_benchmark) -> list:
+    """The flagship row without a group under ddp (bare AdamW), TP_STEPS
+    steps: phase 16 (b)'s baseline for its ddp flagship run."""
+    losses = []
+    spec = TP_ROWS["flagship"]
+    run_benchmark(strategy="ddp", tier="A", seq_len=2048, model_family=spec["model_family"],
+                  steps=TP_STEPS, warmup_steps=TP_WARMUP,
+                  per_device_batch=spec["per_device_batch"], grad_accum=spec["grad_accum"],
+                  attention_impl="flash", sync_every=5, device="cuda", loss_log=losses)
+    torch.cuda.empty_cache()
+    return losses
+
+
 # Keys a kernel's entry in the kernels line carries where its phase measured them.
 OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "attention_delta_ms",
                  "attention_delta_device_ms", "pair_ms", "pair_device_ms", "rate0_ms",
@@ -1211,6 +1500,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
@@ -1256,7 +1547,7 @@ def main() -> int:
                 log(f"[0]   ptxas: {ln.strip()}")
 
     timing = phase_kernels(fa, peaks)
-    launches = phase_train(fa, ra, run_benchmark)
+    launches, row_losses = phase_train(fa, ra, run_benchmark)
     phase_whole_model(fa, models, SyntheticDataset)
     ring_timing = phase_ring_kernels(fa, ra, peaks)
     phase_ring_vs_flash(fa, ra)
@@ -1267,6 +1558,11 @@ def main() -> int:
     phase_ulysses(fa, ua)
     launches.update(phase_ulysses_train(fa, ra, run_benchmark))
     arms = phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop)
+    tp_timing = phase_tp_kernels(fa, ra, peaks)
+    tp_launches = phase_tp_train({
+        ("parity", "zero2"): row_losses["parity"], ("flagship", "zero2"): row_losses["flagship"],
+        ("parity", "ddp"): arms["ddp"]["plain"]["losses"],
+        ("flagship", "ddp"): no_group_ddp_flagship(run_benchmark)})
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -1340,6 +1636,23 @@ def main() -> int:
             "launches_on": "the microbench path (phase 11)",
             **r,
         })
+    for key, r in tp_timing.items():
+        sh, spec = r["shape"], TP_ROWS[key]
+        n = tp_launches[f"{key}.zero2"]
+        kernels.append({
+            "name": f"flash_fwd_bhv [{key} row at tensor_parallel {TP_WIDTH}, one rank: BH "
+                    f"{sh['BH']} ({TP_SHAPES[key]['B']} x {TP_SHAPES[key]['H'] // TP_WIDTH} "
+                    f"heads) S {sh['S']} Dh {sh['D']} causal {sh['causal']} rate {sh['rate']}]",
+            "route": "cuda",
+            "source": sources["fwd"][0],
+            "replaces": sources["fwd"][1],
+            "launches": n,
+            "launches_per_step": n / TP_STEPS,
+            "launches_on": "each rank of the zero2 tp-2 run (phase 16 (b))",
+            **{nm: r[nm] for nm in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "device_ms", "library_device_ms",
+                                    "offset_instance_device_ms")},
+        })
     log("[12] the arms at world 1 (parity row; tokens/s measure each wrapper's overhead on "
         "one card, nothing about scaling): " + json.dumps({
             arm: {"remat": a["group"]["remat"], "world_size": a["group"]["res"].world_size,
@@ -1349,7 +1662,7 @@ def main() -> int:
                   "peak_gb_group": a["group"]["res"].peak_hbm_gb,
                   "loss_max_rel_diff": a["loss_rel"], "launches_group": a["group"]["launches"]}
             for arm, a in arms.items()}) + f" on {smi}")
-    log(f"[16] total {time.perf_counter() - t0:.1f} s")
+    log(f"[17] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,10 +19,14 @@ here, with its defaults: ``--strategy`` (zero2), ``--per-device-batch`` (1),
 per process, 1 without a launcher; another value is refused),
 ``--model-family``, ``--flagship auto|on|off`` (auto: the flagship row
 runs when the top row is tinygpt), ``--attention``, ``--dropout`` (the
-family's own by default) and ``--sync-every``. Like the JAX bench, it has
-no sequence-parallel flag, so ``--attention ulysses`` runs at ``seq`` width
-1, where Ulysses is flash attention bit for bit. The flagship row pins flash, the family's dropout and its
-b2 x accum 2, under the same strategy. Under a launcher (torchrun's
+family's own by default), ``--sync-every`` and ``--tp-collective-matmul``
+(the tensor-parallel projections as collective matmuls: inert without a
+``model`` axis, and stamped on both rows when given, as JAX's bench does).
+Like the JAX bench, it has no sequence- or tensor-parallel width flag, so
+``--attention ulysses`` runs at ``seq`` width 1, where Ulysses is flash
+attention bit for bit, and every run is at ``model`` width 1. The flagship
+row pins flash, the family's dropout and its b2 x accum 2, under the same
+strategy. Under a launcher (torchrun's
 ``WORLD_SIZE``, or the JAX package's ``NUM_PROCESSES``) the bench joins the
 process group (``runtime.setup_distributed``: NCCL, or gloo with
 ``--device cpu``) and every arm lays its model out over it.
@@ -65,8 +69,10 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
             per_device_batch=per_device_batch, grad_accum=grad_accum,
             attention_impl=attention_impl, dropout=dropout, sync_every=args.sync_every,
             device=args.device, world_size=args.world_size,
+            tp_collective_matmul=args.tp_collective_matmul,
         )
     per_chip = result.tokens_per_sec / result.world_size
+    extra = {"tp_collective_matmul": True} if result.tp_collective_matmul else {}
     return result, {
         "metric": f"{model_family}_tier{args.tier}_seq{args.seq_len}_tokens_per_sec_per_chip",
         "value": round(per_chip, 2),
@@ -84,6 +90,7 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
         "loss_last_window": round(result.loss_last_window, 4),
         "wall_time_total_sec": round(result.wall_time_total_sec, 2),
         "time_in_timed_sec": round(result.time_in_timed_sec, 2),
+        **extra,
     }
 
 
@@ -105,6 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["reference", "flash", "ring", "ulysses"])
     p.add_argument("--dropout", type=float, default=None)
     p.add_argument("--sync-every", type=int, default=10)
+    p.add_argument("--tp-collective-matmul", action="store_true",
+                   help="run the tensor-parallel projections as collective matmuls (needs a "
+                        ">1 'model' axis to have any effect)")
     return p
 
 

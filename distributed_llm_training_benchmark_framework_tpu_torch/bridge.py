@@ -14,6 +14,12 @@ Under a strategy arm (``parallel.strategies.apply_strategy``) weights are
 loaded before the arm lays the model out; ``export_params`` takes the
 model as the arm returns it (a DDP wrapper, or FSDP2's sharded leaves,
 which it gathers: a collective that every rank of the group must call).
+
+Under tensor parallelism (a model built at a ``model`` rank's local widths)
+``load_jax_params`` keeps this rank's shard of each global leaf, by the
+layout rules (``parallel.strategies.tp_axis``), and ``export_params``
+gathers the shards over the ``model`` group back into global leaves (a
+collective again: every rank calls it).
 """
 
 from __future__ import annotations
@@ -22,9 +28,11 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from .models.tinygpt import TinyGPT
+from .parallel.strategies import tp_axis
 
 
 def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
@@ -49,10 +57,12 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
     """Fill ``model`` from a JAX param tree given as numpy arrays.
 
     Every JAX leaf must map onto the model and every model parameter must be
-    filled; shapes must agree exactly. Raises ValueError otherwise."""
+    filled; shapes must agree exactly (a leaf that ``model`` shards: this
+    rank's shard of it). Raises ValueError otherwise."""
     want = _jax_leaf_paths(params_np)
     used = set()
-    for path, p in leaf_map(model):
+    m, t = model.tp
+    for (path, p), (name, _) in zip(leaf_map(model), model.named_parameters()):
         if path[0] == "blocks":
             _, leaf, i = path
             if leaf not in params_np.get("blocks", {}):
@@ -64,6 +74,9 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
                 raise ValueError(f"JAX tree has no {path[0]}")
             arr = np.asarray(params_np[path[0]])
             used.add(path)
+        ax = tp_axis(name, model.config.kv_heads, t)
+        if ax is not None:
+            arr = np.split(arr, t, axis=ax)[m]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(map(str, path))}: shape {arr.shape} vs {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
@@ -78,10 +91,17 @@ def export_params(model: torch.nn.Module) -> Dict:
     every rank, copied (later steps do not change them)."""
     out: Dict = {}
     stacks: Dict[str, list] = {}
-    for path, p in leaf_map(getattr(model, "module", model)):
+    inner = getattr(model, "module", model)
+    _, t = inner.tp
+    for (path, p), (name, _) in zip(leaf_map(inner), inner.named_parameters()):
         p = p.detach()
         if isinstance(p, DTensor):
             p = p.full_tensor()
+        ax = tp_axis(name, inner.config.kv_heads, t)
+        if ax is not None:
+            parts = [torch.empty_like(p) for _ in range(t)]
+            dist.all_gather(parts, p.contiguous(), group=inner.model_group)
+            p = torch.cat(parts, dim=ax)
         arr = p.to("cpu", torch.float32, copy=True).numpy()
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))

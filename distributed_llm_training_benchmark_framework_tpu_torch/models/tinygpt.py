@@ -32,6 +32,23 @@ bf16. On a CUDA device it is one bf16 GEMM with fp32 output
 (``torch.mm(..., out_dtype=torch.float32)``; its backward is two bf16 GEMMs
 on the bf16-rounded logits gradient, since that overload has no autograd
 formula). Elsewhere it upcasts the bf16 operands and multiplies in fp32.
+
+Tensor parallelism (a ``model`` axis of width tp over the process group,
+``parallel/mesh.py``) builds the model at its rank's local widths of the
+Megatron layout (``parallel/strategies.py``'s rules): H/tp query heads, and
+kv_heads/tp kv heads or, when tp does not divide kv_heads, all of them
+(this rank takes its own query heads' k/v after the consecutive-block
+repeat); F/tp MLP features; V/tp rows of ``wte`` / ``lm_head``. The stream
+stays replicated over ``model``: "f" (``parallel/tensor.copy_to_model``)
+before each column-parallel projection, and after each row-parallel one the
+fp32 partial product summed over ``model`` ("g") and rounded once to the
+compute dtype. The embedding is vocab-parallel and so is the loss;
+``forward`` returns this rank's vocabulary slice of the logits. The
+attention keys its dropout mask by global head ids (``head_offset``). With
+``tp_collective_matmul`` the stream rides sequence-sharded over ``model``
+between projections, which run as the rings of
+``ops/collective_matmul.py``. At tp 1 none of this runs: the model is the
+one above, operation for operation.
 """
 
 from __future__ import annotations
@@ -51,6 +68,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..ops.collective_matmul import MMF32, ag_proj_sharded, proj_f32, rs_proj_sharded
 from ..ops.flash_attention import (
     dropout_keep,
     dropout_threshold,
@@ -59,6 +77,15 @@ from ..ops.flash_attention import (
 from ..ops.ring_attention import ring_attention, ring_attention_sharded
 from ..ops.ulysses_attention import ulysses_attention, ulysses_attention_sharded
 from ..parallel.mesh import AXES, Mesh
+from ..parallel.strategies import check_tp, kv_aligned, tp_axis
+from ..parallel.tensor import (
+    all_gather_seq,
+    copy_to_model,
+    reduce_from_model,
+    reduce_scatter_seq,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_embedding,
+)
 
 ATTENTION_IMPLS = ("reference", "flash", "ring", "ulysses")
 REMAT_POLICIES = ("none", "dots", "full")
@@ -105,6 +132,10 @@ class TinyGPTConfig:
     ring_zigzag: Optional[bool] = None
     # Per-layer rematerialization policy (REMAT_POLICIES, or a bool).
     remat: object = "none"
+    # Collective-matmul tensor parallelism (ops/collective_matmul.py): the
+    # stream rides sequence-sharded over 'model' between projections; inert
+    # at 'model' width 1.
+    tp_collective_matmul: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -206,14 +237,15 @@ def _apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float):
 
 
 def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None,
-                        batch_offset: int = 0) -> torch.Tensor:
+                        dropout_seed: Optional[int] = None, batch_offset: int = 0,
+                        head_offset: int = 0, n_heads: Optional[int] = None) -> torch.Tensor:
     """Materialized softmax(q k^T / sqrt(Dh)) v with fp32 softmax, (B, S, H, Dh).
 
     Attention-probability dropout uses the flash kernels' coordinate-hash mask
     for ``dropout_seed`` (the JAX 'reference' path draws a bernoulli mask from
     its own key, which no torch generator reproduces), keyed from the global
-    batch index ``batch_offset`` of row 0 as in flash."""
+    batch index ``batch_offset`` of row 0 and, under tensor parallelism, the
+    global index ``head_offset`` of head 0 of ``n_heads``, as in flash."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     S = q.shape[1]
@@ -223,30 +255,16 @@ def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0
     probs = torch.softmax(scores, dim=-1)
     if dropout_rate > 0.0 and dropout_seed is not None:
         B, H = q.shape[0], q.shape[2]
+        n = H if n_heads is None else n_heads
         idx = torch.arange(S, device=q.device)
-        bh = batch_offset * H + torch.arange(B * H, device=q.device)
+        bh = ((batch_offset + torch.arange(B, device=q.device))[:, None] * n + head_offset
+              + torch.arange(H, device=q.device)[None, :]).reshape(B * H)
         keep = dropout_keep(int(dropout_seed), bh[:, None, None],
                             idx[None, :, None], idx[None, None, :],
                             dropout_threshold(dropout_rate)).reshape(B, H, S, S)
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
     return out.to(q.dtype)
-
-
-class _LogitsMM(torch.autograd.Function):
-    """bf16 x bf16 -> fp32 logits in one GEMM (CUDA): the forward of JAX's
-    einsum(..., preferred_element_type=f32) without rounding to bf16."""
-
-    @staticmethod
-    def forward(ctx, x2d, w):
-        ctx.save_for_backward(x2d, w)
-        return torch.mm(x2d, w.t(), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2d, w = ctx.saved_tensors
-        g = g.to(x2d.dtype)
-        return torch.mm(g, w), torch.mm(g.t(), x2d)
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -256,7 +274,7 @@ def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return torch.matmul(x, w.t())
     if x.device.type == "cuda":
-        return _LogitsMM.apply(x.reshape(B * S, D), w).reshape(B, S, -1)
+        return MMF32.apply(x.reshape(B * S, D), w).reshape(B, S, -1)
     return torch.matmul(x.float(), w.float().t())
 
 
@@ -285,46 +303,63 @@ def _param(*shape) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One pre-norm transformer layer holding the JAX leaves of its slice."""
+    """One pre-norm transformer layer holding the JAX leaves of its slice, at
+    this ``model`` rank's local widths under tensor parallelism (``tp``:
+    (index, width); ``group``: the ``model`` group, None at width 1)."""
 
-    def __init__(self, c: TinyGPTConfig):
+    def __init__(self, c: TinyGPTConfig, tp: Tuple[int, int] = (0, 1),
+                 group: Optional[torch.distributed.ProcessGroup] = None):
         super().__init__()
         self.c = c
+        m, t = tp
+        self.group = group
+        self.cmm = c.tp_collective_matmul and t > 1
         D, H, Hkv, Dh, Fm = c.n_embd, c.n_head, c.kv_heads, c.head_dim, c.mlp_dim
+        # Local widths: query heads, their first global index, kv heads.
+        self.n_head, self.head0 = H // t, m * (H // t)
+        self.kv_sharded = kv_aligned(Hkv, t)
+        self.n_kv = Hkv // t if self.kv_sharded else Hkv
+        Dl, Fl = self.n_head * Dh, Fm // t
         self.ln1_scale, self.ln2_scale = _param(D), _param(D)
         if c.norm == "layernorm":
             self.ln1_bias, self.ln2_bias = _param(D), _param(D)
         if Hkv == H:
-            self.wqkv = _param(D, 3, D)
+            self.wqkv = _param(D, 3, Dl)
             if c.bias:
-                self.bqkv = _param(3, D)
+                self.bqkv = _param(3, Dl)
         else:
-            self.wq = _param(D, H * Dh)
-            self.wkv = _param(D, 2, Hkv * Dh)
+            self.wq = _param(D, Dl)
+            self.wkv = _param(D, 2, self.n_kv * Dh)
             if c.bias:
-                self.bq = _param(H * Dh)
-                self.bkv = _param(2, Hkv * Dh)
-        self.wo = _param(D, D)
+                self.bq = _param(Dl)
+                self.bkv = _param(2, self.n_kv * Dh)
+        self.wo = _param(Dl, D)
         if c.bias:
             self.bo = _param(D)
         if c.mlp_act == "swiglu":
-            self.wgu = _param(D, 2, Fm)
+            self.wgu = _param(D, 2, Fl)
             if c.bias:
-                self.bgu = _param(2, Fm)
+                self.bgu = _param(2, Fl)
         else:
-            self.wfc = _param(D, Fm)
+            self.wfc = _param(D, Fl)
             if c.bias:
-                self.bfc = _param(Fm)
-        self.wproj = _param(Fm, D)
+                self.bfc = _param(Fl)
+        self.wproj = _param(Fl, D)
         if c.bias:
             self.bproj = _param(D)
 
+    def _rep(self, p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A leaf replicated over ``model`` and used on the sequence-sharded
+        stream of the collective matmul, where each rank sees part of its
+        gradient: summed over ``model`` in the backward (else p itself)."""
+        return copy_to_model(p, self.group) if self.cmm and p is not None else p
+
     def _norm(self, x, which: str):
         c = self.c
-        scale = getattr(self, f"{which}_scale")
+        scale = self._rep(getattr(self, f"{which}_scale"))
         if c.norm == "rmsnorm":
             return _rms_norm(x, scale, c.norm_eps)
-        return _layer_norm(x, scale, getattr(self, f"{which}_bias"), c.norm_eps)
+        return _layer_norm(x, scale, self._rep(getattr(self, f"{which}_bias")), c.norm_eps)
 
     def _proj(self, h, w, b=None):
         """h (..., K) @ w (K, ...) in the compute dtype, plus an optional bias."""
@@ -333,41 +368,80 @@ class Block(nn.Module):
         out = out.reshape(*h.shape[:-1], *w.shape[1:])
         return out if b is None else out + b.to(cd)
 
+    def _col(self, h, w, b=None):
+        """Column-parallel projection: the stream h (after "f") by this
+        rank's output features, or, under the collective matmul, the ring
+        over h's sequence chunks (full rows out)."""
+        if not self.cmm:
+            return self._proj(h, w, b)
+        cd = self.c.compute_dtype
+        out = ag_proj_sharded(h, w.to(cd), self.group)
+        return out if b is None else out + b.to(cd)
+
+    def _row(self, h, w, b=None):
+        """Row-parallel projection by this rank's input features: the fp32
+        partial product summed over ``model``, rounded once, plus the
+        replicated bias; under the collective matmul the ring's reduce to
+        this rank's sequence chunk. At ``model`` width 1, ``_proj``."""
+        if self.group is None:
+            return self._proj(h, w, b)
+        cd = self.c.compute_dtype
+        if self.cmm:
+            out = rs_proj_sharded(h, w.to(cd), self.group)
+        else:
+            out = reduce_from_model(proj_f32(h, w.to(cd)), self.group).to(cd)
+        b = self._rep(b)
+        return out if b is None else out + b.to(cd)
+
     def forward(self, x, attention: AttentionFn, attn_seed: Optional[int],
                 drop_mask: Optional[torch.Tensor], batch_offset: int = 0, pos_offset: int = 0):
         """One layer; ``drop_mask`` is the MLP dropout's keep mask (None: no
         dropout), ``batch_offset`` the global batch index of row 0 and
         ``pos_offset`` the global position of column 0."""
         c = self.c
-        B, S, D = x.shape
+        B = x.shape[0]
+        H, Dh = self.n_head, c.head_dim
         h = self._norm(x, "ln1")
+        if not self.cmm:
+            h = copy_to_model(h, self.group)
         if c.kv_heads == c.n_head:
-            qkv = self._proj(h, self.wqkv, getattr(self, "bqkv", None))  # (B, S, 3, D)
-            q, k, v = (qkv[:, :, i].reshape(B, S, c.n_head, c.head_dim) for i in range(3))
+            qkv = self._col(h, self.wqkv, getattr(self, "bqkv", None))  # (B, S, 3, H*Dh)
+            S = qkv.shape[1]
+            q, k, v = (qkv[:, :, i].reshape(B, S, H, Dh) for i in range(3))
         else:
-            q = self._proj(h, self.wq, getattr(self, "bq", None))
-            kv = self._proj(h, self.wkv, getattr(self, "bkv", None))
-            q = q.reshape(B, S, c.n_head, c.head_dim)
-            k = kv[:, :, 0].reshape(B, S, c.kv_heads, c.head_dim)
-            v = kv[:, :, 1].reshape(B, S, c.kv_heads, c.head_dim)
+            wkv, bkv = self.wkv, getattr(self, "bkv", None)
+            if not self.kv_sharded:
+                # Replicated over 'model', but each rank uses only its own
+                # heads' k/v: the gradient is summed over 'model'.
+                wkv, bkv = copy_to_model(wkv, self.group), copy_to_model(bkv, self.group)
+            q = self._col(h, self.wq, getattr(self, "bq", None))
+            kv = self._col(h, wkv, bkv)
+            S = q.shape[1]
+            q = q.reshape(B, S, H, Dh)
+            k = kv[:, :, 0].reshape(B, S, self.n_kv, Dh)
+            v = kv[:, :, 1].reshape(B, S, self.n_kv, Dh)
         if c.pos_embed == "rope":
             q, k = _rope(q, c.rope_theta, pos_offset), _rope(k, c.rope_theta, pos_offset)
         if c.kv_heads != c.n_head:
             rep = c.n_head // c.kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
+            if not self.kv_sharded and self.group is not None:
+                k, v = (t[:, :, self.head0:self.head0 + H] for t in (k, v))
         rate = c.dropout if attn_seed is not None else 0.0
         attn = attention(q, k, v, causal=c.causal, dropout_rate=rate, dropout_seed=attn_seed,
                          batch_offset=batch_offset)
-        x = x + self._proj(attn.reshape(B, S, D), self.wo, getattr(self, "bo", None))
+        x = x + self._row(attn.reshape(B, S, H * Dh), self.wo, getattr(self, "bo", None))
 
         h = self._norm(x, "ln2")
+        if not self.cmm:
+            h = copy_to_model(h, self.group)
         if c.mlp_act == "swiglu":
-            gu = self._proj(h, self.wgu, getattr(self, "bgu", None))  # (B, S, 2, F)
+            gu = self._col(h, self.wgu, getattr(self, "bgu", None))  # (B, S, 2, F)
             h = F.silu(gu[:, :, 0]) * gu[:, :, 1]
         else:
-            h = F.gelu(self._proj(h, self.wfc, getattr(self, "bfc", None)))  # exact erf
-        h = self._proj(h, self.wproj, getattr(self, "bproj", None))
+            h = F.gelu(self._col(h, self.wfc, getattr(self, "bfc", None)))  # exact erf
+        h = self._row(h, self.wproj, getattr(self, "bproj", None))
         h = _apply_dropout(h, drop_mask, c.dropout)
         return x + h
 
@@ -387,12 +461,12 @@ def _remat_context(policy: str):
 
 
 def _ulysses_group(q, k, v, causal, dropout_rate, dropout_seed, batch_offset, group,
-                   batch_shard):
+                   batch_shard, head_shard):
     """Ulysses' group form under the blocks' attention signature: its mask is
-    keyed by the seed folded from ``batch_shard``, with no batch offset (JAX
-    calls flash there with none)."""
+    keyed by the seed folded from ``batch_shard`` and ``head_shard``, with no
+    batch offset (JAX calls flash there with none)."""
     return ulysses_attention_sharded(q, k, v, group, causal, dropout_rate, dropout_seed,
-                                     batch_shard)
+                                     batch_shard, head_shard)
 
 
 class TinyGPT(nn.Module):
@@ -406,46 +480,65 @@ class TinyGPT(nn.Module):
     index: positions (learned, or RoPE's) are global, and the attention
     exchanges blocks over the ``seq`` group; the zigzag layout of a causal
     ring stays inside the ring. Otherwise all n shards run in this process
-    on full-length activations."""
+    on full-length activations. A ``model`` axis of width tp > 1 builds this
+    rank's shards of the Megatron layout (see the module docstring)."""
 
     def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         c = self.config = config
+        m, t = mesh.model_shard if mesh is not None else (0, 1)
+        if t > 1:
+            check_tp(c, t)
+        self.tp, self.model_group = (m, t), (mesh.model_group if t > 1 else None)
+        self.cmm = c.tp_collective_matmul and t > 1
         D, V = c.n_embd, c.vocab_size
-        self.wte = _param(V, D)
+        self.wte = _param(V // t, D)
         if c.pos_embed == "learned":
             self.wpe = _param(c.block_size, D)
-        self.blocks = nn.ModuleList(Block(c) for _ in range(c.n_layer))
+        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group)
+                                    for _ in range(c.n_layer))
         self.lnf_scale = _param(D)
         if c.norm == "layernorm":
             self.lnf_bias = _param(D)
         if not c.tie_embeddings:
-            self.lm_head = _param(V, D)
+            self.lm_head = _param(V // t, D)
         # The attention every block calls; the config picks it. A check that
         # compares against another implementation assigns this attribute.
         self.attention: AttentionFn = reference_attention
         seq = mesh.size(AXES.seq) if mesh is not None else 1
         over_group = mesh is not None and not mesh.seq_in_process
         self.seq_shard = mesh.seq_shard if mesh is not None else (0, 1)
-        if c.attention_impl == "flash":
-            self.attention = flash_attention
-        elif c.attention_impl == "ring" and over_group:
+        # Under tensor parallelism the attention keys its mask by global heads.
+        heads = dict(head_offset=m * (c.n_head // t), n_heads=c.n_head) if t > 1 else {}
+        impl = c.attention_impl
+        if t > 1 and seq == 1 and impl in ("ring", "ulysses"):
+            impl = "flash"  # both are flash at seq width 1, as in JAX
+        if impl == "flash":
+            self.attention = (functools.partial(flash_attention, **heads) if heads
+                              else flash_attention)
+        elif impl == "reference" and heads:
+            self.attention = functools.partial(reference_attention, **heads)
+        elif impl == "ring" and over_group:
             self.attention = functools.partial(ring_attention_sharded, group=mesh.seq_group,
-                                               zigzag=c.ring_zigzag)
-        elif c.attention_impl == "ring":
+                                               zigzag=c.ring_zigzag, **heads)
+        elif impl == "ring":
             self.attention = functools.partial(ring_attention, seq_shards=seq,
                                                zigzag=c.ring_zigzag)
-        elif c.attention_impl == "ulysses" and over_group:
+        elif impl == "ulysses" and over_group:
             self.attention = functools.partial(
                 _ulysses_group, group=mesh.seq_group,
-                batch_shard=(mesh.data_rank, mesh.size(AXES.data)))
-        elif c.attention_impl == "ulysses":
+                batch_shard=(mesh.data_rank, mesh.size(AXES.data)), head_shard=(m, t))
+        elif impl == "ulysses":
             self.attention = functools.partial(ulysses_attention, seq_shards=seq)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TinyGPT":
         """normal(0, 0.02) for matrices and embeddings, zeros for biases, ones
-        for norm scales (the JAX init scheme; the values differ)."""
+        for norm scales (the JAX init scheme; the values differ). Under
+        tensor parallelism each leaf is drawn at its global shape and this
+        rank keeps its shard, so every layout of a seed holds the same
+        weights."""
+        m, t = self.tp
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("_scale"):
@@ -453,8 +546,12 @@ class TinyGPT(nn.Module):
             elif leaf.startswith("b") or leaf.endswith("_bias"):
                 p.zero_()
             else:
-                p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=generator.device) * 0.02)
+                ax = tp_axis(name, self.config.kv_heads, t)
+                shape = list(p.shape)
+                if ax is not None:
+                    shape[ax] *= t
+                w = torch.randn(shape, generator=generator, device=generator.device) * 0.02
+                p.copy_(w if ax is None else w.chunk(t, dim=ax)[m])
         return self
 
     def forward(
@@ -469,7 +566,9 @@ class TinyGPT(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (fp32 logits (B, S, V), fp32 loss or None), over this rank's
         columns of the sequence when ``seq`` rides the group (the loss is
-        then the mean over them).
+        then the mean over them); under tensor parallelism the logits are
+        this rank's vocabulary rows ``[m*V/tp, (m+1)*V/tp)`` only, (B, S,
+        V/tp), and the loss is the whole vocabulary's.
 
         ``attn_seeds`` gives one uint32 attention-dropout seed per layer and
         ``generator`` draws the embedding / MLP dropout masks; both None means
@@ -484,19 +583,35 @@ class TinyGPT(nn.Module):
         c = self.config
         B, S = idx.shape
         s, n = self.seq_shard
+        m, t = self.tp
+        group = self.model_group
         pos0 = s * S
         if S * n > c.block_size:
             raise ValueError(f"Sequence {S * n} exceeds block size {c.block_size}")
-        tok = self.wte[idx]
+        v0 = m * (c.vocab_size // t)
+        cols = slice(pos0, pos0 + S)  # this rank's columns of the stream
+        if group is None:
+            tok = self.wte[idx]
+        elif self.cmm:
+            if S % t:
+                raise ValueError(f"tp_collective_matmul: sequence {S} does not split over "
+                                 f"model width {t}")
+            # Summed over 'model' and cut to this rank's chunk of the sequence.
+            tok = reduce_scatter_seq(vocab_parallel_embedding(idx, self.wte, v0, group,
+                                                              reduce=False), group)
+            cols = slice(m * (S // t), (m + 1) * (S // t))
+        else:
+            tok = vocab_parallel_embedding(idx, self.wte, v0, group)
         if c.pos_embed == "learned":
-            x = (tok + self.wpe[pos0:pos0 + S][None]).to(c.compute_dtype)
+            x = (tok + copy_to_model(self.wpe, group if self.cmm else None)[cols][None]).to(
+                c.compute_dtype)
         else:
             x = tok.to(c.compute_dtype)
         mask_shape, window = x.shape, None
-        if (global_batch or B) != B or n > 1:
+        if (global_batch or B) != B or n > 1 or self.cmm:
             row0 = batch_offset if global_batch is not None else 0
             mask_shape = (global_batch or B, S * n, x.shape[-1])
-            window = (slice(row0, row0 + B), slice(pos0, pos0 + S))
+            window = (slice(row0, row0 + B), cols)
         x = _apply_dropout(x, _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
                            c.dropout)
         seeds: List[Optional[int]] = (
@@ -512,14 +627,23 @@ class TinyGPT(nn.Module):
             else:
                 x = checkpoint(block, *args, use_reentrant=False,
                                context_fn=functools.partial(_remat_context, remat))
+        lnf = (copy_to_model(self.lnf_scale, group if self.cmm else None),
+               copy_to_model(getattr(self, "lnf_bias", None), group if self.cmm else None))
         if c.norm == "rmsnorm":
-            x = _rms_norm(x, self.lnf_scale, c.norm_eps)
+            x = _rms_norm(x, lnf[0], c.norm_eps)
         else:
-            x = _layer_norm(x, self.lnf_scale, self.lnf_bias, c.norm_eps)
+            x = _layer_norm(x, lnf[0], lnf[1], c.norm_eps)
+        if self.cmm:
+            x = all_gather_seq(x, group)
+        else:
+            x = copy_to_model(x, group)
         w = self.wte if c.tie_embeddings else self.lm_head
         logits = _logits(x, w.to(c.compute_dtype))
-        loss = cross_entropy(logits, targets) if targets is not None else None
-        return logits, loss
+        if targets is None:
+            return logits, None
+        if group is None:
+            return logits, cross_entropy(logits, targets)
+        return logits, vocab_parallel_cross_entropy(logits, targets, v0, group)
 
 
 def count_params(model: nn.Module) -> int:

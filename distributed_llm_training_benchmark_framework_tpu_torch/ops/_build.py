@@ -56,6 +56,7 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "flash_fwd": {
         "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _P],
+        "flash_fwd_bhv": [_P] * 6 + [_I] * 5 + [_F, _U, _U, _F, _P],
         "flash_fwd_error_string": [_I],
     },
     "flash_bwd": {

@@ -51,10 +51,18 @@ Under data parallelism a rank holds rows ``[b_off, b_off + B)`` of the
 global batch and passes ``batch_offset=b_off``: the mask is keyed by the
 global batch*head id ``(b_off + b) * H + h``, so each rank drops what one
 process on the whole batch would. K2 and K3 take those ids as their
-``bhv`` vector (:func:`_global_bh_vec`). K1 takes none: the hash adds
-``bh * 0x9E3779B9`` to the seed before its first mix, so K1 runs on the
-seed ``seed + bh_offset * 0x9E3779B9`` (mod 2^32), which keys local id
-``bh`` exactly as the global id ``bh + bh_offset``.
+``bhv`` vector (:func:`_global_bh_vec`). K1's first instance takes none:
+the hash adds ``bh * 0x9E3779B9`` to the seed before its first mix, so K1
+runs on the seed ``seed + bh_offset * 0x9E3779B9`` (mod 2^32), which keys
+local id ``bh`` exactly as the global id ``bh + bh_offset``.
+
+Under tensor parallelism a rank holds heads ``[h_off, h_off + H)`` of
+``n_heads`` (``head_offset``, ``n_heads``): its local row ``b * H + h`` is
+the global id ``(b_off + b) * n_heads + h_off + h``, which no single
+offset gives once B > 1. Then all three kernels take the ids as a vector:
+K1 through its second instance, ``flash_fwd_bhv`` (the same mainloop,
+reading ``bhv[blockIdx.x]`` for its hash base; counted as its own mode),
+K2 and K3 as above.
 """
 
 from __future__ import annotations
@@ -131,11 +139,13 @@ def _global_bh_vec(B: int, H: int, b_off: int, h_off: int, n_heads: int,
 def flash_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool, dropout_rate: float, seed: int, bh_offset: int = 0,
+    bhv: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Materialized forward with the kernel's exact mask and normalizer
     semantics (JAX ``_jnp_reference_forward``): (BH, S, Dh) -> (out, lse).
-    The mask keys row ``i`` of q by the global batch*head id
-    ``bh_offset + i``. Differentiable with ordinary autograd."""
+    The mask keys row ``i`` of q by the global batch*head id ``bhv[i]``
+    when the vector is given, else ``bh_offset + i``. Differentiable with
+    ordinary autograd."""
     BH, S, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
@@ -150,7 +160,8 @@ def flash_forward_plain(
         p = torch.where(mask, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
-        bh = bh_offset + torch.arange(BH, device=q.device)[:, None, None]
+        bh = (bhv.to(device=q.device, dtype=torch.int64) if bhv is not None
+              else bh_offset + torch.arange(BH, device=q.device))[:, None, None]
         keep = dropout_keep(seed, bh, rows[None], cols[None], dropout_threshold(dropout_rate))
         p_acc = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     else:
@@ -304,23 +315,37 @@ def offset_seed(seed: int, bh_offset: int) -> int:
     return (seed + bh_offset * 0x9E3779B9) & _M32
 
 
-def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int, bh_offset: int = 0):
+def flash_fwd(q, k, v, causal: bool, dropout_rate: float, seed: int, bh_offset: int = 0,
+              bhv: Optional[torch.Tensor] = None):
     """K1: (BH, S, Dh) q, k, v -> (out bf16 (BH, S, Dh), lse fp32 (BH, S)).
-    Row ``i`` of q is the global batch*head ``bh_offset + i`` for the mask."""
+    Row ``i`` of q is the global batch*head ``bh_offset + i`` for the mask,
+    or ``bhv[i]`` when the (BH,) id vector is given: then K1's ``bhv``
+    instance launches, counted as ``flash_fwd_bhv``."""
     if _on_cpu(q):
-        return flash_forward_plain(q, k, v, causal, dropout_rate, seed, bh_offset)
+        return flash_forward_plain(q, k, v, causal, dropout_rate, seed, bh_offset, bhv)
     _check_cuda(q, k, v)
     BH, S, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, S), dtype=torch.float32, device=q.device)
-    dropout, seed32, thr, inv = _dropout_args(dropout_rate, offset_seed(seed, bh_offset))
     lib = _build.load()["flash_fwd"]
-    code = lib.flash_fwd(
+    if bhv is None:
+        dropout, seed32, thr, inv = _dropout_args(dropout_rate, offset_seed(seed, bh_offset))
+        code = lib.flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
+        )
+        _build.check("flash_fwd", code, "flash_fwd launch")
+        _build.launched("flash_fwd")
+        return out, lse
+    _, _, bv = _offset_args(q, None, None, bhv)
+    dropout, seed32, thr, inv = _dropout_args(dropout_rate, seed)
+    code = lib.flash_fwd_bhv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv, _stream(q),
+        bv.data_ptr(), BH, S, D, int(causal), dropout, 1.0 / math.sqrt(D), seed32, thr, inv,
+        _stream(q),
     )
-    _build.check("flash_fwd", code, "flash_fwd launch")
-    _build.launched("flash_fwd")
+    _build.check("flash_fwd", code, "flash_fwd_bhv launch")
+    _build.launched("flash_fwd_bhv")
     return out, lse
 
 
@@ -424,6 +449,12 @@ def launch_counts() -> dict:
     return {m: _build.LAUNCHES[m] for m in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
 
 
+def head_shard_launch_counts() -> dict:
+    """Launches of the head-shard path: K1's ``bhv`` instance and K2-K3 in
+    their bf16 mode (K1's first instance counts in :func:`launch_counts`)."""
+    return {m: _build.LAUNCHES[m] for m in ("flash_fwd_bhv", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * out) in fp32, computed outside the kernels as in JAX."""
     return (dout.float() * out.float()).sum(dim=-1)
@@ -431,17 +462,18 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
 
 class FlashAttentionFunction(torch.autograd.Function):
     """(BH, S, Dh) flash attention: K1 forward; delta in plain torch, then K2
-    and K3 backward. Saves (q, k, v, out, lse), the seed and ``bh_offset``,
-    the global batch*head id of row 0 (at 0 the kernels take their identity
-    ids)."""
+    and K3 backward. Saves (q, k, v, out, lse), the seed and either
+    ``bh_offset``, the global batch*head id of row 0 (at 0 the kernels take
+    their identity ids), or ``bhv``, every row's global id (a head
+    shard's)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, dropout_rate: float, seed: int,
-                bh_offset: int = 0):
-        out, lse = flash_fwd(q, k, v, causal, dropout_rate, seed, bh_offset)
+                bh_offset: int = 0, bhv: Optional[torch.Tensor] = None):
+        out, lse = flash_fwd(q, k, v, causal, dropout_rate, seed, bh_offset, bhv)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.dropout_rate, ctx.seed = causal, dropout_rate, seed
-        ctx.bh_offset = bh_offset
+        ctx.bh_offset, ctx.bhv = bh_offset, bhv
         return out
 
     @staticmethod
@@ -449,11 +481,13 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = attention_delta(out, dout)
-        bhv = _offset_bh_ids(q.shape[0], ctx.bh_offset, q.device) if ctx.bh_offset else None
+        bhv = ctx.bhv
+        if bhv is None and ctx.bh_offset:
+            bhv = _offset_bh_ids(q.shape[0], ctx.bh_offset, q.device)
         args = (q, k, v, dout, lse, delta, ctx.causal, ctx.dropout_rate, ctx.seed)
         dq = flash_bwd_dq(*args, bhv=bhv)
         dk, dv = flash_bwd_dkv(*args, bhv=bhv)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _to_bhsd(t: torch.Tensor) -> torch.Tensor:
@@ -480,31 +514,50 @@ def _resolve_dropout(dropout_rate: float, dropout_seed: Optional[int], api: str)
     return dropout_rate, int(dropout_seed) & _M32
 
 
+def _head_shard_ids(B: int, H: int, batch_offset: int, head_offset: int,
+                    n_heads: Optional[int], device) -> Optional[torch.Tensor]:
+    """Global batch*head ids of a head shard (None for a rank that holds
+    every head: its ids are ``batch_offset * H`` plus the local row)."""
+    n = H if n_heads is None else n_heads
+    if head_offset == 0 and n == H:
+        return None
+    if head_offset < 0 or head_offset + H > n:
+        raise ValueError(f"heads [{head_offset}, {head_offset + H}) do not lie in the "
+                         f"{n} heads of the layer")
+    return _global_bh_vec(B, H, batch_offset, head_offset, n, device)
+
+
 def flash_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None, batch_offset: int = 0) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None, batch_offset: int = 0,
+                    head_offset: int = 0, n_heads: Optional[int] = None) -> torch.Tensor:
     """Multi-head flash attention over (B, S, H, Dh) inputs -> (B, S, H, Dh).
 
     ``dropout_rate`` > 0 with a uint32 ``dropout_seed`` drops attention
     probabilities inside the kernels with the coordinate-hash mask; with
     ``dropout_seed=None`` the rate is ignored (with a warning), as in JAX.
     ``batch_offset``: the global batch index of row 0 (a data-parallel
-    rank's first row), which keys the mask (see the module docstring)."""
+    rank's first row); ``head_offset`` / ``n_heads``: the global index of
+    head 0 and the layer's head count (a tensor-parallel rank's head shard;
+    default: these are all the heads). Together they key the mask (see the
+    module docstring)."""
     B, S, H, D = q.shape
     rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention")
+    bhv = _head_shard_ids(B, H, batch_offset, head_offset, n_heads, q.device)
     out = FlashAttentionFunction.apply(
-        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed, batch_offset * H,
+        _to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed, batch_offset * H, bhv,
     )
     return _from_bhsd(out, B, H)
 
 
 def flash_attention_plain(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
-                          dropout_seed: Optional[int] = None,
-                          batch_offset: int = 0) -> torch.Tensor:
+                          dropout_seed: Optional[int] = None, batch_offset: int = 0,
+                          head_offset: int = 0, n_heads: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`flash_attention` on any device,
     differentiated by ordinary autograd. Never on the training path: it is
     what a check on the card compares the kernels with."""
     B, S, H, D = q.shape
     rate, seed = _resolve_dropout(dropout_rate, dropout_seed, "flash_attention_plain")
+    bhv = _head_shard_ids(B, H, batch_offset, head_offset, n_heads, q.device)
     out, _ = flash_forward_plain(_to_bhsd(q), _to_bhsd(k), _to_bhsd(v), causal, rate, seed,
-                                 batch_offset * H)
+                                 batch_offset * H, bhv)
     return _from_bhsd(out, B, H)

@@ -426,7 +426,8 @@ def _resolve_zigzag(zigzag: Optional[bool], causal: bool, n: int, Sl: int, on_ca
 
 def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
                    dropout_seed: Optional[int] = None, seq_shards: int = 1,
-                   zigzag: Optional[bool] = None, batch_offset: int = 0) -> torch.Tensor:
+                   zigzag: Optional[bool] = None, batch_offset: int = 0,
+                   head_offset: int = 0, n_heads: Optional[int] = None) -> torch.Tensor:
     """Ring attention over full (B, S, H, Dh) tensors -> (B, S, H, Dh).
 
     Cuts the sequence into ``seq_shards`` shards, all held on the tensors'
@@ -436,16 +437,18 @@ def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
     without a ``seq`` axis. ``zigzag``: None (auto: on for causal rings with
     even shards), True or False. Dropout (``dropout_rate`` with a uint32
     ``dropout_seed``) draws flash's global-coordinate mask, keyed from the
-    global batch index ``batch_offset`` of row 0 as in flash."""
+    global batch index ``batch_offset`` of row 0 and the global index
+    ``head_offset`` of head 0 of ``n_heads`` (a head shard's), as in flash."""
     if seq_shards == 1:
         return fa.flash_attention(q, k, v, causal=causal, dropout_rate=dropout_rate,
-                                  dropout_seed=dropout_seed, batch_offset=batch_offset)
+                                  dropout_seed=dropout_seed, batch_offset=batch_offset,
+                                  head_offset=head_offset, n_heads=n_heads)
     B, S, H, D = q.shape
     if seq_shards < 1 or S % seq_shards:
         raise ValueError(f"sequence length {S} does not split into seq_shards={seq_shards}")
     rate, seed = fa._resolve_dropout(dropout_rate, dropout_seed, "ring_attention")
     zig = _resolve_zigzag(zigzag, causal, seq_shards, S // seq_shards, q.device.type == "cuda")
-    bhv = _global_bh_vec(B, H, batch_offset, 0, H, q.device)
+    bhv = _global_bh_vec(B, H, batch_offset, head_offset, n_heads or H, q.device)
     out3 = RingAttentionFunction.apply(
         fa._to_bhsd(q), fa._to_bhsd(k), fa._to_bhsd(v), _LocalRing(seq_shards), causal, rate,
         seed, zig, bhv,
@@ -455,7 +458,8 @@ def ring_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0,
 
 def ring_attention_sharded(q, k, v, group=None, causal: bool = False,
                            dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
-                           zigzag: Optional[bool] = None, batch_offset: int = 0) -> torch.Tensor:
+                           zigzag: Optional[bool] = None, batch_offset: int = 0,
+                           head_offset: int = 0, n_heads: Optional[int] = None) -> torch.Tensor:
     """Ring attention on this rank's (B, S/n, H, Dh) sequence shard, rank r of
     ``group`` (default: the world) holding shard r; blocks move between ranks
     point to point. Same options and result as :func:`ring_attention`, one
@@ -463,12 +467,15 @@ def ring_attention_sharded(q, k, v, group=None, causal: bool = False,
     ``batch_offset`` is the global batch index of row 0 (the rank's place on
     ``data`` times its rows), which keys the dropout mask as JAX's
     ``_ring_offsets`` does for ``batch_axis``: without it every ``data`` rank
-    of a (data, seq) mesh would draw the same mask for other examples."""
+    of a (data, seq) mesh would draw the same mask for other examples.
+    ``head_offset`` / ``n_heads`` do the same for ``heads_axis``: the global
+    index of head 0 and the layer's head count under tensor parallelism
+    (default: these H heads are all of them)."""
     ring = _GroupRing(group)
     B, Sl, H, D = q.shape
     rate, seed = fa._resolve_dropout(dropout_rate, dropout_seed, "ring_attention_sharded")
     zig = _resolve_zigzag(zigzag, causal, ring.n, Sl, q.device.type == "cuda")
-    bhv = _global_bh_vec(B, H, batch_offset, 0, H, q.device)
+    bhv = _global_bh_vec(B, H, batch_offset, head_offset, n_heads or H, q.device)
     out3 = RingAttentionFunction.apply(
         fa._to_bhsd(q), fa._to_bhsd(k), fa._to_bhsd(v), ring, causal, rate, seed, zig, bhv,
     )

@@ -13,8 +13,10 @@ for bit. It needs ``H % n == 0``.
 
 Dropout: each attention shard runs flash on a per-shard seed
 (:func:`_shard_seed`) folded from the shard's index over the mesh
-(:func:`_global_shard_index`: the ``data`` index, when ``data`` is wider
-than 1, then the ``seq`` index), with local batch*head ids from 0, as JAX
+(:func:`_global_shard_index`: the ``data`` index, then the ``model`` index,
+each when its axis is wider than 1, then the ``seq`` index; under tensor
+parallelism a rank holds H/tp heads and splits those over ``seq``), with
+local batch*head ids from 0, as JAX
 calls flash there with no offsets. The mask is therefore a pure function
 of (seed, shard ids), unbiased and decorrelated across head groups and
 batch shards, and NOT the mask flash draws on the whole sequence for the
@@ -52,11 +54,15 @@ def _shard_seed(seed: int, shard: int) -> int:
 
 
 def _global_shard_index(seq_index: int, seq_width: int, data_rank: int = 0,
-                        data_width: int = 1) -> int:
-    """This attention shard's index over the mesh: ``data_rank * n +
-    seq_index``, the ``data`` axis folded in only when it is wider than 1
-    (JAX ``resolve_seq_mesh`` names ``batch_axis`` only then)."""
-    return (data_rank if data_width > 1 else 0) * seq_width + seq_index
+                        data_width: int = 1, model_rank: int = 0, model_width: int = 1) -> int:
+    """This attention shard's index over the mesh, JAX's flattening of
+    (``batch_axis``, ``heads_axis``, ``seq``): ``(data_rank * model_width +
+    model_rank) * n + seq_index``, the ``data`` and ``model`` axes folded in
+    only when wider than 1 (JAX ``resolve_seq_mesh`` names them only then)."""
+    idx = data_rank if data_width > 1 else 0
+    if model_width > 1:
+        idx = idx * model_width + model_rank
+    return idx * seq_width + seq_index
 
 
 def check_heads(H: int, n: int) -> None:
@@ -104,13 +110,16 @@ def _exchange(x: torch.Tensor, group, to_heads: bool) -> torch.Tensor:
 
 def ulysses_attention_sharded(q, k, v, group=None, causal: bool = False,
                               dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
-                              batch_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                              batch_shard: Optional[Tuple[int, int]] = None,
+                              head_shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Ulysses on this rank's (B, S/n, H, Dh) sequence shard, rank s of the
     ``seq`` ``group`` (default: the world) holding shard s -> this rank's
     (B, S/n, H, Dh) output shard (JAX ``ulysses_attention_sharded`` inside
     ``shard_map``). ``batch_shard`` is (this rank's ``data`` index, the
-    ``data`` width), folded into the dropout seed (None: no ``data`` axis).
-    The seed is folded even at n = 1, as JAX folds it there."""
+    ``data`` width) and ``head_shard`` (its ``model`` index, the ``model``
+    width; H is then its H/tp heads), both folded into the dropout seed
+    (None: no such axis). The seed is folded even at n = 1, as JAX folds it
+    there."""
     n, s = dist.get_world_size(group), dist.get_rank(group)
     B, Sl, H, D = q.shape
     check_heads(H, n)
@@ -118,8 +127,10 @@ def ulysses_attention_sharded(q, k, v, group=None, causal: bool = False,
     seed, rate = None, 0.0
     if dropout_rate > 0.0 and dropout_seed is not None:
         data_rank, data_width = batch_shard if batch_shard is not None else (0, 1)
+        model_rank, model_width = head_shard if head_shard is not None else (0, 1)
         seed = _shard_seed(int(dropout_seed) & _M32,
-                           _global_shard_index(s, n, data_rank, data_width))
+                           _global_shard_index(s, n, data_rank, data_width, model_rank,
+                                               model_width))
         rate = dropout_rate
     out = flash_attention(qg, kg, vg, causal=causal, dropout_rate=rate, dropout_seed=seed)
     return _AllToAll.apply(out, group, False)

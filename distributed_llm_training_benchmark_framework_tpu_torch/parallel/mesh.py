@@ -1,30 +1,37 @@
-"""Mesh axes of the port: names, widths, and the ``data`` and ``seq`` axes
-over the process group.
+"""Mesh axes of the port: names, widths, and the ``data``, ``seq`` and
+``model`` axes over the process group.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/parallel/mesh.py``.
 The JAX package names its mesh axes once (``MeshAxes``: ``data``, ``model``,
 ``seq``, ``pipe``) and builds a ``jax.sharding.Mesh`` of devices. The port
 keeps the names and each axis' width, one card per process. The rule
-between the ``seq`` axis and the group:
+between the ``seq`` and ``model`` axes and the group:
 
-- **With a group of world > 1, ``seq`` rides the group.** ``world % n == 0``
-  is required for a ``seq`` width n (else "not divisible", as JAX refuses
-  it), and ``data`` has width ``dp = world // n``. Ranks are in JAX's
-  data-major order (``make_mesh((dp, sp, ...))``): rank r sits at
-  ``data = r // n``, ``seq = r % n``, so a ``seq`` group is n consecutive
-  ranks. The mesh carries a 2-D ``DeviceMesh`` ``("data", "seq")``; each
-  rank holds ``S/n`` of the sequence, and ring or Ulysses attention
-  exchange blocks over ``seq_group`` (``ops/ring_attention.py``,
-  ``ops/ulysses_attention.py``).
-- **Without a group, or at world 1, the n shards are held in one process**
-  on its one device (``seq_in_process``) and ``dp = 1``: the attention cuts
-  the sequence into n shards and runs them all on that device. With a group
-  of one rank the mesh carries the 1-D ``data`` ``DeviceMesh`` the arms wrap
-  the model over.
-- At ``seq`` width 1, ``data`` is the whole group (1-D ``DeviceMesh``) or 1.
+- **With a group of world > 1, ``seq`` and ``model`` ride the group.**
+  ``world % (n * tp) == 0`` is required for a ``seq`` width n and a
+  ``model`` width tp (else "not divisible", as JAX refuses it), and
+  ``data`` has width ``dp = world // (n * tp)``. Ranks are in JAX's
+  data-major order (``make_mesh((dp, sp, tp, ...))``), ``model`` fastest:
+  rank r sits at ``model = r % tp``, ``seq = (r // tp) % n``,
+  ``data = r // (n * tp)``. The mesh carries a ``DeviceMesh`` over the
+  axes that ride the group, in that order (``("data",)``,
+  ``("data", "seq")``, ``("data", "model")`` or ``("data", "seq",
+  "model")``). Each rank holds ``S/n`` of the sequence, and ring or Ulysses
+  attention exchange blocks over ``seq_group`` (``ops/ring_attention.py``,
+  ``ops/ulysses_attention.py``); each holds its ``model`` index's shard of
+  the Megatron layout (``parallel/strategies.py``, ``parallel/tensor.py``).
+- **Without a group, or at world 1, the n ``seq`` shards are held in one
+  process** on its one device (``seq_in_process``) and ``dp = 1``: the
+  attention cuts the sequence into n shards and runs them all on that
+  device. ``model`` has no such form: a width above 1 needs a group (JAX
+  has no one-device tensor parallelism either). With a group of one rank
+  the mesh carries the 1-D ``data`` ``DeviceMesh`` the arms wrap the model
+  over.
+- At ``seq`` and ``model`` width 1, ``data`` is the whole group (1-D
+  ``DeviceMesh``) or 1.
 
-The strategy arms shard and reduce over ``data`` and ``seq``
-(``parallel/strategies.py``).
+The strategy arms shard and reduce over ``data`` and ``seq``, never over
+``model`` (``parallel/strategies.py``).
 """
 
 from __future__ import annotations
@@ -53,25 +60,33 @@ AXES = MeshAxes()
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """Axis name -> width (an axis that is not named has width 1), and the
-    ``DeviceMesh`` over the group when one is up: ``("data",)``, or
-    ``("data", "seq")`` when ``seq`` rides the group."""
+    ``DeviceMesh`` over the group when one is up: ``("data",)``, with
+    ``"seq"`` and then ``"model"`` after it when they ride the group.
+    ``replica_group``: the ranks that share this rank's ``model`` index (the
+    data x seq ranks the arms reduce over) when ``model`` rides the group."""
 
     shape: Dict[str, int]
     device_mesh: Optional[DeviceMesh] = dataclasses.field(default=None, compare=False)
+    replica_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
+
+    def _rides(self, axis: str) -> bool:
+        return self.device_mesh is not None and axis in (self.device_mesh.mesh_dim_names or ())
 
     @property
     def seq_in_process(self) -> bool:
         """True when the ``seq`` shards are all held in this process (no
         group, a group of one rank, or ``seq`` width 1)."""
-        return self.device_mesh is None or AXES.seq not in (self.device_mesh.mesh_dim_names or ())
+        return not self._rides(AXES.seq)
 
     @property
     def world(self) -> int:
-        """Processes (cards) of the mesh: ``data`` x ``seq`` over the group."""
-        return self.size(AXES.data) * (1 if self.seq_in_process else self.size(AXES.seq))
+        """Processes (cards) of the mesh: ``data`` x ``seq`` x ``model`` over
+        the group."""
+        return (self.size(AXES.data) * (1 if self.seq_in_process else self.size(AXES.seq))
+                * self.size(AXES.model))
 
     @property
     def rank(self) -> int:
@@ -85,6 +100,7 @@ class Mesh:
 
     @property
     def data_group(self) -> Optional[dist.ProcessGroup]:
+        """The dp ranks that share this rank's ``seq`` and ``model`` indices."""
         return self.device_mesh.get_group(AXES.data) if self.device_mesh else None
 
     @property
@@ -105,31 +121,81 @@ class Mesh:
         return None if self.seq_in_process else self.device_mesh.get_group(AXES.seq)
 
     @property
+    def model_rank(self) -> int:
+        """This process' index on ``model`` (0 at ``model`` width 1)."""
+        return self.device_mesh.get_local_rank(AXES.model) if self._rides(AXES.model) else 0
+
+    @property
+    def model_shard(self) -> Tuple[int, int]:
+        """(this rank's ``model`` index, the ``model`` width)."""
+        return self.model_rank, self.size(AXES.model)
+
+    @property
+    def model_group(self) -> Optional[dist.ProcessGroup]:
+        """The tp ranks that hold the shards of one layer (None at ``model``
+        width 1)."""
+        return self.device_mesh.get_group(AXES.model) if self._rides(AXES.model) else None
+
+    @property
     def group(self) -> Optional[dist.ProcessGroup]:
         """Every rank of the mesh (the whole process group), or None."""
         return dist.group.WORLD if self.device_mesh else None
 
+    @property
+    def arm_group(self) -> Optional[dist.ProcessGroup]:
+        """The data x seq ranks an arm replicates over and averages over: the
+        whole group, or ``replica_group`` when ``model`` rides it."""
+        return self.replica_group if self.replica_group is not None else self.group
+
 
 def replicate_seq_shard_data(mesh: Mesh) -> DeviceMesh:
-    """The (``seq``, ``data``) ``DeviceMesh`` over the same ranks as
-    ``mesh``'s data-major one: FSDP2 takes a 2-D mesh as (replicate, shard),
-    and the arms replicate over ``seq`` and shard over ``data``. A
-    ``DeviceMesh`` cannot be sliced into another dim order, so it is built
-    from the transposed rank grid (collective: every rank calls it)."""
-    dp, n = mesh.size(AXES.data), mesh.size(AXES.seq)
-    grid = torch.arange(dp * n).view(dp, n).t()  # grid[s, d] = d * n + s
-    return DeviceMesh(mesh.device_mesh.device_type, grid, mesh_dim_names=(AXES.seq, AXES.data))
+    """The (``seq``, ``data``) ``DeviceMesh`` of this rank's ``model`` index,
+    over the same ranks as ``mesh``'s data-major one: FSDP2 takes a 2-D mesh
+    as (replicate, shard), and the arms replicate over ``seq`` and shard over
+    ``data``. A ``DeviceMesh`` cannot be sliced into another dim order, so it
+    is built from the transposed rank grid (collective: every rank calls
+    it); with ``model`` in the group, from the (model, seq, data) grid,
+    sliced to this rank's ``model`` index."""
+    dp, n, tp = mesh.size(AXES.data), mesh.size(AXES.seq), mesh.size(AXES.model)
+    device_type = mesh.device_mesh.device_type
+    if tp == 1:
+        grid = torch.arange(dp * n).view(dp, n).t()  # grid[s, d] = d * n + s
+        return DeviceMesh(device_type, grid, mesh_dim_names=(AXES.seq, AXES.data))
+    grid = torch.arange(dp * n * tp).view(dp, n, tp).permute(2, 1, 0)  # [m, s, d]
+    full = DeviceMesh(device_type, grid, mesh_dim_names=(AXES.model, AXES.seq, AXES.data))
+    return full[(AXES.seq, AXES.data)]
+
+
+def shard_data_mesh(mesh: Mesh) -> DeviceMesh:
+    """The ``DeviceMesh`` FSDP2 shards over: ``data`` (1-D), or (``seq``,
+    ``data``) when ``seq`` rides the group; of this rank's ``model`` index."""
+    if not mesh.seq_in_process:
+        return replicate_seq_shard_data(mesh)
+    if mesh.model_group is None:
+        return mesh.device_mesh
+    return mesh.device_mesh[AXES.data]
+
+
+def _replica_group(dp: int, sp: int, tp: int) -> dist.ProcessGroup:
+    """The data x seq ranks of this rank's ``model`` index (collective:
+    every rank makes all tp groups, in the same order)."""
+    mine = None
+    for m in range(tp):
+        g = dist.new_group([r for r in range(dp * sp * tp) if r % tp == m])
+        if dist.get_rank() % tp == m:
+            mine = g
+    return mine
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None,
               axis_names: Tuple[str, ...] = ("data",)) -> Mesh:
-    """A mesh of the given widths, e.g. ``make_mesh((4,), ("seq",))``.
+    """A mesh of the given widths, e.g. ``make_mesh((2, 2), ("seq", "model"))``.
 
-    ``data`` is the process group's size divided by the ``seq`` width when
-    ``seq`` rides the group (see the module docstring), else the group's size
-    (1 without a group): it is added when not named, and a width given for
-    it must equal that. ``shape`` None gives every named axis but ``data``
-    width 1."""
+    ``data`` is the process group's size divided by the ``seq`` and
+    ``model`` widths when they ride the group (see the module docstring),
+    else the group's size (1 without a group): it is added when not named,
+    and a width given for it must equal that. ``shape`` None gives every
+    named axis but ``data`` width 1."""
     defaulted = shape is None
     if defaulted:
         shape = tuple(1 for _ in axis_names)
@@ -147,31 +213,41 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
         widths[name] = int(width)
     group = dist.is_initialized()
     world = dist.get_world_size() if group else 1
-    sp = widths.get(AXES.seq, 1)
-    seq_over_group = world > 1 and sp > 1
-    if seq_over_group and world % sp:
-        # JAX's message; the port's tensor, pipeline and expert widths are 1.
+    sp, tp = widths.get(AXES.seq, 1), widths.get(AXES.model, 1)
+    if tp > 1 and world == 1:
+        raise ValueError(
+            f"tensor parallelism (model width {tp}) needs a process group of a multiple of "
+            f"{tp * sp} ranks, one card each (launch them with torchrun); this process has "
+            + ("a group of one rank" if group else "no group")
+        )
+    over_group = world > 1 and sp * tp > 1
+    if over_group and world % (sp * tp):
+        # JAX's message; the port's pipeline and expert widths are 1.
         raise ValueError(f"world_size={world} not divisible by "
-                         f"tensor*sequence*pipeline*expert parallel={sp}")
-    dp = world // sp if seq_over_group else world
+                         f"tensor*sequence*pipeline*expert parallel={tp * sp}")
+    dp = world // (sp * tp) if over_group else world
     given = None if defaulted else widths.get(AXES.data)
     if given is not None and given != dp:
         raise ValueError(
             f"mesh axis 'data' has width {given} but the process group has {world} "
             f"process{'es' if world > 1 else ''}"
-            + (f" over seq width {sp}: 'data' is world // seq = {dp}" if seq_over_group
-               else ": 'data' spans the group")
+            + (f" over seq x model width {sp * tp}: 'data' is world // (seq x model) = {dp}"
+               if over_group else ": 'data' spans the group")
         )
     widths[AXES.data] = dp
-    device_mesh = None
+    device_mesh = replica = None
     if group:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        if seq_over_group:
-            device_mesh = init_device_mesh(device_type, (dp, sp),
-                                           mesh_dim_names=(AXES.data, AXES.seq))
-        else:
-            device_mesh = init_device_mesh(device_type, (dp,), mesh_dim_names=(AXES.data,))
-    return Mesh(widths, device_mesh)
+        dims = [(AXES.data, dp)]
+        if world > 1 and sp > 1:
+            dims.append((AXES.seq, sp))
+        if tp > 1:
+            dims.append((AXES.model, tp))
+        device_mesh = init_device_mesh(device_type, tuple(w for _, w in dims),
+                                       mesh_dim_names=tuple(a for a, _ in dims))
+        if tp > 1:
+            replica = _replica_group(dp, sp if world > 1 else 1, tp)
+    return Mesh(widths, device_mesh, replica)
 
 
 def mesh_axes_dict(mesh: Mesh) -> dict:

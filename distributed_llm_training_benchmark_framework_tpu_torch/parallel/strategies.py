@@ -42,6 +42,22 @@ shard) while the ranks are data-major); zero2 reduce-scatters over
 norm is the full gradient's in every arm: each rank's shards are summed
 over ``data``, whose ranks together hold the whole gradient.
 
+Under tensor parallelism (``model`` rides the group, a (data, seq, model)
+mesh) each rank holds its ``model`` index's shard of the Megatron layout
+(JAX's ``_TP_RULES``, below, with the kv-head-aligned GQA rule; the model
+is built at those local widths, ``models/tinygpt.py``). Every arm lays out
+and reduces those local shards over the data x seq ranks of its ``model``
+index only, never over ``model``: ddp is DDP over that group
+(``Mesh.arm_group``), fsdp / zero3 FSDP2 over the ``data`` (or (seq,
+data)) sub-mesh of its ``model`` index (``mesh.shard_data_mesh``), zero2's
+flat buffers over ``data`` and ``seq`` as above. Leaves replicated over
+``model`` get gradients equal on every ``model`` rank (the "f" operators of
+``parallel/tensor.py``; where a rank sees only part of a replicated leaf's
+gradient, the model sums it over ``model`` in its backward). The clip's
+norm counts each element once: the squares of ``model``-sharded leaves
+are summed over ``model``, replicated leaves counted once, as optax's
+global norm over the whole tree.
+
 The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 
 - clip: with g_norm = sqrt(sum of squares over every gradient), each
@@ -63,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import ContextManager, Dict, Iterable, List, Optional, Tuple
 
 import torch
@@ -71,7 +88,7 @@ from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
-from .mesh import Mesh, replicate_seq_shard_data
+from .mesh import AXES, Mesh, shard_data_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +184,121 @@ def check_ported(strategy: StrategyConfig) -> None:
         )
 
 
+# ---------------------------------------------------------------------------
+# The Megatron layout over 'model' (JAX parallel/strategies.py)
+# ---------------------------------------------------------------------------
+
+# JAX's _TP_RULES: leaf path -> the axes that shard over 'model', on JAX's
+# leaves, whose block leaves carry a leading layer axis. Column-parallel
+# q/k/v and MLP up (output features), row-parallel attention out and MLP
+# down (input features), the vocabulary of the embedding and the head. The
+# MoE leaves are not ported.
+_TP_RULES = {
+    "wte": (0,),
+    "lm_head": (0,),
+    "blocks/wqkv": (3,),
+    "blocks/bqkv": (2,),
+    "blocks/wq": (2,),
+    "blocks/bq": (1,),
+    "blocks/wkv": (3,),
+    "blocks/bkv": (2,),
+    "blocks/wo": (1,),
+    "blocks/wfc": (2,),
+    "blocks/bfc": (1,),
+    "blocks/wgu": (3,),
+    "blocks/bgu": (2,),
+    "blocks/wproj": (1,),
+}
+_KV_LEAVES = ("blocks/wkv", "blocks/bkv")
+
+# JAX's composed-mesh hygiene (a >1 'model' axis beside a >1 'data' axis):
+# leaves below this many elements per layer stay replicated over 'data'.
+_COMPOSED_MIN_SHARD_ELEMENTS = 4096
+
+
+def kv_aligned(kv_heads: int, tp: int) -> bool:
+    """JAX's kv-head-aligned rule: ``wkv`` / ``bkv`` shard over ``model``
+    only when its width divides ``kv_heads``; else they stay replicated
+    (each rank then uses its own query heads' slice of k and v)."""
+    return kv_heads % tp == 0
+
+
+def jax_leaf_name(port_name: str) -> str:
+    """``blocks.3.wqkv`` -> ``blocks/wqkv``; top-level names stay."""
+    parts = port_name.split(".")
+    return f"blocks/{parts[2]}" if parts[0] == "blocks" else port_name
+
+
+def tp_axis(port_name: str, kv_heads: int, tp: int) -> Optional[int]:
+    """The axis of a port parameter (one layer's leaf, no layer axis) that
+    shards over ``model`` at width ``tp``, or None (replicated)."""
+    if tp == 1:
+        return None
+    name = jax_leaf_name(port_name)
+    if name not in _TP_RULES or (name in _KV_LEAVES and not kv_aligned(kv_heads, tp)):
+        return None
+    ax = _TP_RULES[name][0]
+    return ax - 1 if name.startswith("blocks/") else ax
+
+
+def check_tp(config, tp: int) -> None:
+    """Refuse a ``model`` width that does not split the heads, the MLP and
+    the vocabulary. GSPMD pads such a split; the port refuses it."""
+    bad = [f"{what}={n}" for what, n in (("n_head", config.n_head), ("mlp_dim", config.mlp_dim),
+                                          ("vocab_size", config.vocab_size)) if n % tp]
+    if bad:
+        raise ValueError(f"tensor parallelism of width {tp} must divide n_head, the MLP width "
+                         f"and the vocabulary; not a multiple of {tp}: {', '.join(bad)}")
+
+
+def _shard_largest_free_axis(spec: list, shape: Tuple[int, ...], n_shards: int,
+                             is_block_leaf: bool, composed: bool = False) -> None:
+    """JAX's FSDP rule: 'data' on the largest unsharded divisible axis,
+    tensor axes before the layer axis of a stacked block leaf; on a composed
+    (data x model) mesh only before the leaf's 'model' axis, and never on a
+    leaf of fewer than ``_COMPOSED_MIN_SHARD_ELEMENTS`` per layer that
+    'model' does not shard."""
+    if composed:
+        per_layer = shape[1:] if is_block_leaf and len(shape) > 1 else shape
+        if "model" not in spec and math.prod(per_layer) < _COMPOSED_MIN_SHARD_ELEMENTS:
+            return
+    axes = list(range(len(shape)))
+    candidates = axes[1:] + axes[:1] if is_block_leaf and len(shape) > 1 else axes
+    if composed and "model" in spec:
+        candidates = [ax for ax in candidates if ax < spec.index("model")]
+    best = None
+    for ax in candidates:
+        if spec[ax] is None and shape[ax] % n_shards == 0 and shape[ax] >= n_shards:
+            if best is None or shape[ax] > shape[best]:
+                best = ax
+    if best is not None:
+        spec[best] = "data"
+
+
+def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[str, int],
+                          shard: bool, kv_heads: Optional[int] = None) -> Dict[str, tuple]:
+    """JAX's ``param_partition_specs`` (the unrolled layer loop; no pipeline
+    or expert axis) over JAX-shaped leaves: {leaf path: shape, block leaves
+    stacked on a layer axis} -> {leaf path: spec}, a spec being a tuple of
+    axis names or None per dimension."""
+    n_data, n_model = mesh_shape.get("data", 1), mesh_shape.get("model", 1)
+    kv_misaligned = kv_heads is not None and kv_heads % n_model != 0
+    specs = {}
+    for name, shape in shapes.items():
+        spec = [None] * len(shape)
+        if n_model > 1:
+            for ax in _TP_RULES.get(name, ()):
+                if name in _KV_LEAVES and kv_misaligned:
+                    continue
+                if spec[ax] is None and shape[ax] % n_model == 0:
+                    spec[ax] = "model"
+        if shard and n_data > 1:
+            _shard_largest_free_axis(spec, shape, n_data, name.startswith("blocks/"),
+                                     composed=n_model > 1)
+        specs[name] = tuple(spec)
+    return specs
+
+
 def linear_schedule(init_value: float, end_value: float, transition_steps: int):
     """optax.linear_schedule: count -> lr, clamped to [0, transition_steps]."""
 
@@ -187,13 +319,20 @@ class Optimizer:
     ``.grad`` of the given parameters. ``count`` is optax's update count.
 
     ``norm_group``: the group whose ranks hold the other shards of every
-    gradient (None: each rank holds whole gradients)."""
+    gradient (None: each rank holds whole gradients). ``model_group`` and
+    ``model_sharded`` (one flag per parameter): under tensor parallelism the
+    ``model`` ranks hold the other shards of the flagged parameters, and
+    the rest are replicated over ``model``."""
 
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
-                 norm_group: Optional[dist.ProcessGroup] = None):
+                 norm_group: Optional[dist.ProcessGroup] = None,
+                 model_group: Optional[dist.ProcessGroup] = None,
+                 model_sharded: Optional[List[bool]] = None):
         self.strategy = strategy
         self.params = [p for p in params]
         self.norm_group = norm_group
+        self.model_group = model_group
+        self.model_sharded = model_sharded or [False] * len(self.params)
         self.adamw = torch.optim.AdamW(
             self.params, lr=strategy.learning_rate, betas=strategy.betas,
             eps=strategy.eps, weight_decay=strategy.weight_decay,
@@ -229,6 +368,25 @@ class Optimizer:
         dist.all_reduce(sq, group=self.norm_group)
         return sq.sqrt()
 
+    def _global_norm_tp(self) -> torch.Tensor:
+        """The norm over every element once: the ``model``-sharded leaves'
+        squares summed over ``model``, the replicated ones' counted once,
+        then (shards of one gradient) summed over ``norm_group``."""
+        parts = {True: [], False: []}
+        for p, sharded in zip(self.params, self.model_sharded):
+            if p.grad is not None:
+                parts[sharded].append(_local(p.grad))
+        sq = {}
+        for sharded, grads in parts.items():
+            norm = (torch.nn.utils.get_total_norm(grads, norm_type=2.0) if grads
+                    else torch.zeros((), device=self.params[0].device))
+            sq[sharded] = norm * norm
+        dist.all_reduce(sq[True], group=self.model_group)
+        total = sq[True] + sq[False]
+        if self.norm_group is not None:
+            dist.all_reduce(total, group=self.norm_group)
+        return total.sqrt()
+
     @torch.no_grad()
     def clip(self) -> None:
         """optax clip_by_global_norm, in place on ``.grad``."""
@@ -236,7 +394,8 @@ class Optimizer:
         if c is None:
             return
         grads = self._grads()
-        g_norm = self._global_norm(grads)
+        g_norm = (self._global_norm(grads) if self.model_group is None
+                  else self._global_norm_tp())
         trigger = g_norm < c
         one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
         # (g / g_norm) * c when clipping, g / 1 * 1 otherwise: no host sync.
@@ -258,8 +417,8 @@ class _DDPOptimizer(Optimizer):
     allocated anew by the micro-batches before the all-reduce, beside the
     buckets."""
 
-    def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel):
-        super().__init__(strategy, ddp.module.parameters())
+    def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel, **tp):
+        super().__init__(strategy, ddp.module.parameters(), **tp)
         self.ddp = ddp
 
     def zero_grad(self) -> None:
@@ -275,16 +434,21 @@ class _Zero2Optimizer(Optimizer):
     replicated params in place; the all-gather fills in the other shards."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
-                 group: dist.ProcessGroup, seq_group: Optional[dist.ProcessGroup] = None):
+                 group: dist.ProcessGroup, seq_group: Optional[dist.ProcessGroup] = None,
+                 model_group: Optional[dist.ProcessGroup] = None,
+                 model_sharded: Optional[List[bool]] = None):
         dp, rank = dist.get_world_size(group), dist.get_rank(group)
         self.group, self.seq_group = group, seq_group
         self.buckets = []  # (flat params, flat grads, shard of the grads)
         shards = []
-        by_dtype: Dict[torch.dtype, List[torch.nn.Parameter]] = {}
-        for p in model.parameters():
-            by_dtype.setdefault(p.dtype, []).append(p)
+        # One flat buffer per dtype, and apart for the leaves sharded over
+        # 'model' (the clip counts their squares over 'model').
+        by_kind: Dict[Tuple[torch.dtype, bool], List[torch.nn.Parameter]] = {}
+        flags = model_sharded or [False] * len(list(model.parameters()))
+        for p, sharded in zip(model.parameters(), flags):
+            by_kind.setdefault((p.dtype, sharded), []).append(p)
         with torch.no_grad():
-            for dtype, params in by_dtype.items():
+            for (dtype, _), params in by_kind.items():
                 n = sum(p.numel() for p in params)
                 size = -(-n // dp)  # one rank's shard; the padding is zero
                 device = params[0].device
@@ -301,7 +465,8 @@ class _Zero2Optimizer(Optimizer):
                 shard.grad = torch.zeros(size, dtype=dtype, device=device)
                 shards.append(shard)
                 self.buckets.append((flat, grads, shard.grad))
-        super().__init__(strategy, shards, norm_group=group)
+        super().__init__(strategy, shards, norm_group=group, model_group=model_group,
+                         model_sharded=[sharded for _, sharded in by_kind])
 
     def zero_grad(self) -> None:
         # The params' grads are views into the flat buffers: keep them.
@@ -333,28 +498,40 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
     return Optimizer(strategy, params)
 
 
+def model_sharded_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
+    """Per parameter of ``model`` (in ``parameters()`` order): whether the
+    ``model`` axis shards it (``tp_axis``)."""
+    tp, kv = mesh.size(AXES.model), model.config.kv_heads
+    return [tp_axis(name, kv, tp) is not None for name, _ in model.named_parameters()]
+
+
 def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
                    mesh: Optional[Mesh]) -> Tuple[torch.nn.Module, Optimizer]:
     """Lay the model out as the arm asks over ``mesh``'s ``data`` axis, and
     its ``seq`` axis when that rides the group, and return (the model to
-    call, its optimizer). Without a process group (no ``mesh.device_mesh``)
+    call, its optimizer); under a ``model`` axis the model holds this rank's
+    shards already and the arm lays those out over the data x seq ranks of
+    its ``model`` index. Without a process group (no ``mesh.device_mesh``)
     the model is returned as it is. Weights must be loaded before this call
     (``bridge.load_jax_params``)."""
     check_ported(strategy)
     if mesh is None or mesh.device_mesh is None:
         return model, make_optimizer(strategy, model.parameters())
     group, seq_group = mesh.data_group, mesh.seq_group
+    tp = {}
+    if mesh.model_group is not None:
+        tp = dict(model_group=mesh.model_group, model_sharded=model_sharded_flags(model, mesh))
     if strategy.shard_params:
-        shard_mesh = mesh.device_mesh if seq_group is None else replicate_seq_shard_data(mesh)
+        shard_mesh = shard_data_mesh(mesh)
         for block in model.blocks:
             fully_shard(block, mesh=shard_mesh)
         fully_shard(model, mesh=shard_mesh)
-        return model, Optimizer(strategy, model.parameters(), norm_group=group)
+        return model, Optimizer(strategy, model.parameters(), norm_group=group, **tp)
     if strategy.shard_grads:
-        return model, _Zero2Optimizer(strategy, model, group, seq_group)
+        return model, _Zero2Optimizer(strategy, model, group, seq_group, **tp)
     device = next(model.parameters()).device
     ddp = DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
-        process_group=mesh.group, broadcast_buffers=False, gradient_as_bucket_view=True,
+        process_group=mesh.arm_group, broadcast_buffers=False, gradient_as_bucket_view=True,
     )
-    return ddp, _DDPOptimizer(strategy, ddp)
+    return ddp, _DDPOptimizer(strategy, ddp, **tp)

@@ -106,12 +106,15 @@ _RT = _Runtime()
 
 def setup_distributed(master_addr: Optional[str] = None, master_port: Optional[int] = None,
                       num_processes: Optional[int] = None, process_id: Optional[int] = None,
-                      device: Optional[str] = None) -> bool:
+                      device: Optional[str] = None, backend: Optional[str] = None) -> bool:
     """Join the process group the launcher (or the arguments) describe.
 
     ``device`` "cpu" selects gloo; otherwise NCCL on ``cuda:{LOCAL_RANK}``,
-    which is made the current device. Returns True if this call made a
-    group, False when nothing names a world size (no group, as in JAX)."""
+    which is made the current device. ``backend="gloo"`` with a CUDA device
+    keeps the tensors on the card and carries the collectives over gloo
+    (several ranks on one card, where NCCL takes one rank per device).
+    Returns True if this call made a group, False when nothing names a
+    world size (no group, as in JAX)."""
     env = read_env(os.environ, master_addr, master_port, num_processes, process_id)
     if env is None:
         return False
@@ -125,10 +128,11 @@ def setup_distributed(master_addr: Optional[str] = None, master_port: Optional[i
     timeout = datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_SEC)
     store = dist.TCPStore(env.master_addr, env.master_port, env.world_size,
                           is_master=env.rank == 0, timeout=timeout)
+    gloo = on_cpu or backend == "gloo"
     dist.init_process_group(
-        "gloo" if on_cpu else "nccl", store=store, rank=env.rank,
+        "gloo" if gloo else "nccl", store=store, rank=env.rank,
         world_size=env.world_size, timeout=timeout,
-        **({} if on_cpu else {"device_id": torch.device("cuda", env.local_rank)}),
+        **({} if gloo else {"device_id": torch.device("cuda", env.local_rank)}),
     )
     _RT.store, _RT.env = store, env
     return True

@@ -24,6 +24,13 @@ at world 1, all n are held in one process on its card. The row stamps
 ``sequence_parallel`` beside ``world_size`` either way
 (``utils/metrics.py`` says how each form is accounted).
 
+``tensor_parallel`` tp > 1 lays the model out Megatron-style over a
+``model`` axis of the group (``world % (tp * n) == 0``; ``parallel/mesh.py``,
+``parallel/tensor.py``), which needs a group: there is no one-process form.
+``tp_collective_matmul`` runs its projections as the rings of
+``ops/collective_matmul.py`` (inert at tp 1, and stamped on the row either
+way, as in JAX). The row stamps ``tensor_parallel``.
+
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
 no explicit ``cpu`` it raises.
 """
@@ -41,7 +48,13 @@ from ..data.synthetic import SyntheticDataset
 from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
 from ..ops.ulysses_attention import check_heads
 from ..parallel.mesh import AXES, Mesh, make_mesh
-from ..parallel.strategies import StrategyConfig, apply_strategy, check_ported, get_strategy
+from ..parallel.strategies import (
+    StrategyConfig,
+    apply_strategy,
+    check_ported,
+    check_tp,
+    get_strategy,
+)
 from ..utils import flops as flops_mod
 from ..utils import memory as memory_mod
 from ..utils import metrics as metrics_mod
@@ -102,18 +115,38 @@ def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
     return overrides
 
 
+def _tp_overrides(tensor_parallel: int, sequence_parallel: int,
+                  tp_collective_matmul: bool) -> dict:
+    """The JAX loop's checks of the tensor-parallel options
+    (``train/loop.py:471-477,533-558``; the port has no pipeline or MoE to
+    refuse) and the config override they give."""
+    if tensor_parallel < 1:
+        raise ValueError(f"tensor_parallel must be >= 1, got {tensor_parallel}")
+    if not tp_collective_matmul:
+        return {}
+    if sequence_parallel > 1:
+        raise ValueError(
+            "--tp-collective-matmul cannot compose with sequence parallelism (both want to own "
+            "the sequence axis; the ring/ulysses arms already overlap their comms)"
+        )
+    return {"tp_collective_matmul": True}
+
+
 def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A",
               seq_len: int = 2048, model_family: str = "tinygpt", per_device_batch: int = 1,
               grad_accum: int = 4, attention_impl: str = "flash",
               dropout: Optional[float] = None, sequence_parallel: int = 1,
               causal: bool = False, ring_zigzag: Optional[bool] = None, seed: int = 42,
-              device: Optional[str] = None, world_size: Optional[int] = None) -> Run:
-    """Model (initialised from ``seed``, the same on every rank), the arm's
-    layout and optimizer, device-resident table and train step of one arm;
+              device: Optional[str] = None, world_size: Optional[int] = None,
+              tensor_parallel: int = 1, tp_collective_matmul: bool = False) -> Run:
+    """Model (initialised from ``seed``, the same on every rank and, under
+    tensor parallelism, the same global weights), the arm's layout and
+    optimizer, device-resident table and train step of one arm;
     ``run_benchmark`` and the step profiler share it. ``causal`` turns
     causal masking on (Llama is causal anyway); ``ring_zigzag`` None is
     auto; ``world_size`` None is the process group's size, and another
-    value than that size is refused."""
+    value than that size is refused; ``tensor_parallel`` and
+    ``tp_collective_matmul`` as in the module docstring."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -127,12 +160,16 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     overrides = {"attention_impl": attention_impl,
                  "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
-    mesh = make_mesh((sequence_parallel,), (AXES.seq,))
+    overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul))
     if dropout is not None:
         overrides["dropout"] = dropout
     cfg = get_config(model_family, tier, seq_len, **overrides)
+    if tensor_parallel > 1:
+        check_tp(cfg, tensor_parallel)
     if attention_impl == "ulysses":
-        check_heads(cfg.n_head, sequence_parallel)
+        check_heads(cfg.n_head // tensor_parallel, sequence_parallel)
+    mesh = (make_mesh((sequence_parallel, tensor_parallel), (AXES.seq, AXES.model))
+            if tensor_parallel > 1 else make_mesh((sequence_parallel,), (AXES.seq,)))
     kind = device_kind(dev)
     strat = memory_mod.resolve_auto_remat(cfg, strat, mesh, per_device_batch, seq_len,
                                           DATASET_SIZE, kind)
@@ -153,6 +190,15 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     step_fn = TrainStep(model, optimizer, grad_accum=grad_accum,
                         micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh)
     return Run(dev, cfg, strat, model, table, step_fn, mesh)
+
+
+def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, tp: int) -> int:
+    """The model's parameter count (a ``model`` rank holds only its shards:
+    count the global model, built on the meta device)."""
+    if tp == 1:
+        return count_params(model)
+    with torch.device("meta"):
+        return count_params(TinyGPT(cfg))
 
 
 def _max_over_ranks(value: float, mesh: Mesh, dev: torch.device) -> float:
@@ -185,13 +231,16 @@ def run_benchmark(
     results_dir: Optional[str] = None,
     world_size: Optional[int] = None,
     loss_log: Optional[List[float]] = None,
+    tensor_parallel: int = 1,
+    tp_collective_matmul: bool = False,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
     also writes ``result_<arm>.json`` there and prints the marker-delimited
     JSON. ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
-    ``world_size`` as for :func:`build_run`. ``loss_log``, when given, gets
-    every step's loss (mean over ranks) appended in order, warmup included."""
+    ``world_size``, ``tensor_parallel`` and ``tp_collective_matmul`` as for
+    :func:`build_run`. ``loss_log``, when given, gets every step's loss
+    (mean over ranks) appended in order, warmup included."""
     if steps <= warmup_steps:
         raise ValueError(f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
     t_start = time.perf_counter()
@@ -200,7 +249,8 @@ def run_benchmark(
                     attention_impl=attention_impl, dropout=dropout,
                     sequence_parallel=sequence_parallel, causal=causal,
                     ring_zigzag=ring_zigzag, seed=seed, device=device,
-                    world_size=world_size)
+                    world_size=world_size, tensor_parallel=tensor_parallel,
+                    tp_collective_matmul=tp_collective_matmul)
     dev, cfg, strat, model, table, step_fn, mesh = (
         run.device, run.config, run.strategy, run.model, run.table, run.step_fn, run.mesh)
     is_main = mesh.rank == 0
@@ -243,12 +293,13 @@ def run_benchmark(
         per_device_batch=per_device_batch, grad_accum=grad_accum,
         step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,
         peak_method=peak_method, device_kind=device_kind(dev), backend=dev.type,
-        n_params=count_params(model), attention_impl=cfg.attention_impl,
+        n_params=_global_params(cfg, model, tensor_parallel), attention_impl=cfg.attention_impl,
         dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
         flops_per_token=flops_mod.train_flops_per_token(cfg), sync_every=sync_every,
         phase_times=phase, wall_time_total_sec=time.perf_counter() - t_start,
         sequence_parallel=sequence_parallel,
         ring_zigzag={None: "auto", True: "on", False: "off"}[cfg.ring_zigzag],
+        tensor_parallel=tensor_parallel, tp_collective_matmul=tp_collective_matmul,
     )
     if results_dir is not None and is_main:
         metrics_mod.emit_result(result, results_dir)

@@ -21,6 +21,12 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
   rank of the group;
 - clip and AdamW (``parallel.strategies.Optimizer``).
 
+Under tensor parallelism the ``model`` ranks of a (data, seq) place take the
+same rows and columns, the same seeds and the same masks (the batch is
+replicated over ``model``, as JAX's batch spec names no ``model`` axis);
+each computes the whole loss (``parallel/tensor.py``'s vocab-parallel loss),
+so the mean over every rank of the group is still the global mean.
+
 Dropout randomness comes from explicit generators seeded from ``seed``: one
 uint32 attention-dropout seed per (step, micro, layer) from a CPU generator
 (a host integer, so no device sync, and the same on every rank, as the

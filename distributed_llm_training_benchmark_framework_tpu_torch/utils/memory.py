@@ -25,6 +25,15 @@ counterpart, since there is no XLA here).
   term keeps JAX's formula at the global ``seq_len``: it does not divide by
   ``seq``, though each rank holds S/n of the sequence. That over-count is
   the JAX package's, kept as it is.
+- **Under a ``model`` axis** (tensor parallelism) the parameter, gradient
+  and AdamW-moment bytes are the JAX package's: its layout rules
+  (``parallel/strategies.param_partition_specs``, copied with the
+  composed-mesh hygiene of a (data, model) mesh) over JAX's leaves, each
+  leaf's bytes divided by the widths its spec shards it over; params by the
+  arm's spec, grads sharded when the arm shards them, moments sharded when
+  the arm shards the optimizer state (optax's step counters, a few bytes,
+  are not counted). The activation term divides by tp as JAX's does (the
+  logits term does not, as in JAX).
 - The device-resident synthetic table is int64 here.
 """
 
@@ -38,6 +47,7 @@ import torch
 
 from ..models.tinygpt import TinyGPT, normalize_remat
 from ..parallel.mesh import AXES
+from ..parallel.strategies import jax_leaf_name, param_partition_specs
 
 # Device memory per card in bytes, matched by substring against the device
 # name: 80 GB (decimal) for both H100 parts, from NVIDIA's data sheet.
@@ -103,13 +113,52 @@ def state_bytes(shapes: List[Tuple[int, ...]], strategy, dp: int,
     return size * dp * item, (size * dp + size) * item, 2 * size * item
 
 
+def jax_leaf_shapes(model_config) -> Dict[str, Tuple[int, ...]]:
+    """The JAX package's leaves of the model, global shapes: {``wte``: (V, D),
+    ``blocks/wqkv``: (L, D, 3, D), ...}, block leaves stacked on a layer axis."""
+    with torch.device("meta"):
+        model = TinyGPT(model_config)
+    out = {}
+    for name, p in model.named_parameters():
+        leaf = jax_leaf_name(name)
+        if leaf.startswith("blocks/"):
+            out[leaf] = (model_config.n_layer, *p.shape)
+        else:
+            out[leaf] = tuple(p.shape)
+    return out
+
+
+def spec_state_bytes(model_config, strategy, mesh_shape: Dict[str, int]) -> Tuple[int, int, int]:
+    """(params, grads, AdamW moments) bytes of one card by the JAX
+    package's layout rules over ``mesh_shape`` (fp32 leaves; see the module
+    docstring)."""
+    shapes = jax_leaf_shapes(model_config)
+
+    def total(shard: bool) -> int:
+        specs = param_partition_specs(shapes, mesh_shape, shard, kv_heads=model_config.kv_heads)
+        out = 0
+        for name, shape in shapes.items():
+            factor = math.prod(mesh_shape.get(ax, 1) for ax in specs[name] if ax is not None)
+            out += 4 * math.prod(shape) // factor
+        return out
+
+    params = total(strategy.shard_params)
+    grads = total(strategy.shard_params or strategy.shard_grads)
+    moments = 2 * (total(True) if strategy.shard_opt_state else params)
+    return params, grads, moments
+
+
 def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: int,
                  seq_len: int, dataset_size: int = 0) -> HBMEstimate:
     """Estimate rank 0's device-memory footprint of one training arm."""
     cfg = model_config
     dp = mesh.size(AXES.data) if mesh is not None else 1
+    tp = mesh.size(AXES.model) if mesh is not None else 1
     wrapped = mesh is not None and mesh.device_mesh is not None
-    params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped)
+    if tp > 1:
+        params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
+    else:
+        params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped)
 
     # Analytic activations of one micro-batch's forward and backward (the
     # JAX package's formula and coefficients).
@@ -119,8 +168,10 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     F = cfg.mlp_dim
     mlp_widths = (2 if cfg.mlp_act == "swiglu" else 1) * F / D
     dense_per_layer = int((10 + mlp_widths) * B * S * D) * cbytes
+    # Megatron TP shards the head and MLP activations.
+    dense_per_layer = dense_per_layer // tp
     if cfg.attention_impl == "reference":
-        dense_per_layer += 2 * B * H * S * S * 4
+        dense_per_layer += 2 * B * (H // tp) * S * S * 4
     pol = normalize_remat("full" if cfg.remat == "auto" else cfg.remat)
     if pol == "full":
         act_b = L * 2 * B * S * D * cbytes + dense_per_layer

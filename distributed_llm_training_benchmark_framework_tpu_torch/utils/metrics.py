@@ -21,8 +21,12 @@ group. A sequence-parallel run is one of two forms (``parallel/mesh.py``):
 - ``seq`` in one process (``world_size`` 1): the n shards share the one
   card, ``dp = 1``, and ``sequence_parallel`` is stamped beside it.
 
-Both are ``dp = max(world_size // sequence_parallel, 1)``, the validator's
-formula (``analysis/validate_results.py``).
+A tensor-parallel run's ``model`` ranks also compute one example jointly
+(JAX's ``utils/metrics.py``): ``dp = max(world_size // (tensor_parallel *
+sequence_parallel), 1)``, the validator's formula
+(``analysis/validate_results.py``). The row stamps ``tensor_parallel`` and,
+``tp_collective_matmul`` as it was asked for (inert at tp 1, and stamped
+all the same), as JAX's ``BenchmarkResult`` does.
 """
 
 from __future__ import annotations
@@ -104,6 +108,10 @@ class BenchmarkResult:
     sequence_parallel: int = 1
     # Ring-attention zigzag layout mode ('auto'/'on'/'off'), run identity.
     ring_zigzag: str = "auto"
+    # Tensor-parallel ('model') width over the group, and whether its
+    # projections ran as collective matmuls (ops/collective_matmul.py).
+    tensor_parallel: int = 1
+    tp_collective_matmul: bool = False
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -122,7 +130,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    flops_per_token: float = 0.0, sync_every: int = 1,
                    phase_times: Optional[Dict[str, float]] = None,
                    wall_time_total_sec: float = 0.0, sequence_parallel: int = 1,
-                   ring_zigzag: str = "auto") -> BenchmarkResult:
+                   ring_zigzag: str = "auto", tensor_parallel: int = 1,
+                   tp_collective_matmul: bool = False) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -130,7 +139,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         loss_first, loss_last = sum(losses[:lw]) / lw, sum(losses[-lw:]) / lw
     else:
         lw, loss_first, loss_last = 0, 0.0, 0.0
-    dp = max(world_size // sequence_parallel, 1)
+    dp = max(world_size // (tensor_parallel * sequence_parallel), 1)
     step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, dp)
     tps = step_tokens / mean_step if mean_step > 0 else 0.0
     h2d = per_device_batch * grad_accum * seq_len * 4 / mean_step / 1e9 if mean_step > 0 else 0.0
@@ -164,6 +173,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         time_in_warmup_sec=round(pt.get("warmup", 0.0), 4),
         time_in_timed_sec=round(pt.get("timed", 0.0), 4),
         sequence_parallel=sequence_parallel, ring_zigzag=ring_zigzag,
+        tensor_parallel=tensor_parallel,
+        tp_collective_matmul=tp_collective_matmul,
     )
 
 

@@ -419,3 +419,49 @@ def test_bwd_kernels_match_plain_at_dh128(cuda, s, causal, rate, out_dtype):
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == out_dtype and got.shape == q.shape
         assert _rel(got, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("d,causal,rate", [(64, False, 0.1), (128, True, 0.0), (64, True, 0.1)])
+def test_fwd_bhv_instance_equals_offset_instance_on_contiguous_ids(cuda, d, causal, rate):
+    """K1's bhv instance on ids bh_offset + arange(BH) is K1's offset
+    instance (the offset folded into the seed) bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(8, 256, d, device=cuda, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    for offset in (0, 5):
+        ids = torch.arange(offset, offset + 8, dtype=torch.int32, device=cuda)
+        before = fa.head_shard_launch_counts()["flash_fwd_bhv"]
+        got = fa.flash_fwd(q, k, v, causal, rate, 99, bhv=ids)
+        assert fa.head_shard_launch_counts()["flash_fwd_bhv"] == before + 1
+        want = fa.flash_fwd(q, k, v, causal, rate, 99, offset)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("d,causal,rate,H,tp", [(64, False, 0.1, 16, 2), (64, False, 0.1, 16, 4),
+                                                (128, True, 0.0, 8, 2), (128, True, 0.1, 8, 8)])
+def test_head_shards_equal_the_whole_layers_rows(cuda, d, causal, rate, H, tp):
+    """At B 2, S 2048 ((a)'s and (b)'s geometry): each tensor-parallel rank's
+    K1 (bhv instance), K2 and K3 on its H/tp heads, keyed by global
+    batch*head ids, equal the whole layer's launch on those rows bit for bit,
+    and their plain versions within the tolerances above."""
+    B, S = 2, 2048
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(B * H, S, d, device=cuda, generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal, rate, 11)
+    delta = fa.attention_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, rate, 11)
+    dq, (dk, dv) = fa.flash_bwd_dq(*args), fa.flash_bwd_dkv(*args)
+    Hl = H // tp
+    for m in range(tp):
+        rows = torch.cat([torch.arange(b * H + m * Hl, b * H + (m + 1) * Hl)
+                          for b in range(B)]).to(cuda)
+        bhv = fa._global_bh_vec(B, Hl, 0, m * Hl, H, cuda)
+        qs, ks, vs, dos = (t[rows].contiguous() for t in (q, k, v, do))
+        o, l = fa.flash_fwd(qs, ks, vs, causal, rate, 11, bhv=bhv)
+        sargs = (qs, ks, vs, dos, l, delta[rows].contiguous(), causal, rate, 11)
+        got = (o, l, fa.flash_bwd_dq(*sargs, bhv=bhv), *fa.flash_bwd_dkv(*sargs, bhv=bhv))
+        for a, b in zip(got, (out, lse, dq, dk, dv)):
+            assert torch.equal(a, b[rows])
+        p_out, p_lse = fa.flash_forward_plain(qs, ks, vs, causal, rate, 11, bhv=bhv)
+        assert _rel(o, p_out) <= 2e-2 and (l - p_lse).abs().max().item() <= 1e-3
