@@ -178,6 +178,29 @@ batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
     needs point-to-point sends, which one card cannot carry over NCCL: it
     runs on the CPU only (its tests).
 
+17. the host-offload arm and bf16 parameters (``parallel/offload.py``):
+    (a) the parity row (zero2, 3 warmup + 10 timed steps through
+    ``run_benchmark``) at ``param_dtype`` bf16, under the serial offload
+    arm and under the delayed one, each beside phase 3's fp32 row: tokens/s,
+    step ms, peak device memory against ``estimate_hbm``, K1-K3 launches,
+    falling losses, and for the offload runs the host update's ms, the
+    device-to-host and host-to-device copies' ms and GB/s per step (CUDA
+    events on the copy stream), the time the step waited for the delayed
+    worker, the pinned host bytes, the host's cores, intra-op threads and
+    ``MemAvailable``; host AdamW over tier A's masters, fused and foreach;
+    (b) tier B (1.68B, S 1024, zero3) at f32, bf16, offload serial (b1 x
+    accum 4) and offload delayed (accum 16), 2 warmup + 4 timed steps, the
+    same prints, after checking that the host holds tier B's pinned state;
+    (c) the serial arm's update held against its plain version with masters
+    and moments on the card (``DeviceMasters``, test code here): in step
+    with it on the same gradients and scale for 5 steps (tier A, dropout
+    0), the masters within ``MASTER_RTOL`` relative plus ``MASTER_ATOL``
+    after every step, and a run of the plain version's own, whose per-step
+    losses must be within ``OFFLOAD_LOSS_RTOL`` of the host arm's; (d) the
+    same for the delayed arm over 4 steps against the plain version with a
+    one-step lag (update t takes step t-1's gradients and scale, update 0
+    zeros).
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it), the nvidia-smi line, and, last,
@@ -511,7 +534,7 @@ def phase_train(fa, ra, run_benchmark):
         "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16),
         "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
     }
-    out, losses = {}, {}
+    out, losses, results = {}, {}, {}
     for name, row in rows.items():
         steps = WARMUP_STEPS + TIMED_STEPS
         fa.reset_launch_counts()
@@ -536,8 +559,9 @@ def phase_train(fa, ra, run_benchmark):
             assert n == want, f"{name}: {kernel} launched {n} times, want {want}"
         assert set(ra.launch_counts().values()) == {0}, f"{name}: ring kernels ran"
         out[name] = counts
+        results[name] = res
         torch.cuda.empty_cache()
-    return out, losses
+    return out, losses, results
 
 
 def phase_whole_model(fa, models, SyntheticDataset):
@@ -1489,6 +1513,268 @@ def no_group_ddp_flagship(run_benchmark) -> list:
     return losses
 
 
+# Phase 17: the host-offload arm. Masters of the host update against its
+# plain version on the card: the same inputs through fused CPU AdamW and
+# CUDA AdamW differ by a few fp32 roundings of the master (2^-21: four
+# ulps) and of the update (2^-20 of lr 1e-4).
+MASTER_RTOL, MASTER_ATOL = 2 ** -21, 2 ** -20 * 1e-4
+# Per-step losses of two runs whose masters differ by that much: their bf16
+# compute copies differ where a master sits on a rounding boundary.
+OFFLOAD_LOSS_RTOL = 1e-4
+OFFLOAD_WAYS = {
+    "bf16": dict(param_dtype="bf16"),
+    "offload serial": dict(offload_opt_state=True),
+    "offload delayed": dict(offload_opt_state=True, offload_delayed_update=True),
+}
+TIER_B = dict(tier="B", seq_len=1024, layers=32, warmup=2, timed=4)
+TIER_B_WAYS = {  # way: (strategy change, grad accum)
+    "f32": ({}, 4), "bf16": (dict(param_dtype="bf16"), 4),
+    "offload serial": (dict(offload_opt_state=True), 4),
+    "offload delayed": (dict(offload_opt_state=True, offload_delayed_update=True), 16),
+}
+# Host bytes per parameter of the offload state (parallel/offload.py): fp32
+# masters, gradient upcast and two moments, bf16 slot and upload buffer.
+HOST_BYTES_PER_PARAM = 4 * 4 + 2 * 2
+
+
+def mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def pinned_need_gb(n: int) -> float:
+    """Host bytes of the offload state of n parameters once pinned: the
+    pinned allocator rounds each flat buffer up to a power of two."""
+    pow2 = lambda b: 1 << (b - 1).bit_length()
+    return (4 * pow2(4 * n) + 2 * pow2(2 * n)) / 1e9
+
+
+class DeviceMasters:
+    """The host update's plain version, run by this script only: fp32
+    masters and ``torch.optim.AdamW`` on the card, JAX's ``host_math`` on
+    the same gradients and scale (``HostOffload``'s interface: ``begin_step``,
+    ``step``). ``delayed``: update t takes step t-1's gradients and scale,
+    update 0 zeros. ``write``: copy bf16(masters) into the parameters (the
+    arm's own run); off, it only follows the host arm (lockstep)."""
+
+    def __init__(self, host, strategy, delayed: bool, write: bool):
+        self.tensors, self.schedule, self.clip = host.tensors, host.schedule, host.clip
+        self.sizes = [t.numel() for t in host.tensors]
+        self.master = host.master.to("cuda", copy=True)
+        self.master.grad = torch.zeros_like(self.master)
+        self.adamw = torch.optim.AdamW([self.master], lr=strategy.learning_rate,
+                                       betas=strategy.betas, eps=strategy.eps,
+                                       weight_decay=strategy.weight_decay)
+        self.count, self.delayed, self.write = 0, delayed, write
+        self.pending = torch.zeros(self.master.numel(), dtype=torch.bfloat16, device="cuda")
+        self.pending_scale = torch.zeros((), device="cuda")
+
+    def begin_step(self) -> None:
+        pass
+
+    @torch.no_grad()
+    def step(self, grads, scale) -> None:
+        g = torch.cat([x.reshape(-1) for x in grads])
+        if self.delayed:
+            (g, self.pending), (scale, self.pending_scale) = (
+                (self.pending, g), (self.pending_scale, scale))
+        self.master.grad.copy_(g)
+        if self.clip:
+            self.master.grad.mul_(scale)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+        if self.write:
+            for t, v in zip(self.tensors, torch.split(self.master, self.sizes)):
+                t.view(-1).copy_(v)
+
+
+def _timed(values, n):
+    return statistics.median(values[-n:]) if values else float("nan")
+
+
+def offload_line(stats: dict, timed: int) -> tuple[str, dict]:
+    """The host arm's per-step numbers (medians over the timed steps)."""
+    d2h, h2d = _timed(stats["d2h_ms"], timed), _timed(stats["h2d_ms"], timed)
+    out = {
+        "host_update_ms": _timed(stats["host_update_ms"], timed),
+        "wait_ms": _timed(stats["wait_ms"], timed) if stats["wait_ms"] else None,
+        "d2h_ms": d2h, "d2h_gbps": stats["d2h_bytes"] / d2h / 1e6,
+        "h2d_ms": h2d, "h2d_gbps": stats["h2d_bytes"] / h2d / 1e6,
+        "d2h_gb": stats["d2h_bytes"] / 1e9, "pinned_gb": stats["host_bytes"] / 1e9,
+        "pinned": stats["pinned"], "cpu_count": stats["cpu_count"],
+        "threads": stats["threads"], "mem_available_gb": mem_available_gb(),
+    }
+    assert stats["pinned"], "host offload state not pinned"
+    wait = f", step waited {out['wait_ms']:.2f} ms for the worker" if out["wait_ms"] else ""
+    return (f"host update {out['host_update_ms']:.2f} ms{wait}; D2H {d2h:.2f} ms "
+            f"({out['d2h_gbps']:.2f} GB/s over {out['d2h_gb']:.3f} GB), H2D {h2d:.2f} ms "
+            f"({out['h2d_gbps']:.2f} GB/s); pinned host {out['pinned_gb']:.2f} GB; "
+            f"{out['cpu_count']} cores, {out['threads']} intra-op threads, MemAvailable "
+            f"{out['mem_available_gb']:.1f} GB"), out
+
+
+def offload_run(fa, loop, memory, models, get_strategy, param_torch_dtype, label, *, change,
+                tier, seq_len, arm, accum, layers, warmup, timed, base=None):
+    """One row of phase 17 (a) / (b) through run_benchmark."""
+    strategy = dataclasses.replace(get_strategy(arm), **change)
+    steps = warmup + timed
+    cfg = models.get_config("tinygpt", tier, seq_len, attention_impl="flash",
+                            param_dtype=param_torch_dtype(strategy))
+    resolved = memory.resolve_auto_remat(cfg, strategy, None, 1, seq_len, loop.DATASET_SIZE,
+                                         torch.cuda.get_device_name(0))
+    est = memory.estimate_hbm(dataclasses.replace(cfg, remat=resolved.remat), resolved, None,
+                              1, seq_len, loop.DATASET_SIZE)
+    fa.reset_launch_counts()
+    losses, stats = [], {}
+    t0 = time.perf_counter()
+    res = loop.run_benchmark(strategy=strategy, tier=tier, seq_len=seq_len, steps=steps,
+                             warmup_steps=warmup, per_device_batch=1, grad_accum=accum,
+                             attention_impl="flash", sync_every=5, device="cuda",
+                             loss_log=losses, offload_log=stats)
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    micro = layers * accum * steps
+    want = {"flash_fwd": micro * (1 if resolved.remat == "none" else 2),
+            "flash_bwd_dq": micro, "flash_bwd_dkv": micro}
+    line = (f"[17] {label}: {res.tokens_per_sec:.1f} tok/s, step "
+            f"{1e3 * res.mean_step_time_sec:.2f} ms (cv {res.step_time_cv_pct:.1f}%), MFU "
+            f"{res.mfu_pct:.2f}%, peak {res.peak_hbm_gb:.2f} GB, estimate_hbm "
+            f"{est.total / 1e9:.2f} GB (opt state {est.opt_state / 1e9:.2f} GB), remat "
+            f"{resolved.remat}, loss first {res.loss_first_window:.4f} last "
+            f"{res.loss_last_window:.4f}, launches {counts}, run {wall:.1f} s")
+    if base is not None:
+        line += (f"; fp32 row: {base.tokens_per_sec:.1f} tok/s, step "
+                 f"{1e3 * base.mean_step_time_sec:.2f} ms, peak {base.peak_hbm_gb:.2f} GB")
+    out = dict(tokens_per_sec=res.tokens_per_sec, step_ms=1e3 * res.mean_step_time_sec,
+               peak_gb=res.peak_hbm_gb, estimate_gb=est.total / 1e9, remat=resolved.remat,
+               losses=losses, n_params=res.n_params)
+    if stats:
+        text, numbers = offload_line(stats, timed)
+        line += "; " + text
+        out.update(numbers)
+    log(line)
+    assert all(math.isfinite(x) for x in losses) and len(losses) == steps
+    assert res.loss_last_window < res.loss_first_window, f"{label}: loss did not fall"
+    assert counts == want, f"{label}: launches {counts}, want {want}"
+    assert (res.param_dtype, res.offload_opt_state, res.offload_delayed_update) == (
+        strategy.param_dtype, strategy.offload_opt_state, strategy.offload_delayed_update)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_adamw_ms(n: int) -> dict:
+    """Host AdamW over n fp32 elements, fused and foreach: median ms of 3
+    steps after one."""
+    out = {}
+    for kind in ("fused", "foreach"):
+        p = torch.zeros(n)
+        p.grad = torch.full((n,), 1e-3)
+        opt = torch.optim.AdamW([p], lr=1e-4, weight_decay=0.01, **{kind: True})
+        opt.step()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            opt.step()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[kind] = statistics.median(times)
+        del p, opt
+    return out
+
+
+def lockstep(loop, strategy, steps: int, delayed: bool):
+    """Phase 17 (c) / (d): the arm at tier A (dropout 0) with its host
+    update followed by ``DeviceMasters`` on the same inputs; then a run of
+    ``DeviceMasters`` alone. Returns (worst master rel, worst abs, the host
+    run's losses, the plain run's)."""
+    kw = dict(strategy=strategy, tier="A", seq_len=2048, per_device_batch=1, grad_accum=4,
+              dropout=0.0, attention_impl="flash", device="cuda")
+    run = loop.build_run(**kw)
+    opt = run.step_fn.optimizer
+    plain = DeviceMasters(opt.host, strategy, delayed, write=False)
+    host_step = opt.host.step
+
+    def both(grads, scale):
+        plain.step(grads, scale)
+        host_step(grads, scale)
+
+    opt.host.step = both
+    losses, worst_rel, worst_abs = [], 0.0, 0.0
+    for step in range(steps):
+        losses.append(run.step_fn(run.table, step).item())
+        host = opt.host.master.to("cuda")
+        diff = (plain.master - host).abs()
+        worst_abs = max(worst_abs, diff.max().item())
+        worst_rel = max(worst_rel, (diff / host.abs().clamp_min(1e-30)).max().item())
+        bad = (diff > MASTER_RTOL * host.abs() + MASTER_ATOL).sum().item()
+        assert bad == 0, f"step {step}: {bad} masters beyond the limit"
+    del run, opt, plain, host
+    gc.collect()
+    run = loop.build_run(**kw)
+    opt = run.step_fn.optimizer
+    opt.host = DeviceMasters(opt.host, strategy, delayed, write=True)
+    plain_losses = [run.step_fn(run.table, step).item() for step in range(steps)]
+    del run, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst_rel, worst_abs, losses, plain_losses
+
+
+def phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
+                  fp32_parity) -> dict:
+    """Phase 17: the host-offload arm and bf16 parameters on the card."""
+    log(f"[17] host: {os.cpu_count()} cores, {torch.get_num_threads()} intra-op threads, "
+        f"MemAvailable {mem_available_gb():.1f} GB; {smi}")
+    out = {"parity": {}, "tier_b": {}}
+    row = dict(tier="A", seq_len=2048, arm="zero2", accum=4, layers=16, warmup=WARMUP_STEPS,
+               timed=TIMED_STEPS)
+    for way, change in OFFLOAD_WAYS.items():
+        out["parity"][way] = offload_run(fa, loop, memory, models, get_strategy,
+                                         param_torch_dtype, f"(a) parity {way}", change=change,
+                                         base=fp32_parity, **row)
+    n_a = out["parity"]["offload serial"]["n_params"]
+    adamw = host_adamw_ms(n_a)
+    log(f"[17] (a) host AdamW over tier A's {n_a} masters: fused {adamw['fused']:.1f} ms, "
+        f"foreach {adamw['foreach']:.1f} ms ({torch.get_num_threads()} threads, "
+        f"{os.cpu_count()} cores; the arm runs fused); {smi}")
+    out["host_adamw_ms"] = adamw
+    with torch.device("meta"):
+        n_b = models.count_params(models.TinyGPT(models.get_config("tinygpt", "B", 1024)))
+    need, avail = pinned_need_gb(n_b), mem_available_gb()
+    log(f"[17] (b) tier B: {n_b} parameters; its pinned offload state {need:.1f} GB "
+        f"({HOST_BYTES_PER_PARAM} B per parameter, buffers rounded to powers of two) of "
+        f"MemAvailable {avail:.1f} GB")
+    assert need < 0.9 * avail, f"the host cannot hold tier B's offload state: {need} of {avail}"
+    for way, (change, accum) in TIER_B_WAYS.items():
+        out["tier_b"][way] = offload_run(
+            fa, loop, memory, models, get_strategy, param_torch_dtype,
+            f"(b) tier B zero3 S 1024 b1 x {accum} {way}", change=change, tier=TIER_B["tier"],
+            seq_len=TIER_B["seq_len"], arm="zero3", accum=accum, layers=TIER_B["layers"],
+            warmup=TIER_B["warmup"], timed=TIER_B["timed"])
+    for key, way, steps, delayed in (("c", "offload serial", 5, False),
+                                     ("d", "offload delayed", 4, True)):
+        strategy = dataclasses.replace(get_strategy("zero2"), **OFFLOAD_WAYS[way])
+        rel, worst, host_losses, plain_losses = lockstep(loop, strategy, steps, delayed)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(host_losses, plain_losses))
+        log(f"[17] ({key}) {way} vs its plain version on the card (masters and AdamW in device "
+            f"memory{', one-step lag' if delayed else ''}), tier A, dropout 0, {steps} steps: "
+            f"masters in step, worst relative {rel:.2e}, worst abs {worst:.2e} (limit "
+            f"{MASTER_RTOL:.2e} x |m| + {MASTER_ATOL:.2e}); losses host "
+            f"{[round(x, 5) for x in host_losses]}, plain {[round(x, 5) for x in plain_losses]}, "
+            f"max relative difference {loss_rel:.2e} (limit {OFFLOAD_LOSS_RTOL})")
+        assert loss_rel <= OFFLOAD_LOSS_RTOL, f"({key}): losses differ by {loss_rel}"
+        out[key] = dict(master_rel=rel, master_abs=worst, loss_rel=loss_rel)
+    log("[17] summary: " + json.dumps(
+        {k: ({w: {n: v for n, v in r.items() if n != "losses"} for w, r in v.items()}
+             if k in ("parity", "tier_b") else v) for k, v in out.items()}) + f" on {smi}")
+    return out
+
+
 # Keys a kernel's entry in the kernels line carries where its phase measured them.
 OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "attention_delta_ms",
                  "attention_delta_device_ms", "pair_ms", "pair_device_ms", "rate0_ms",
@@ -1513,6 +1799,9 @@ def main() -> int:
     from distributed_llm_training_benchmark_framework_tpu_torch.parallel import (
         get_strategy,
         make_mesh,
+    )
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.strategies import (
+        param_torch_dtype,
     )
     from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
     from distributed_llm_training_benchmark_framework_tpu_torch.train import loop
@@ -1547,7 +1836,7 @@ def main() -> int:
                 log(f"[0]   ptxas: {ln.strip()}")
 
     timing = phase_kernels(fa, peaks)
-    launches, row_losses = phase_train(fa, ra, run_benchmark)
+    launches, row_losses, row_results = phase_train(fa, ra, run_benchmark)
     phase_whole_model(fa, models, SyntheticDataset)
     ring_timing = phase_ring_kernels(fa, ra, peaks)
     phase_ring_vs_flash(fa, ra)
@@ -1563,6 +1852,8 @@ def main() -> int:
         ("parity", "zero2"): row_losses["parity"], ("flagship", "zero2"): row_losses["flagship"],
         ("parity", "ddp"): arms["ddp"]["plain"]["losses"],
         ("flagship", "ddp"): no_group_ddp_flagship(run_benchmark)})
+    phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
+                  row_results["parity"])
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -1662,7 +1953,7 @@ def main() -> int:
                   "peak_gb_group": a["group"]["res"].peak_hbm_gb,
                   "loss_max_rel_diff": a["loss_rel"], "launches_group": a["group"]["launches"]}
             for arm, a in arms.items()}) + f" on {smi}")
-    log(f"[17] total {time.perf_counter() - t0:.1f} s")
+    log(f"[end] total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,9 @@ runs when the top row is tinygpt), ``--attention``, ``--dropout`` (the
 family's own by default), ``--sync-every`` and ``--tp-collective-matmul``
 (the tensor-parallel projections as collective matmuls: inert without a
 ``model`` axis, and stamped on both rows when given, as JAX's bench does).
-Like the JAX bench, it has no sequence- or tensor-parallel width flag, so
+Like the JAX bench, it has no parameter-dtype or host-offload flag (those
+arms run through ``run_benchmark``'s strategy) and no sequence- or
+tensor-parallel width flag, so
 ``--attention ulysses`` runs at ``seq`` width 1, where Ulysses is flash
 attention bit for bit, and every run is at ``model`` width 1. The flagship
 row pins flash, the family's dropout and its b2 x accum 2, under the same

@@ -15,6 +15,11 @@ loaded before the arm lays the model out; ``export_params`` takes the
 model as the arm returns it (a DDP wrapper, or FSDP2's sharded leaves,
 which it gathers: a collective that every rank of the group must call).
 
+Leaves cross in the model's parameter dtype: a bf16 JAX leaf goes into a
+bf16 parameter exactly (through fp32, which holds every bf16 value), and a
+bf16 model exports bf16 leaves (``ml_dtypes.bfloat16`` arrays, numpy's
+form of JAX's bf16, imported only then).
+
 Under tensor parallelism (a model built at a ``model`` rank's local widths)
 ``load_jax_params`` keeps this rank's shard of each global leaf, by the
 layout rules (``parallel.strategies.tp_axis``), and ``export_params``
@@ -79,16 +84,25 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
             arr = np.split(arr, t, axis=ax)[m]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(map(str, path))}: shape {arr.shape} vs {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype))
     if used != want:
         raise ValueError(f"JAX leaves with no port counterpart: {sorted(want - used)}")
     return model
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    import ml_dtypes  # numpy has no bf16 of its own
+
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 def export_params(model: torch.nn.Module) -> Dict:
     """The reverse direction: the model's parameters as a JAX-shaped numpy
-    tree (block leaves stacked on a leading layer axis), whole leaves on
-    every rank, copied (later steps do not change them)."""
+    tree (block leaves stacked on a leading layer axis) in the parameters'
+    dtype, whole leaves on every rank, copied (later steps do not change
+    them)."""
     out: Dict = {}
     stacks: Dict[str, list] = {}
     inner = getattr(model, "module", model)
@@ -102,7 +116,7 @@ def export_params(model: torch.nn.Module) -> Dict:
             parts = [torch.empty_like(p) for _ in range(t)]
             dist.all_gather(parts, p.contiguous(), group=inner.model_group)
             p = torch.cat(parts, dim=ax)
-        arr = p.to("cpu", torch.float32, copy=True).numpy()
+        arr = _numpy(p.to("cpu", copy=True))
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))
         else:

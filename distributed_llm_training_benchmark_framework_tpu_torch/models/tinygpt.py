@@ -14,7 +14,8 @@ maps ``params["blocks"][leaf][i]`` to ``blocks.<i>.<leaf>`` one to one:
 ``wfc`` (D, F), ``wgu`` (D, 2, F), ``wproj`` (F, D), biases and norm scales.
 
 Numerics follow JAX's explicit casts (no ``torch.autocast``): parameters
-stay fp32 and are cast to the compute dtype where they are used; the
+are stored in ``config.param_dtype`` (fp32, or bf16 as JAX's
+``param_dtype``) and cast to the compute dtype where they are used; the
 residual stream is in the compute dtype; norm statistics, the softmax of the
 reference attention, the logits and the loss are fp32.
 
@@ -118,6 +119,9 @@ class TinyGPTConfig:
     causal: bool = False
     attention_impl: str = "reference"
     compute_dtype: torch.dtype = torch.bfloat16
+    # Storage dtype of every parameter (JAX's ``param_dtype``): fp32, or bf16
+    # under a strategy's ``param_dtype`` "bf16" or host offload.
+    param_dtype: torch.dtype = torch.float32
     norm: str = "layernorm"
     norm_eps: float = 1e-5
     pos_embed: str = "learned"
@@ -298,8 +302,8 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 AttentionFn = Callable[..., torch.Tensor]
 
 
-def _param(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.empty(*shape, dtype=torch.float32))
+def _param(dtype: torch.dtype, *shape) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, dtype=dtype))
 
 
 class Block(nn.Module):
@@ -320,33 +324,34 @@ class Block(nn.Module):
         self.kv_sharded = kv_aligned(Hkv, t)
         self.n_kv = Hkv // t if self.kv_sharded else Hkv
         Dl, Fl = self.n_head * Dh, Fm // t
-        self.ln1_scale, self.ln2_scale = _param(D), _param(D)
+        pd = c.param_dtype
+        self.ln1_scale, self.ln2_scale = _param(pd, D), _param(pd, D)
         if c.norm == "layernorm":
-            self.ln1_bias, self.ln2_bias = _param(D), _param(D)
+            self.ln1_bias, self.ln2_bias = _param(pd, D), _param(pd, D)
         if Hkv == H:
-            self.wqkv = _param(D, 3, Dl)
+            self.wqkv = _param(pd, D, 3, Dl)
             if c.bias:
-                self.bqkv = _param(3, Dl)
+                self.bqkv = _param(pd, 3, Dl)
         else:
-            self.wq = _param(D, Dl)
-            self.wkv = _param(D, 2, self.n_kv * Dh)
+            self.wq = _param(pd, D, Dl)
+            self.wkv = _param(pd, D, 2, self.n_kv * Dh)
             if c.bias:
-                self.bq = _param(Dl)
-                self.bkv = _param(2, self.n_kv * Dh)
-        self.wo = _param(Dl, D)
+                self.bq = _param(pd, Dl)
+                self.bkv = _param(pd, 2, self.n_kv * Dh)
+        self.wo = _param(pd, Dl, D)
         if c.bias:
-            self.bo = _param(D)
+            self.bo = _param(pd, D)
         if c.mlp_act == "swiglu":
-            self.wgu = _param(D, 2, Fl)
+            self.wgu = _param(pd, D, 2, Fl)
             if c.bias:
-                self.bgu = _param(2, Fl)
+                self.bgu = _param(pd, 2, Fl)
         else:
-            self.wfc = _param(D, Fl)
+            self.wfc = _param(pd, D, Fl)
             if c.bias:
-                self.bfc = _param(Fl)
-        self.wproj = _param(Fl, D)
+                self.bfc = _param(pd, Fl)
+        self.wproj = _param(pd, Fl, D)
         if c.bias:
-            self.bproj = _param(D)
+            self.bproj = _param(pd, D)
 
     def _rep(self, p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A leaf replicated over ``model`` and used on the sequence-sharded
@@ -491,17 +496,17 @@ class TinyGPT(nn.Module):
             check_tp(c, t)
         self.tp, self.model_group = (m, t), (mesh.model_group if t > 1 else None)
         self.cmm = c.tp_collective_matmul and t > 1
-        D, V = c.n_embd, c.vocab_size
-        self.wte = _param(V // t, D)
+        D, V, pd = c.n_embd, c.vocab_size, c.param_dtype
+        self.wte = _param(pd, V // t, D)
         if c.pos_embed == "learned":
-            self.wpe = _param(c.block_size, D)
+            self.wpe = _param(pd, c.block_size, D)
         self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group)
                                     for _ in range(c.n_layer))
-        self.lnf_scale = _param(D)
+        self.lnf_scale = _param(pd, D)
         if c.norm == "layernorm":
-            self.lnf_bias = _param(D)
+            self.lnf_bias = _param(pd, D)
         if not c.tie_embeddings:
-            self.lm_head = _param(V // t, D)
+            self.lm_head = _param(pd, V // t, D)
         # The attention every block calls; the config picks it. A check that
         # compares against another implementation assigns this attribute.
         self.attention: AttentionFn = reference_attention
@@ -534,7 +539,8 @@ class TinyGPT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TinyGPT":
         """normal(0, 0.02) for matrices and embeddings, zeros for biases, ones
-        for norm scales (the JAX init scheme; the values differ). Under
+        for norm scales (the JAX init scheme; the values differ), drawn in
+        fp32 and cast to the parameter dtype, as JAX's ``.astype``. Under
         tensor parallelism each leaf is drawn at its global shape and this
         rank keeps its shard, so every layout of a seed holds the same
         weights."""

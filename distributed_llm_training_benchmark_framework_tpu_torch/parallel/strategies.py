@@ -73,14 +73,30 @@ The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 - learning rate: optax ``linear_schedule(0, lr, warmup_steps)`` evaluated at
   the update count before each update, so update 0 runs at lr 0 and update
   ``warmup_steps`` onwards at the full rate.
+
+``param_dtype`` "bf16" stores the parameters, and so their gradients and
+AdamW moments, in bf16 (the model is built so, ``train/loop.py``); the
+recipe is the same. ``offload_opt_state`` keeps fp32 masters and the AdamW
+moments in host memory and runs the update there (``parallel/offload.py``)
+over the same local tensors the arm would update on the device: ddp's
+whole parameters, zero2's shards of the flat buffers, fsdp / zero3's
+DTensor shards, each under ``model`` a tp shard. Its clip is JAX's offload
+clip, a scale ``c / max(g_norm, c)`` from an fp32 norm, which the host
+folds into the gradient's fp32 upcast.
+
+The arms are also read from JSON (``load_strategy_config`` over
+``configs/strategies/*.json``; ``from_deepspeed_config`` over a DeepSpeed
+config), with the JAX package's defaults, mappings and messages.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import math
-from typing import ContextManager, Dict, Iterable, List, Optional, Tuple
+import os
+from typing import Any, ContextManager, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,6 +105,7 @@ from torch.distributed.tensor import DTensor
 from torch.nn.parallel import DistributedDataParallel
 
 from .mesh import AXES, Mesh, shard_data_mesh
+from .offload import HostOffload
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,12 +131,14 @@ class StrategyConfig:
     remat: str = "none"
     # Compute dtype of the model: 'bf16' | 'f32'.
     precision: str = "bf16"
-    # Parameter storage dtype. The port holds 'f32' only (bf16 parameters:
-    # ROADMAP Queue 1 item 0).
+    # Parameter (and so gradient and AdamW-moment) storage dtype: 'f32' |
+    # 'bf16'.
     param_dtype: str = "f32"
-    # The host-offload arm (JAX: TPU only); not ported (ROADMAP Queue 1
-    # item 10, third bullet).
+    # ZeRO-Offload: fp32 masters and AdamW moments in host memory, the update
+    # on the host, a bf16 compute copy on the device (parallel/offload.py).
     offload_opt_state: bool = False
+    # The offload arm's delayed update: the host applies the previous step's
+    # gradients while the device runs this step (parameters one step stale).
     offload_delayed_update: bool = False
 
     def describe(self) -> str:
@@ -161,17 +180,17 @@ def get_strategy(name: str) -> StrategyConfig:
 
 
 def check_ported(strategy: StrategyConfig) -> None:
-    """Refuse what the port does not run yet, naming where it is queued."""
-    if strategy.offload_opt_state or strategy.offload_delayed_update:
+    """Refuse a strategy the port cannot run, as the JAX package refuses it."""
+    if strategy.param_dtype not in ("f32", "bf16"):
         raise ValueError(
-            f"{strategy.name}: offload_opt_state / offload_delayed_update (the host-offload "
-            "arm) is not ported yet (ROADMAP Queue 1 item 10, third bullet); the JAX "
-            "package runs it on a TPU only"
+            f"{strategy.name}: invalid param_dtype {strategy.param_dtype!r} in strategy config "
+            "(expected 'f32' or 'bf16')"
         )
-    if strategy.param_dtype != "f32":
+    if strategy.offload_delayed_update and not strategy.offload_opt_state:
         raise ValueError(
-            f"{strategy.name}: param_dtype {strategy.param_dtype!r} is not ported yet "
-            "(ROADMAP Queue 1 item 0); the port holds fp32 parameters"
+            f"{strategy.name}: offload_delayed_update requires offload_opt_state (it schedules "
+            "the HOST optimizer update; there is nothing to delay on a device-resident "
+            "optimizer)"
         )
     if strategy.precision not in ("bf16", "f32"):
         raise ValueError(f"{strategy.name}: precision must be 'bf16' or 'f32', "
@@ -182,6 +201,185 @@ def check_ported(strategy: StrategyConfig) -> None:
             f"{strategy.name}: layout params/grads/opt_state sharded = {layout} is none of "
             "ddp's, fsdp's (zero3's) or zero2's"
         )
+
+
+def param_torch_dtype(strategy: StrategyConfig) -> torch.dtype:
+    """The model's parameter dtype under ``strategy``: bf16 under
+    ``param_dtype`` "bf16" and under host offload, whose device parameters
+    are a bf16 compute copy of the host masters (JAX's
+    ``_resolve_model_config``)."""
+    if strategy.param_dtype == "bf16" or strategy.offload_opt_state:
+        return torch.bfloat16
+    return torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Strategy configs from JSON (JAX parallel/strategies.py)
+# ---------------------------------------------------------------------------
+
+
+def _normalize_remat_field(value: Any) -> str:
+    """JSON remat field: bool (legacy, True="full"), a model policy string,
+    or "auto" (resolved against the memory model before reaching the model)."""
+    if value == "auto":
+        return value
+    from ..models.tinygpt import normalize_remat  # the model imports this module
+
+    try:
+        return normalize_remat(value)
+    except ValueError:
+        raise ValueError(
+            f"invalid remat value {value!r} in strategy config "
+            "(expected bool or one of 'none'/'dots'/'full'/'auto')"
+        )
+
+
+def load_strategy_config(path: str) -> StrategyConfig:
+    """A strategy arm from a JSON file (``configs/strategies/*.json``):
+
+        {"strategy": "zero2",
+         "optimizer": {"lr": 1e-4, "betas": [0.9, 0.999], "eps": 1e-8,
+                        "weight_decay": 0.01},
+         "scheduler": {"warmup_steps": 5},
+         "grad_clip": 1.0,
+         "precision": "bf16",
+         "sharding": {"params": false, "grads": true, "opt_state": true},
+         "remat": false}
+
+    Fields left out keep the named arm's defaults (or StrategyConfig's for
+    an unknown name); ``param_dtype`` and ``offload_opt_state`` are read
+    too."""
+    with open(path) as f:
+        raw = json.load(f)
+    name = raw.get("strategy")
+    base = (get_strategy(name) if name in STRATEGIES
+            else StrategyConfig(name=name or os.path.basename(path)))
+    opt = raw.get("optimizer", {})
+    sched = raw.get("scheduler", {})
+    shard = raw.get("sharding", {})
+    pdtype = raw.get("param_dtype", base.param_dtype)
+    if pdtype not in ("f32", "bf16"):
+        raise ValueError(
+            f"invalid param_dtype {pdtype!r} in strategy config "
+            "(expected 'f32' or 'bf16')"
+        )
+    return dataclasses.replace(
+        base,
+        learning_rate=float(opt.get("lr", base.learning_rate)),
+        betas=tuple(opt.get("betas", base.betas)),
+        eps=float(opt.get("eps", base.eps)),
+        weight_decay=float(opt.get("weight_decay", base.weight_decay)),
+        warmup_steps=int(sched.get("warmup_steps", base.warmup_steps)),
+        grad_clip=raw.get("grad_clip", base.grad_clip),
+        precision=raw.get("precision", base.precision),
+        param_dtype=pdtype,
+        shard_params=bool(shard.get("params", base.shard_params)),
+        shard_grads=bool(shard.get("grads", base.shard_grads)),
+        shard_opt_state=bool(shard.get("opt_state", base.shard_opt_state)),
+        remat=_normalize_remat_field(raw.get("remat", base.remat)),
+        offload_opt_state=bool(raw.get("offload_opt_state", base.offload_opt_state)),
+    )
+
+
+def is_deepspeed_config(raw: Any) -> bool:
+    """True when a JSON dict looks like a DeepSpeed config rather than the
+    native strategy format (which always carries a "strategy" key)."""
+    if not isinstance(raw, dict) or "strategy" in raw:
+        return False
+    return any(k in raw for k in ("zero_optimization", "train_micro_batch_size_per_gpu",
+                                  "gradient_clipping", "bf16", "fp16"))
+
+
+def from_deepspeed_config(raw: Dict[str, Any], strategy_name: str) -> StrategyConfig:
+    """The arm ``strategy_name`` with a DeepSpeed config's recipe:
+
+    - ``optimizer.params.{lr,betas,eps,weight_decay}``: the AdamW recipe
+      (type Adam or AdamW only);
+    - ``scheduler.params.warmup_num_steps`` (WarmupLR, WarmupDecayLR): the
+      linear warmup;
+    - ``gradient_clipping``: the global-norm clip (0 disables it);
+    - ``bf16.enabled`` / ``fp16.enabled``: bf16 compute;
+    - ``zero_optimization.stage``: checked against the arm (zero2 / zero3);
+    - ``zero_optimization.offload_optimizer.device``: "cpu" / "nvme" turn
+      host offload on, "none" off; absent, the arm's default.
+
+    A numeric field "auto" (HF Trainer's) keeps the arm's default. Batch
+    keys are not read: the batch geometry comes from the caller."""
+    base = get_strategy(strategy_name)
+
+    def section(key):
+        val = raw.get(key, {})
+        if not isinstance(val, dict):
+            raise ValueError(f"DeepSpeed config section {key!r} must be an object, got {val!r}")
+        return val
+
+    def num(container, key, fallback, cast=float):
+        val = container.get(key, None)
+        if val is None or val == "auto":
+            return fallback
+        try:
+            return cast(val)
+        except (TypeError, ValueError):
+            raise ValueError(f"DeepSpeed config field {key!r} has non-numeric value {val!r}")
+
+    zero = section("zero_optimization")
+    stage = num(zero, "stage", None, int)
+    expected = {"zero2": 2, "zero3": 3}.get(strategy_name)
+    if stage is not None and expected is not None and stage != expected:
+        raise ValueError(
+            f"--strategy {strategy_name} but DeepSpeed config sets "
+            f"zero_optimization.stage={stage}"
+        )
+    opt_section = section("optimizer")
+    opt_type = opt_section.get("type", "AdamW")
+    if str(opt_type).lower() not in ("adam", "adamw"):
+        raise ValueError(
+            f"DeepSpeed optimizer type {opt_type!r} is not supported "
+            "(only Adam/AdamW map onto this framework's optimizer)"
+        )
+    opt = opt_section.get("params", {})
+    if not isinstance(opt, dict):
+        raise ValueError(
+            f"DeepSpeed config field 'optimizer.params' must be an object, got {opt!r}"
+        )
+    sched = section("scheduler")
+    sched_params = sched.get("params", {})
+    if not isinstance(sched_params, dict):
+        raise ValueError(
+            f"DeepSpeed config field 'scheduler.params' must be an object, "
+            f"got {sched_params!r}"
+        )
+    warmup = base.warmup_steps
+    if sched.get("type", "WarmupLR") in ("WarmupLR", "WarmupDecayLR"):
+        warmup = num(sched_params, "warmup_num_steps", base.warmup_steps, int)
+    betas = opt.get("betas", None)
+    if betas is None or betas == "auto":
+        betas = base.betas
+    elif not (isinstance(betas, (list, tuple)) and len(betas) == 2
+              and all(isinstance(b, (int, float)) for b in betas)):
+        raise ValueError(f"DeepSpeed config field 'betas' must be [b1, b2], got {betas!r}")
+    precision = base.precision
+    if section("bf16").get("enabled") or section("fp16").get("enabled"):
+        precision = "bf16"
+    grad_clip = num(raw, "gradient_clipping", base.grad_clip)
+    if grad_clip is not None and grad_clip <= 0:
+        grad_clip = None  # DeepSpeed: 0 disables clipping
+    ds_off = zero.get("offload_optimizer")
+    if isinstance(ds_off, dict) and "device" in ds_off:
+        offload = ds_off["device"] not in (None, "none")
+    else:
+        offload = base.offload_opt_state
+    return dataclasses.replace(
+        base,
+        learning_rate=num(opt, "lr", base.learning_rate),
+        betas=tuple(betas),
+        eps=num(opt, "eps", base.eps),
+        weight_decay=num(opt, "weight_decay", base.weight_decay),
+        warmup_steps=warmup,
+        grad_clip=grad_clip,
+        precision=precision,
+        offload_opt_state=offload,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +512,25 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _zero_grads(params: Iterable[torch.Tensor], set_to_none: bool) -> None:
+    for p in params:
+        if p.grad is None:
+            continue
+        if set_to_none:
+            p.grad = None
+        else:
+            p.grad.zero_()
+
+
+def _total_norm(grads: List[torch.Tensor], f32: bool) -> torch.Tensor:
+    """The 2-norm of ``grads`` together; ``f32``: accumulated in fp32 over
+    the fp32 values of bf16 gradients (optax's norm of their upcast)."""
+    if not f32:
+        return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+
+
 class Optimizer:
     """Global-norm clip (optional) + AdamW under the arm's lr schedule, over
     ``.grad`` of the given parameters. ``count`` is optax's update count.
@@ -322,7 +539,14 @@ class Optimizer:
     gradient (None: each rank holds whole gradients). ``model_group`` and
     ``model_sharded`` (one flag per parameter): under tensor parallelism the
     ``model`` ranks hold the other shards of the flagged parameters, and
-    the rest are replicated over ``model``."""
+    the rest are replicated over ``model``.
+
+    Under ``offload_opt_state`` there is no device AdamW: ``host``
+    (``parallel/offload.HostOffload``) holds the fp32 masters and moments of
+    the same local tensors and runs the update; ``step`` hands it the
+    gradients and the clip's scale. Its delayed form starts the host's
+    worker in ``zero_grad``, at the start of a step, and joins it in
+    ``step``."""
 
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
                  norm_group: Optional[dist.ProcessGroup] = None,
@@ -333,18 +557,25 @@ class Optimizer:
         self.norm_group = norm_group
         self.model_group = model_group
         self.model_sharded = model_sharded or [False] * len(self.params)
-        self.adamw = torch.optim.AdamW(
-            self.params, lr=strategy.learning_rate, betas=strategy.betas,
-            eps=strategy.eps, weight_decay=strategy.weight_decay,
-        )
         if strategy.warmup_steps > 0:
             self.schedule = linear_schedule(0.0, strategy.learning_rate, strategy.warmup_steps)
         else:
             self.schedule = lambda count: strategy.learning_rate
+        self.adamw: Optional[torch.optim.AdamW] = None
+        self.host: Optional[HostOffload] = None
+        if strategy.offload_opt_state:
+            self.host = HostOffload(strategy, [_local(p) for p in self.params], self.schedule)
+        else:
+            self.adamw = torch.optim.AdamW(
+                self.params, lr=strategy.learning_rate, betas=strategy.betas,
+                eps=strategy.eps, weight_decay=strategy.weight_decay,
+            )
         self.count = 0
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        _zero_grads(self.params, set_to_none=True)
+        if self.host is not None:
+            self.host.begin_step()
 
     def sync_context(self, last: bool) -> ContextManager:
         """Wrap one micro-batch's forward and backward; ``last`` is the last
@@ -360,15 +591,15 @@ class Optimizer:
         if grad_accum > 1:
             torch._foreach_div_(self._grads(), float(grad_accum))
 
-    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        norm = torch.nn.utils.get_total_norm(grads, norm_type=2.0)
+    def _global_norm(self, grads: List[torch.Tensor], f32: bool = False) -> torch.Tensor:
+        norm = _total_norm(grads, f32)
         if self.norm_group is None:
             return norm
         sq = norm * norm
         dist.all_reduce(sq, group=self.norm_group)
         return sq.sqrt()
 
-    def _global_norm_tp(self) -> torch.Tensor:
+    def _global_norm_tp(self, f32: bool = False) -> torch.Tensor:
         """The norm over every element once: the ``model``-sharded leaves'
         squares summed over ``model``, the replicated ones' counted once,
         then (shards of one gradient) summed over ``norm_group``."""
@@ -378,7 +609,7 @@ class Optimizer:
                 parts[sharded].append(_local(p.grad))
         sq = {}
         for sharded, grads in parts.items():
-            norm = (torch.nn.utils.get_total_norm(grads, norm_type=2.0) if grads
+            norm = (_total_norm(grads, f32) if grads
                     else torch.zeros((), device=self.params[0].device))
             sq[sharded] = norm * norm
         dist.all_reduce(sq[True], group=self.model_group)
@@ -402,11 +633,27 @@ class Optimizer:
         torch._foreach_div_(grads, torch.where(trigger, one, g_norm))
         torch._foreach_mul_(grads, torch.where(trigger, one, one * c))
 
+    @torch.no_grad()
+    def clip_scale(self) -> Optional[torch.Tensor]:
+        """The offload arm's clip (JAX ``offload_update_and_apply``): the
+        fp32 scale ``c / max(g_norm, c)`` of the fp32 global norm, a 0-d
+        tensor on the device, or None without a clip. The gradients stay as
+        they are; the host folds the scale into their upcast."""
+        c = self.strategy.grad_clip
+        if c is None:
+            return None
+        g_norm = (self._global_norm(self._grads(), f32=True) if self.model_group is None
+                  else self._global_norm_tp(f32=True))
+        return torch.div(torch.full_like(g_norm, c), torch.clamp(g_norm, min=c))
+
     def step(self) -> None:
-        self.clip()
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adamw.step()
+        if self.host is not None:
+            self.host.step([_local(p.grad) for p in self.params], self.clip_scale())
+        else:
+            self.clip()
+            for group in self.adamw.param_groups:
+                group["lr"] = self.schedule(self.count)
+            self.adamw.step()
         self.count += 1
 
 
@@ -422,7 +669,9 @@ class _DDPOptimizer(Optimizer):
         self.ddp = ddp
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=False)
+        _zero_grads(self.params, set_to_none=False)
+        if self.host is not None:
+            self.host.begin_step()
 
     def sync_context(self, last: bool) -> ContextManager:
         return contextlib.nullcontext() if last else self.ddp.no_sync()
@@ -472,6 +721,8 @@ class _Zero2Optimizer(Optimizer):
         # The params' grads are views into the flat buffers: keep them.
         for _, grads, _ in self.buckets:
             grads.zero_()
+        if self.host is not None:
+            self.host.begin_step()
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:

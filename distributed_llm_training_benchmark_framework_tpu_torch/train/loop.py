@@ -31,6 +31,15 @@ at world 1, all n are held in one process on its card. The row stamps
 ``ops/collective_matmul.py`` (inert at tp 1, and stamped on the row either
 way, as in JAX). The row stamps ``tensor_parallel``.
 
+The model's parameters are bf16 when the strategy's ``param_dtype`` is
+"bf16" or it offloads its optimizer state (``offload_opt_state``: fp32
+masters and AdamW on the host, ``parallel/offload.py``), as JAX's
+``_resolve_model_config`` decides. ``offload_dpu_start_step`` k > 0 runs
+the delayed offload arm's first k steps as serial host updates and switches
+to the delayed update at step k, at a sync boundary, from an empty pending
+slot (JAX's ``--offload-dpu-start-step``). The port has no resume, so JAX's
+refusal of the knob under ``--resume`` has nothing to refuse.
+
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
 no explicit ``cpu`` it raises.
 """
@@ -54,6 +63,7 @@ from ..parallel.strategies import (
     check_ported,
     check_tp,
     get_strategy,
+    param_torch_dtype,
 )
 from ..utils import flops as flops_mod
 from ..utils import memory as memory_mod
@@ -158,7 +168,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
             "(torchrun --nproc_per_node) or leave world_size unset"
         )
     overrides = {"attention_impl": attention_impl,
-                 "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32}
+                 "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32,
+                 "param_dtype": param_torch_dtype(strat)}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
     overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul))
     if dropout is not None:
@@ -190,6 +201,28 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     step_fn = TrainStep(model, optimizer, grad_accum=grad_accum,
                         micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh)
     return Run(dev, cfg, strat, model, table, step_fn, mesh)
+
+
+def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
+                     warmup_steps: int) -> None:
+    """JAX's checks of ``offload_dpu_start_step`` (``train/loop.py:655-695``)."""
+    if start < 0:
+        raise ValueError(f"--offload-dpu-start-step must be >= 0, got {start}")
+    if start == 0:
+        return
+    if not strategy.offload_delayed_update:
+        raise ValueError("--offload-dpu-start-step requires --offload-delayed-update")
+    if start >= steps:
+        raise ValueError(
+            f"--offload-dpu-start-step {start} >= --steps {steps}: the delayed phase would "
+            "never begin (drop the knob for a fully-serial run)"
+        )
+    if start > warmup_steps and (not dist.is_initialized() or dist.get_rank() == 0):
+        print(
+            f"WARNING: --offload-dpu-start-step {start} > --warmup-steps {warmup_steps}: timed "
+            "windows will mix serial and delayed step times into one result row; set the "
+            "start step inside the untimed warmup for clean timing"
+        )
 
 
 def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, tp: int) -> int:
@@ -233,16 +266,26 @@ def run_benchmark(
     loss_log: Optional[List[float]] = None,
     tensor_parallel: int = 1,
     tp_collective_matmul: bool = False,
+    offload_dpu_start_step: int = 0,
+    offload_log: Optional[dict] = None,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
     also writes ``result_<arm>.json`` there and prints the marker-delimited
     JSON. ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
     ``world_size``, ``tensor_parallel`` and ``tp_collective_matmul`` as for
-    :func:`build_run`. ``loss_log``, when given, gets every step's loss
-    (mean over ranks) appended in order, warmup included."""
+    :func:`build_run`; ``offload_dpu_start_step`` as in the module
+    docstring. ``loss_log``, when given, gets every step's loss (mean over
+    ranks) appended in order, warmup included; ``offload_log``, when given
+    to an offload arm, gets the host arm's per-step times and bytes
+    (``parallel/offload.HostOffload.stats``)."""
     if steps <= warmup_steps:
         raise ValueError(f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
+    asked = get_strategy(strategy) if isinstance(strategy, str) else strategy
+    _check_dpu_start(asked, offload_dpu_start_step, steps, warmup_steps)
+    if offload_dpu_start_step > 0:
+        # Serial host updates first; the optimizer switches at the start step.
+        strategy = dataclasses.replace(asked, offload_delayed_update=False)
     t_start = time.perf_counter()
     run = build_run(strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
                     per_device_batch=per_device_batch, grad_accum=grad_accum,
@@ -281,10 +324,18 @@ def run_benchmark(
         t_window = now
 
     for step in range(steps):
+        if offload_dpu_start_step > 0 and step == offload_dpu_start_step:
+            if pending:
+                sync_window()
+            step_fn.optimizer.host.begin_delayed()
+            if is_main:
+                print(f"[Step {step:04d}] delayed-update phase begins")
         pending.append((step, step_fn(table, step)))
         if len(pending) >= sync_every or step == warmup_steps - 1 or step == steps - 1:
             sync_window()
 
+    if offload_log is not None and step_fn.optimizer.host is not None:
+        offload_log.update(step_fn.optimizer.host.stats())
     peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
     peak_gb = _max_over_ranks(peak_gb, mesh, dev)
     result = metrics_mod.compute_result(
@@ -300,6 +351,9 @@ def run_benchmark(
         sequence_parallel=sequence_parallel,
         ring_zigzag={None: "auto", True: "on", False: "off"}[cfg.ring_zigzag],
         tensor_parallel=tensor_parallel, tp_collective_matmul=tp_collective_matmul,
+        param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
+        offload_delayed_update=asked.offload_delayed_update,
+        offload_dpu_start_step=offload_dpu_start_step,
     )
     if results_dir is not None and is_main:
         metrics_mod.emit_result(result, results_dir)

@@ -19,7 +19,15 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
   ``Optimizer``'s ``sync_context`` and ``finish_grads``), then they are
   divided by accum; the loss is the mean of the micro losses, and over every
   rank of the group;
-- clip and AdamW (``parallel.strategies.Optimizer``).
+- clip and AdamW (``parallel.strategies.Optimizer``). On the device, or
+  under host offload (``parallel/offload.py``) on the host: the gradients
+  (bf16, as the parameters) and the clip's fp32 scale are copied to host
+  memory, AdamW updates the fp32 masters there, and the bf16 compute copy is
+  copied back into the parameters before the next step's forward. The
+  serial form does that inside ``optimizer.step``; the delayed form starts
+  the host update of the previous step's gradients in ``zero_grad`` (so it
+  runs while this step's forward and backward run on the device) and joins
+  it in ``step``.
 
 Under tensor parallelism the ``model`` ranks of a (data, seq) place take the
 same rows and columns, the same seeds and the same masks (the batch is

@@ -7,10 +7,14 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/utils/memory.py``
 counterpart, since there is no XLA here).
 
 - **Parameter, gradient and optimizer bytes are those of the layout the
-  port holds on rank 0** (``parallel/strategies.apply_strategy``), fp32
-  throughout, from the parameter shapes of the model built on the meta
-  device. Without a process group, and under ddp, every rank holds whole
-  params, grads and both AdamW moments. fsdp / zero3 (FSDP2) keep rank 0's
+  port holds on rank 0** (``parallel/strategies.apply_strategy``), in the
+  model's parameter dtype (fp32, or bf16 under ``param_dtype`` "bf16" and
+  host offload; gradients and AdamW moments follow it, as optax's do),
+  from the parameter shapes of the model built on the meta device. Under
+  host offload the optimizer term is 0: masters and moments live on the
+  host (JAX's rule); the bf16 parameters and gradients stay. Without a
+  process group, and under ddp, every rank holds whole params, grads and
+  both AdamW moments. fsdp / zero3 (FSDP2) keep rank 0's
   rows of dim 0 of every leaf, ceil(d0 / dp) of them, for all three. zero2
   holds the replicated flat buffer (padded to a multiple of dp), a flat
   gradient buffer of the same size plus the shard it is reduce-scattered
@@ -97,20 +101,25 @@ def param_shapes(model_config) -> List[Tuple[int, ...]]:
         return [tuple(p.shape) for p in TinyGPT(model_config).parameters()]
 
 
-def state_bytes(shapes: List[Tuple[int, ...]], strategy, dp: int,
-                wrapped: bool) -> Tuple[int, int, int]:
-    """(params, grads, AdamW moments) bytes rank 0 holds, fp32 leaves of
-    ``shapes``, under the arm's layout over ``dp`` ranks (``wrapped``: a
-    process group is up, so the arm's wrapper runs)."""
-    item = 4
+def param_itemsize(model_config) -> int:
+    return torch.empty((), dtype=model_config.param_dtype).element_size()
+
+
+def state_bytes(shapes: List[Tuple[int, ...]], strategy, dp: int, wrapped: bool,
+                item: int = 4) -> Tuple[int, int, int]:
+    """(params, grads, AdamW moments) bytes rank 0 holds, leaves of
+    ``shapes`` of ``item`` bytes per element, under the arm's layout over
+    ``dp`` ranks (``wrapped``: a process group is up, so the arm's wrapper
+    runs); no moments on the device under host offload."""
+    moments = 0 if strategy.offload_opt_state else 2
     n = sum(math.prod(s) for s in shapes)
     if not wrapped or not strategy.shard_grads:
-        return n * item, n * item, 2 * n * item
+        return n * item, n * item, moments * n * item
     if strategy.shard_params:
         local = sum(-(-s[0] // dp) * math.prod(s[1:]) for s in shapes)
-        return local * item, local * item, 2 * local * item
+        return local * item, local * item, moments * local * item
     size = -(-n // dp)
-    return size * dp * item, (size * dp + size) * item, 2 * size * item
+    return size * dp * item, (size * dp + size) * item, moments * size * item
 
 
 def jax_leaf_shapes(model_config) -> Dict[str, Tuple[int, ...]]:
@@ -130,20 +139,23 @@ def jax_leaf_shapes(model_config) -> Dict[str, Tuple[int, ...]]:
 
 def spec_state_bytes(model_config, strategy, mesh_shape: Dict[str, int]) -> Tuple[int, int, int]:
     """(params, grads, AdamW moments) bytes of one card by the JAX
-    package's layout rules over ``mesh_shape`` (fp32 leaves; see the module
-    docstring)."""
+    package's layout rules over ``mesh_shape`` (leaves in the parameter
+    dtype; see the module docstring)."""
     shapes = jax_leaf_shapes(model_config)
+    item = param_itemsize(model_config)
 
     def total(shard: bool) -> int:
         specs = param_partition_specs(shapes, mesh_shape, shard, kv_heads=model_config.kv_heads)
         out = 0
         for name, shape in shapes.items():
             factor = math.prod(mesh_shape.get(ax, 1) for ax in specs[name] if ax is not None)
-            out += 4 * math.prod(shape) // factor
+            out += item * math.prod(shape) // factor
         return out
 
     params = total(strategy.shard_params)
     grads = total(strategy.shard_params or strategy.shard_grads)
+    if strategy.offload_opt_state:
+        return params, grads, 0
     moments = 2 * (total(True) if strategy.shard_opt_state else params)
     return params, grads, moments
 
@@ -158,7 +170,8 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     if tp > 1:
         params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
     else:
-        params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped)
+        params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped,
+                                               param_itemsize(cfg))
 
     # Analytic activations of one micro-batch's forward and backward (the
     # JAX package's formula and coefficients).

@@ -26,7 +26,9 @@ A tensor-parallel run's ``model`` ranks also compute one example jointly
 sequence_parallel), 1)``, the validator's formula
 (``analysis/validate_results.py``). The row stamps ``tensor_parallel`` and,
 ``tp_collective_matmul`` as it was asked for (inert at tp 1, and stamped
-all the same), as JAX's ``BenchmarkResult`` does.
+all the same), as JAX's ``BenchmarkResult`` does, and so its
+``param_dtype``, ``offload_opt_state``, ``offload_delayed_update`` and
+``offload_dpu_start_step``.
 """
 
 from __future__ import annotations
@@ -112,6 +114,12 @@ class BenchmarkResult:
     # projections ran as collective matmuls (ops/collective_matmul.py).
     tensor_parallel: int = 1
     tp_collective_matmul: bool = False
+    # Parameter storage dtype ('f32'/'bf16') and the host-offload arm: run
+    # identity for arms of one (strategy, tier, seq) geometry (JAX's keys).
+    param_dtype: str = "f32"
+    offload_opt_state: bool = False
+    offload_delayed_update: bool = False
+    offload_dpu_start_step: int = 0
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -131,7 +139,9 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    phase_times: Optional[Dict[str, float]] = None,
                    wall_time_total_sec: float = 0.0, sequence_parallel: int = 1,
                    ring_zigzag: str = "auto", tensor_parallel: int = 1,
-                   tp_collective_matmul: bool = False) -> BenchmarkResult:
+                   tp_collective_matmul: bool = False, param_dtype: str = "f32",
+                   offload_opt_state: bool = False, offload_delayed_update: bool = False,
+                   offload_dpu_start_step: int = 0) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -174,7 +184,9 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         time_in_timed_sec=round(pt.get("timed", 0.0), 4),
         sequence_parallel=sequence_parallel, ring_zigzag=ring_zigzag,
         tensor_parallel=tensor_parallel,
-        tp_collective_matmul=tp_collective_matmul,
+        tp_collective_matmul=tp_collective_matmul, param_dtype=param_dtype,
+        offload_opt_state=offload_opt_state, offload_delayed_update=offload_delayed_update,
+        offload_dpu_start_step=offload_dpu_start_step,
     )
 
 

@@ -20,6 +20,11 @@ rounding of the sums that make it, and under bare AdamW (lr 1e-4 from the
 first step) it lands 1.7e-5 from JAX's. Such elements (the k bias, whose
 gradient is zero, and a handful of others) are held to what Adam can move
 them: lr per step taken.
+
+At two ranks the workers also train ddp, zero2 and zero3 under the serial
+host-offload arm (bf16 parameters from the JAX init), held to one process's
+offload run at the same global batch, and run zero2 with offload through
+``run_benchmark``, whose row must pass JAX's validator.
 """
 
 import json
@@ -38,9 +43,26 @@ from distributed_llm_training_benchmark_framework_tpu.data.synthetic import (
 )
 from distributed_llm_training_benchmark_framework_tpu.models import tinygpt as jtiny
 from distributed_llm_training_benchmark_framework_tpu.parallel import strategies as jstrat
-from distributed_llm_training_benchmark_framework_tpu_torch import bench as tbench
+import torch
 
-from test_torch_arms_worker import spawn_ranks, wait_ranks
+from distributed_llm_training_benchmark_framework_tpu_torch import bench as tbench
+from distributed_llm_training_benchmark_framework_tpu_torch import bridge
+from distributed_llm_training_benchmark_framework_tpu_torch.models import TinyGPT
+from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
+from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies as tstrat
+from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
+
+from test_torch_arms_worker import (
+    OFFLOAD_ARMS,
+    OFFLOAD_IN_SHARE,
+    OFFLOAD_LOSS_RTOL,
+    OFFLOAD_LR_SHARE,
+    _strategy,
+    master_tree,
+    offload_config,
+    spawn_ranks,
+    wait_ranks,
+)
 
 S, MICRO, ACCUM, STEPS = 64, 1, 2, 3
 WORLDS = (2, 3)
@@ -76,8 +98,10 @@ def runs(tmp_path_factory):
     np.savez(inputs, table=table, **flat)
     procs = {w: spawn_ranks(w, inputs, tmp / f"w{w}", "parity") for w in WORLDS}
     # The JAX side meanwhile: ddp and fsdp share bare AdamW, zero2 and
-    # zero3 the warmup and the clip.
+    # zero3 the warmup and the clip; and the one-process offload runs.
     recipes = {(arm, w): _jax_recipe(arm, w) for arm in ("ddp", "zero2") for w in WORLDS}
+    recipes.update({(arm, "offload"): _one_process_offload(arm, p, table)
+                    for arm in OFFLOAD_ARMS})
     out = {}
     for w, ps in procs.items():
         wait_ranks(ps)
@@ -116,6 +140,21 @@ def _jax_recipe(arm, world):
         lr_sum += recipe.learning_rate * (min(1.0, step / warmup) if warmup else 1.0)
         out.append((float(loss_sum / ACCUM), jax.tree.map(np.asarray, params), small, lr_sum))
     return out
+
+
+def _one_process_offload(arm, params, table):
+    """The serial offload arm in one process at the group's global batch
+    (micro-batches of 2 rows): every step's loss and the final masters."""
+    mesh = make_mesh()
+    model = TinyGPT(offload_config(), mesh=mesh)
+    bridge.load_jax_params(model, params)
+    model, opt = tstrat.apply_strategy(model, _strategy(arm, "none", offload_opt_state=True),
+                                       mesh)
+    step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO * 2, seed=0,
+                        device=torch.device("cpu"), mesh=mesh)
+    t_table = torch.from_numpy(table.astype(np.int64))
+    losses = [step_fn(t_table, step).item() for step in range(STEPS)]
+    return losses, master_tree(model, opt, mesh)
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -208,3 +247,46 @@ def test_bench_refuses_a_world_size_that_is_not_the_groups():
     assert (args.strategy, args.per_device_batch, args.grad_accum, args.world_size,
             args.model_family, args.flagship, args.attention, args.dropout,
             args.sync_every) == ("zero2", 1, 4, None, "tinygpt", "auto", "flash", None, 10)
+
+
+@pytest.mark.parametrize("arm", OFFLOAD_ARMS)
+def test_offload_arm_over_two_ranks_matches_one_process(runs, arm):
+    """The serial offload arm over two gloo ranks against one process at the
+    same global batch: per-step losses within ``OFFLOAD_LOSS_RTOL`` (the tp
+    phase's limit), the same on both ranks; the gathered fp32 masters after
+    3 steps within what Adam can move an element, lr per step taken, and
+    ``OFFLOAD_IN_SHARE`` of every leaf's elements within ``OFFLOAD_LR_SHARE``
+    of that. The two runs' bf16 gradients are different roundings: each rank
+    rounds its own rows' gradient to bf16 and the reduction sums and divides
+    in bf16, where one process rounds the two rows' sum once. Adam's step
+    hardly sees a few bf16 steps of its gradient (2^-5 of lr covers them)
+    but follows the sign of an element whose rows nearly cancel, which the
+    rounding decides."""
+    res, arrays, rank_losses = runs[0][2]
+    want_losses, want = runs[1][arm, "offload"]
+    label = f"{arm}_offload"
+    for losses in rank_losses:
+        assert losses[label] == rank_losses[0][label]
+    np.testing.assert_allclose(res["losses"][label], want_losses, rtol=OFFLOAD_LOSS_RTOL)
+    recipe = jstrat.get_strategy(arm)
+    lr_sum = sum(recipe.learning_rate * (min(1.0, s / recipe.warmup_steps)
+                                         if recipe.warmup_steps else 1.0) for s in range(STEPS))
+    for key, leaf in [(k, v) for k, v in want.items() if k != "blocks"] + [
+            (f"blocks.{k}", v) for k, v in want["blocks"].items()]:
+        diff = np.abs(arrays[f"{label}.{key}"] - leaf)
+        assert (diff <= lr_sum + 1e-7).all(), key
+        assert (diff <= OFFLOAD_LR_SHARE * lr_sum + 1e-7).mean() >= OFFLOAD_IN_SHARE, key
+
+
+def test_offload_row_at_world_2_validates(runs):
+    """zero2 with host offload over two ranks through ``run_benchmark``: the
+    row carries JAX's offload keys and passes JAX's validator; with
+    ``sync_every`` 1 its step-time CV is held to the offload allowance."""
+    row = runs[0][2][0]["rows"]["zero2_offload"]
+    assert (row["strategy"], row["world_size"], row["param_dtype"], row["offload_opt_state"],
+            row["offload_delayed_update"], row["offload_dpu_start_step"]) == (
+        "zero2", 2, "f32", True, False, 0)
+    assert validate_result(row, "zero2 offload ws2") == []
+    timed = dict(row, sync_every=1, step_time_cv_pct=20.0)
+    assert validate_result(timed, "offload, cv 20%") == []
+    assert validate_result(dict(timed, offload_opt_state=False), "device, cv 20%")

@@ -12,10 +12,15 @@ the batch table (``table``). ``MODE``:
   ``apply_strategy`` and trained 3 steps by ``TrainStep`` (per-device
   batch 1 x accum 2); records every step's loss, the gathered params after
   every step (rank 0), the sizes of this rank's params and AdamW moments,
-  and the world-``WORLD`` result row of ``run_benchmark`` for the arm;
-- ``bytes``: for each arm and family, the arm at tier S (seed weights),
-  one step, then the bytes this rank holds in params, grads and AdamW
-  moments (unique storages), beside ``utils.memory.estimate_hbm``'s.
+  and the world-``WORLD`` result row of ``run_benchmark`` for the arm. At
+  WORLD 2 also each arm of ``OFFLOAD_ARMS`` under the serial host-offload
+  arm (bf16 parameters, the JAX params rounded to bf16): every step's loss,
+  the gathered fp32 masters after the last step (rank 0), and the world-2
+  ``run_benchmark`` row of zero2 with offload;
+- ``bytes``: for each arm and family, and each of f32 parameters, bf16
+  parameters and host offload, the arm at tier S (seed weights), one step,
+  then the bytes this rank holds in params, grads and AdamW moments on its
+  device (unique storages), beside ``utils.memory.estimate_hbm``'s.
 
 Writes ``OUT.rank<RANK>.npz`` and ``OUT.rank<RANK>.json``. The tests start
 the ranks with ``spawn_ranks`` and ``wait_ranks``.
@@ -47,6 +52,12 @@ S, MICRO, ACCUM, STEPS = 64, 1, 2, 3
 ARMS = (("ddp", "ddp", None), ("fsdp", "fsdp", None), ("zero2", "zero2", None),
         ("zero3", "zero3", "none"), ("zero3_dots", "zero3", "dots"),
         ("zero3_full", "zero3", "full"))
+# The serial host-offload arm over the group, and its limits against one
+# process (``tests/test_torch_arms.py`` says why).
+OFFLOAD_ARMS = ("ddp", "zero2", "zero3")
+OFFLOAD_LOSS_RTOL, OFFLOAD_LR_SHARE, OFFLOAD_IN_SHARE = 5e-3, 2 ** -5, 0.99
+# The bytes mode's parameter settings: {key suffix: strategy change}.
+STATE_KINDS = {"": {}, ".bf16": {"param_dtype": "bf16"}, ".offload": {"offload_opt_state": True}}
 CPU = torch.device("cpu")
 REPO = Path(__file__).resolve().parents[1]
 
@@ -72,8 +83,8 @@ def wait_ranks(procs):
         assert p.returncode == 0, err[-3000:]
 
 
-def _strategy(arm, remat=None):
-    s = dataclasses.replace(tstrat.get_strategy(arm), precision="f32")
+def _strategy(arm, remat=None, **change):
+    s = dataclasses.replace(tstrat.get_strategy(arm), precision="f32", **change)
     return s if remat is None else dataclasses.replace(s, remat=remat)
 
 
@@ -100,11 +111,48 @@ def _unique_bytes(tensors):
 
 
 def held_bytes(model, opt):
-    """Bytes of params, grads and AdamW moments this rank holds."""
+    """Bytes of params, grads and AdamW moments this rank holds on its device
+    (no moments there under host offload)."""
     params = list(model.parameters()) + opt.params
     grads = [p.grad for p in params if p.grad is not None]
-    moments = [st[k] for st in opt.adamw.state.values() for k in ("exp_avg", "exp_avg_sq")]
+    states = opt.adamw.state.values() if opt.adamw is not None else []
+    moments = [st[k] for st in states for k in ("exp_avg", "exp_avg_sq")]
     return _unique_bytes(params), _unique_bytes(grads), _unique_bytes(moments)
+
+
+def master_tree(model, opt, mesh):
+    """The offload arm's fp32 host masters as a JAX-shaped numpy tree, whole
+    leaves: zero2's flat shards all-gathered over ``data``, fsdp / zero3's
+    DTensor shards gathered, tp shards gathered over ``model`` (by
+    ``bridge.export_params`` of an fp32 twin of the model). Every rank of
+    the group calls it."""
+    inner = getattr(model, "module", model)
+    views = opt.host.master_views
+    if isinstance(opt, tstrat._Zero2Optimizer):
+        values = []
+        wholes = []
+        for (flat, _, _), shard in zip(opt.buckets, views):
+            whole = torch.empty(flat.numel(), dtype=torch.float32)
+            torch.distributed.all_gather_into_tensor(whole, shard.contiguous(), group=opt.group)
+            wholes.append((flat, whole))
+        for p in inner.parameters():
+            for flat, whole in wholes:
+                off = (p.data_ptr() - flat.data_ptr()) // p.element_size()
+                if 0 <= off < flat.numel():
+                    values.append(whole[off:off + p.numel()].view(p.shape))
+                    break
+    else:
+        values = []
+        for p, v in zip(inner.parameters(), views):
+            if isinstance(p, torch.distributed.tensor.DTensor):
+                v = torch.distributed.tensor.DTensor.from_local(
+                    v, p.device_mesh, p.placements, shape=p.shape, stride=p.stride()).full_tensor()
+            values.append(v)
+    twin = TinyGPT(dataclasses.replace(inner.config, param_dtype=torch.float32), mesh=mesh)
+    with torch.no_grad():
+        for t, v in zip(twin.parameters(), values):
+            t.copy_(v)
+    return bridge.export_params(twin)
 
 
 def parity(rank, world, data, out):
@@ -144,17 +192,44 @@ def parity(rank, world, data, out):
                                 per_device_batch=MICRO, grad_accum=ACCUM, device="cpu",
                                 world_size=world)
             res["rows"][arm] = row.to_dict()
+    if world == 2:
+        for arm in OFFLOAD_ARMS:
+            label = f"{arm}_offload"
+            strat = _strategy(arm, "none", offload_opt_state=True)
+            mesh = make_mesh()
+            model = TinyGPT(offload_config(), mesh=mesh)
+            bridge.load_jax_params(model, params)
+            model, opt = tstrat.apply_strategy(model, strat, mesh)
+            step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0,
+                                device=CPU, mesh=mesh)
+            res["losses"][label] = [step_fn(table, step).item() for step in range(STEPS)]
+            got = master_tree(model, opt, mesh)
+            if rank == 0:
+                arrays.update({f"{label}.{k}": v for k, v in got.items() if k != "blocks"})
+                arrays.update({f"{label}.blocks.{k}": v for k, v in got["blocks"].items()})
+        row = run_benchmark(strategy=dataclasses.replace(tstrat.get_strategy("zero2"),
+                                                         offload_opt_state=True),
+                            tier="S", seq_len=S, steps=3, warmup_steps=1, per_device_batch=MICRO,
+                            grad_accum=ACCUM, device="cpu", world_size=world)
+        res["rows"]["zero2_offload"] = row.to_dict()
     np.savez(f"{out}.rank{rank}.npz", **arrays)
     return res
+
+
+def offload_config():
+    """The offload runs' model: the parity runs' at bf16 parameters."""
+    return get_config("tinygpt", "S", S, dropout=0.0, compute_dtype=torch.float32,
+                      attention_impl="flash", param_dtype=torch.bfloat16)
 
 
 def held():
     res = {}
     for family in ("tinygpt", "llama"):
-        for arm in sorted(tstrat.STRATEGIES):
-            strat = _strategy(arm, "none")
+        for (suffix, change), arm in ((kind, arm) for kind in STATE_KINDS.items()
+                                      for arm in sorted(tstrat.STRATEGIES)):
+            strat = _strategy(arm, "none", **change)
             cfg = get_config(family, "S", S, compute_dtype=torch.float32, attention_impl="flash",
-                             dropout=0.0)
+                             dropout=0.0, param_dtype=tstrat.param_torch_dtype(strat))
             mesh = make_mesh()
             model = TinyGPT(cfg, mesh=mesh)
             model.init_weights(torch.Generator().manual_seed(0))
@@ -164,7 +239,7 @@ def held():
                                   generator=torch.Generator().manual_seed(1))
             TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0, device=CPU,
                       mesh=mesh)(table, 0)
-            res[f"{family}.{arm}"] = {"held": list(held_bytes(model, opt)),
+            res[f"{family}.{arm}{suffix}"] = {"held": list(held_bytes(model, opt)),
                                       "estimate": [est.params, est.grads, est.opt_state]}
     return res
 

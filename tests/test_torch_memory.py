@@ -5,7 +5,9 @@
   attention paths that keep O(S) or O(S^2) per layer.
 - At two gloo ranks its parameter, gradient and AdamW-moment bytes are
   what rank 0 of each arm really holds after a step (unique storages of
-  its params, grads and moments; ``tests/test_torch_arms_worker.py``).
+  its params, grads and moments; ``tests/test_torch_arms_worker.py``), at
+  f32 and bf16 parameters and under host offload (no moments on the
+  device).
 - ``resolve_auto_remat`` walks none -> dots -> full and stops at the first
   policy that fits 70% of the card, at capacities worked out by hand; on
   an H100 80 GB it resolves zero3 at the parity row to a policy that
@@ -53,14 +55,22 @@ def test_activation_and_logits_terms_are_jaxs(family, arm, impl):
 
 
 def test_state_bytes_are_what_rank0_holds(tmp_path):
+    """Every arm and family at f32 and bf16 parameters and under host
+    offload (``.bf16``, ``.offload``), over two gloo ranks."""
     wait_ranks(spawn_ranks(2, "-", tmp_path / "held", "bytes"))
     held = json.loads((tmp_path / "held.rank0.json").read_text())
-    assert len(held) == 8
+    assert len(held) == 24
     for key, r in held.items():
         assert r["held"] == r["estimate"], key
     # zero2 holds the flat gradient buffer and the shard it is reduced into.
     p, g, m = held["tinygpt.zero2"]["held"]
     assert g == p + p // 2 and m == p
+    for family in ("tinygpt", "llama"):
+        for arm in ("ddp", "fsdp", "zero2", "zero3"):
+            f32 = held[f"{family}.{arm}"]["held"]
+            # bf16 halves params, grads and moments; offload also drops the moments.
+            assert held[f"{family}.{arm}.bf16"]["held"] == [b // 2 for b in f32], (family, arm)
+            assert held[f"{family}.{arm}.offload"]["held"] == [f32[0] // 2, f32[1] // 2, 0]
 
 
 def _parity_row(**kw):

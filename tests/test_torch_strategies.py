@@ -1,8 +1,12 @@
 """The port's strategy table, its descriptions, its remat policies and its
 refusals, against the JAX package's (``parallel/strategies.py``,
-``models/tinygpt.normalize_remat``)."""
+``models/tinygpt.normalize_remat``): a delayed update without the offload
+arm (JAX's harness message), a parameter dtype other than f32 / bf16 (JAX's
+loader message), a precision other than bf16 / f32 and a layout that is
+none of the arms'."""
 
 import dataclasses
+import re
 
 import pytest
 import torch
@@ -56,9 +60,10 @@ def test_normalize_remat_accepts_and_refuses_what_jax_does(value):
 
 
 @pytest.mark.parametrize("change,match", [
-    ({"offload_opt_state": True}, "ROADMAP Queue 1 item 10"),
-    ({"offload_delayed_update": True}, "ROADMAP Queue 1 item 10"),
-    ({"param_dtype": "bf16"}, "ROADMAP Queue 1 item 0"),
+    ({"offload_delayed_update": True}, "offload_delayed_update requires offload_opt_state"),
+    ({"param_dtype": "f16"},
+     re.escape("invalid param_dtype 'f16' in strategy config (expected 'f32' or 'bf16')")),
+    ({"precision": "f16"}, "precision must be 'bf16' or 'f32'"),
     ({"shard_params": True, "shard_grads": False}, "none of ddp's"),
 ])
 def test_unported_arms_are_refused(change, match):

@@ -27,6 +27,7 @@ gradient of 1.008e-8; the (data, model) all-reduces sum it in another order
 than GSPMD does.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -52,7 +53,18 @@ from distributed_llm_training_benchmark_framework_tpu_torch.models import (
     count_params,
     get_config,
 )
+from distributed_llm_training_benchmark_framework_tpu_torch import bridge
+from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
+from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies as tstrat
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
+from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
+
+from test_torch_arms_worker import (
+    OFFLOAD_IN_SHARE,
+    OFFLOAD_LOSS_RTOL,
+    OFFLOAD_LR_SHARE,
+    master_tree,
+)
 
 from torch_tp_worker import (
     ACCUM,
@@ -172,12 +184,29 @@ def runs(tmp_path_factory):
     run_benchmark(strategy=F32_ZERO2, tier="S", seq_len=S, steps=STEPS, warmup_steps=1,
                   per_device_batch=2, grad_accum=ACCUM, dropout=0.1, device="cpu",
                   loss_log=one_process)
+    one_process_offload = _one_process_offload(init["tinygpt"], table)
     ranks, rank0 = {}, {}
     for w, ps in procs.items():
         wait_ranks(ps)
         ranks[w] = [json.loads((tmp / f"w{w}.rank{r}.json").read_text()) for r in range(w)]
         rank0[w] = np.load(tmp / f"w{w}.rank0.npz")
-    return ranks, rank0, jax_runs, one_process, init
+    return ranks, rank0, jax_runs, one_process, init, one_process_offload
+
+
+def _one_process_offload(params, table):
+    """zero2 with the serial offload arm in one process (bf16 parameters
+    from the JAX init): every step's loss and the final masters."""
+    strat = dataclasses.replace(F32_ZERO2, offload_opt_state=True)
+    mesh = make_mesh()
+    model = TinyGPT(get_config("tinygpt", "S", S, dropout=0.0, compute_dtype=torch.float32,
+                               param_dtype=torch.bfloat16), mesh=mesh)
+    bridge.load_jax_params(model, jax.tree.map(np.asarray, params))
+    model, opt = tstrat.apply_strategy(model, strat, mesh)
+    step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0,
+                        device=torch.device("cpu"), mesh=mesh)
+    t_table = torch.from_numpy(table.astype(np.int64))
+    losses = [step_fn(t_table, step).item() for step in range(STEPS)]
+    return losses, master_tree(model, opt, mesh)
 
 
 @pytest.mark.parametrize("world", [4, 2])
@@ -281,3 +310,23 @@ def test_a_world_that_model_does_not_divide_is_refused_with_jaxs_message(runs, w
     for res in runs[0][world]:
         assert res["refusal"] == (f"world_size={world} not divisible by "
                                   "tensor*sequence*pipeline*expert parallel=3")
+
+
+def test_offload_arm_over_model_2_matches_one_process(runs):
+    """zero2 with the serial host-offload arm over (data 1, model 2): each
+    rank's host holds the masters of its tp shards; per-step losses and the
+    gathered masters against one process, under
+    ``tests/test_torch_arms.py``'s offload limits (the tp ranks' bf16
+    gradients of the replicated leaves are summed over ``model`` in bf16,
+    where one process rounds the whole gradient once)."""
+    want_losses, want = runs[5]
+    ranks, rank0 = runs[0][2], runs[1][2]
+    assert ranks[1]["offload_losses"] == ranks[0]["offload_losses"]
+    np.testing.assert_allclose(ranks[0]["offload_losses"], want_losses, rtol=OFFLOAD_LOSS_RTOL)
+    recipe = jstrat.get_strategy("zero2")
+    lr_sum = sum(recipe.learning_rate * min(1.0, s / recipe.warmup_steps) for s in range(STEPS))
+    for key, leaf in [(k, v) for k, v in want.items() if k != "blocks"] + [
+            (f"blocks.{k}", v) for k, v in want["blocks"].items()]:
+        diff = np.abs(rank0[f"offload.{key}"] - leaf)
+        assert (diff <= lr_sum + 1e-7).all(), key
+        assert (diff <= OFFLOAD_LR_SHARE * lr_sum + 1e-7).mean() >= OFFLOAD_IN_SHARE, key

@@ -20,8 +20,11 @@ steps by ``TrainStep``. ``MODE``:
   ``model``. Then the params of a fresh load, laid out by
   fsdp and gathered back (the round trip). At WORLD 2 also
   ``run_benchmark`` at dropout 0.1, per-device batch 2, tp 2 (fp32; seeded
-  weights): every step's loss and the row; and the refusal of a ``model``
-  width of 3, which the world does not divide.
+  weights): every step's loss and the row; TinyGPT under zero2 with the
+  serial host-offload arm (bf16 parameters, the JAX params rounded to
+  bf16): every step's loss and the fp32 masters gathered to JAX's leaves
+  (rank 0); and the refusal of a ``model`` width of 3, which the world does
+  not divide.
 - ``seq``: (data 1, seq 2, model 2) at WORLD 4; ring and Ulysses for
   ``SEQ_FAMILIES``, zero2: every step's loss and the final params; then
   ``run_benchmark`` with the ring at dropout 0.1, per-device batch 2
@@ -64,6 +67,8 @@ from distributed_llm_training_benchmark_framework_tpu_torch.parallel import stra
 from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
 from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
+
+from test_torch_arms_worker import master_tree
 
 S, MICRO, ACCUM, STEPS, TP = 64, 1, 2, 3, 2
 ATTENTION_SEED = 1234
@@ -200,6 +205,16 @@ def train(rank, world, data, out):
                             device="cpu", world_size=world, tensor_parallel=TP,
                             loss_log=losses)
         res["row"], res["dropout_losses"] = row.to_dict(), losses
+        strat = dataclasses.replace(F32_ZERO2, offload_opt_state=True)
+        model = TinyGPT(config("tinygpt", param_dtype=torch.bfloat16), mesh=mesh)
+        bridge.load_jax_params(model, tree(data, "tinygpt"))
+        model, opt = tstrat.apply_strategy(model, strat, mesh)
+        step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0,
+                            device=CPU, mesh=mesh)
+        res["offload_losses"] = [step_fn(table, step).item() for step in range(STEPS)]
+        got = master_tree(model, opt, mesh)
+        if rank == 0:
+            arrays.update(flat("offload", got))
     try:
         make_mesh((3,), ("model",))
     except ValueError as e:
