@@ -201,6 +201,32 @@ batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
     one-step lag (update t takes step t-1's gradients and scale, update 0
     zeros).
 
+Mixture-of-Experts (``models/moe.py``; no kernel of its own: the expert FFN
+is batched ``torch.bmm``, the attention K1-K3):
+
+18. (a) the 1.18B MoE row on one card, no group: TinyGPT tier A with 8
+    experts, top-2, capacity factor 1.25 (1,176,635,392 parameters), S
+    2048, b1 x accum 4, zero2, dropout 0.1, through ``run_benchmark(
+    n_experts=8)``, 3 warmup + 10 timed steps, at fp32 and at bf16
+    parameters: tokens/s, step ms, MFU (active experts' FLOPs), peak memory
+    against ``estimate_hbm``, ``expert_overflow_pct``; the loss falls, K1-K3
+    launch 64 times each per step (K1 16 more: the overflow diagnostic's
+    forward after the timed steps), the overflow lies within JAX's [0, 60];
+    (b) the layer at the row's shape (N 2048, E 8, C 640, D 1024, F 4096,
+    bf16): the index dispatch (the main path) against the one-hot plain
+    version: the experts each token reaches equal, the output bit for bit,
+    the gradients within 2e-2 of their largest magnitude; forward and
+    forward + backward of both, and the route / dispatch / expert FFN /
+    combine of the index form, on the device clock; (c) expert_parallel 2
+    as two processes on the one card over gloo (``chip_smoke.py
+    --moe-worker RANK PORT DIR``), after checking that gloo carries
+    ``all_to_all_single`` on CUDA tensors: the row's width at 4 layers,
+    dropout 0, zero2, 3 steps, per-step losses within ``MOE_EP_RTOL`` (JAX's
+    ep-against-one-device 5e-3: capacity is provisioned per member) of
+    one process's run of the same global batch, and the all-to-all's time
+    over gloo (through the host; not NCCL); (d) is phase 12: its zero2
+    group run reduce-scatters per block (the bucket count is printed).
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it), the nvidia-smi line, and, last,
@@ -1232,8 +1258,11 @@ def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop):
                 inner = getattr(run.model, "module", run.model)
                 kinds = {type(p).__name__ for p in inner.parameters()}
                 opt = type(run.step_fn.optimizer).__name__
+                buckets = getattr(run.step_fn.optimizer, "buckets", [])
                 log(f"[12] {arm} under the group: model {type(run.model).__name__}, params "
-                    f"{sorted(kinds)}, optimizer {opt}")
+                    f"{sorted(kinds)}, optimizer {opt}"
+                    + (f", {len(buckets)} reduce-scatter buckets (one per block and one for "
+                       "the leaves outside them)" if buckets else ""))
                 assert {"ddp": isinstance(run.model, torch.nn.parallel.DistributedDataParallel),
                         "fsdp": kinds == {"DTensor"}, "zero3": kinds == {"DTensor"},
                         "zero2": opt == "_Zero2Optimizer"}[arm], f"{arm}: not laid out"
@@ -1782,12 +1811,302 @@ OPTIONAL_KEYS = ("library_device_ms", "library_fwd_bwd_ms", "library_note", "att
                  "rate0_pair_library_factor")
 
 
+# Phase 18: the MoE row, its layer, and expert parallelism over gloo.
+MOE_ROW = dict(tier="A", seq_len=2048, per_device_batch=1, grad_accum=4, n_experts=8,
+               layers=16, params=1_176_635_392)
+MOE_LAYER = dict(N=2048, E=8, D=1024, F=4096)  # capacity(2048, 8, 2, 1.25) = 640
+MOE_GRAD_TOL = 2e-2  # bf16 gradients, index vs plain (tests/test_torch_moe.py)
+MOE_EP = dict(width=2, layers=4, steps=3, accum=4)
+MOE_EP_RTOL = 5e-3  # JAX tests/test_moe.py: ep against one device
+MOE_OVERFLOW_MAX_PCT = 60.0  # analysis/validate_results.py EXPERT_OVERFLOW_MAX_PCT
+
+
+def moe_ep_config(models):
+    return models.get_config("tinygpt", "A", 2048, n_experts=MOE_ROW["n_experts"],
+                             n_layer=MOE_EP["layers"], dropout=0.0)
+
+
+def moe_ep_losses(models, strategies, mesh, micro: int, step_mod, table) -> list:
+    """zero2 on the 4-layer MoE model at the row's width, seed 0."""
+    dev = torch.device("cuda")
+    with dev:
+        model = models.TinyGPT(moe_ep_config(models), mesh=mesh)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    model, opt = strategies.apply_strategy(model, strategies.get_strategy("zero2"), mesh)
+    step_fn = step_mod.TrainStep(model, opt, grad_accum=MOE_EP["accum"], micro_batch=micro,
+                                 seed=0, device=dev, mesh=mesh)
+    return [step_fn(table, step).item() for step in range(MOE_EP["steps"])]
+
+
+def moe_worker(rank: int, port: int, outdir: str) -> int:
+    """Phase 18 (c), one rank: ``chip_smoke.py --moe-worker RANK PORT DIR``."""
+    import torch.distributed as dist
+
+    from distributed_llm_training_benchmark_framework_tpu_torch import models
+    from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
+    from distributed_llm_training_benchmark_framework_tpu_torch.models import moe
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ep = MOE_EP["width"]
+    assert rt.setup_distributed(num_processes=ep, process_id=rank, master_port=port,
+                                device="cuda", backend="gloo")
+    out = {}
+    try:
+        # Does gloo take all_to_all_single on CUDA tensors? Each rank sends
+        # block j to rank j; rank r must receive j's block r.
+        x = torch.arange(ep * 4, device="cuda", dtype=torch.float32) + 100 * rank
+        y = torch.empty_like(x)
+        try:
+            dist.all_to_all_single(y, x)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out["a2a_error"] = str(e).splitlines()[0]
+        else:
+            want = torch.cat([torch.arange(rank * 4, rank * 4 + 4, device="cuda",
+                                           dtype=torch.float32) + 100 * j for j in range(ep)])
+            out["a2a_ok"] = bool(torch.equal(y, want))
+        if out.get("a2a_ok"):
+            mesh = make_mesh((ep,), ("expert",))
+            cfg = moe_ep_config(models)
+            table = SyntheticDataset(cfg.vocab_size, 2048, 1000, 42).to_device("cuda")
+            out["losses"] = moe_ep_losses(models, strategies, mesh, 1, step_mod, table)
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            cap = moe.capacity(2048, MOE_LAYER["E"], 2, cfg.capacity_factor)
+            buf = torch.zeros(MOE_LAYER["E"] * cap * MOE_LAYER["D"], device="cuda",
+                              dtype=torch.bfloat16)
+            group = mesh.expert_group
+
+            def hop():
+                moe._AllToAll.apply(buf, group)
+
+            out["a2a_gloo_ms"] = median_ms(hop, warmup=2, reps=5)
+            out["a2a_bytes"] = buf.numel() * buf.element_size()
+    finally:
+        rt.cleanup_distributed()
+    with open(os.path.join(outdir, f"moe.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def moe_layer_inputs(seed: int = 18):
+    """The row's layer (B 1, S 2048, bf16 stream) with the JAX init's
+    scales: router and expert weights normal(0, 0.02), biases 0.02 too (so
+    that they are exercised)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    N, E, D, F = (MOE_LAYER[k] for k in ("N", "E", "D", "F"))
+
+    def rnd(*shape, scale=0.02):
+        return (scale * torch.randn(*shape, device="cuda", generator=g)).requires_grad_()
+
+    x = torch.randn(1, N, D, device="cuda", generator=g).to(torch.bfloat16).requires_grad_()
+    leaves = dict(router=rnd(D, E), moe_w1=rnd(E, D, F), moe_b1=rnd(E, F), moe_w2=rnd(E, F, D),
+                  moe_b2=rnd(E, D))
+    dy = torch.randn(1, N, D, device="cuda", generator=g)
+    return x, leaves, dy
+
+
+def phase_moe_layer(models, moe) -> dict:
+    """Phase 18 (b): the index form against the plain one-hot form at the
+    row's layer shape, and their times on the device clock."""
+    cfg = models.get_config("tinygpt", "A", 2048, n_experts=MOE_LAYER["E"])
+    cd = cfg.compute_dtype
+    x, lv, dy = moe_layer_inputs()
+    names = ("moe_w1", "moe_b1", "moe_w2", "moe_b2")
+
+    def ffn(xin):
+        return moe.expert_ffn(xin, *(lv[k] for k in names), cd)
+
+    def index():
+        return moe.moe_mlp(cfg, x, lv["router"], ffn)
+
+    def plain():
+        return moe.moe_mlp_plain(cfg, x, lv["router"], *(lv[k] for k in names))
+
+    grads = {}
+    outs = {}
+    for label, fn in (("index", index), ("plain", plain)):
+        y, aux = fn()
+        (torch.sum(y.float() * dy) + aux).backward()
+        outs[label] = (y.detach(), aux.detach())
+        grads[label] = {k: t.grad.clone() for k, t in (("x", x), *lv.items())}
+        for t in (x, *lv.values()):
+            t.grad = None
+    N, E = MOE_LAYER["N"], MOE_LAYER["E"]
+    cap = moe.capacity(N, E, cfg.expert_top_k, cfg.capacity_factor)
+    with torch.no_grad():
+        r = moe.route(x.reshape(N, -1), lv["router"], cfg.expert_top_k, cap)
+        dispatch, _ = moe.plain_dispatch(r, E, cap, cd)
+        reached = (torch.nn.functional.one_hot(r.expert_idx, E) * r.keep[..., None]).sum(1) > 0
+        same_experts = bool(torch.equal(dispatch.sum(-1) > 0, reached))
+    y_equal = bool(torch.equal(outs["index"][0], outs["plain"][0]))
+    grad_err = {k: max_abs(grads["index"][k], grads["plain"][k])
+                / grads["plain"][k].abs().max().item() for k in grads["plain"]}
+    log(f"[18] (b) index vs plain dispatch at N {N} E {E} C {cap} D {MOE_LAYER['D']} F "
+        f"{MOE_LAYER['F']} bf16: experts reached equal {same_experts}, kept "
+        f"{int(r.keep.sum())} of {N * cfg.expert_top_k} assignments (drop "
+        f"{r.drop_frac.item():.4f}), output bit for bit {y_equal}, aux "
+        f"{outs['index'][1].item():.6f} vs {outs['plain'][1].item():.6f}, gradients' max |diff| "
+        f"/ max |plain| {json.dumps({k: float(f'{v:.3e}') for k, v in grad_err.items()})} "
+        f"(limit {MOE_GRAD_TOL})")
+    assert same_experts, "the index form reaches other experts than the one-hot dispatch"
+    assert y_equal, "index dispatch output differs from the plain one-hot version"
+    assert torch.equal(outs["index"][1], outs["plain"][1])
+    assert all(v <= MOE_GRAD_TOL for v in grad_err.values()), grad_err
+
+    def fwd_bwd(fn):
+        def run():
+            y, aux = fn()
+            (torch.sum(y.float() * dy) + aux).backward()
+        return run
+
+    xt = x.detach().reshape(N, -1)
+    router = lv["router"].detach()
+    w = [lv[k].detach() for k in names]
+    with torch.no_grad():
+        r = moe.route(xt, router, cfg.expert_top_k, cap)
+        xin = moe._dispatch(xt, r, E, cap)
+        out_e = moe.expert_ffn(xin, *w, cd)
+        parts = {
+            "route_ms": median_ms(lambda: moe.route(xt, router, cfg.expert_top_k, cap),
+                                  device_clock=True),
+            "dispatch_ms": median_ms(lambda: moe._dispatch(xt, r, E, cap), device_clock=True),
+            "expert_ffn_ms": median_ms(lambda: moe.expert_ffn(xin, *w, cd), device_clock=True),
+            "combine_ms": median_ms(lambda: moe._combine(out_e, r, cap, cd), device_clock=True),
+            "index_fwd_ms": median_ms(index, device_clock=True),
+            "plain_fwd_ms": median_ms(plain, device_clock=True),
+        }
+    parts["index_fwd_bwd_ms"] = median_ms(fwd_bwd(index), device_clock=True)
+    parts["plain_fwd_bwd_ms"] = median_ms(fwd_bwd(plain), device_clock=True)
+    for t in (x, *lv.values()):
+        t.grad = None
+    log(f"[18] (b) device ms (one layer, one micro-batch): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f"; plain / index forward {parts['plain_fwd_ms'] / parts['index_fwd_ms']:.2f}x, "
+          f"forward + backward {parts['plain_fwd_bwd_ms'] / parts['index_fwd_bwd_ms']:.2f}x")
+    return dict(parts, same_experts=same_experts, y_equal=y_equal, grad_err=grad_err,
+                drop_frac=r.drop_frac.item())
+
+
+def phase_moe_ep(models, strategies, step_mod, SyntheticDataset, make_mesh) -> dict:
+    """Phase 18 (c): expert_parallel 2 as two gloo ranks on the one card
+    against one process's run of the same global batch."""
+    outdir = tempfile.mkdtemp(prefix="moe_smoke_")
+    env = dict(os.environ, LOCAL_RANK="0",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    ep = MOE_EP["width"]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--moe-worker",
+                               str(r), str(port), outdir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(ep)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"moe rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    ranks = [json.load(open(os.path.join(outdir, f"moe.rank{r}.json"))) for r in range(ep)]
+    run = ranks[0]
+    if "a2a_error" in run:
+        # gloo has no all_to_all for CUDA tensors here: the leg cannot run.
+        # Only that refusal is accepted; anything else fails above.
+        assert "alltoall" in run["a2a_error"].lower() or "all_to_all" in run[
+            "a2a_error"].lower(), run["a2a_error"]
+        log(f"[18] (c) NOT RUN: gloo refuses all_to_all_single on CUDA tensors: "
+            f"{run['a2a_error']}")
+        return {"ran": False, "error": run["a2a_error"]}
+    assert all(rk["a2a_ok"] for rk in ranks), "gloo's all_to_all_single moved the wrong blocks"
+    cfg = moe_ep_config(models)
+    table = SyntheticDataset(cfg.vocab_size, 2048, 1000, 42).to_device("cuda")
+    base = moe_ep_losses(models, strategies, make_mesh(), ep, step_mod, table)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
+    log(f"[18] (c) expert_parallel {ep} over gloo on one card ({MOE_EP['layers']} layers at the "
+        f"row's width, zero2, dropout 0): losses {[round(v, 5) for v in run['losses']]}, one "
+        f"process {[round(v, 5) for v in base]}, max relative difference {rel:.2e} (limit "
+        f"{MOE_EP_RTOL}); peak per rank {[round(rk['peak_gb'], 2) for rk in ranks]} GB; "
+        f"all-to-all of {run['a2a_bytes'] / 1e6:.2f} MB over gloo (host-staged) "
+        f"{run['a2a_gloo_ms']:.3f} ms")
+    assert all(rk["losses"] == run["losses"] for rk in ranks), "ranks' losses differ"
+    assert all(math.isfinite(v) for v in run["losses"])
+    assert rel <= MOE_EP_RTOL, f"ep {ep} loss differs from one process's by {rel}"
+    return {"ran": True, "loss_rel": rel, "a2a_gloo_ms": run["a2a_gloo_ms"]}
+
+
+def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi) -> dict:
+    """Phase 18 (a)-(c)."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
+    from distributed_llm_training_benchmark_framework_tpu_torch.models import moe
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import step as step_mod
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    micro = MOE_ROW["layers"] * MOE_ROW["grad_accum"] * steps
+    rows = {}
+    for label, change in (("f32", {}), ("bf16", {"param_dtype": "bf16"})):
+        strat = dataclasses.replace(get_strategy("zero2"), **change)
+        fa.reset_launch_counts()
+        losses = []
+        res = loop.run_benchmark(
+            strategy=strat, tier=MOE_ROW["tier"], seq_len=MOE_ROW["seq_len"], steps=steps,
+            warmup_steps=WARMUP_STEPS, per_device_batch=MOE_ROW["per_device_batch"],
+            grad_accum=MOE_ROW["grad_accum"], attention_impl="flash", sync_every=5,
+            device="cuda", loss_log=losses, n_experts=MOE_ROW["n_experts"])
+        counts = fa.launch_counts()
+        cfg = models.get_config("tinygpt", "A", 2048, attention_impl="flash",
+                                n_experts=MOE_ROW["n_experts"],
+                                param_dtype=strategies.param_torch_dtype(strat))
+        est = memory.estimate_hbm(cfg, strat, make_mesh(), MOE_ROW["per_device_batch"], 2048,
+                                  loop.DATASET_SIZE)
+        # The overflow diagnostic's dropout-free forward after the timed
+        # steps launches K1 once more per layer.
+        want = {"flash_fwd": micro + MOE_ROW["layers"], "flash_bwd_dq": micro,
+                "flash_bwd_dkv": micro}
+        log(f"[18] (a) MoE row {label} parameters (E {MOE_ROW['n_experts']} top-2, capacity "
+            f"1.25, zero2, S 2048, b1 x accum 4): {res.tokens_per_sec:.1f} tok/s, step "
+            f"{1e3 * res.mean_step_time_sec:.2f} ms (p50 {1e3 * res.step_time_p50_sec:.2f}), "
+            f"MFU {res.mfu_pct:.2f}% ({res.flops_per_token / 1e9:.3f} GFLOP/token), peak "
+            f"{res.peak_hbm_gb:.2f} GB (estimate_hbm {est.total / 1e9:.2f} GB), n_params "
+            f"{res.n_params}, expert_overflow_pct {res.expert_overflow_pct}, loss first "
+            f"{res.loss_first_window:.4f} last {res.loss_last_window:.4f}, launches {counts} "
+            f"on {smi}")
+        assert res.n_params == MOE_ROW["params"], res.n_params
+        assert all(math.isfinite(v) for v in losses) and len(losses) == steps
+        assert res.loss_last_window < res.loss_first_window, f"MoE {label}: loss did not fall"
+        assert counts == want, f"MoE {label}: launches {counts}, want {want}"
+        assert 0.0 <= res.expert_overflow_pct <= MOE_OVERFLOW_MAX_PCT, res.expert_overflow_pct
+        assert (res.n_experts, res.expert_parallel) == (MOE_ROW["n_experts"], 1)
+        rows[label] = dict(tokens_per_sec=res.tokens_per_sec, step_ms=1e3 * res.mean_step_time_sec,
+                           mfu_pct=res.mfu_pct, peak_gb=res.peak_hbm_gb,
+                           estimate_gb=est.total / 1e9,
+                           expert_overflow_pct=res.expert_overflow_pct, launches=counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    layer = phase_moe_layer(models, moe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep = phase_moe_ep(models, strategies, step_mod, SyntheticDataset, make_mesh)
+    summary = {"rows": rows, "layer": {k: v for k, v in layer.items() if k != "grad_err"},
+               "ep": ep}
+    log(f"[18] summary {json.dumps(summary)} on {smi}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--moe-worker"]:
+        return moe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
@@ -1854,6 +2173,7 @@ def main() -> int:
         ("flagship", "ddp"): no_group_ddp_flagship(run_benchmark)})
     phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
                   row_results["parity"])
+    phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

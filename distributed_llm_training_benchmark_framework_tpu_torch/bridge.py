@@ -5,7 +5,8 @@ The JAX package keeps its parameters as a pytree: top-level leaves (``wte``,
 every per-layer leaf stacked on a leading layer axis. The port holds the
 same leaves with the same names, one ``Block`` module per layer. So the
 mapping is fixed: ``params[name]`` <-> ``model.<name>`` and
-``params["blocks"][leaf][i]`` <-> ``model.blocks[i].<leaf>``.
+``params["blocks"][leaf][i]`` <-> ``model.blocks[i].<leaf>``, or, for the
+expert leaves of a MoE block, ``model.blocks[i].experts.<leaf>``.
 
 A caller turns the JAX tree into numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
@@ -24,7 +25,9 @@ Under tensor parallelism (a model built at a ``model`` rank's local widths)
 ``load_jax_params`` keeps this rank's shard of each global leaf, by the
 layout rules (``parallel.strategies.tp_axis``), and ``export_params``
 gathers the shards over the ``model`` group back into global leaves (a
-collective again: every rank calls it).
+collective again: every rank calls it). Under an ``expert`` axis likewise:
+a rank keeps its slice of each expert leaf's experts axis (axis 0 of a
+layer's leaf), and the export gathers the slices over the ``expert`` group.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from .models.tinygpt import TinyGPT
-from .parallel.strategies import tp_axis
+from .parallel.strategies import expert_axis, tp_axis
 
 
 def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
@@ -46,7 +49,7 @@ def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.nn.Paramet
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
-            yield ("blocks", parts[2], int(parts[1])), p
+            yield ("blocks", parts[-1], int(parts[1])), p
         else:
             yield (name,), p
 
@@ -67,6 +70,7 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
     want = _jax_leaf_paths(params_np)
     used = set()
     m, t = model.tp
+    e, ep = model.ep
     for (path, p), (name, _) in zip(leaf_map(model), model.named_parameters()):
         if path[0] == "blocks":
             _, leaf, i = path
@@ -79,9 +83,10 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
                 raise ValueError(f"JAX tree has no {path[0]}")
             arr = np.asarray(params_np[path[0]])
             used.add(path)
-        ax = tp_axis(name, model.config.kv_heads, t)
-        if ax is not None:
-            arr = np.split(arr, t, axis=ax)[m]
+        for ax, i, n in ((tp_axis(name, model.config.kv_heads, t), m, t),
+                         (expert_axis(name, ep), e, ep)):
+            if ax is not None:
+                arr = np.split(arr, n, axis=ax)[i]
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(map(str, path))}: shape {arr.shape} vs {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype))
@@ -106,16 +111,17 @@ def export_params(model: torch.nn.Module) -> Dict:
     out: Dict = {}
     stacks: Dict[str, list] = {}
     inner = getattr(model, "module", model)
-    _, t = inner.tp
+    (_, t), (_, ep) = inner.tp, inner.ep
     for (path, p), (name, _) in zip(leaf_map(inner), inner.named_parameters()):
         p = p.detach()
         if isinstance(p, DTensor):
             p = p.full_tensor()
-        ax = tp_axis(name, inner.config.kv_heads, t)
-        if ax is not None:
-            parts = [torch.empty_like(p) for _ in range(t)]
-            dist.all_gather(parts, p.contiguous(), group=inner.model_group)
-            p = torch.cat(parts, dim=ax)
+        for ax, n, group in ((tp_axis(name, inner.config.kv_heads, t), t, inner.model_group),
+                             (expert_axis(name, ep), ep, inner.expert_group)):
+            if ax is not None:
+                parts = [torch.empty_like(p) for _ in range(n)]
+                dist.all_gather(parts, p.contiguous(), group=group)
+                p = torch.cat(parts, dim=ax)
         arr = _numpy(p.to("cpu", copy=True))
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))

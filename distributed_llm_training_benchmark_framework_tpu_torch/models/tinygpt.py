@@ -1,17 +1,26 @@
 """TinyGPT: the benchmark transformer, as ``nn.Module``s.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/models/tinygpt.py``
-(the forward path and the loss, per-layer remat, and the dispatch to
-sequence-parallel ring and Ulysses attention; MoE is not ported yet). One config
-covers both families: the reference TinyGPT (learned positions, LayerNorm, exact-erf
-GELU, biases, tied head, non-causal, dropout 0.1) and, through
-``models.llama``, the Llama family (RMSNorm, RoPE, SwiGLU, GQA, no bias,
-untied head, causal).
+(the forward path and the loss, per-layer remat, the dispatch to
+sequence-parallel ring and Ulysses attention, and the Mixture-of-Experts MLP
+of ``models/moe.py``). One config covers both families: the reference
+TinyGPT (learned positions, LayerNorm, exact-erf GELU, biases, tied head,
+non-causal, dropout 0.1) and, through ``models.llama``, the Llama family
+(RMSNorm, RoPE, SwiGLU, GQA, no bias, untied head, causal).
 
 Parameters keep the JAX leaf names and per-layer shapes, so ``bridge.py``
 maps ``params["blocks"][leaf][i]`` to ``blocks.<i>.<leaf>`` one to one:
 ``wqkv`` (D, 3, D), ``wq`` (D, H*Dh), ``wkv`` (D, 2, Hkv*Dh), ``wo`` (D, D),
 ``wfc`` (D, F), ``wgu`` (D, 2, F), ``wproj`` (F, D), biases and norm scales.
+With ``n_experts`` E > 0 (the GELU family only, as in JAX) every block's MLP
+is the routed expert layer: the block holds ``router`` (D, E) and, in its
+child module ``experts`` (kept apart so an arm can wrap the experts on a mesh
+of their own), ``moe_w1`` (E, D, F), ``moe_b1`` (E, F), ``moe_w2`` (E, F, D)
+and ``moe_b2`` (E, D), in place of ``wfc`` / ``bfc`` / ``wproj`` / ``bproj``;
+the loss gains ``router_aux_coef`` times the Switch statistic averaged over
+the layers. Under an ``expert`` axis of width ep a rank holds its E/ep
+experts (``experts.<leaf>`` axis 0) and the layer exchanges tokens over the
+``expert`` group (``models/moe.py``).
 
 Numerics follow JAX's explicit casts (no ``torch.autocast``): parameters
 are stored in ``config.param_dtype`` (fp32, or bf16 as JAX's
@@ -78,7 +87,7 @@ from ..ops.flash_attention import (
 from ..ops.ring_attention import ring_attention, ring_attention_sharded
 from ..ops.ulysses_attention import ulysses_attention, ulysses_attention_sharded
 from ..parallel.mesh import AXES, Mesh
-from ..parallel.strategies import check_tp, kv_aligned, tp_axis
+from ..parallel.strategies import check_tp, expert_axis, kv_aligned, tp_axis
 from ..parallel.tensor import (
     all_gather_seq,
     copy_to_model,
@@ -87,6 +96,7 @@ from ..parallel.tensor import (
     vocab_parallel_cross_entropy,
     vocab_parallel_embedding,
 )
+from .moe import AUX_MODES, DISPATCH_MODES, ExpertGroups, expert_ffn, moe_mlp
 
 ATTENTION_IMPLS = ("reference", "flash", "ring", "ulysses")
 REMAT_POLICIES = ("none", "dots", "full")
@@ -140,6 +150,16 @@ class TinyGPTConfig:
     # stream rides sequence-sharded over 'model' between projections; inert
     # at 'model' width 1.
     tp_collective_matmul: bool = False
+    # Mixture-of-Experts MLP (0 = dense; models/moe.py), JAX's fields and
+    # defaults: experts, top-k, capacity factor, the aux loss coefficient,
+    # the aux channel ('switch' or 'overflow') and the dispatch ('auto',
+    # 'alltoall', 'einsum').
+    n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_aux_mode: str = "switch"
+    moe_dispatch: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -164,6 +184,16 @@ class TinyGPTConfig:
             raise ValueError(f"mlp_act must be 'gelu'|'swiglu', got {self.mlp_act!r}")
         if self.n_kv_head is not None and self.n_head % self.n_kv_head != 0:
             raise ValueError(f"n_kv_head={self.n_kv_head} must divide n_head={self.n_head}")
+        if self.n_experts > 0 and self.mlp_act != "gelu":
+            raise ValueError(
+                "MoE blocks are defined for the dense-GELU MLP only "
+                "(n_experts > 0 with mlp_act='swiglu' is not supported)"
+            )
+        if self.moe_aux_mode not in AUX_MODES:
+            raise ValueError(f"moe_aux_mode must be one of {AUX_MODES}, got {self.moe_aux_mode!r}")
+        if self.moe_dispatch not in DISPATCH_MODES:
+            raise ValueError(
+                f"moe_dispatch must be one of {DISPATCH_MODES}, got {self.moe_dispatch!r}")
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, got {self.attention_impl!r}"
@@ -306,14 +336,34 @@ def _param(dtype: torch.dtype, *shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype))
 
 
+class Experts(nn.Module):
+    """This rank's E/ep experts of one layer (the JAX leaves ``moe_w1``,
+    ``moe_b1``, ``moe_w2``, ``moe_b2``); ``forward`` is the expert FFN over
+    their (E/ep, C', D) buffer."""
+
+    def __init__(self, c: TinyGPTConfig, n_local: int):
+        super().__init__()
+        D, Fm, pd = c.n_embd, c.mlp_dim, c.param_dtype
+        self.cd = c.compute_dtype
+        self.moe_w1, self.moe_b1 = _param(pd, n_local, D, Fm), _param(pd, n_local, Fm)
+        self.moe_w2, self.moe_b2 = _param(pd, n_local, Fm, D), _param(pd, n_local, D)
+
+    def forward(self, xin: torch.Tensor) -> torch.Tensor:
+        return expert_ffn(xin, self.moe_w1, self.moe_b1, self.moe_w2, self.moe_b2, self.cd)
+
+
 class Block(nn.Module):
     """One pre-norm transformer layer holding the JAX leaves of its slice, at
     this ``model`` rank's local widths under tensor parallelism (``tp``:
-    (index, width); ``group``: the ``model`` group, None at width 1)."""
+    (index, width); ``group``: the ``model`` group, None at width 1) and its
+    experts under an ``expert`` axis (``moe``: the layer's groups).
+    ``forward`` returns the stream, and with experts (stream, aux)."""
 
     def __init__(self, c: TinyGPTConfig, tp: Tuple[int, int] = (0, 1),
-                 group: Optional[torch.distributed.ProcessGroup] = None):
+                 group: Optional[torch.distributed.ProcessGroup] = None,
+                 moe: ExpertGroups = ExpertGroups()):
         super().__init__()
+        self.moe = moe
         self.c = c
         m, t = tp
         self.group = group
@@ -341,6 +391,10 @@ class Block(nn.Module):
         self.wo = _param(pd, Dl, D)
         if c.bias:
             self.bo = _param(pd, D)
+        if c.n_experts > 0:
+            self.router = _param(pd, D, c.n_experts)
+            self.experts = Experts(c, c.n_experts // moe.ep)
+            return
         if c.mlp_act == "swiglu":
             self.wgu = _param(pd, D, 2, Fl)
             if c.bias:
@@ -399,10 +453,12 @@ class Block(nn.Module):
         return out if b is None else out + b.to(cd)
 
     def forward(self, x, attention: AttentionFn, attn_seed: Optional[int],
-                drop_mask: Optional[torch.Tensor], batch_offset: int = 0, pos_offset: int = 0):
+                drop_mask: Optional[torch.Tensor], batch_offset: int = 0, pos_offset: int = 0,
+                moe_aux_mode: Optional[str] = None):
         """One layer; ``drop_mask`` is the MLP dropout's keep mask (None: no
         dropout), ``batch_offset`` the global batch index of row 0 and
-        ``pos_offset`` the global position of column 0."""
+        ``pos_offset`` the global position of column 0; ``moe_aux_mode``
+        None: the config's."""
         c = self.c
         B = x.shape[0]
         H, Dh = self.n_head, c.head_dim
@@ -439,6 +495,9 @@ class Block(nn.Module):
         x = x + self._row(attn.reshape(B, S, H * Dh), self.wo, getattr(self, "bo", None))
 
         h = self._norm(x, "ln2")
+        if c.n_experts > 0:
+            h, aux = moe_mlp(c, h, self.router, self.experts, self.moe, moe_aux_mode)
+            return x + _apply_dropout(h, drop_mask, c.dropout), aux
         if not self.cmm:
             h = copy_to_model(h, self.group)
         if c.mlp_act == "swiglu":
@@ -486,7 +545,9 @@ class TinyGPT(nn.Module):
     exchanges blocks over the ``seq`` group; the zigzag layout of a causal
     ring stays inside the ring. Otherwise all n shards run in this process
     on full-length activations. A ``model`` axis of width tp > 1 builds this
-    rank's shards of the Megatron layout (see the module docstring)."""
+    rank's shards of the Megatron layout (see the module docstring), an
+    ``expert`` axis of width ep > 1 this rank's E/ep experts of each
+    layer."""
 
     def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None):
         super().__init__()
@@ -496,11 +557,14 @@ class TinyGPT(nn.Module):
             check_tp(c, t)
         self.tp, self.model_group = (m, t), (mesh.model_group if t > 1 else None)
         self.cmm = c.tp_collective_matmul and t > 1
+        self.ep = mesh.expert_shard if mesh is not None else (0, 1)
+        moe = _expert_groups(c, mesh)
+        self.expert_group = moe.expert_group
         D, V, pd = c.n_embd, c.vocab_size, c.param_dtype
         self.wte = _param(pd, V // t, D)
         if c.pos_embed == "learned":
             self.wpe = _param(pd, c.block_size, D)
-        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group)
+        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe)
                                     for _ in range(c.n_layer))
         self.lnf_scale = _param(pd, D)
         if c.norm == "layernorm":
@@ -540,24 +604,30 @@ class TinyGPT(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "TinyGPT":
         """normal(0, 0.02) for matrices and embeddings, zeros for biases, ones
         for norm scales (the JAX init scheme; the values differ), drawn in
-        fp32 and cast to the parameter dtype, as JAX's ``.astype``. Under
-        tensor parallelism each leaf is drawn at its global shape and this
+        fp32 and cast to the parameter dtype, as JAX's ``.astype``. A bias
+        is a leaf whose name, less a ``moe_`` prefix, starts with ``b``
+        (``bqkv``, ``moe_b1``, ...) or ends with ``_bias``. Under tensor or
+        expert parallelism each leaf is drawn at its global shape and this
         rank keeps its shard, so every layout of a seed holds the same
         weights."""
-        m, t = self.tp
+        (m, t), (e, ep) = self.tp, self.ep
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if leaf.endswith("_scale"):
                 p.fill_(1.0)
-            elif leaf.startswith("b") or leaf.endswith("_bias"):
+            elif leaf.removeprefix("moe_").startswith("b") or leaf.endswith("_bias"):
                 p.zero_()
             else:
-                ax = tp_axis(name, self.config.kv_heads, t)
+                shards = [(tp_axis(name, self.config.kv_heads, t), m, t),
+                          (expert_axis(name, ep), e, ep)]
+                shards = [(ax, i, n) for ax, i, n in shards if ax is not None]
                 shape = list(p.shape)
-                if ax is not None:
-                    shape[ax] *= t
+                for ax, _, n in shards:
+                    shape[ax] *= n
                 w = torch.randn(shape, generator=generator, device=generator.device) * 0.02
-                p.copy_(w if ax is None else w.chunk(t, dim=ax)[m])
+                for ax, i, n in shards:
+                    w = w.chunk(n, dim=ax)[i]
+                p.copy_(w)
         return self
 
     def forward(
@@ -574,7 +644,8 @@ class TinyGPT(nn.Module):
         columns of the sequence when ``seq`` rides the group (the loss is
         then the mean over them); under tensor parallelism the logits are
         this rank's vocabulary rows ``[m*V/tp, (m+1)*V/tp)`` only, (B, S,
-        V/tp), and the loss is the whole vocabulary's.
+        V/tp), and the loss is the whole vocabulary's. With experts the loss
+        adds ``router_aux_coef`` times the layers' mean aux (JAX's).
 
         ``attn_seeds`` gives one uint32 attention-dropout seed per layer and
         ``generator`` draws the embedding / MLP dropout masks; both None means
@@ -586,6 +657,36 @@ class TinyGPT(nn.Module):
         sliced to rows ``[batch_offset, batch_offset + B)`` and this rank's
         columns, so every layout of the same global batch draws the same
         masks (None: this call's B rows are the whole batch)."""
+        c = self.config
+        m, t = self.tp
+        group = self.model_group
+        x, aux = self._trunk(idx, attn_seeds, generator, batch_offset, global_batch)
+        lnf = (copy_to_model(self.lnf_scale, group if self.cmm else None),
+               copy_to_model(getattr(self, "lnf_bias", None), group if self.cmm else None))
+        if c.norm == "rmsnorm":
+            x = _rms_norm(x, lnf[0], c.norm_eps)
+        else:
+            x = _layer_norm(x, lnf[0], lnf[1], c.norm_eps)
+        if self.cmm:
+            x = all_gather_seq(x, group)
+        else:
+            x = copy_to_model(x, group)
+        w = self.wte if c.tie_embeddings else self.lm_head
+        logits = _logits(x, w.to(c.compute_dtype))
+        if targets is None:
+            return logits, None
+        if group is None:
+            loss = cross_entropy(logits, targets)
+        else:
+            loss = vocab_parallel_cross_entropy(logits, targets, m * (c.vocab_size // t), group)
+        if c.n_experts > 0:
+            loss = loss + c.router_aux_coef * aux / c.n_layer
+        return logits, loss
+
+    def _trunk(self, idx, attn_seeds, generator, batch_offset, global_batch,
+               moe_aux_mode: Optional[str] = None):
+        """Embedding and blocks -> (the stream before the final norm, the
+        layers' summed MoE aux or None)."""
         c = self.config
         B, S = idx.shape
         s, n = self.seq_shard
@@ -624,32 +725,54 @@ class TinyGPT(nn.Module):
             list(attn_seeds) if attn_seeds is not None else [None] * c.n_layer
         )
         remat = normalize_remat(c.remat)
+        aux = None
         for block, seed in zip(self.blocks, seeds):
             args = (x, self.attention, seed if c.dropout > 0.0 else None,
                     _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
-                    batch_offset, pos0)
+                    batch_offset, pos0, moe_aux_mode)
             if remat == "none":
                 x = block(*args)
             else:
                 x = checkpoint(block, *args, use_reentrant=False,
                                context_fn=functools.partial(_remat_context, remat))
-        lnf = (copy_to_model(self.lnf_scale, group if self.cmm else None),
-               copy_to_model(getattr(self, "lnf_bias", None), group if self.cmm else None))
-        if c.norm == "rmsnorm":
-            x = _rms_norm(x, lnf[0], c.norm_eps)
-        else:
-            x = _layer_norm(x, lnf[0], lnf[1], c.norm_eps)
-        if self.cmm:
-            x = all_gather_seq(x, group)
-        else:
-            x = copy_to_model(x, group)
-        w = self.wte if c.tie_embeddings else self.lm_head
-        logits = _logits(x, w.to(c.compute_dtype))
-        if targets is None:
-            return logits, None
-        if group is None:
-            return logits, cross_entropy(logits, targets)
-        return logits, vocab_parallel_cross_entropy(logits, targets, v0, group)
+            if c.n_experts > 0:
+                x, layer_aux = x
+                aux = layer_aux if aux is None else aux + layer_aux
+        return x, aux
+
+
+@torch.no_grad()
+def moe_overflow_fraction(model: TinyGPT, idx: torch.Tensor, batch_offset: int = 0,
+                          global_batch: Optional[int] = None) -> torch.Tensor:
+    """JAX's diagnostic: the mean fraction of (token, choice) assignments the
+    capacity limit drops, averaged over the layers, from one dropout-free
+    forward with the aux channel in overflow mode (over the group: the
+    mean over the token-sharding ranks, as the layer averages it)."""
+    _, aux = model._trunk(idx, None, None, batch_offset, global_batch, "overflow")
+    return aux / model.config.n_layer
+
+
+def _expert_groups(c: TinyGPTConfig, mesh: Optional[Mesh]) -> ExpertGroups:
+    """The MoE layers' groups over ``mesh`` (``models/moe.py``), after the
+    refusals of what is not ported."""
+    _, ep = mesh.expert_shard if mesh is not None else (0, 1)
+    if ep > 1 and c.n_experts == 0:
+        raise ValueError("expert_parallel > 1 requires --num-experts > 0")
+    if ep > 1 and c.n_experts % ep:
+        raise ValueError(f"n_experts={c.n_experts} not divisible by expert_parallel={ep}")
+    if ep > 1 and mesh.device_mesh is None:
+        raise ValueError(f"expert parallelism (expert width {ep}) needs a process group")
+    if c.n_experts == 0 or mesh is None or mesh.device_mesh is None:
+        return ExpertGroups()
+    if not mesh.seq_in_process or mesh.size(AXES.model) > 1:
+        raise ValueError(
+            "MoE with a 'seq' or 'model' axis over the process group is not ported "
+            "(it needs routing across sequence shards; ROADMAP Queue 1 item 12)")
+    if ep > 1:
+        return ExpertGroups(ep, mesh.expert_group, mesh.batch_group)
+    if mesh.size(AXES.data) > 1:
+        return ExpertGroups(1, None, mesh.data_group, mesh.data_group)
+    return ExpertGroups()
 
 
 def count_params(model: nn.Module) -> int:

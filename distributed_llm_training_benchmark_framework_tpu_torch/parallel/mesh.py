@@ -1,37 +1,43 @@
-"""Mesh axes of the port: names, widths, and the ``data``, ``seq`` and
-``model`` axes over the process group.
+"""Mesh axes of the port: names, widths, and the ``data``, ``seq``,
+``model`` and ``expert`` axes over the process group.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/parallel/mesh.py``.
 The JAX package names its mesh axes once (``MeshAxes``: ``data``, ``model``,
-``seq``, ``pipe``) and builds a ``jax.sharding.Mesh`` of devices. The port
-keeps the names and each axis' width, one card per process. The rule
-between the ``seq`` and ``model`` axes and the group:
+``seq``, ``pipe``, ``expert``) and builds a ``jax.sharding.Mesh`` of
+devices. The port keeps the names and each axis' width, one card per
+process. The rule between the ``seq``, ``model`` and ``expert`` axes and
+the group:
 
-- **With a group of world > 1, ``seq`` and ``model`` ride the group.**
-  ``world % (n * tp) == 0`` is required for a ``seq`` width n and a
-  ``model`` width tp (else "not divisible", as JAX refuses it), and
-  ``data`` has width ``dp = world // (n * tp)``. Ranks are in JAX's
-  data-major order (``make_mesh((dp, sp, tp, ...))``), ``model`` fastest:
-  rank r sits at ``model = r % tp``, ``seq = (r // tp) % n``,
-  ``data = r // (n * tp)``. The mesh carries a ``DeviceMesh`` over the
-  axes that ride the group, in that order (``("data",)``,
-  ``("data", "seq")``, ``("data", "model")`` or ``("data", "seq",
-  "model")``). Each rank holds ``S/n`` of the sequence, and ring or Ulysses
-  attention exchange blocks over ``seq_group`` (``ops/ring_attention.py``,
+- **With a group of world > 1, ``seq``, ``model`` and ``expert`` ride the
+  group.** ``world % (n * tp * ep) == 0`` is required for a ``seq`` width
+  n, a ``model`` width tp and an ``expert`` width ep (else "not
+  divisible", as JAX refuses it), and ``data`` has width ``dp = world //
+  (n * tp * ep)``. Ranks are in JAX's data-major order (``make_mesh((dp,
+  sp, tp, pp, ep))``), ``expert`` fastest: rank r sits at ``expert = r %
+  ep``, ``model = (r // ep) % tp``, ``seq = (r // (ep * tp)) % n``,
+  ``data = r // (n * tp * ep)``. The mesh carries a ``DeviceMesh`` over
+  the axes that ride the group, in that order (``("data",)``, ``("data",
+  "seq")``, ``("data", "model")``, ``("data", "expert")``, ...). Each
+  rank holds ``S/n`` of the sequence, and ring or Ulysses attention
+  exchange blocks over ``seq_group`` (``ops/ring_attention.py``,
   ``ops/ulysses_attention.py``); each holds its ``model`` index's shard of
-  the Megatron layout (``parallel/strategies.py``, ``parallel/tensor.py``).
+  the Megatron layout (``parallel/strategies.py``, ``parallel/tensor.py``)
+  and its ``expert`` index's E/ep experts (``models/moe.py``). The batch
+  rows shard over ``data`` x ``expert``: member ``d * ep + e`` of
+  ``batch_group`` takes its own rows (JAX's ``batch_partition_spec``).
 - **Without a group, or at world 1, the n ``seq`` shards are held in one
   process** on its one device (``seq_in_process``) and ``dp = 1``: the
   attention cuts the sequence into n shards and runs them all on that
-  device. ``model`` has no such form: a width above 1 needs a group (JAX
-  has no one-device tensor parallelism either). With a group of one rank
-  the mesh carries the 1-D ``data`` ``DeviceMesh`` the arms wrap the model
-  over.
-- At ``seq`` and ``model`` width 1, ``data`` is the whole group (1-D
-  ``DeviceMesh``) or 1.
+  device. ``model`` and ``expert`` have no such form: a width above 1 needs
+  a group (JAX has no one-device tensor or expert parallelism either).
+  With a group of one rank the mesh carries the 1-D ``data``
+  ``DeviceMesh`` the arms wrap the model over.
+- At ``seq``, ``model`` and ``expert`` width 1, ``data`` is the whole group
+  (1-D ``DeviceMesh``) or 1.
 
-The strategy arms shard and reduce over ``data`` and ``seq``, never over
-``model`` (``parallel/strategies.py``).
+The strategy arms shard and reduce over ``data``, ``seq`` and ``expert``,
+never over ``model``; the expert leaves reduce over ``data`` only
+(``parallel/strategies.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class MeshAxes:
     model: str = "model"    # tensor parallel axis
     seq: str = "seq"        # sequence/context parallel axis (ring attention)
     pipe: str = "pipe"      # pipeline stage axis
+    expert: str = "expert"  # expert parallel axis (MoE)
 
 
 AXES = MeshAxes()
@@ -61,13 +68,18 @@ AXES = MeshAxes()
 class Mesh:
     """Axis name -> width (an axis that is not named has width 1), and the
     ``DeviceMesh`` over the group when one is up: ``("data",)``, with
-    ``"seq"`` and then ``"model"`` after it when they ride the group.
-    ``replica_group``: the ranks that share this rank's ``model`` index (the
-    data x seq ranks the arms reduce over) when ``model`` rides the group."""
+    ``"seq"``, ``"model"`` and ``"expert"`` after it, in that order, when
+    they ride the group. ``replica_group``: the ranks that share this rank's
+    ``model`` index (the data x seq x expert ranks the arms reduce over)
+    when ``model`` rides the group; ``expert_batch_group``: the dp * ep
+    ranks that share this rank's ``seq`` and ``model`` indices when
+    ``expert`` rides the group."""
 
     shape: Dict[str, int]
     device_mesh: Optional[DeviceMesh] = dataclasses.field(default=None, compare=False)
     replica_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None, compare=False)
+    expert_batch_group: Optional[dist.ProcessGroup] = dataclasses.field(default=None,
+                                                                        compare=False)
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -83,10 +95,10 @@ class Mesh:
 
     @property
     def world(self) -> int:
-        """Processes (cards) of the mesh: ``data`` x ``seq`` x ``model`` over
-        the group."""
+        """Processes (cards) of the mesh: ``data`` x ``seq`` x ``model`` x
+        ``expert`` over the group."""
         return (self.size(AXES.data) * (1 if self.seq_in_process else self.size(AXES.seq))
-                * self.size(AXES.model))
+                * self.size(AXES.model) * self.size(AXES.expert))
 
     @property
     def rank(self) -> int:
@@ -100,8 +112,34 @@ class Mesh:
 
     @property
     def data_group(self) -> Optional[dist.ProcessGroup]:
-        """The dp ranks that share this rank's ``seq`` and ``model`` indices."""
+        """The dp ranks that share this rank's ``seq``, ``model`` and
+        ``expert`` indices."""
         return self.device_mesh.get_group(AXES.data) if self.device_mesh else None
+
+    @property
+    def expert_shard(self) -> Tuple[int, int]:
+        """(this rank's ``expert`` index, the ``expert`` width)."""
+        e = self.device_mesh.get_local_rank(AXES.expert) if self._rides(AXES.expert) else 0
+        return e, self.size(AXES.expert)
+
+    @property
+    def expert_group(self) -> Optional[dist.ProcessGroup]:
+        """The ep ranks of one ``data`` index, whose experts together make a
+        layer's (None at ``expert`` width 1)."""
+        return self.device_mesh.get_group(AXES.expert) if self._rides(AXES.expert) else None
+
+    @property
+    def batch_shard(self) -> Tuple[int, int]:
+        """(this rank's member index ``d * ep + e``, dp * ep): its share of
+        the batch rows, which shard over ``data`` x ``expert``."""
+        e, ep = self.expert_shard
+        return self.data_rank * ep + e, self.size(AXES.data) * ep
+
+    @property
+    def batch_group(self) -> Optional[dist.ProcessGroup]:
+        """The dp * ep ranks that hold distinct rows of the batch: the
+        ``data`` group at ``expert`` width 1."""
+        return self.expert_batch_group if self.expert_batch_group is not None else self.data_group
 
     @property
     def seq_rank(self) -> int:
@@ -143,8 +181,9 @@ class Mesh:
 
     @property
     def arm_group(self) -> Optional[dist.ProcessGroup]:
-        """The data x seq ranks an arm replicates over and averages over: the
-        whole group, or ``replica_group`` when ``model`` rides it."""
+        """The data x seq x expert ranks an arm replicates the non-expert
+        leaves over and averages them over: the whole group, or
+        ``replica_group`` when ``model`` rides it."""
         return self.replica_group if self.replica_group is not None else self.group
 
 
@@ -166,9 +205,28 @@ def replicate_seq_shard_data(mesh: Mesh) -> DeviceMesh:
     return full[(AXES.seq, AXES.data)]
 
 
+def replicate_expert_shard_data(mesh: Mesh) -> DeviceMesh:
+    """The (``expert``, ``data``) ``DeviceMesh`` of a (data, expert) mesh,
+    for FSDP2's (replicate, shard) order: the non-expert leaves replicate
+    over ``expert`` and shard over ``data`` (JAX shards them over ``data``
+    only). Built from the transposed rank grid, as
+    :func:`replicate_seq_shard_data` (collective)."""
+    dp, ep = mesh.size(AXES.data), mesh.size(AXES.expert)
+    grid = torch.arange(dp * ep).view(dp, ep).t()  # grid[e, d] = d * ep + e
+    return DeviceMesh(mesh.device_mesh.device_type, grid,
+                      mesh_dim_names=(AXES.expert, AXES.data))
+
+
 def shard_data_mesh(mesh: Mesh) -> DeviceMesh:
-    """The ``DeviceMesh`` FSDP2 shards over: ``data`` (1-D), or (``seq``,
-    ``data``) when ``seq`` rides the group; of this rank's ``model`` index."""
+    """The ``DeviceMesh`` FSDP2 shards the non-expert leaves over: ``data``
+    (1-D), or (``seq``, ``data``) when ``seq`` rides the group, or
+    (``expert``, ``data``) when ``expert`` does; of this rank's ``model``
+    index."""
+    if mesh.expert_group is not None:
+        if not mesh.seq_in_process or mesh.model_group is not None:
+            raise ValueError("an 'expert' axis beside a 'seq' or 'model' axis over the process "
+                             "group is not ported (ROADMAP Queue 1 item 12)")
+        return replicate_expert_shard_data(mesh)
     if not mesh.seq_in_process:
         return replicate_seq_shard_data(mesh)
     if mesh.model_group is None:
@@ -176,13 +234,13 @@ def shard_data_mesh(mesh: Mesh) -> DeviceMesh:
     return mesh.device_mesh[AXES.data]
 
 
-def _replica_group(dp: int, sp: int, tp: int) -> dist.ProcessGroup:
-    """The data x seq ranks of this rank's ``model`` index (collective:
-    every rank makes all tp groups, in the same order)."""
+def _group_of(world: int, key) -> dist.ProcessGroup:
+    """This rank's group among the ranks grouped by ``key(rank)``
+    (collective: every rank makes every group, in the same order)."""
     mine = None
-    for m in range(tp):
-        g = dist.new_group([r for r in range(dp * sp * tp) if r % tp == m])
-        if dist.get_rank() % tp == m:
+    for k in sorted({key(r) for r in range(world)}):
+        g = dist.new_group([r for r in range(world) if key(r) == k])
+        if key(dist.get_rank()) == k:
             mine = g
     return mine
 
@@ -214,40 +272,43 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     group = dist.is_initialized()
     world = dist.get_world_size() if group else 1
     sp, tp = widths.get(AXES.seq, 1), widths.get(AXES.model, 1)
-    if tp > 1 and world == 1:
-        raise ValueError(
-            f"tensor parallelism (model width {tp}) needs a process group of a multiple of "
-            f"{tp * sp} ranks, one card each (launch them with torchrun); this process has "
-            + ("a group of one rank" if group else "no group")
-        )
-    over_group = world > 1 and sp * tp > 1
-    if over_group and world % (sp * tp):
-        # JAX's message; the port's pipeline and expert widths are 1.
+    ep = widths.get(AXES.expert, 1)
+    for axis, what, width in ((AXES.model, "tensor", tp), (AXES.expert, "expert", ep)):
+        if width > 1 and world == 1:
+            raise ValueError(
+                f"{what} parallelism ({axis} width {width}) needs a process group of a multiple "
+                f"of {tp * sp * ep} ranks, one card each (launch them with torchrun); this "
+                "process has " + ("a group of one rank" if group else "no group")
+            )
+    over_group = world > 1 and sp * tp * ep > 1
+    if over_group and world % (sp * tp * ep):
+        # JAX's message; the port's pipeline width is 1.
         raise ValueError(f"world_size={world} not divisible by "
-                         f"tensor*sequence*pipeline*expert parallel={tp * sp}")
-    dp = world // (sp * tp) if over_group else world
+                         f"tensor*sequence*pipeline*expert parallel={tp * sp * ep}")
+    dp = world // (sp * tp * ep) if over_group else world
     given = None if defaulted else widths.get(AXES.data)
     if given is not None and given != dp:
         raise ValueError(
             f"mesh axis 'data' has width {given} but the process group has {world} "
             f"process{'es' if world > 1 else ''}"
-            + (f" over seq x model width {sp * tp}: 'data' is world // (seq x model) = {dp}"
-               if over_group else ": 'data' spans the group")
+            + (f" over seq x model x expert width {sp * tp * ep}: 'data' is world // (seq x "
+               f"model x expert) = {dp}" if over_group else ": 'data' spans the group")
         )
     widths[AXES.data] = dp
-    device_mesh = replica = None
+    device_mesh = replica = batch = None
     if group:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        dims = [(AXES.data, dp)]
-        if world > 1 and sp > 1:
-            dims.append((AXES.seq, sp))
-        if tp > 1:
-            dims.append((AXES.model, tp))
+        sp_group = sp if world > 1 else 1
+        dims = [(AXES.data, dp), (AXES.seq, sp_group), (AXES.model, tp), (AXES.expert, ep)]
+        dims = dims[:1] + [(a, w) for a, w in dims[1:] if w > 1]
         device_mesh = init_device_mesh(device_type, tuple(w for _, w in dims),
                                        mesh_dim_names=tuple(a for a, _ in dims))
         if tp > 1:
-            replica = _replica_group(dp, sp if world > 1 else 1, tp)
-    return Mesh(widths, device_mesh, replica)
+            replica = _group_of(world, lambda r: (r // ep) % tp)
+        if ep > 1:
+            batch = (dist.group.WORLD if sp_group * tp == 1
+                     else _group_of(world, lambda r: (r // ep) % (sp_group * tp)))
+    return Mesh(widths, device_mesh, replica, batch)
 
 
 def mesh_axes_dict(mesh: Mesh) -> dict:

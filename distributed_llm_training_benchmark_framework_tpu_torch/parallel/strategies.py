@@ -14,12 +14,19 @@ and lets XLA derive the collectives; the port builds each layout on
   ``fully_shard`` on every block and then on the root (which keeps ``wte``,
   ``wpe``, the final norm and ``lm_head``, so the tied ``wte`` stays one
   parameter); weights are all-gathered per use and grads reduce-scattered;
-- **zero2** params replicated, grads and AdamW state sharded: per dtype one
-  flat buffer padded to a multiple of the ``data`` width holds the params
-  as views, another the grads; after the last micro-batch the grads are
-  reduce-scattered (averaged) into this rank's shard, AdamW updates that
-  shard of the params in place, and an all-gather refills the replicated
-  buffer (DeepSpeed ZeRO stage 2's semantics, as in JAX);
+- **zero2** params replicated, grads and AdamW state sharded: one bucket
+  per (block, dtype, sharded kind) and one for the leaves outside the
+  blocks, each a flat buffer padded to a multiple of the ``data`` width
+  that holds the params as views, beside another for the grads. In the
+  last micro-batch's backward a parameter's post-accumulate-grad hook
+  counts down its bucket, and the bucket's reduce-scatter into this rank's
+  shard starts (asynchronously) as soon as its last gradient lands, so each
+  block's reduce-scatter overlaps the backward of the blocks before it, as
+  JAX's per-block grad spec (``zero2_block_grad_spec``) lets XLA schedule
+  it; after the backward the arm waits for them and averages. AdamW
+  updates each shard of the params in place, and an all-gather per bucket
+  refills the replicated buffers (DeepSpeed ZeRO stage 2's semantics, as
+  in JAX);
 - **zero3** like fsdp, with per-layer remat ``auto`` (resolved against the
   memory model by the loop, ``utils/memory.resolve_auto_remat``).
 
@@ -58,6 +65,24 @@ norm counts each element once: the squares of ``model``-sharded leaves
 are summed over ``model``, replicated leaves counted once, as optax's
 global norm over the whole tree.
 
+Under expert parallelism (an ``expert`` axis of width ep over the group,
+a (data, expert) mesh; ``models/moe.py``) the batch rows shard over data x
+expert and each rank holds its E/ep experts, JAX's ``_EP_RULES``. The
+leaves outside the experts are replicated over ``expert`` and their
+gradients averaged over the dp * ep ranks (``Mesh.batch_group``); the
+expert leaves are summed over ``data`` only and divided by dp * ep: the
+all-to-all's backward has already brought every member's token gradients
+to the expert's owner, and each member's loss is a mean over its own rows.
+ddp is DDP over the batch group with the expert leaves ignored by DDP and
+all-reduced over ``data`` by hand; fsdp / zero3 wrap each block's experts
+in FSDP2 over the ``data`` mesh (its average over dp, then a division by
+ep) and the rest over the (expert, data) mesh, replicate over ``expert`` and shard
+over ``data`` (HSDP; JAX's ``shard_params`` shards over ``data`` only);
+zero2's buckets part the expert leaves from the rest: both reduce-scatter
+over ``data``, the rest then all-reduce over ``expert``, and both divide by
+dp * ep. The clip's norm sums the expert leaves' squares over ``expert``
+as it sums tp's over ``model``.
+
 The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 
 - clip: with g_norm = sqrt(sum of squares over every gradient), each
@@ -65,7 +90,10 @@ The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
   is otherwise (optax's formula; ``torch.nn.utils.clip_grad_norm_`` divides
   by ``g_norm + 1e-6`` and does not match). Where the grads are shards of
   one gradient (fsdp, zero2, zero3), the squares of every rank's shard are
-  summed over ``data`` (zero2's padding is zero and adds nothing);
+  summed over ``data`` (zero2's padding is zero and adds nothing). The
+  squares of fp32 gradients are summed in fp64 and the norm rounded once to
+  fp32, so it does not depend on how the gradient is cut into shards or
+  buckets (optax sums in fp32; the two differ in the last bit at most);
 - AdamW: ``torch.optim.AdamW``, whose update equals optax ``adamw``: decay
   decoupled and scaled by lr, bias correction from step 1, eps outside the
   square root, decay on every leaf. AdamW is elementwise, so on a shard
@@ -93,6 +121,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -389,8 +418,10 @@ def from_deepspeed_config(raw: Dict[str, Any], strategy_name: str) -> StrategyCo
 # JAX's _TP_RULES: leaf path -> the axes that shard over 'model', on JAX's
 # leaves, whose block leaves carry a leading layer axis. Column-parallel
 # q/k/v and MLP up (output features), row-parallel attention out and MLP
-# down (input features), the vocabulary of the embedding and the head. The
-# MoE leaves are not ported.
+# down (input features), the vocabulary of the embedding and the head, and
+# inside each expert column-parallel w1 and row-parallel w2 (the memory
+# model's spec rule reads them; MoE over a 'model' axis on the group is
+# refused, models/tinygpt.py).
 _TP_RULES = {
     "wte": (0,),
     "lm_head": (0,),
@@ -406,8 +437,20 @@ _TP_RULES = {
     "blocks/wgu": (3,),
     "blocks/bgu": (2,),
     "blocks/wproj": (1,),
+    "blocks/moe_w1": (3,),
+    "blocks/moe_b1": (2,),
+    "blocks/moe_w2": (2,),
 }
 _KV_LEAVES = ("blocks/wkv", "blocks/bkv")
+
+# JAX's _EP_RULES: the experts axis of each expert leaf, which shards over
+# 'expert'; the router stays replicated.
+_EP_RULES = {
+    "blocks/moe_w1": 1,
+    "blocks/moe_b1": 1,
+    "blocks/moe_w2": 1,
+    "blocks/moe_b2": 1,
+}
 
 # JAX's composed-mesh hygiene (a >1 'model' axis beside a >1 'data' axis):
 # leaves below this many elements per layer stay replicated over 'data'.
@@ -422,9 +465,16 @@ def kv_aligned(kv_heads: int, tp: int) -> bool:
 
 
 def jax_leaf_name(port_name: str) -> str:
-    """``blocks.3.wqkv`` -> ``blocks/wqkv``; top-level names stay."""
+    """``blocks.3.wqkv`` -> ``blocks/wqkv``, ``blocks.3.experts.moe_w1`` ->
+    ``blocks/moe_w1``; top-level names stay."""
     parts = port_name.split(".")
-    return f"blocks/{parts[2]}" if parts[0] == "blocks" else port_name
+    return f"blocks/{parts[-1]}" if parts[0] == "blocks" else port_name
+
+
+def expert_axis(port_name: str, ep: int) -> Optional[int]:
+    """The axis of a port parameter (one layer's leaf) that shards over
+    ``expert`` at width ``ep`` (the experts axis, 0), or None."""
+    return 0 if ep > 1 and jax_leaf_name(port_name) in _EP_RULES else None
 
 
 def tp_axis(port_name: str, kv_heads: int, tp: int) -> Optional[int]:
@@ -476,14 +526,17 @@ def _shard_largest_free_axis(spec: list, shape: Tuple[int, ...], n_shards: int,
 def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[str, int],
                           shard: bool, kv_heads: Optional[int] = None) -> Dict[str, tuple]:
     """JAX's ``param_partition_specs`` (the unrolled layer loop; no pipeline
-    or expert axis) over JAX-shaped leaves: {leaf path: shape, block leaves
-    stacked on a layer axis} -> {leaf path: spec}, a spec being a tuple of
-    axis names or None per dimension."""
+    axis) over JAX-shaped leaves: {leaf path: shape, block leaves stacked on
+    a layer axis} -> {leaf path: spec}, a spec being a tuple of axis names
+    or None per dimension."""
     n_data, n_model = mesh_shape.get("data", 1), mesh_shape.get("model", 1)
+    n_expert = mesh_shape.get("expert", 1)
     kv_misaligned = kv_heads is not None and kv_heads % n_model != 0
     specs = {}
     for name, shape in shapes.items():
         spec = [None] * len(shape)
+        if n_expert > 1 and name in _EP_RULES and shape[_EP_RULES[name]] % n_expert == 0:
+            spec[_EP_RULES[name]] = "expert"
         if n_model > 1:
             for ax in _TP_RULES.get(name, ()):
                 if name in _KV_LEAVES and kv_misaligned:
@@ -523,8 +576,13 @@ def _zero_grads(params: Iterable[torch.Tensor], set_to_none: bool) -> None:
 
 
 def _total_norm(grads: List[torch.Tensor], f32: bool) -> torch.Tensor:
-    """The 2-norm of ``grads`` together; ``f32``: accumulated in fp32 over
-    the fp32 values of bf16 gradients (optax's norm of their upcast)."""
+    """The 2-norm of ``grads`` together. fp32 gradients: squares summed in
+    fp64 (an fp64 norm), so the clip's fp32 norm does not depend on how the
+    gradient is cut into shards or buckets; ``f32``: accumulated in fp32
+    over the fp32 values of bf16 gradients (optax's norm of their upcast)."""
+    if all(g.dtype == torch.float32 for g in grads):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2,
+                                                                         dtype=torch.float64)))
     if not f32:
         return torch.nn.utils.get_total_norm(grads, norm_type=2.0)
     return torch.linalg.vector_norm(
@@ -536,10 +594,11 @@ class Optimizer:
     ``.grad`` of the given parameters. ``count`` is optax's update count.
 
     ``norm_group``: the group whose ranks hold the other shards of every
-    gradient (None: each rank holds whole gradients). ``model_group`` and
-    ``model_sharded`` (one flag per parameter): under tensor parallelism the
-    ``model`` ranks hold the other shards of the flagged parameters, and
-    the rest are replicated over ``model``.
+    gradient (None: each rank holds whole gradients). ``shard_group`` and
+    ``shard_flags`` (one flag per parameter): the ranks of ``shard_group``
+    hold the other shards of the flagged parameters, and the rest are
+    replicated over it: ``model`` under tensor parallelism, ``expert``
+    under expert parallelism (never both wider than 1).
 
     Under ``offload_opt_state`` there is no device AdamW: ``host``
     (``parallel/offload.HostOffload``) holds the fp32 masters and moments of
@@ -550,13 +609,13 @@ class Optimizer:
 
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
                  norm_group: Optional[dist.ProcessGroup] = None,
-                 model_group: Optional[dist.ProcessGroup] = None,
-                 model_sharded: Optional[List[bool]] = None):
+                 shard_group: Optional[dist.ProcessGroup] = None,
+                 shard_flags: Optional[List[bool]] = None):
         self.strategy = strategy
         self.params = [p for p in params]
         self.norm_group = norm_group
-        self.model_group = model_group
-        self.model_sharded = model_sharded or [False] * len(self.params)
+        self.shard_group = shard_group
+        self.shard_flags = shard_flags or [False] * len(self.params)
         if strategy.warmup_steps > 0:
             self.schedule = linear_schedule(0.0, strategy.learning_rate, strategy.warmup_steps)
         else:
@@ -599,24 +658,32 @@ class Optimizer:
         dist.all_reduce(sq, group=self.norm_group)
         return sq.sqrt()
 
-    def _global_norm_tp(self, f32: bool = False) -> torch.Tensor:
-        """The norm over every element once: the ``model``-sharded leaves'
-        squares summed over ``model``, the replicated ones' counted once,
+    def _global_norm_sharded(self, f32: bool = False) -> torch.Tensor:
+        """The norm over every element once: the flagged leaves' squares
+        summed over ``shard_group``, the replicated ones' counted once,
         then (shards of one gradient) summed over ``norm_group``."""
         parts = {True: [], False: []}
-        for p, sharded in zip(self.params, self.model_sharded):
+        for p, sharded in zip(self.params, self.shard_flags):
             if p.grad is not None:
                 parts[sharded].append(_local(p.grad))
-        sq = {}
-        for sharded, grads in parts.items():
-            norm = (_total_norm(grads, f32) if grads
-                    else torch.zeros((), device=self.params[0].device))
-            sq[sharded] = norm * norm
-        dist.all_reduce(sq[True], group=self.model_group)
+        norms = {sharded: _total_norm(grads, f32) for sharded, grads in parts.items() if grads}
+        some = next(iter(norms.values()))
+        sq = {sharded: norms[sharded] ** 2 if sharded in norms else torch.zeros_like(some)
+              for sharded in (True, False)}
+        dist.all_reduce(sq[True], group=self.shard_group)
         total = sq[True] + sq[False]
         if self.norm_group is not None:
             dist.all_reduce(total, group=self.norm_group)
         return total.sqrt()
+
+    def _clip_norm(self, f32: bool = False) -> torch.Tensor:
+        """The clip's global norm: fp32 (an fp64 sum of fp32 gradients'
+        squares rounded once), or the bf16 gradients' own dtype."""
+        if self.shard_group is None:
+            norm = self._global_norm(self._grads(), f32)
+        else:
+            norm = self._global_norm_sharded(f32)
+        return norm.float() if norm.dtype == torch.float64 else norm
 
     @torch.no_grad()
     def clip(self) -> None:
@@ -625,8 +692,7 @@ class Optimizer:
         if c is None:
             return
         grads = self._grads()
-        g_norm = (self._global_norm(grads) if self.model_group is None
-                  else self._global_norm_tp())
+        g_norm = self._clip_norm()
         trigger = g_norm < c
         one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
         # (g / g_norm) * c when clipping, g / 1 * 1 otherwise: no host sync.
@@ -642,8 +708,7 @@ class Optimizer:
         c = self.strategy.grad_clip
         if c is None:
             return None
-        g_norm = (self._global_norm(self._grads(), f32=True) if self.model_group is None
-                  else self._global_norm_tp(f32=True))
+        g_norm = self._clip_norm(f32=True)
         return torch.div(torch.full_like(g_norm, c), torch.clamp(g_norm, min=c))
 
     def step(self) -> None:
@@ -662,11 +727,16 @@ class _DDPOptimizer(Optimizer):
     The grads are views into DDP's buckets (``gradient_as_bucket_view``) and
     stay so: they are zeroed in place, where grads set to None would be
     allocated anew by the micro-batches before the all-reduce, beside the
-    buckets."""
+    buckets. Under expert parallelism DDP ignores the expert leaves
+    (``experts``: their parameters), whose grads ``finish_grads`` sums over
+    ``expert_reduce`` (the ``data`` group) and divides by ``ranks``."""
 
-    def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel, **tp):
-        super().__init__(strategy, ddp.module.parameters(), **tp)
+    def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel,
+                 experts: List[torch.nn.Parameter] = (),
+                 expert_reduce: Optional[dist.ProcessGroup] = None, ranks: int = 1, **shards):
+        super().__init__(strategy, ddp.module.parameters(), **shards)
         self.ddp = ddp
+        self.experts, self.expert_reduce, self.ranks = list(experts), expert_reduce, ranks
 
     def zero_grad(self) -> None:
         _zero_grads(self.params, set_to_none=False)
@@ -676,28 +746,78 @@ class _DDPOptimizer(Optimizer):
     def sync_context(self, last: bool) -> ContextManager:
         return contextlib.nullcontext() if last else self.ddp.no_sync()
 
+    @torch.no_grad()
+    def finish_grads(self, grad_accum: int) -> None:
+        for p in self.experts:
+            dist.all_reduce(p.grad, group=self.expert_reduce)
+            p.grad.div_(self.ranks)
+        super().finish_grads(grad_accum)
+
+
+class _FSDPOptimizer(Optimizer):
+    """fsdp / zero3: FSDP2 averages each gradient over its mesh; the experts'
+    mesh is ``data`` only, so their gradients are divided by the ``expert``
+    width ``ep`` as well (dp * ep in all)."""
+
+    def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
+                 experts: List[torch.nn.Parameter], ep: int, **kw):
+        super().__init__(strategy, model.parameters(), **kw)
+        self.experts, self.ep = experts, ep
+
+    @torch.no_grad()
+    def finish_grads(self, grad_accum: int) -> None:
+        if self.experts:
+            torch._foreach_div_([_local(p.grad) for p in self.experts], float(self.ep))
+        super().finish_grads(grad_accum)
+
+
+def zero2_bucket(port_name: str) -> str:
+    """The block whose zero2 bucket holds a parameter (``blocks.<i>``), or
+    "" for the leaves outside the blocks."""
+    parts = port_name.split(".")
+    return ".".join(parts[:2]) if parts[0] == "blocks" else ""
+
+
+@dataclasses.dataclass(eq=False)
+class _Bucket:
+    """One zero2 bucket: the flat params (the parameters are views into
+    it), the flat grads, this rank's shard of the grads, the groups its
+    shard is all-reduced over after the reduce-scatter, and the
+    reduce-scatter's count-down and work."""
+
+    flat: torch.Tensor
+    grads: torch.Tensor
+    shard_grad: torch.Tensor
+    n_params: int
+    replicas: Tuple[dist.ProcessGroup, ...]
+    pending: int = 0
+    work: Any = None
+
 
 class _Zero2Optimizer(Optimizer):
     """zero2 by hand (see the module docstring). AdamW steps over this rank's
-    shard of each flat buffer, a view into it, so its update lands in the
-    replicated params in place; the all-gather fills in the other shards."""
+    shard of each bucket's flat buffer, a view into it, so its update lands
+    in the replicated params in place; the all-gathers fill in the other
+    shards."""
 
-    def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
-                 group: dist.ProcessGroup, seq_group: Optional[dist.ProcessGroup] = None,
-                 model_group: Optional[dist.ProcessGroup] = None,
-                 model_sharded: Optional[List[bool]] = None):
-        dp, rank = dist.get_world_size(group), dist.get_rank(group)
-        self.group, self.seq_group = group, seq_group
-        self.buckets = []  # (flat params, flat grads, shard of the grads)
+    def __init__(self, strategy: StrategyConfig, model: torch.nn.Module, mesh: Mesh):
+        self.group = mesh.data_group
+        dp, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        seq, expert = mesh.seq_group, mesh.expert_group
+        self.ranks = dp * math.prod(dist.get_world_size(g) for g in (seq, expert)
+                                    if g is not None)
+        names = [name for name, _ in model.named_parameters()]
+        flags = _shard_flags(model, mesh)
+        # One bucket per (block, dtype, kind): sharded over 'model' / an
+        # expert leaf (the clip counts their squares over that group), or not.
+        by_key: Dict[tuple, List[torch.nn.Parameter]] = {}
+        for name, p, sharded in zip(names, model.parameters(), flags):
+            by_key.setdefault((zero2_bucket(name), p.dtype, sharded), []).append(p)
+        self.buckets: List[_Bucket] = []
+        self._last = False
         shards = []
-        # One flat buffer per dtype, and apart for the leaves sharded over
-        # 'model' (the clip counts their squares over 'model').
-        by_kind: Dict[Tuple[torch.dtype, bool], List[torch.nn.Parameter]] = {}
-        flags = model_sharded or [False] * len(list(model.parameters()))
-        for p, sharded in zip(model.parameters(), flags):
-            by_kind.setdefault((p.dtype, sharded), []).append(p)
         with torch.no_grad():
-            for (dtype, _), params in by_kind.items():
+            for (_, dtype, sharded), params in by_key.items():
                 n = sum(p.numel() for p in params)
                 size = -(-n // dp)  # one rank's shard; the padding is zero
                 device = params[0].device
@@ -713,35 +833,63 @@ class _Zero2Optimizer(Optimizer):
                 shard = torch.nn.Parameter(flat[rank * size:(rank + 1) * size])
                 shard.grad = torch.zeros(size, dtype=dtype, device=device)
                 shards.append(shard)
-                self.buckets.append((flat, grads, shard.grad))
-        super().__init__(strategy, shards, norm_group=group, model_group=model_group,
-                         model_sharded=[sharded for _, sharded in by_kind])
+                is_expert = sharded and expert is not None
+                replicas = tuple(g for g in (seq, None if is_expert else expert) if g is not None)
+                bucket = _Bucket(flat, grads, shard.grad, len(params), replicas)
+                for p in params:
+                    p.register_post_accumulate_grad_hook(functools.partial(self._ready, bucket))
+                self.buckets.append(bucket)
+        super().__init__(strategy, shards, norm_group=self.group, shard_group=_shard_group(mesh),
+                         shard_flags=[sharded for _, _, sharded in by_key])
 
     def zero_grad(self) -> None:
         # The params' grads are views into the flat buffers: keep them.
-        for _, grads, _ in self.buckets:
-            grads.zero_()
+        for b in self.buckets:
+            b.grads.zero_()
         if self.host is not None:
             self.host.begin_step()
 
+    def sync_context(self, last: bool) -> ContextManager:
+        self._last = last
+        for b in self.buckets:
+            b.pending, b.work = b.n_params, None
+        return contextlib.nullcontext()
+
+    def _launch(self, b: _Bucket) -> None:
+        b.work = dist.reduce_scatter_tensor(b.shard_grad, b.grads, group=self.group,
+                                            async_op=True)
+
+    def _ready(self, b: _Bucket, _param: torch.Tensor) -> None:
+        """A parameter's gradient has landed; in the last micro-batch, the
+        bucket's reduce-scatter starts with its last one."""
+        if not self._last:
+            return
+        b.pending -= 1
+        if b.pending == 0:
+            self._launch(b)
+
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
-        # Sum the shard over data (and over seq when it rides the group),
-        # then divide once by every rank that contributed.
-        ranks = dist.get_world_size(self.group) * (
-            dist.get_world_size(self.seq_group) if self.seq_group is not None else 1)
-        for _, grads, shard_grad in self.buckets:
-            dist.reduce_scatter_tensor(shard_grad, grads, group=self.group)
-            if self.seq_group is not None:
-                dist.all_reduce(shard_grad, group=self.seq_group)
-            shard_grad.div_(ranks)
+        # The reduce-scatters sum each bucket over data; then the sum over
+        # seq (and, for the non-expert leaves, expert) when those ride the
+        # group, and one division by every rank that contributed.
+        for b in self.buckets:
+            if b.work is None:  # a bucket none of whose params had a gradient
+                self._launch(b)
+        for b in self.buckets:
+            b.work.wait()
+            b.work = None
+            for g in b.replicas:
+                dist.all_reduce(b.shard_grad, group=g)
+            b.shard_grad.div_(self.ranks)
+        self._last = False
         super().finish_grads(grad_accum)
 
     def step(self) -> None:
         super().step()
         with torch.no_grad():
-            for (flat, _, _), shard in zip(self.buckets, self.params):
-                dist.all_gather_into_tensor(flat, shard, group=self.group)
+            for b, shard in zip(self.buckets, self.params):
+                dist.all_gather_into_tensor(b.flat, shard, group=self.group)
 
 
 def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter]) -> Optimizer:
@@ -749,40 +897,62 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
     return Optimizer(strategy, params)
 
 
-def model_sharded_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
+def _shard_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
+    """The group whose ranks hold the other shards of the sharded leaves:
+    ``model`` or ``expert`` (never both wider than 1), or None."""
+    return mesh.expert_group if mesh.model_group is None else mesh.model_group
+
+
+def _shard_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
     """Per parameter of ``model`` (in ``parameters()`` order): whether the
-    ``model`` axis shards it (``tp_axis``)."""
-    tp, kv = mesh.size(AXES.model), model.config.kv_heads
-    return [tp_axis(name, kv, tp) is not None for name, _ in model.named_parameters()]
+    ``model`` axis shards it (``tp_axis``) or, under an ``expert`` axis, it
+    is an expert leaf."""
+    tp, ep, kv = mesh.size(AXES.model), mesh.size(AXES.expert), model.config.kv_heads
+    return [tp_axis(name, kv, tp) is not None or expert_axis(name, ep) is not None
+            for name, _ in model.named_parameters()]
+
+
+def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:
+    return [block.experts for block in model.blocks if hasattr(block, "experts")]
 
 
 def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
                    mesh: Optional[Mesh]) -> Tuple[torch.nn.Module, Optimizer]:
     """Lay the model out as the arm asks over ``mesh``'s ``data`` axis, and
-    its ``seq`` axis when that rides the group, and return (the model to
-    call, its optimizer); under a ``model`` axis the model holds this rank's
-    shards already and the arm lays those out over the data x seq ranks of
-    its ``model`` index. Without a process group (no ``mesh.device_mesh``)
-    the model is returned as it is. Weights must be loaded before this call
-    (``bridge.load_jax_params``)."""
+    its ``seq`` and ``expert`` axes when they ride the group, and return
+    (the model to call, its optimizer); under a ``model`` axis the model
+    holds this rank's shards already and the arm lays those out over the
+    data x seq ranks of its ``model`` index. Without a process group (no
+    ``mesh.device_mesh``) the model is returned as it is. Weights must be
+    loaded before this call (``bridge.load_jax_params``)."""
     check_ported(strategy)
     if mesh is None or mesh.device_mesh is None:
         return model, make_optimizer(strategy, model.parameters())
-    group, seq_group = mesh.data_group, mesh.seq_group
-    tp = {}
-    if mesh.model_group is not None:
-        tp = dict(model_group=mesh.model_group, model_sharded=model_sharded_flags(model, mesh))
+    group = mesh.data_group
+    shards = {}
+    if _shard_group(mesh) is not None:
+        shards = dict(shard_group=_shard_group(mesh), shard_flags=_shard_flags(model, mesh))
+    experts = _expert_modules(model) if mesh.expert_group is not None else []
     if strategy.shard_params:
         shard_mesh = shard_data_mesh(mesh)
         for block in model.blocks:
+            if experts:
+                fully_shard(block.experts, mesh=mesh.device_mesh[AXES.data])
             fully_shard(block, mesh=shard_mesh)
         fully_shard(model, mesh=shard_mesh)
-        return model, Optimizer(strategy, model.parameters(), norm_group=group, **tp)
+        # fully_shard replaced the parameters: take the experts' afterwards.
+        return model, _FSDPOptimizer(strategy, model, [p for m in experts for p in m.parameters()],
+                                     mesh.size(AXES.expert), norm_group=group, **shards)
     if strategy.shard_grads:
-        return model, _Zero2Optimizer(strategy, model, group, seq_group, **tp)
+        return model, _Zero2Optimizer(strategy, model, mesh)
     device = next(model.parameters()).device
+    expert_params = [p for m in experts for p in m.parameters()]
+    if experts:
+        DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+            model, [name for name, _ in model.named_parameters() if ".experts." in name])
     ddp = DistributedDataParallel(
         model, device_ids=[device.index] if device.type == "cuda" else None,
         process_group=mesh.arm_group, broadcast_buffers=False, gradient_as_bucket_view=True,
     )
-    return ddp, _DDPOptimizer(strategy, ddp, **tp)
+    return ddp, _DDPOptimizer(strategy, ddp, expert_params, group,
+                              mesh.size(AXES.data) * mesh.size(AXES.expert), **shards)

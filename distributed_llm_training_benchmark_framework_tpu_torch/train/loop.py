@@ -24,6 +24,16 @@ at world 1, all n are held in one process on its card. The row stamps
 ``sequence_parallel`` beside ``world_size`` either way
 (``utils/metrics.py`` says how each form is accounted).
 
+``n_experts`` E > 0 makes every block's MLP a top-k routed expert layer
+(``models/moe.py``); ``expert_parallel`` ep > 1 puts an ``expert`` axis on
+the group (``world % (n * tp * ep) == 0``), each rank holding E/ep experts
+and its own rows of a global micro-batch of ``pd * dp * ep``, with JAX's
+checks (``train/loop.py:464-479``). After the timed steps a MoE row gets
+``expert_overflow_pct``: the capacity's dropped share of the assignments on
+the trained params, from one dropout-free forward of the first step's
+micro-batch (JAX's diagnostic). There is no CLI flag for either, as the
+JAX ``bench.py`` has none.
+
 ``tensor_parallel`` tp > 1 lays the model out Megatron-style over a
 ``model`` axis of the group (``world % (tp * n) == 0``; ``parallel/mesh.py``,
 ``parallel/tensor.py``), which needs a group: there is no one-process form.
@@ -53,8 +63,9 @@ from typing import List, Optional, Union
 import torch
 import torch.distributed as dist
 
-from ..data.synthetic import SyntheticDataset
+from ..data.synthetic import SyntheticDataset, step_batch
 from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
+from ..models.tinygpt import moe_overflow_fraction
 from ..ops.ulysses_attention import check_heads
 from ..parallel.mesh import AXES, Mesh, make_mesh
 from ..parallel.strategies import (
@@ -126,10 +137,10 @@ def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
 
 
 def _tp_overrides(tensor_parallel: int, sequence_parallel: int,
-                  tp_collective_matmul: bool) -> dict:
+                  tp_collective_matmul: bool, n_experts: int) -> dict:
     """The JAX loop's checks of the tensor-parallel options
-    (``train/loop.py:471-477,533-558``; the port has no pipeline or MoE to
-    refuse) and the config override they give."""
+    (``train/loop.py:471-477,533-558``; the port has no pipeline schedule
+    to refuse) and the config override they give."""
     if tensor_parallel < 1:
         raise ValueError(f"tensor_parallel must be >= 1, got {tensor_parallel}")
     if not tp_collective_matmul:
@@ -139,7 +150,25 @@ def _tp_overrides(tensor_parallel: int, sequence_parallel: int,
             "--tp-collective-matmul cannot compose with sequence parallelism (both want to own "
             "the sequence axis; the ring/ulysses arms already overlap their comms)"
         )
+    if n_experts > 0:
+        raise ValueError(
+            "--tp-collective-matmul does not support MoE models (the expert dispatch owns the "
+            "token layout; dense MLPs only)"
+        )
     return {"tp_collective_matmul": True}
+
+
+def _moe_overrides(n_experts: int, expert_parallel: int) -> dict:
+    """The JAX loop's checks of the MoE options (``train/loop.py:464-470``)
+    and the config override they give."""
+    if expert_parallel < 1:
+        raise ValueError(f"expert_parallel must be >= 1, got {expert_parallel}")
+    if expert_parallel > 1 and n_experts == 0:
+        raise ValueError("expert_parallel > 1 requires --num-experts > 0")
+    if n_experts > 0 and expert_parallel > 1 and n_experts % expert_parallel != 0:
+        raise ValueError(f"n_experts={n_experts} not divisible by "
+                         f"expert_parallel={expert_parallel}")
+    return {"n_experts": n_experts} if n_experts > 0 else {}
 
 
 def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A",
@@ -148,15 +177,17 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               dropout: Optional[float] = None, sequence_parallel: int = 1,
               causal: bool = False, ring_zigzag: Optional[bool] = None, seed: int = 42,
               device: Optional[str] = None, world_size: Optional[int] = None,
-              tensor_parallel: int = 1, tp_collective_matmul: bool = False) -> Run:
+              tensor_parallel: int = 1, tp_collective_matmul: bool = False,
+              n_experts: int = 0, expert_parallel: int = 1) -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
     ``run_benchmark`` and the step profiler share it. ``causal`` turns
     causal masking on (Llama is causal anyway); ``ring_zigzag`` None is
     auto; ``world_size`` None is the process group's size, and another
-    value than that size is refused; ``tensor_parallel`` and
-    ``tp_collective_matmul`` as in the module docstring."""
+    value than that size is refused; ``tensor_parallel``,
+    ``tp_collective_matmul``, ``n_experts`` and ``expert_parallel`` as in
+    the module docstring."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -171,7 +202,9 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
                  "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32,
                  "param_dtype": param_torch_dtype(strat)}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
-    overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul))
+    overrides.update(_moe_overrides(n_experts, expert_parallel))
+    overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul,
+                                   n_experts))
     if dropout is not None:
         overrides["dropout"] = dropout
     cfg = get_config(model_family, tier, seq_len, **overrides)
@@ -179,8 +212,10 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
         check_tp(cfg, tensor_parallel)
     if attention_impl == "ulysses":
         check_heads(cfg.n_head // tensor_parallel, sequence_parallel)
-    mesh = (make_mesh((sequence_parallel, tensor_parallel), (AXES.seq, AXES.model))
-            if tensor_parallel > 1 else make_mesh((sequence_parallel,), (AXES.seq,)))
+    axes = [(AXES.seq, sequence_parallel), (AXES.model, tensor_parallel),
+            (AXES.expert, expert_parallel)]
+    axes = axes[:1] + [(a, w) for a, w in axes[1:] if w > 1]
+    mesh = make_mesh(tuple(w for _, w in axes), tuple(a for a, _ in axes))
     kind = device_kind(dev)
     strat = memory_mod.resolve_auto_remat(cfg, strat, mesh, per_device_batch, seq_len,
                                           DATASET_SIZE, kind)
@@ -225,13 +260,25 @@ def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
         )
 
 
-def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, tp: int) -> int:
-    """The model's parameter count (a ``model`` rank holds only its shards:
-    count the global model, built on the meta device)."""
-    if tp == 1:
+def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, mesh: Mesh) -> int:
+    """The model's parameter count (a ``model`` or ``expert`` rank holds
+    only its shards: count the global model, built on the meta device)."""
+    if mesh.size(AXES.model) == 1 and mesh.size(AXES.expert) == 1:
         return count_params(model)
     with torch.device("meta"):
         return count_params(TinyGPT(cfg))
+
+
+def _overflow_pct(run: "Run", micro: int) -> float:
+    """JAX's ``expert_overflow_pct``: the diagnostic on the first step's
+    micro-batch of the global batch (``batch_for_step(0, global_micro)``),
+    this rank's rows of it, in percent, rounded to 4 places."""
+    step_fn, inner = run.step_fn, getattr(run.model, "module", run.model)
+    global_micro = micro * step_fn.members
+    row0 = step_fn.member * micro
+    rows = step_batch(run.table, 0, 1, global_micro)[0, row0:row0 + micro]
+    frac = moe_overflow_fraction(inner, rows, row0, global_micro)
+    return round(float(frac) * 100.0, 4)
 
 
 def _max_over_ranks(value: float, mesh: Mesh, dev: torch.device) -> float:
@@ -268,13 +315,16 @@ def run_benchmark(
     tp_collective_matmul: bool = False,
     offload_dpu_start_step: int = 0,
     offload_log: Optional[dict] = None,
+    n_experts: int = 0,
+    expert_parallel: int = 1,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
     also writes ``result_<arm>.json`` there and prints the marker-delimited
     JSON. ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
-    ``world_size``, ``tensor_parallel`` and ``tp_collective_matmul`` as for
-    :func:`build_run`; ``offload_dpu_start_step`` as in the module
+    ``world_size``, ``tensor_parallel``, ``tp_collective_matmul``,
+    ``n_experts`` and ``expert_parallel`` as for :func:`build_run`;
+    ``offload_dpu_start_step`` as in the module
     docstring. ``loss_log``, when given, gets every step's loss (mean over
     ranks) appended in order, warmup included; ``offload_log``, when given
     to an offload arm, gets the host arm's per-step times and bytes
@@ -293,7 +343,8 @@ def run_benchmark(
                     sequence_parallel=sequence_parallel, causal=causal,
                     ring_zigzag=ring_zigzag, seed=seed, device=device,
                     world_size=world_size, tensor_parallel=tensor_parallel,
-                    tp_collective_matmul=tp_collective_matmul)
+                    tp_collective_matmul=tp_collective_matmul, n_experts=n_experts,
+                    expert_parallel=expert_parallel)
     dev, cfg, strat, model, table, step_fn, mesh = (
         run.device, run.config, run.strategy, run.model, run.table, run.step_fn, run.mesh)
     is_main = mesh.rank == 0
@@ -337,6 +388,7 @@ def run_benchmark(
     if offload_log is not None and step_fn.optimizer.host is not None:
         offload_log.update(step_fn.optimizer.host.stats())
     peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
+    overflow = _overflow_pct(run, per_device_batch) if cfg.n_experts > 0 else None
     peak_gb = _max_over_ranks(peak_gb, mesh, dev)
     result = metrics_mod.compute_result(
         strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
@@ -344,7 +396,7 @@ def run_benchmark(
         per_device_batch=per_device_batch, grad_accum=grad_accum,
         step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,
         peak_method=peak_method, device_kind=device_kind(dev), backend=dev.type,
-        n_params=_global_params(cfg, model, tensor_parallel), attention_impl=cfg.attention_impl,
+        n_params=_global_params(cfg, model, mesh), attention_impl=cfg.attention_impl,
         dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
         flops_per_token=flops_mod.train_flops_per_token(cfg), sync_every=sync_every,
         phase_times=phase, wall_time_total_sec=time.perf_counter() - t_start,
@@ -353,7 +405,8 @@ def run_benchmark(
         tensor_parallel=tensor_parallel, tp_collective_matmul=tp_collective_matmul,
         param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
         offload_delayed_update=asked.offload_delayed_update,
-        offload_dpu_start_step=offload_dpu_start_step,
+        offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
+        n_experts=n_experts, expert_overflow_pct=overflow,
     )
     if results_dir is not None and is_main:
         metrics_mod.emit_result(result, results_dir)

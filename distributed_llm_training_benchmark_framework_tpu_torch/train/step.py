@@ -29,6 +29,12 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
   runs while this step's forward and backward run on the device) and joins
   it in ``step``.
 
+Under expert parallelism the batch rows shard over ``data`` x ``expert``
+(JAX's ``batch_partition_spec``): the global micro-batch is pd * dp * ep
+rows and member ``d * ep + e`` takes rows ``[(d*ep + e)*pd, ...)``, keyed
+from its first row. The MoE layers exchange tokens over the ``expert``
+group (``models/moe.py``); every member's loss is a mean over its own rows.
+
 Under tensor parallelism the ``model`` ranks of a (data, seq) place take the
 same rows and columns, the same seeds and the same masks (the batch is
 replicated over ``model``, as JAX's batch spec names no ``model`` axis);
@@ -55,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.synthetic import step_batch
-from ..parallel.mesh import AXES, Mesh
+from ..parallel.mesh import Mesh
 from ..parallel.strategies import Optimizer
 
 
@@ -70,8 +76,8 @@ class TrainStep:
         self.grad_accum = grad_accum
         self.micro_batch = micro_batch
         self.device = device
-        self.dp = mesh.size(AXES.data) if mesh is not None else 1
-        self.rank = mesh.data_rank if mesh is not None else 0
+        # This rank's member index over data x expert and their count.
+        self.member, self.members = mesh.batch_shard if mesh is not None else (0, 1)
         self.seq_shard = mesh.seq_shard if mesh is not None else (0, 1)
         self.loss_group = mesh.group if mesh is not None else None
         self.world = mesh.world if mesh is not None else 1
@@ -88,10 +94,11 @@ class TrainStep:
     def __call__(self, table: torch.Tensor, step: int) -> torch.Tensor:
         """Run optimizer step ``step``; returns the mean loss as a 0-d tensor
         on the device (reading it is the caller's sync point)."""
-        global_micro = self.micro_batch * self.dp
+        global_micro = self.micro_batch * self.members
+        row0 = self.member * self.micro_batch
         batch = step_batch(table, step, self.grad_accum, global_micro)
-        if self.dp > 1:
-            batch = batch[:, self.rank * self.micro_batch:(self.rank + 1) * self.micro_batch]
+        if self.members > 1:
+            batch = batch[:, row0:row0 + self.micro_batch]
         s, n = self.seq_shard
         if n > 1:
             cols = batch.shape[-1] // n
@@ -102,8 +109,7 @@ class TrainStep:
         for j, micro in enumerate(batch):
             with self.optimizer.sync_context(last=j == self.grad_accum - 1):
                 _, loss = self.model(micro, micro, attn_seeds=self._attn_seeds(), generator=gen,
-                                     batch_offset=self.rank * self.micro_batch,
-                                     global_batch=global_micro)
+                                     batch_offset=row0, global_batch=global_micro)
                 loss.backward()
             loss_sum += loss.detach()
         self.optimizer.finish_grads(self.grad_accum)

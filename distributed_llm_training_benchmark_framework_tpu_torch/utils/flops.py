@@ -3,7 +3,8 @@
 Port of ``distributed_llm_training_benchmark_framework_tpu/utils/flops.py``:
 ``forward_flops_per_token`` / ``train_flops_per_token`` are the same
 formulas (matmul terms only, backward = 2x forward, causal attention charged
-at S/2). The peak table holds NVIDIA cards only.
+at S/2; a MoE layer counts its k active experts and the router, JAX's
+``2*k*(2*D*F) + 2*D*E``). The peak table holds NVIDIA cards only.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ def forward_flops_per_token(config) -> float:
     Hkv = config.kv_heads
     Fm = config.mlp_dim
     Dh = D // H
-    if config.mlp_act == "swiglu":
+    if config.n_experts > 0:
+        mlp = 2 * config.expert_top_k * (2 * D * Fm) + 2 * D * config.n_experts
+    elif config.mlp_act == "swiglu":
         mlp = 2 * (2 * D * Fm + Fm * D)
     else:
         mlp = 2 * (D * Fm + Fm * D)

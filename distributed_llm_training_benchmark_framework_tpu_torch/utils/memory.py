@@ -16,10 +16,11 @@ counterpart, since there is no XLA here).
   process group, and under ddp, every rank holds whole params, grads and
   both AdamW moments. fsdp / zero3 (FSDP2) keep rank 0's
   rows of dim 0 of every leaf, ceil(d0 / dp) of them, for all three. zero2
-  holds the replicated flat buffer (padded to a multiple of dp), a flat
-  gradient buffer of the same size plus the shard it is reduce-scattered
-  into, and the moments of one shard. AdamW's step counters are host
-  scalars and are not counted.
+  holds its buckets' replicated flat buffers (one per block and one for the
+  leaves outside the blocks, each padded to a multiple of dp), flat
+  gradient buffers of the same sizes plus the shards they are
+  reduce-scattered into, and the moments of the shards. AdamW's step
+  counters are host scalars and are not counted.
 - **Activations and logits use the JAX package's analytic formula**: per
   layer ``(10 + F/D widths of the MLP) * B * S * D`` compute-dtype bytes,
   the O(S^2) scores only for the materialized 'reference' attention, remat
@@ -29,7 +30,9 @@ counterpart, since there is no XLA here).
   term keeps JAX's formula at the global ``seq_len``: it does not divide by
   ``seq``, though each rank holds S/n of the sequence. That over-count is
   the JAX package's, kept as it is.
-- **Under a ``model`` axis** (tensor parallelism) the parameter, gradient
+- **Under a ``model`` or an ``expert`` axis** (tensor or expert
+  parallelism; JAX's ``_EP_RULES`` put ``expert`` on the experts axis of
+  the expert leaves) the parameter, gradient
   and AdamW-moment bytes are the JAX package's: its layout rules
   (``parallel/strategies.param_partition_specs``, copied with the
   composed-mesh hygiene of a (data, model) mesh) over JAX's leaves, each
@@ -51,7 +54,7 @@ import torch
 
 from ..models.tinygpt import TinyGPT, normalize_remat
 from ..parallel.mesh import AXES
-from ..parallel.strategies import jax_leaf_name, param_partition_specs
+from ..parallel.strategies import jax_leaf_name, param_partition_specs, zero2_bucket
 
 # Device memory per card in bytes, matched by substring against the device
 # name: 80 GB (decimal) for both H100 parts, from NVIDIA's data sheet.
@@ -95,30 +98,34 @@ class HBMEstimate:
         }
 
 
-def param_shapes(model_config) -> List[Tuple[int, ...]]:
-    """Shapes of the model's parameters, from a build on the meta device."""
+def param_shapes(model_config) -> List[Tuple[str, Tuple[int, ...]]]:
+    """(name, shape) of the model's parameters, from a build on the meta
+    device."""
     with torch.device("meta"):
-        return [tuple(p.shape) for p in TinyGPT(model_config).parameters()]
+        return [(name, tuple(p.shape)) for name, p in TinyGPT(model_config).named_parameters()]
 
 
 def param_itemsize(model_config) -> int:
     return torch.empty((), dtype=model_config.param_dtype).element_size()
 
 
-def state_bytes(shapes: List[Tuple[int, ...]], strategy, dp: int, wrapped: bool,
+def state_bytes(shapes: List[Tuple[str, Tuple[int, ...]]], strategy, dp: int, wrapped: bool,
                 item: int = 4) -> Tuple[int, int, int]:
-    """(params, grads, AdamW moments) bytes rank 0 holds, leaves of
-    ``shapes`` of ``item`` bytes per element, under the arm's layout over
-    ``dp`` ranks (``wrapped``: a process group is up, so the arm's wrapper
-    runs); no moments on the device under host offload."""
+    """(params, grads, AdamW moments) bytes rank 0 holds, leaves (name,
+    shape) of ``item`` bytes per element, under the arm's layout over ``dp``
+    ranks (``wrapped``: a process group is up, so the arm's wrapper runs);
+    no moments on the device under host offload."""
     moments = 0 if strategy.offload_opt_state else 2
-    n = sum(math.prod(s) for s in shapes)
+    n = sum(math.prod(s) for _, s in shapes)
     if not wrapped or not strategy.shard_grads:
         return n * item, n * item, moments * n * item
     if strategy.shard_params:
-        local = sum(-(-s[0] // dp) * math.prod(s[1:]) for s in shapes)
+        local = sum(-(-s[0] // dp) * math.prod(s[1:]) for _, s in shapes)
         return local * item, local * item, moments * local * item
-    size = -(-n // dp)
+    buckets: Dict[str, int] = {}
+    for name, s in shapes:
+        buckets[zero2_bucket(name)] = buckets.get(zero2_bucket(name), 0) + math.prod(s)
+    size = sum(-(-b // dp) for b in buckets.values())
     return size * dp * item, (size * dp + size) * item, moments * size * item
 
 
@@ -166,8 +173,9 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     cfg = model_config
     dp = mesh.size(AXES.data) if mesh is not None else 1
     tp = mesh.size(AXES.model) if mesh is not None else 1
+    ep = mesh.size(AXES.expert) if mesh is not None else 1
     wrapped = mesh is not None and mesh.device_mesh is not None
-    if tp > 1:
+    if tp > 1 or ep > 1:
         params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
     else:
         params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped,

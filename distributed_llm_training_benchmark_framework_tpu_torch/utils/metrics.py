@@ -23,12 +23,16 @@ group. A sequence-parallel run is one of two forms (``parallel/mesh.py``):
 
 A tensor-parallel run's ``model`` ranks also compute one example jointly
 (JAX's ``utils/metrics.py``): ``dp = max(world_size // (tensor_parallel *
-sequence_parallel), 1)``, the validator's formula
+sequence_parallel * expert_parallel), 1)``, the validator's formula
 (``analysis/validate_results.py``). The row stamps ``tensor_parallel`` and,
 ``tp_collective_matmul`` as it was asked for (inert at tp 1, and stamped
 all the same), as JAX's ``BenchmarkResult`` does, and so its
 ``param_dtype``, ``offload_opt_state``, ``offload_delayed_update`` and
-``offload_dpu_start_step``.
+``offload_dpu_start_step``. Expert-parallel members hold distinct rows
+(the batch shards over data x expert), so a step takes ``pd * accum * S *
+dp * ep`` tokens (JAX's ``tokens_per_step``); a MoE row stamps
+``expert_parallel``, ``n_experts`` and ``expert_overflow_pct`` (None for a
+dense row).
 """
 
 from __future__ import annotations
@@ -52,9 +56,10 @@ def arm_slug(strategy: str, world_size: int, seq_len: int, tier: str,
     return f"{strategy}_ws{world_size}_seq{seq_len}_tier{tier}{fam}"
 
 
-def tokens_per_step(per_device_batch: int, grad_accum: int, seq_len: int, dp: int) -> int:
+def tokens_per_step(per_device_batch: int, grad_accum: int, seq_len: int, dp: int,
+                    expert_parallel: int = 1) -> int:
     """Global tokens one optimizer step consumes."""
-    return per_device_batch * grad_accum * seq_len * dp
+    return per_device_batch * grad_accum * seq_len * dp * expert_parallel
 
 
 def measure_peak_memory(dev: torch.device) -> tuple[float, str]:
@@ -120,6 +125,12 @@ class BenchmarkResult:
     offload_opt_state: bool = False
     offload_delayed_update: bool = False
     offload_dpu_start_step: int = 0
+    # Expert-parallel width, experts per MoE layer (0: dense), and the
+    # measured share (%) of (token, choice) assignments the capacity drops
+    # on the trained params (None for a dense row).
+    expert_parallel: int = 1
+    n_experts: int = 0
+    expert_overflow_pct: Optional[float] = None
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -141,7 +152,9 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    ring_zigzag: str = "auto", tensor_parallel: int = 1,
                    tp_collective_matmul: bool = False, param_dtype: str = "f32",
                    offload_opt_state: bool = False, offload_delayed_update: bool = False,
-                   offload_dpu_start_step: int = 0) -> BenchmarkResult:
+                   offload_dpu_start_step: int = 0, expert_parallel: int = 1,
+                   n_experts: int = 0,
+                   expert_overflow_pct: Optional[float] = None) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -149,8 +162,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         loss_first, loss_last = sum(losses[:lw]) / lw, sum(losses[-lw:]) / lw
     else:
         lw, loss_first, loss_last = 0, 0.0, 0.0
-    dp = max(world_size // (tensor_parallel * sequence_parallel), 1)
-    step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, dp)
+    dp = max(world_size // (tensor_parallel * sequence_parallel * expert_parallel), 1)
+    step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, dp, expert_parallel)
     tps = step_tokens / mean_step if mean_step > 0 else 0.0
     h2d = per_device_batch * grad_accum * seq_len * 4 / mean_step / 1e9 if mean_step > 0 else 0.0
     tps_per_chip = tps / world_size if world_size else 0.0
@@ -186,7 +199,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         tensor_parallel=tensor_parallel,
         tp_collective_matmul=tp_collective_matmul, param_dtype=param_dtype,
         offload_opt_state=offload_opt_state, offload_delayed_update=offload_delayed_update,
-        offload_dpu_start_step=offload_dpu_start_step,
+        offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
+        n_experts=n_experts, expert_overflow_pct=expert_overflow_pct,
     )
 
 

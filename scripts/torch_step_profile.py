@@ -3,7 +3,7 @@
 
     python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring
                                                   parity_ulysses flagship_ulysses
-                                                  parity_s8192 flagship_s8192]
+                                                  parity_s8192 flagship_s8192 moe moe_bf16]
                                           [--arms ddp fsdp zero2 zero3]
                                           [--steps 3]
                                           [--out chiprun_out/torch_step_profile.json]
@@ -15,7 +15,9 @@ flagship_ring: Llama b1 x accum 2, both S 8192 over 4 ring shards on the
 one card, parity_ulysses / flagship_ulysses, the same geometry over 4
 Ulysses head groups, and parity_s8192 / flagship_s8192, the same geometry
 through flash attention with no sequence shards: the work Ulysses does
-around the same kernels, in one process, is the difference)
+around the same kernels, in one process, is the difference; and moe /
+moe_bf16: the parity row with 8 experts, top-2, capacity 1.25, the 1.18B
+MoE model, at fp32 and bf16 parameters)
 it builds the run exactly as ``train.loop.run_benchmark`` does, takes 3
 warmup steps, times ``--steps`` steps on the host clock (synchronised), and
 profiles the same number of steps with ``torch.profiler``. It reports, per
@@ -61,6 +63,10 @@ ROWS = {
                          seq_len=8192),
     "flagship_s8192": dict(model_family="llama", per_device_batch=1, grad_accum=2,
                            seq_len=8192),
+    "moe": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, seq_len=2048,
+                n_experts=8),
+    "moe_bf16": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, seq_len=2048,
+                     n_experts=8, param_dtype="bf16"),
 }
 GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
@@ -99,9 +105,14 @@ def device_events(prof):
 
 
 def profile_row(name: str, steps: int, strategy: str = "zero2") -> dict:
+    import dataclasses
+
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import get_strategy
     from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 
-    run = build_run(tier="A", device="cuda", strategy=strategy, **ROWS[name])
+    row = dict(ROWS[name])
+    arm = dataclasses.replace(get_strategy(strategy), param_dtype=row.pop("param_dtype", "f32"))
+    run = build_run(tier="A", device="cuda", strategy=arm, **row)
     step = 0
     for _ in range(3):
         run.step_fn(run.table, step).item()

@@ -183,11 +183,17 @@ def test_arm_matches_its_jax_recipe(runs, label, world):
 def test_local_state_has_the_arms_size(runs, label, world):
     """Rank 0's params and AdamW moments: ddp whole; fsdp / zero3 rank 0's
     rows of dim 0 of each leaf (FSDP2's ceil(d0 / world)); zero2 whole
-    params and the moments of its shard of the padded flat buffer."""
+    params and the moments of its shards of the padded flat buffers, one
+    per block and one for the leaves outside the blocks."""
     size = runs[0][world][0]["sizes"][label]
     n = size["param_global"]
     sharded = sum(-(-s[0] // world) * int(np.prod(s[1:])) for s in size["leaf_shapes"])
-    flat_shard = -(-n // world)
+    buckets = {}
+    for name, shape in zip(size["leaf_names"], size["leaf_shapes"]):
+        buckets[tstrat.zero2_bucket(name)] = buckets.get(tstrat.zero2_bucket(name), 0) + int(
+            np.prod(shape))
+    assert sorted(buckets) == ["", "blocks.0", "blocks.1"] and sum(buckets.values()) == n
+    flat_shard = sum(-(-b // world) for b in buckets.values())
     arm = LABELS[label]
     want = {"ddp": (n, n), "fsdp": (sharded, sharded), "zero3": (sharded, sharded),
             "zero2": (n, flat_shard)}[arm]
@@ -195,7 +201,33 @@ def test_local_state_has_the_arms_size(runs, label, world):
     if arm in ("fsdp", "zero3", "zero2"):
         assert size["moments"] <= n / world + n * 0.02  # about 1/world of the model
     if arm == "zero2" and world == 3:
-        assert flat_shard * world > n  # the flat buffer is padded
+        assert flat_shard * world > n  # the flat buffers are padded
+
+
+def test_zero2_reduce_scatters_each_bucket_once_inside_the_last_backward(runs):
+    """Tier S has blocks 0 and 1 and the leaves outside them (""): each
+    bucket's reduce-scatter starts in the last micro-batch's backward, as
+    soon as its block's gradients have landed, before the backward of the
+    block below starts; the outer leaves' (the tied embedding's gradient
+    lands last) ends it. The first micro-batch launches none."""
+    events = [tuple(e) for e in runs[0][2][0]["zero2_events"]]
+    assert events == [("bwd", 1), ("bwd", 0),
+                      ("bwd", 1), ("rs", "blocks.1", True), ("bwd", 0), ("rs", "blocks.0", True),
+                      ("rs", "", True)]
+
+
+def test_zero2_buckets_equal_the_single_buffer_form_at_two_ranks(runs):
+    """At two ranks each element's reduce-scatter adds the same two
+    addends whatever the buckets: per-step losses and params equal the
+    single flat buffer's bit for bit."""
+    res, arrays, rank_losses = runs[0][2]
+    assert res["losses"]["zero2"] == res["losses"]["zero2_single"]
+    keys = [k.split(".", 2)[2] for k in arrays.files if k.startswith("zero2.0.")]
+    assert "blocks.moe_w1" not in keys and len(keys) > 10
+    for step in range(STEPS):
+        for key in keys:
+            np.testing.assert_array_equal(arrays[f"zero2.{step}.{key}"],
+                                          arrays[f"zero2_single.{step}.{key}"], err_msg=key)
 
 
 @pytest.mark.parametrize("arm", ["ddp", "fsdp", "zero2", "zero3"])

@@ -16,7 +16,13 @@ the batch table (``table``). ``MODE``:
   WORLD 2 also each arm of ``OFFLOAD_ARMS`` under the serial host-offload
   arm (bf16 parameters, the JAX params rounded to bf16): every step's loss,
   the gathered fp32 masters after the last step (rank 0), and the world-2
-  ``run_benchmark`` row of zero2 with offload;
+  ``run_benchmark`` row of zero2 with offload. At WORLD 2 zero2 also runs
+  over ``SingleBufferZero2`` (the arm's earlier form, one flat buffer per
+  dtype reduce-scattered after the backward; kept here only as the per-block
+  buckets' reference): every step's loss and params (rank 0); and one
+  per-block zero2 step records, in order, each block's backward start (a
+  hook on its output's gradient) and each reduce-scatter the arm launches,
+  with its bucket and whether autograd's backward was running;
 - ``bytes``: for each arm and family, and each of f32 parameters, bf16
   parameters and host offload, the arm at tier S (seed weights), one step,
   then the bytes this rank holds in params, grads and AdamW moments on its
@@ -131,10 +137,10 @@ def master_tree(model, opt, mesh):
     if isinstance(opt, tstrat._Zero2Optimizer):
         values = []
         wholes = []
-        for (flat, _, _), shard in zip(opt.buckets, views):
-            whole = torch.empty(flat.numel(), dtype=torch.float32)
+        for bucket, shard in zip(opt.buckets, views):
+            whole = torch.empty(bucket.flat.numel(), dtype=torch.float32)
             torch.distributed.all_gather_into_tensor(whole, shard.contiguous(), group=opt.group)
-            wholes.append((flat, whole))
+            wholes.append((bucket.flat, whole))
         for p in inner.parameters():
             for flat, whole in wholes:
                 off = (p.data_ptr() - flat.data_ptr()) // p.element_size()
@@ -153,6 +159,110 @@ def master_tree(model, opt, mesh):
         for t, v in zip(twin.parameters(), values):
             t.copy_(v)
     return bridge.export_params(twin)
+
+
+class SingleBufferZero2(tstrat.Optimizer):
+    """zero2 with one flat buffer per dtype, reduce-scattered once after the
+    last micro-batch's backward (the arm before its per-block buckets)."""
+
+    def __init__(self, strategy, model, group):
+        dp, rank = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+        self.group, self.buckets, shards = group, [], []
+        by_dtype = {}
+        for p in model.parameters():
+            by_dtype.setdefault(p.dtype, []).append(p)
+        with torch.no_grad():
+            for dtype, params in by_dtype.items():
+                size = -(-sum(p.numel() for p in params) // dp)
+                flat = torch.zeros(size * dp, dtype=dtype)
+                grads = torch.zeros_like(flat)
+                offset = 0
+                for p in params:
+                    k = p.numel()
+                    flat[offset:offset + k].copy_(p.reshape(-1))
+                    p.data = flat[offset:offset + k].view_as(p)
+                    p.grad = grads[offset:offset + k].view_as(p)
+                    offset += k
+                shard = torch.nn.Parameter(flat[rank * size:(rank + 1) * size])
+                shard.grad = torch.zeros(size, dtype=dtype)
+                shards.append(shard)
+                self.buckets.append((flat, grads, shard.grad))
+        super().__init__(strategy, shards, norm_group=group)
+
+    def zero_grad(self):
+        for _, grads, _ in self.buckets:
+            grads.zero_()
+
+    @torch.no_grad()
+    def finish_grads(self, grad_accum):
+        for _, grads, shard_grad in self.buckets:
+            torch.distributed.reduce_scatter_tensor(shard_grad, grads, group=self.group)
+            shard_grad.div_(torch.distributed.get_world_size(self.group))
+        super().finish_grads(grad_accum)
+
+    def step(self):
+        super().step()
+        with torch.no_grad():
+            for (flat, _, _), shard in zip(self.buckets, self.params):
+                torch.distributed.all_gather_into_tensor(flat, shard, group=self.group)
+
+
+def parity_config(remat="none"):
+    return get_config("tinygpt", "S", S, dropout=0.0, compute_dtype=torch.float32,
+                      attention_impl="flash", remat=remat)
+
+
+def zero2_forms(params, table, arrays, rank):
+    """zero2 over ``SingleBufferZero2``: per-step losses, params (rank 0)."""
+    mesh = make_mesh()
+    model = TinyGPT(parity_config(), mesh=mesh)
+    bridge.load_jax_params(model, params)
+    opt = SingleBufferZero2(_strategy("zero2"), model, mesh.data_group)
+    step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0, device=CPU,
+                        mesh=mesh)
+    losses = []
+    for step in range(STEPS):
+        losses.append(step_fn(table, step).item())
+        got = bridge.export_params(model)
+        if rank == 0:
+            arrays.update({f"zero2_single.{step}.{k}": v for k, v in got.items() if k != "blocks"})
+            arrays.update({f"zero2_single.{step}.blocks.{k}": v
+                           for k, v in got["blocks"].items()})
+    return losses
+
+
+def zero2_launch_order(params, table):
+    """One per-block zero2 step: the events, in order (see the docstring)."""
+    mesh = make_mesh()
+    model = TinyGPT(parity_config(), mesh=mesh)
+    bridge.load_jax_params(model, params)
+    model, opt = tstrat.apply_strategy(model, _strategy("zero2"), mesh)
+    events = []
+    buckets = {b.shard_grad.data_ptr(): i for i, b in enumerate(opt.buckets)}
+    names = {}
+    for name, p in model.named_parameters():
+        for i, b in enumerate(opt.buckets):
+            if 0 <= p.data_ptr() - b.flat.data_ptr() < b.flat.numel() * b.flat.element_size():
+                names[i] = tstrat.zero2_bucket(name)
+    def on_output(i, out):
+        out.register_hook(lambda g: events.append(("bwd", i)))
+
+    for i, block in enumerate(model.blocks):
+        block.register_forward_hook(lambda mod, inp, out, i=i: on_output(i, out))
+    launch = torch.distributed.reduce_scatter_tensor
+
+    def recording(output, input, *args, **kwargs):
+        events.append(("rs", names[buckets[output.data_ptr()]],
+                       torch._C._current_graph_task_id() != -1))
+        return launch(output, input, *args, **kwargs)
+
+    torch.distributed.reduce_scatter_tensor = recording
+    try:
+        TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0, device=CPU,
+                  mesh=mesh)(table, 0)
+    finally:
+        torch.distributed.reduce_scatter_tensor = launch
+    return events
 
 
 def parity(rank, world, data, out):
@@ -186,6 +296,7 @@ def parity(rank, world, data, out):
             "param_global": sum(p.numel() for p in model.parameters()),
             "moments": sum(_local(st["exp_avg"]).numel() for st in opt.adamw.state.values()),
             "leaf_shapes": [list(p.shape) for p in model.parameters()],
+            "leaf_names": [name for name, _ in getattr(model, "module", model).named_parameters()],
         }
         if remat is None or remat == "none":
             row = run_benchmark(strategy=arm, tier="S", seq_len=S, steps=3, warmup_steps=1,
@@ -193,6 +304,8 @@ def parity(rank, world, data, out):
                                 world_size=world)
             res["rows"][arm] = row.to_dict()
     if world == 2:
+        res["losses"]["zero2_single"] = zero2_forms(params, table, arrays, rank)
+        res["zero2_events"] = zero2_launch_order(params, table)
         for arm in OFFLOAD_ARMS:
             label = f"{arm}_offload"
             strat = _strategy(arm, "none", offload_opt_state=True)

@@ -465,3 +465,41 @@ def test_head_shards_equal_the_whole_layers_rows(cuda, d, causal, rate, H, tp):
             assert torch.equal(a, b[rows])
         p_out, p_lse = fa.flash_forward_plain(qs, ks, vs, causal, rate, 11, bhv=bhv)
         assert _rel(o, p_out) <= 2e-2 and (l - p_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("shape", ["tier S", "row"])
+def test_moe_index_dispatch_matches_the_plain_version(cuda, shape):
+    """The MoE layer's index dispatch (the main path) against the one-hot
+    plain version on the card, bf16 compute: the output bit for bit (each
+    slot holds one token; the combine sums two exact products in fp32), the
+    gradients within 2e-2 of their largest magnitude (tests/test_torch_moe.py).
+    Tier S: B 2, S 64, E 4, D 128, F 512; the 1.18B row's layer: N 2048, E
+    8, C 640, D 1024, F 4096."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.models import get_config
+    from distributed_llm_training_benchmark_framework_tpu_torch.models import moe
+
+    B, S, E, D, F = {"tier S": (2, 64, 4, 128, 512), "row": (1, 2048, 8, 1024, 4096)}[shape]
+    cfg = get_config("tinygpt", "A", S, n_experts=E)
+    g = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*s):
+        return (0.02 * torch.randn(*s, device=cuda, generator=g)).requires_grad_()
+
+    x = torch.randn(B, S, D, device=cuda, generator=g).to(torch.bfloat16).requires_grad_()
+    lv = [rnd(D, E), rnd(E, D, F), rnd(E, F), rnd(E, F, D), rnd(E, D)]
+    dy = torch.randn(B, S, D, device=cuda, generator=g)
+    outs, grads = [], []
+    for form in ("index", "plain"):
+        if form == "index":
+            y, aux = moe.moe_mlp(cfg, x, lv[0],
+                                 lambda xin: moe.expert_ffn(xin, *lv[1:], cfg.compute_dtype))
+        else:
+            y, aux = moe.moe_mlp_plain(cfg, x, *lv)
+        (torch.sum(y.float() * dy) + aux).backward()
+        outs.append((y.detach(), aux.detach()))
+        grads.append([t.grad.clone() for t in (x, *lv)])
+        for t in (x, *lv):
+            t.grad = None
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    for a, b in zip(*grads):
+        assert (a.float() - b.float()).abs().max() <= 2e-2 * b.float().abs().max()

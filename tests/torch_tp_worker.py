@@ -158,7 +158,7 @@ def _norms(model, opt, mesh, arm, table):
         _, loss = model(micro[d:d + 1], micro[d:d + 1], batch_offset=d, global_batch=dp)
         loss.backward()
     opt.finish_grads(1)
-    got = opt._global_norm_tp().item()
+    got = opt._global_norm_sharded().item()
     inner = getattr(model, "module", model)
     sq = torch.zeros((), dtype=torch.float64)
     _, t = inner.tp
