@@ -227,9 +227,37 @@ is batched ``torch.bmm``, the attention K1-K3):
     over gloo (through the host; not NCCL); (d) is phase 12: its zero2
     group run reduce-scatters per block (the bucket count is printed).
 
+Pipeline parallelism (``parallel/pipeline.py``, ``parallel/interleaved.py``;
+no kernel of its own: each stage runs K1-K3 on whole layers):
+
+19. two processes on the one card joined over gloo (``chip_smoke.py
+    --pipe-worker RANK PORT DIR``), one stage each: first two processes
+    that try gloo's ``send`` on a CUDA tensor (``--pipe-probe``), which
+    gloo's TCP transport refuses, so the transport stages its messages
+    through pinned host memory under gloo (printed); (a) the parity row at
+    ``pipeline_parallel`` 2 (TinyGPT tier A, 8 layers per stage, S 2048, b1
+    x accum 4 = M 4 microbatches, zero2, dropout 0.1) through
+    ``run_benchmark`` under gpipe, 1f1b and interleaved (V 2, 4 layers per
+    chunk), 3 warmup + 10 timed steps each: per schedule and stage the
+    tokens/s and step ms (two stages time-sliced on one card: not a
+    scaling number), peak memory against ``estimate_hbm``, messages sent
+    per step against the law (M(P-1) per direction, M(PV-1) interleaved),
+    the ms per step spent waiting in receives and the schedule's bubble
+    bound; the three schedules' per-step losses within ``PIPE_LOSS_RTOL``
+    (they draw the same masks), and K1-K3 launches per stage per step equal
+    to the schedule's count (``PIPE_LAUNCHES``: K1 once per layer and
+    microbatch, again in the 1f1b / interleaved recompute, none for the
+    head chunk's F unit); (b) gpipe at dropout 0, 3 steps, against the
+    one-process parity row from the same seed, per-step losses within
+    ``PIPE_VS_ONE_RTOL``; (c) where a gpipe step of (a) goes on each
+    stage: the schedule, the arm's reduction with the sum of the
+    replicated leaves over ``pipe``, the optimizer step (host clock, the
+    card synchronized around each), and that sum alone over gloo.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
-could take and what bounds it), the nvidia-smi line, and, last,
+could take and what bounds it; the parity row's K1-K3 also carry phase
+19's launches per stage and step), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without those lines when
 no CUDA device is available.
 """
@@ -2099,6 +2127,269 @@ def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi) -> dict:
     return summary
 
 
+PIPE = dict(width=2, tier="A", seq_len=2048, per_device_batch=1, grad_accum=4, layers=16,
+            virtual=2, dropout=0.1)
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PIPE_VS_ONE_STEPS = 3
+# JAX's schedule-against-schedule tests hold the losses to 2e-3 (its
+# tests/test_pipeline.py); the schedules here draw the same masks and differ
+# only in the order their bf16 stages' fp32 gradients are summed.
+PIPE_LOSS_RTOL = 2e-3
+# pp 2 against one process at dropout 0: phase 12's group / no-group limit
+# (JAX allows 2e-3 for pp against ddp).
+PIPE_VS_ONE_RTOL = 1e-3
+# K1, K2, K3 launches per step on (stage 0, stage 1) at L 16, P 2, M 4: the
+# forward once per layer and microbatch (M * L / P = 32), again in the
+# 1f1b recompute; interleaved stage 1 holds chunks 1 and 3 and position 3
+# runs no F unit (16 + 32).
+PIPE_LAUNCHES = {
+    "gpipe": ((32, 32, 32), (32, 32, 32)),
+    "1f1b": ((64, 32, 32), (64, 32, 32)),
+    "interleaved": ((64, 32, 32), (48, 32, 32)),
+}
+PIPE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def pipe_probe(rank: int, port: int, outdir: str) -> int:
+    """Phase 19's probe, one rank: ``chip_smoke.py --pipe-probe RANK PORT
+    DIR``: does gloo's ``send`` / ``recv`` take a CUDA tensor?"""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    out = {}
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            dist.recv(x, 0)
+        torch.cuda.synchronize()
+        out["ok"] = bool((x == 1.0).all())
+    except RuntimeError as e:
+        out["error"] = str(e).splitlines()[0]
+    with open(os.path.join(outdir, f"probe.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    os._exit(0)  # the peer may have torn the pair down; skip gloo's teardown
+
+
+def pipe_worker(rank: int, port: int, outdir: str) -> int:
+    """Phase 19, one stage: ``chip_smoke.py --pipe-worker RANK PORT DIR``."""
+    from distributed_llm_training_benchmark_framework_tpu_torch import models
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import get_strategy
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.mesh import Mesh
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import loop
+    from distributed_llm_training_benchmark_framework_tpu_torch.utils import memory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert rt.setup_distributed(num_processes=PIPE["width"], process_id=rank, master_port=port,
+                                device="cuda", backend="gloo")
+    out = {}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    runs = [(sched, PIPE["dropout"], steps, WARMUP_STEPS) for sched in PIPE_SCHEDULES]
+    runs.append(("gpipe_dropout0", 0.0, PIPE_VS_ONE_STEPS, 1))
+    try:
+        for label, dropout, n, warm in runs:
+            schedule = label.split("_")[0]
+            fa.reset_launch_counts()
+            losses, plog = [], {}
+            res = loop.run_benchmark(
+                strategy="zero2", tier=PIPE["tier"], seq_len=PIPE["seq_len"], steps=n,
+                warmup_steps=warm, per_device_batch=PIPE["per_device_batch"],
+                grad_accum=PIPE["grad_accum"], attention_impl="flash", dropout=dropout,
+                sync_every=5, device="cuda", loss_log=losses, pipeline_parallel=PIPE["width"],
+                pipeline_schedule=schedule, virtual_stages=PIPE["virtual"], pipeline_log=plog)
+            counts = fa.launch_counts()
+            cfg = models.get_config("tinygpt", "A", PIPE["seq_len"], attention_impl="flash")
+            est = memory.estimate_hbm(cfg, get_strategy("zero2"),
+                                      Mesh({"data": 1, "pipe": PIPE["width"]}),
+                                      PIPE["per_device_batch"], PIPE["seq_len"],
+                                      loop.DATASET_SIZE)
+            out[label] = dict(
+                losses=losses, launches_per_step={k: counts[k] / n for k in PIPE_KERNELS},
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, estimate_gb=est.total / 1e9,
+                tokens_per_sec=res.tokens_per_sec, step_ms=1e3 * res.mean_step_time_sec,
+                row=[res.world_size, res.pipeline_parallel, res.pipeline_schedule,
+                     res.virtual_stages], **plog)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["parts"] = pipe_step_parts(loop)
+    finally:
+        rt.cleanup_distributed()
+    with open(os.path.join(outdir, f"pipe.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def pipe_step_parts(loop) -> dict:
+    """Phase 19 (c), one stage: where a gpipe step of (a)'s row goes, on the
+    host clock with the card synchronized around each part (which costs a
+    little): the schedule, the arm's reduction with the sum of the
+    replicated leaves over ``pipe`` (``finish_grads``), the optimizer step;
+    and that sum alone, an all-reduce of the replicated leaves' gradients
+    (wte, wpe, the final norm) over the gloo ``pipe`` group."""
+    import torch.distributed as dist
+
+    run = loop.build_run(strategy="zero2", tier=PIPE["tier"], seq_len=PIPE["seq_len"],
+                         per_device_batch=PIPE["per_device_batch"],
+                         grad_accum=PIPE["grad_accum"], attention_impl="flash",
+                         dropout=PIPE["dropout"], device="cuda",
+                         pipeline_parallel=PIPE["width"], pipeline_schedule="gpipe")
+    opt, acc = run.step_fn.optimizer, {"reduce": 0.0, "step": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t
+            return out
+        return call
+
+    opt.finish_grads, opt.step = timed(opt.finish_grads, "reduce"), timed(opt.step, "step")
+    reps, total = 3, 0.0
+    for step in range(2 + reps):
+        if step == 2:
+            acc.update(reduce=0.0, step=0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(run.step_fn(run.table, step))
+        if step >= 2:
+            total += time.perf_counter() - t
+    inner = getattr(run.model, "module", run.model)
+    shared = sum(p.numel() for name, p in inner.named_parameters() if not name.startswith("blocks"))
+    buf = torch.zeros(shared, device="cuda")
+    sums = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(buf, group=run.mesh.pipe_group)
+        torch.cuda.synchronize()
+        sums.append(time.perf_counter() - t)
+    return dict(step_ms=1e3 * total / reps, reduce_ms=1e3 * acc["reduce"] / reps,
+                optimizer_ms=1e3 * acc["step"] / reps,
+                schedule_ms=1e3 * (total - acc["reduce"] - acc["step"]) / reps,
+                pipe_sum_ms=1e3 * statistics.median(sums), pipe_sum_mb=shared * 4 / 1e6)
+
+
+def _pair(flag: str, timeout: int, check: bool = True) -> tuple:
+    """Start this script twice as ``flag`` RANK PORT DIR on the one card and
+    wait: (the directory, each process' output); kills both on the way out.
+    ``check``: fail unless both exit 0."""
+    outdir = tempfile.mkdtemp(prefix="pipe_smoke_")
+    env = dict(os.environ, LOCAL_RANK="0",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
+                               str(port), outdir], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(PIPE["width"])]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0 or not check, (
+            f"{flag} rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    return outdir, logs
+
+
+def phase_pipe(run_benchmark, smi) -> dict:
+    """Phase 19 (a) and (b)."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.pipeline import (
+        expected_messages,
+        pipeline_bubble_bound,
+    )
+
+    # gloo reports the refusal as an exception in the sender, or aborts it
+    # from its I/O thread: either way the sender's first line of it is kept.
+    outdir, logs = _pair("--pipe-probe", 120, check=False)
+    path = os.path.join(outdir, "probe.rank0.json")
+    sent = json.load(open(path)) if os.path.exists(path) else {}
+    errors = [ln for ln in logs[0].splitlines() if "gloo" in ln]
+    sender = sent.get("error") or (f"delivered: {sent['ok']}" if "ok" in sent else
+                                   (errors[-1].strip() if errors else logs[0][-300:]))
+    log(f"[19] gloo send of a CUDA tensor: {sender}; the pipeline's transport stages its "
+        "messages through pinned host memory under gloo")
+    outdir, _ = _pair("--pipe-worker", 600)
+    ranks = [json.load(open(os.path.join(outdir, f"pipe.rank{r}.json")))
+             for r in range(PIPE["width"])]
+    P, M, V = PIPE["width"], PIPE["grad_accum"], PIPE["virtual"]
+    summary, launches = {}, {}
+    for sched in PIPE_SCHEDULES:
+        virtual = V if sched == "interleaved" else 1
+        law = expected_messages(sched, P, M, virtual)
+        bound = pipeline_bubble_bound(sched, P, M, virtual)
+        for rk in ranks:
+            run = rk[sched]
+            stage = run["stage"]
+            got = tuple(run["launches_per_step"][k] for k in PIPE_KERNELS)
+            log(f"[19] (a) {sched} stage {stage} (two stages time-sliced on one card; not a "
+                f"scaling number): {run['tokens_per_sec']:.1f} tok/s, step "
+                f"{run['step_ms']:.2f} ms, peak {run['peak_gb']:.2f} GB (estimate_hbm "
+                f"{run['estimate_gb']:.2f} GB), messages per step fwd/bwd "
+                f"{run['sent_per_step']} (the pipeline's law {law} per direction), receive "
+                f"wait {run['wait_ms_per_step']:.2f} ms/step, host-staged "
+                f"{run['host_staged']}, bubble bound {bound:.4f}, K1/K2/K3 per step {got} "
+                f"(want {PIPE_LAUNCHES[sched][stage]}), row {run['row']} on {smi}")
+            assert got == PIPE_LAUNCHES[sched][stage], f"{sched} stage {stage}: launches {got}"
+            assert run["host_staged"] and run["row"] == [P, P, sched, virtual]
+            assert all(math.isfinite(x) for x in run["losses"])
+            assert run["losses"] == ranks[0][sched]["losses"], f"{sched}: ranks' losses differ"
+        for d in (0, 1):
+            assert sum(rk[sched]["sent_per_step"][d] for rk in ranks) == law, (sched, d)
+        launches[sched] = [rk[sched]["launches_per_step"] for rk in sorted(
+            ranks, key=lambda rk: rk[sched]["stage"])]
+        summary[sched] = dict(
+            tokens_per_sec=ranks[0][sched]["tokens_per_sec"],
+            step_ms=ranks[0][sched]["step_ms"], bubble_bound=bound, messages_law=law,
+            stages=[{k: rk[sched][k] for k in ("stage", "peak_gb", "estimate_gb",
+                                                 "sent_per_step", "wait_ms_per_step")}
+                    for rk in ranks])
+    base = ranks[0]["gpipe"]["losses"]
+    rel = {sched: max(abs(a - b) / abs(b) for a, b in zip(ranks[0][sched]["losses"], base))
+           for sched in PIPE_SCHEDULES[1:]}
+    log(f"[19] (a) per-step losses: " + json.dumps({s: [round(x, 5) for x in
+                                                        ranks[0][s]["losses"]]
+                                                    for s in PIPE_SCHEDULES})
+        + f"; max relative difference to gpipe {rel} (limit {PIPE_LOSS_RTOL})")
+    assert all(v <= PIPE_LOSS_RTOL for v in rel.values()), rel
+    one = []
+    run_benchmark(strategy="zero2", tier=PIPE["tier"], seq_len=PIPE["seq_len"],
+                  steps=PIPE_VS_ONE_STEPS, warmup_steps=1,
+                  per_device_batch=PIPE["per_device_batch"], grad_accum=PIPE["grad_accum"],
+                  attention_impl="flash", dropout=0.0, sync_every=5, device="cuda",
+                  loss_log=one)
+    piped = ranks[0]["gpipe_dropout0"]["losses"]
+    rel_one = max(abs(a - b) / abs(b) for a, b in zip(piped, one))
+    log(f"[19] (b) gpipe at pp {P}, dropout 0: losses {[round(x, 6) for x in piped]}, one "
+        f"process {[round(x, 6) for x in one]}, max relative difference {rel_one:.2e} (limit "
+        f"{PIPE_VS_ONE_RTOL})")
+    assert rel_one <= PIPE_VS_ONE_RTOL, f"pp {P} differs from one process by {rel_one}"
+    for rk in ranks:
+        parts = rk["parts"]
+        log(f"[19] (c) gpipe stage {rk['gpipe']['stage']}, a step's parts (host clock, card "
+            f"synchronized around each): step {parts['step_ms']:.2f} ms = schedule "
+            f"{parts['schedule_ms']:.2f} + the arm's reduction and the pipe sum "
+            f"{parts['reduce_ms']:.2f} + optimizer {parts['optimizer_ms']:.2f}; the pipe sum "
+            f"alone (all-reduce of {parts['pipe_sum_mb']:.1f} MB over gloo) "
+            f"{parts['pipe_sum_ms']:.2f} ms")
+    summary["parts"] = [rk["parts"] for rk in ranks]
+    summary["vs_one_process_rel"] = rel_one
+    summary["loss_rel_to_gpipe"] = rel
+    log(f"[19] summary {json.dumps(summary)} on {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -2107,6 +2398,10 @@ def main() -> int:
         return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--moe-worker"]:
         return moe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-worker"]:
+        return pipe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-probe"]:
+        return pipe_probe(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
@@ -2174,6 +2469,9 @@ def main() -> int:
     phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
                   row_results["parity"])
     phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe_launches = phase_pipe(run_benchmark, smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -2207,6 +2505,10 @@ def main() -> int:
                 "device_ms": r["device_ms"],
             }
             entry.update({nm: r[nm] for nm in OPTIONAL_KEYS if nm in r})
+            if key == "a":
+                entry["pipeline_launches_per_stage_per_step"] = {
+                    sched: [stage[names[kind]] for stage in stages]
+                    for sched, stages in pipe_launches.items()}
             kernels.append(entry)
     ring_kernels = {
         "fwd": ("ring_fwd_block", "ring_fwd_block",

@@ -28,11 +28,19 @@ gathers the shards over the ``model`` group back into global leaves (a
 collective again: every rank calls it). Under an ``expert`` axis likewise:
 a rank keeps its slice of each expert leaf's experts axis (axis 0 of a
 layer's leaf), and the export gathers the slices over the ``expert`` group.
+
+A pipeline stage (``pipe`` axis) holds the layers ``model.layer_ids``:
+``blocks.<i>`` maps to global layer ``layer_ids[i]``, the load takes those
+rows and the export gathers every stage's layers over the ``pipe`` group.
+JAX keeps an interleaved run's stacked layers in ``layer_permutation``
+order (its ``train/step.py``: row r holds global layer ``perm[r]``); the
+load and the export take that order as ``layer_order`` and invert or apply
+it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +53,11 @@ from .parallel.strategies import expert_axis, tp_axis
 
 def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
     """Yield (JAX path, port parameter) for every port parameter; a block
-    path is ("blocks", leaf, layer index)."""
+    path is ("blocks", leaf, global layer index)."""
     for name, p in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
-            yield ("blocks", parts[-1], int(parts[1])), p
+            yield ("blocks", parts[-1], model.layer_ids[int(parts[1])]), p
         else:
             yield (name,), p
 
@@ -61,8 +69,10 @@ def _jax_leaf_paths(params: Dict) -> set:
 
 
 @torch.no_grad()
-def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
-    """Fill ``model`` from a JAX param tree given as numpy arrays.
+def load_jax_params(model: TinyGPT, params_np: Dict,
+                    layer_order: Optional[Sequence[int]] = None) -> TinyGPT:
+    """Fill ``model`` from a JAX param tree given as numpy arrays, its
+    stacked row r holding global layer ``layer_order[r]`` (None: layer r).
 
     Every JAX leaf must map onto the model and every model parameter must be
     filled; shapes must agree exactly (a leaf that ``model`` shards: this
@@ -71,12 +81,13 @@ def load_jax_params(model: TinyGPT, params_np: Dict) -> TinyGPT:
     used = set()
     m, t = model.tp
     e, ep = model.ep
+    row = None if layer_order is None else np.argsort(np.asarray(layer_order))
     for (path, p), (name, _) in zip(leaf_map(model), model.named_parameters()):
         if path[0] == "blocks":
             _, leaf, i = path
             if leaf not in params_np.get("blocks", {}):
                 raise ValueError(f"JAX tree has no blocks/{leaf}")
-            arr = np.asarray(params_np["blocks"][leaf])[i]
+            arr = np.asarray(params_np["blocks"][leaf])[i if row is None else row[i]]
             used.add(("blocks", leaf))
         else:
             if path[0] not in params_np:
@@ -103,11 +114,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
-def export_params(model: torch.nn.Module) -> Dict:
+def export_params(model: torch.nn.Module, layer_order: Optional[Sequence[int]] = None,
+                  pipe_group: Optional[dist.ProcessGroup] = None) -> Dict:
     """The reverse direction: the model's parameters as a JAX-shaped numpy
-    tree (block leaves stacked on a leading layer axis) in the parameters'
-    dtype, whole leaves on every rank, copied (later steps do not change
-    them)."""
+    tree (block leaves stacked on a leading layer axis, row r global layer
+    ``layer_order[r]``, None: layer r) in the parameters' dtype, whole
+    leaves on every rank, copied (later steps do not change them). A
+    pipeline stage gathers the other stages' layers over ``pipe_group``."""
     out: Dict = {}
     stacks: Dict[str, list] = {}
     inner = getattr(model, "module", model)
@@ -127,8 +140,13 @@ def export_params(model: torch.nn.Module) -> Dict:
             stacks.setdefault(path[1], []).append((path[2], arr))
         else:
             out[path[0]] = arr
-    out["blocks"] = {
-        leaf: np.stack([a for _, a in sorted(items, key=lambda t: t[0])])
-        for leaf, items in stacks.items()
-    }
+    if pipe_group is not None:
+        parts: List[Dict[str, list]] = [None] * dist.get_world_size(pipe_group)
+        dist.all_gather_object(parts, stacks, group=pipe_group)
+        stacks = {leaf: [item for part in parts for item in part[leaf]] for leaf in stacks}
+    out["blocks"] = {}
+    for leaf, items in stacks.items():
+        by_layer = dict(items)
+        order = sorted(by_layer) if layer_order is None else layer_order
+        out["blocks"][leaf] = np.stack([by_layer[int(g)] for g in order])
     return out

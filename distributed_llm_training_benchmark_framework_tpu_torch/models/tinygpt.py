@@ -59,6 +59,23 @@ attention keys its dropout mask by global head ids (``head_offset``). With
 between projections, which run as the rings of
 ``ops/collective_matmul.py``. At tp 1 none of this runs: the model is the
 one above, operation for operation.
+
+Pipeline parallelism (a ``pipe`` axis of width P over the process group,
+``parallel/pipeline.py``) builds one stage: the blocks of its layers only,
+the contiguous ``[s*L/P, (s+1)*L/P)`` under gpipe / 1f1b, or under the
+interleaved schedule (``virtual_stages`` V) the chunks ``{v*P + s}`` of
+``L/(P*V)`` layers each, in ``layer_permutation``'s order; ``blocks.<i>``
+holds global layer ``layer_ids[i]``. The leaves outside the blocks are on
+every stage, as JAX's ``pipeline_param_specs`` replicates them. A schedule
+calls the model one unit at a time (``StageUnit``): ``embed``, a chunk's
+blocks (``run_blocks``) and the final norm, head and loss (``head_loss``).
+A unit draws its embedding and MLP dropout masks from generators seeded by
+(step, micro-batch, global layer), one seed each (``mask_seeds``: the
+embedding's, then layer l's at 1 + l), so every schedule and every
+recompute of a unit draws the same masks, as JAX folds the global layer
+into its key; the attention seeds are indexed by global layer as well.
+The whole model's forward without a pipeline keeps drawing its masks from
+the one generator in layer order.
 """
 
 from __future__ import annotations
@@ -67,7 +84,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -86,7 +103,9 @@ from ..ops.flash_attention import (
 )
 from ..ops.ring_attention import ring_attention, ring_attention_sharded
 from ..ops.ulysses_attention import ulysses_attention, ulysses_attention_sharded
+from ..parallel.interleaved import layer_permutation
 from ..parallel.mesh import AXES, Mesh
+from ..parallel.pipeline import StageUnit
 from ..parallel.strategies import check_tp, expert_axis, kv_aligned, tp_axis
 from ..parallel.tensor import (
     all_gather_seq,
@@ -361,9 +380,10 @@ class Block(nn.Module):
 
     def __init__(self, c: TinyGPTConfig, tp: Tuple[int, int] = (0, 1),
                  group: Optional[torch.distributed.ProcessGroup] = None,
-                 moe: ExpertGroups = ExpertGroups()):
+                 moe: ExpertGroups = ExpertGroups(), layer_id: int = 0):
         super().__init__()
         self.moe = moe
+        self.layer_id = layer_id  # the global layer this block is
         self.c = c
         m, t = tp
         self.group = group
@@ -547,14 +567,27 @@ class TinyGPT(nn.Module):
     on full-length activations. A ``model`` axis of width tp > 1 builds this
     rank's shards of the Megatron layout (see the module docstring), an
     ``expert`` axis of width ep > 1 this rank's E/ep experts of each
-    layer."""
+    layer; a ``pipe`` axis this rank's stage (see the module docstring),
+    ``virtual_stages`` chunks of it (1 but under the interleaved
+    schedule)."""
 
-    def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None):
+    def __init__(self, config: TinyGPTConfig, mesh: Optional[Mesh] = None,
+                 virtual_stages: int = 1):
         super().__init__()
         c = self.config = config
         m, t = mesh.model_shard if mesh is not None else (0, 1)
         if t > 1:
             check_tp(c, t)
+        s, pp = mesh.pipe_shard if mesh is not None else (0, 1)
+        self.pipe = (s, pp)
+        if c.n_layer % pp:
+            raise ValueError(f"n_layer={c.n_layer} not divisible by pipe={pp}")
+        per_stage = c.n_layer // pp
+        # Global layer of each local block (layer_permutation's rows of this
+        # stage: contiguous at one chunk); ``chunk`` v is blocks [v*Lc, (v+1)*Lc).
+        self.layer_ids = [int(g) for g in layer_permutation(c.n_layer, pp, virtual_stages)[
+            s * per_stage:(s + 1) * per_stage]]
+        self.chunk_layers = per_stage // virtual_stages
         self.tp, self.model_group = (m, t), (mesh.model_group if t > 1 else None)
         self.cmm = c.tp_collective_matmul and t > 1
         self.ep = mesh.expert_shard if mesh is not None else (0, 1)
@@ -564,8 +597,8 @@ class TinyGPT(nn.Module):
         self.wte = _param(pd, V // t, D)
         if c.pos_embed == "learned":
             self.wpe = _param(pd, c.block_size, D)
-        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe)
-                                    for _ in range(c.n_layer))
+        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe, g)
+                                    for g in self.layer_ids)
         self.lnf_scale = _param(pd, D)
         if c.norm == "layernorm":
             self.lnf_bias = _param(pd, D)
@@ -608,12 +641,17 @@ class TinyGPT(nn.Module):
         is a leaf whose name, less a ``moe_`` prefix, starts with ``b``
         (``bqkv``, ``moe_b1``, ...) or ends with ``_bias``. Under tensor or
         expert parallelism each leaf is drawn at its global shape and this
-        rank keeps its shard, so every layout of a seed holds the same
-        weights."""
+        rank keeps its shard, and a pipeline stage draws the whole model's
+        leaves in the whole model's order and keeps its layers', so every
+        layout of a seed holds the same weights."""
         (m, t), (e, ep) = self.tp, self.ep
-        for name, p in self.named_parameters():
+        for name, p, shape in self._whole_model_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("_scale"):
+            if p is None:
+                if not (leaf.endswith("_scale") or leaf.removeprefix("moe_").startswith("b")
+                        or leaf.endswith("_bias")):
+                    torch.randn(shape, generator=generator, device=generator.device)
+            elif leaf.endswith("_scale"):
                 p.fill_(1.0)
             elif leaf.removeprefix("moe_").startswith("b") or leaf.endswith("_bias"):
                 p.zero_()
@@ -630,6 +668,27 @@ class TinyGPT(nn.Module):
                 p.copy_(w)
         return self
 
+    def _whole_model_parameters(self):
+        """(name in the whole model, this rank's parameter or None, its
+        shape) in the whole model's parameter order: this model's own at
+        ``pipe`` width 1; a stage's blocks by their global layer ids."""
+        if self.pipe[1] == 1:
+            for name, p in self.named_parameters():
+                yield name, p, p.shape
+            return
+        local = dict(self.named_parameters())
+        where = {g: i for i, g in enumerate(self.layer_ids)}
+        with torch.device("meta"):
+            whole = TinyGPT(self.config)
+        for name, w in whole.named_parameters():
+            parts = name.split(".")
+            if parts[0] == "blocks":
+                i = where.get(int(parts[1]))
+                p = None if i is None else local[".".join(["blocks", str(i), *parts[2:]])]
+            else:
+                p = local[name]
+            yield name, p, w.shape
+
     def forward(
         self,
         idx: torch.Tensor,  # (B, S) token ids
@@ -639,6 +698,7 @@ class TinyGPT(nn.Module):
         generator: Optional[torch.Generator] = None,
         batch_offset: int = 0,
         global_batch: Optional[int] = None,
+        unit: Optional[StageUnit] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (fp32 logits (B, S, V), fp32 loss or None), over this rank's
         columns of the sequence when ``seq`` rides the group (the loss is
@@ -656,11 +716,25 @@ class TinyGPT(nn.Module):
         masks are drawn for all of them at the full sequence length and
         sliced to rows ``[batch_offset, batch_offset + B)`` and this rank's
         columns, so every layout of the same global batch draws the same
-        masks (None: this call's B rows are the whole batch)."""
+        masks (None: this call's B rows are the whole batch).
+
+        ``unit``: one unit of a pipeline stage instead (``run_unit``); a
+        schedule calls the model so, through the arm's wrapper."""
+        if unit is not None:
+            return self.run_unit(idx, targets, unit, attn_seeds, batch_offset, global_batch)
+        c = self.config
+        x, aux = self._trunk(idx, attn_seeds, generator, batch_offset, global_batch)
+        logits, loss = self._head(x, targets)
+        if loss is not None and c.n_experts > 0:
+            loss = loss + c.router_aux_coef * aux / c.n_layer
+        return logits, loss
+
+    def _head(self, x: torch.Tensor, targets: Optional[torch.Tensor]):
+        """Final norm, LM head and (with ``targets``) the cross-entropy:
+        (fp32 logits, loss or None)."""
         c = self.config
         m, t = self.tp
         group = self.model_group
-        x, aux = self._trunk(idx, attn_seeds, generator, batch_offset, global_batch)
         lnf = (copy_to_model(self.lnf_scale, group if self.cmm else None),
                copy_to_model(getattr(self, "lnf_bias", None), group if self.cmm else None))
         if c.norm == "rmsnorm":
@@ -679,24 +753,37 @@ class TinyGPT(nn.Module):
             loss = cross_entropy(logits, targets)
         else:
             loss = vocab_parallel_cross_entropy(logits, targets, m * (c.vocab_size // t), group)
-        if c.n_experts > 0:
-            loss = loss + c.router_aux_coef * aux / c.n_layer
         return logits, loss
 
-    def _trunk(self, idx, attn_seeds, generator, batch_offset, global_batch,
-               moe_aux_mode: Optional[str] = None):
-        """Embedding and blocks -> (the stream before the final norm, the
-        layers' summed MoE aux or None)."""
+    def _mask_geometry(self, B: int, S: int, batch_offset: int,
+                       global_batch: Optional[int]):
+        """(this rank's columns of the stream, the dropout masks' drawn
+        shape or None for the stream's own, the window kept of it) for B
+        rows of S tokens (before the collective matmul's cut)."""
+        s, n = self.seq_shard
+        m, t = self.tp
+        cols = slice(s * S, (s + 1) * S)
+        if self.cmm:
+            cols = slice(m * (S // t), (m + 1) * (S // t))
+        if (global_batch or B) == B and n == 1 and not self.cmm:
+            return cols, None, None
+        row0 = batch_offset if global_batch is not None else 0
+        return cols, (global_batch or B, S * n, self.config.n_embd), (slice(row0, row0 + B), cols)
+
+    def embed(self, idx: torch.Tensor, generator: Optional[torch.Generator],
+              batch_offset: int = 0, global_batch: Optional[int] = None) -> torch.Tensor:
+        """Token (+ learned position) embedding and its dropout, from
+        ``generator`` (None: no dropout) -> the stream in the compute
+        dtype."""
         c = self.config
         B, S = idx.shape
         s, n = self.seq_shard
         m, t = self.tp
         group = self.model_group
-        pos0 = s * S
         if S * n > c.block_size:
             raise ValueError(f"Sequence {S * n} exceeds block size {c.block_size}")
         v0 = m * (c.vocab_size // t)
-        cols = slice(pos0, pos0 + S)  # this rank's columns of the stream
+        cols, mask_shape, window = self._mask_geometry(B, S, batch_offset, global_batch)
         if group is None:
             tok = self.wte[idx]
         elif self.cmm:
@@ -706,7 +793,6 @@ class TinyGPT(nn.Module):
             # Summed over 'model' and cut to this rank's chunk of the sequence.
             tok = reduce_scatter_seq(vocab_parallel_embedding(idx, self.wte, v0, group,
                                                               reduce=False), group)
-            cols = slice(m * (S // t), (m + 1) * (S // t))
         else:
             tok = vocab_parallel_embedding(idx, self.wte, v0, group)
         if c.pos_embed == "learned":
@@ -714,21 +800,32 @@ class TinyGPT(nn.Module):
                 c.compute_dtype)
         else:
             x = tok.to(c.compute_dtype)
-        mask_shape, window = x.shape, None
-        if (global_batch or B) != B or n > 1 or self.cmm:
-            row0 = batch_offset if global_batch is not None else 0
-            mask_shape = (global_batch or B, S * n, x.shape[-1])
-            window = (slice(row0, row0 + B), cols)
-        x = _apply_dropout(x, _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
-                           c.dropout)
-        seeds: List[Optional[int]] = (
-            list(attn_seeds) if attn_seeds is not None else [None] * c.n_layer
-        )
+        return _apply_dropout(x, _dropout_mask(mask_shape or x.shape, c.dropout, generator,
+                                               x.device, window), c.dropout)
+
+    def run_blocks(self, x: torch.Tensor, blocks: Sequence[int],
+                   attn_seeds: Optional[Sequence[int]],
+                   generators: Sequence[Optional[torch.Generator]], batch_offset: int = 0,
+                   global_batch: Optional[int] = None, moe_aux_mode: Optional[str] = None):
+        """The local blocks ``blocks`` (indices into ``self.blocks``) over the
+        stream x -> (the stream, their summed MoE aux or None). Block i's
+        attention seed is ``attn_seeds[layer_ids[i]]`` (indexed by global
+        layer) and its MLP mask comes from its generator, one per block of
+        ``blocks`` (None: no dropout)."""
+        c = self.config
+        s, n = self.seq_shard
+        m, t = self.tp
+        B = x.shape[0]
+        S = x.shape[1] * (t if self.cmm else 1)
+        pos0 = s * S
+        _, mask_shape, window = self._mask_geometry(B, S, batch_offset, global_batch)
         remat = normalize_remat(c.remat)
         aux = None
-        for block, seed in zip(self.blocks, seeds):
+        for i, gen in zip(blocks, generators):
+            block = self.blocks[i]
+            seed = attn_seeds[block.layer_id] if attn_seeds is not None else None
             args = (x, self.attention, seed if c.dropout > 0.0 else None,
-                    _dropout_mask(mask_shape, c.dropout, generator, x.device, window),
+                    _dropout_mask(mask_shape or x.shape, c.dropout, gen, x.device, window),
                     batch_offset, pos0, moe_aux_mode)
             if remat == "none":
                 x = block(*args)
@@ -740,15 +837,69 @@ class TinyGPT(nn.Module):
                 aux = layer_aux if aux is None else aux + layer_aux
         return x, aux
 
+    def _trunk(self, idx, attn_seeds, generator, batch_offset, global_batch,
+               moe_aux_mode: Optional[str] = None):
+        """Embedding and blocks -> (the stream before the final norm, the
+        layers' summed MoE aux or None); every mask from ``generator``, in
+        layer order."""
+        x = self.embed(idx, generator, batch_offset, global_batch)
+        return self.run_blocks(x, range(len(self.blocks)), attn_seeds,
+                               [generator] * len(self.blocks), batch_offset, global_batch,
+                               moe_aux_mode)
+
+    def head_loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Final norm, head and cross-entropy over the stream x: the mean
+        loss without the MoE aux (the last stage's piece of a pipeline)."""
+        return self._head(x, targets)[1]
+
+    def run_unit(self, inp: torch.Tensor, targets: Optional[torch.Tensor], unit: StageUnit,
+                 attn_seeds: Optional[Sequence[int]], batch_offset: int,
+                 global_batch: Optional[int]):
+        """One pipeline unit (``parallel/pipeline.StageUnit``): ``inp`` is the
+        tokens when the unit embeds, else the stream; then chunk
+        ``unit.chunk``'s blocks (None: none), then with ``unit.head`` the
+        loss against ``targets`` -> (the stream or the loss, the chunk's MoE
+        aux or None). Masks come from ``unit.mask_seeds``."""
+        c = self.config
+        seeds = unit.mask_seeds if c.dropout > 0.0 else None
+
+        def gen(i: int) -> Optional[torch.Generator]:
+            if seeds is None:
+                return None
+            return torch.Generator(device=inp.device).manual_seed(int(seeds[i]))
+
+        x = self.embed(inp, gen(0), batch_offset, global_batch) if unit.embed else inp
+        aux = None
+        if unit.chunk is not None:
+            lc = self.chunk_layers
+            local = range(unit.chunk * lc, (unit.chunk + 1) * lc)
+            x, aux = self.run_blocks(x, local, attn_seeds,
+                                     [gen(1 + self.layer_ids[i]) for i in local], batch_offset,
+                                     global_batch)
+        if unit.head:
+            x = self.head_loss(x, targets)
+        return x, aux
+
 
 @torch.no_grad()
 def moe_overflow_fraction(model: TinyGPT, idx: torch.Tensor, batch_offset: int = 0,
-                          global_batch: Optional[int] = None) -> torch.Tensor:
+                          global_batch: Optional[int] = None, pipeline=None) -> torch.Tensor:
     """JAX's diagnostic: the mean fraction of (token, choice) assignments the
     capacity limit drops, averaged over the layers, from one dropout-free
     forward with the aux channel in overflow mode (over the group: the
-    mean over the token-sharding ranks, as the layer averages it)."""
-    _, aux = model._trunk(idx, None, None, batch_offset, global_batch, "overflow")
+    mean over the token-sharding ranks, as the layer averages it). Under a
+    pipeline of contiguous stages (``pipeline``: this rank's
+    ``parallel.pipeline.Pipeline``) the forward runs through the stages in
+    order and the layers' fractions are summed over ``pipe``."""
+    if pipeline is None:
+        _, aux = model._trunk(idx, None, None, batch_offset, global_batch, "overflow")
+    else:
+        n = len(model.blocks)
+        aux = pipeline.forward_only(
+            lambda: model.embed(idx, None, batch_offset, global_batch),
+            lambda x: model.run_blocks(x, range(n), None, [None] * n, batch_offset,
+                                       global_batch, "overflow"),
+            (*idx.shape, model.config.n_embd), model.config.compute_dtype)
     return aux / model.config.n_layer
 
 

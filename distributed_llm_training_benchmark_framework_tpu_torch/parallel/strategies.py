@@ -83,6 +83,22 @@ over ``data``, the rest then all-reduce over ``expert``, and both divide by
 dp * ep. The clip's norm sums the expert leaves' squares over ``expert``
 as it sums tp's over ``model``.
 
+Under pipeline parallelism (a ``pipe`` axis of width pp over the group;
+``parallel/pipeline.py``) each rank holds its stage's blocks and, replicated
+on every stage, the leaves outside the blocks (JAX's
+``pipeline_param_specs``). Every arm lays out and reduces the stage's
+parameters over the data x seq ranks of its ``pipe`` index, as above, with
+the whole schedule of a step as the accumulation: ddp runs it under
+``no_sync`` and then all-reduces the gradients once (DDP's reducer wants a
+forward / backward pair per micro-batch, which a schedule does not give);
+zero2 arms a block's bucket for the schedule's last backward unit of that
+block (``Optimizer.last_backward``); FSDP2 reduce-scatters in every
+backward unit, as it does in every micro-batch without a pipeline. After
+the arm's reduction the replicated leaves' gradients are summed over
+``pipe`` (the first stage holds the embedding's share, the last the
+head's), so they stay equal on every stage. The clip's norm sums the
+blocks' squares over ``pipe`` and counts the replicated leaves once.
+
 The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 
 - clip: with g_norm = sqrt(sum of squares over every gradient), each
@@ -525,21 +541,27 @@ def _shard_largest_free_axis(spec: list, shape: Tuple[int, ...], n_shards: int,
 
 def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[str, int],
                           shard: bool, kv_heads: Optional[int] = None) -> Dict[str, tuple]:
-    """JAX's ``param_partition_specs`` (the unrolled layer loop; no pipeline
-    axis) over JAX-shaped leaves: {leaf path: shape, block leaves stacked on
-    a layer axis} -> {leaf path: spec}, a spec being a tuple of axis names
-    or None per dimension."""
+    """JAX's ``param_partition_specs`` (the unrolled layer loop) over
+    JAX-shaped leaves: {leaf path: shape, block leaves stacked on a layer
+    axis} -> {leaf path: spec}, a spec being a tuple of axis names or None
+    per dimension. Under a ``pipe`` axis the layer axis of the block leaves
+    shards over ``pipe`` (contiguous stages) and ``wte`` / ``lm_head`` stay
+    replicated over ``model``, as in JAX."""
     n_data, n_model = mesh_shape.get("data", 1), mesh_shape.get("model", 1)
-    n_expert = mesh_shape.get("expert", 1)
+    n_pipe, n_expert = mesh_shape.get("pipe", 1), mesh_shape.get("expert", 1)
     kv_misaligned = kv_heads is not None and kv_heads % n_model != 0
     specs = {}
     for name, shape in shapes.items():
         spec = [None] * len(shape)
+        if n_pipe > 1 and name.startswith("blocks/"):
+            spec[0] = "pipe"
         if n_expert > 1 and name in _EP_RULES and shape[_EP_RULES[name]] % n_expert == 0:
             spec[_EP_RULES[name]] = "expert"
         if n_model > 1:
             for ax in _TP_RULES.get(name, ()):
                 if name in _KV_LEAVES and kv_misaligned:
+                    continue
+                if name in ("wte", "lm_head") and n_pipe > 1:
                     continue
                 if spec[ax] is None and shape[ax] % n_model == 0:
                     spec[ax] = "model"
@@ -563,6 +585,18 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int):
 def _local(t: torch.Tensor) -> torch.Tensor:
     """This rank's shard of a DTensor (a view), or the tensor itself."""
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _all_reduce_flat(tensors: List[torch.Tensor], group: dist.ProcessGroup) -> None:
+    """Sum ``tensors`` over ``group`` in place, one all-reduce per dtype."""
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        part = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in part])
+        dist.all_reduce(flat, group=group)
+        offset = 0
+        for t in part:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def _zero_grads(params: Iterable[torch.Tensor], set_to_none: bool) -> None:
@@ -597,8 +631,12 @@ class Optimizer:
     gradient (None: each rank holds whole gradients). ``shard_group`` and
     ``shard_flags`` (one flag per parameter): the ranks of ``shard_group``
     hold the other shards of the flagged parameters, and the rest are
-    replicated over it: ``model`` under tensor parallelism, ``expert``
-    under expert parallelism (never both wider than 1).
+    replicated over it: ``model`` under tensor parallelism, ``pipe`` under
+    pipeline parallelism (the blocks), ``expert`` under expert parallelism
+    (never two of them wider than 1). ``pipe_group`` and ``pipe_shared``
+    (one flag per parameter): under a pipeline, the flagged parameters are
+    held by every stage, and ``finish_grads`` sums their gradients over
+    ``pipe_group`` after the arm's reduction.
 
     Under ``offload_opt_state`` there is no device AdamW: ``host``
     (``parallel/offload.HostOffload``) holds the fp32 masters and moments of
@@ -610,12 +648,16 @@ class Optimizer:
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
                  norm_group: Optional[dist.ProcessGroup] = None,
                  shard_group: Optional[dist.ProcessGroup] = None,
-                 shard_flags: Optional[List[bool]] = None):
+                 shard_flags: Optional[List[bool]] = None,
+                 pipe_group: Optional[dist.ProcessGroup] = None,
+                 pipe_shared: Optional[List[bool]] = None):
         self.strategy = strategy
         self.params = [p for p in params]
         self.norm_group = norm_group
         self.shard_group = shard_group
         self.shard_flags = shard_flags or [False] * len(self.params)
+        self.pipe_group = pipe_group
+        self.pipe_shared = pipe_shared or [False] * len(self.params)
         if strategy.warmup_steps > 0:
             self.schedule = linear_schedule(0.0, strategy.learning_rate, strategy.warmup_steps)
         else:
@@ -638,17 +680,32 @@ class Optimizer:
 
     def sync_context(self, last: bool) -> ContextManager:
         """Wrap one micro-batch's forward and backward; ``last`` is the last
-        micro-batch of the step."""
+        micro-batch of the step. A pipeline schedule wraps the whole step in
+        ``sync_context(last=False)``."""
         return contextlib.nullcontext()
+
+    def last_backward(self, buckets: Iterable[str]) -> None:
+        """Under a pipeline schedule: the next backward unit is the step's
+        last one for the blocks ``buckets`` (``zero2_bucket`` names). Only
+        zero2 acts on it."""
 
     def _grads(self) -> List[torch.Tensor]:
         return [_local(p.grad) for p in self.params if p.grad is not None]
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
-        """After the last micro-batch: the summed grads become their mean."""
+        """After the last micro-batch: the summed grads become their mean;
+        under a pipeline the replicated leaves' gradients are summed over
+        ``pipe`` (a stage that never used a leaf adds zeros)."""
         if grad_accum > 1:
             torch._foreach_div_(self._grads(), float(grad_accum))
+        if self.pipe_group is None:
+            return
+        for p, shared in zip(self.params, self.pipe_shared):
+            if shared and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        _all_reduce_flat([_local(p.grad) for p, shared in zip(self.params, self.pipe_shared)
+                          if shared], self.pipe_group)
 
     def _global_norm(self, grads: List[torch.Tensor], f32: bool = False) -> torch.Tensor:
         norm = _total_norm(grads, f32)
@@ -729,14 +786,18 @@ class _DDPOptimizer(Optimizer):
     allocated anew by the micro-batches before the all-reduce, beside the
     buckets. Under expert parallelism DDP ignores the expert leaves
     (``experts``: their parameters), whose grads ``finish_grads`` sums over
-    ``expert_reduce`` (the ``data`` group) and divides by ``ranks``."""
+    ``expert_reduce`` (the ``data`` group) and divides by ``ranks``. Under a
+    pipeline (``explicit``) every backward runs under ``no_sync`` and
+    ``finish_grads`` averages the gradients over DDP's group itself."""
 
     def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel,
                  experts: List[torch.nn.Parameter] = (),
-                 expert_reduce: Optional[dist.ProcessGroup] = None, ranks: int = 1, **shards):
+                 expert_reduce: Optional[dist.ProcessGroup] = None, ranks: int = 1,
+                 explicit: bool = False, **shards):
         super().__init__(strategy, ddp.module.parameters(), **shards)
         self.ddp = ddp
         self.experts, self.expert_reduce, self.ranks = list(experts), expert_reduce, ranks
+        self.explicit = explicit
 
     def zero_grad(self) -> None:
         _zero_grads(self.params, set_to_none=False)
@@ -744,13 +805,17 @@ class _DDPOptimizer(Optimizer):
             self.host.begin_step()
 
     def sync_context(self, last: bool) -> ContextManager:
-        return contextlib.nullcontext() if last else self.ddp.no_sync()
+        return contextlib.nullcontext() if last and not self.explicit else self.ddp.no_sync()
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
         for p in self.experts:
             dist.all_reduce(p.grad, group=self.expert_reduce)
             p.grad.div_(self.ranks)
+        if self.explicit:
+            grads = self._grads()
+            _all_reduce_flat(grads, self.ddp.process_group)
+            torch._foreach_div_(grads, float(dist.get_world_size(self.ddp.process_group)))
         super().finish_grads(grad_accum)
 
 
@@ -780,16 +845,19 @@ def zero2_bucket(port_name: str) -> str:
 
 @dataclasses.dataclass(eq=False)
 class _Bucket:
-    """One zero2 bucket: the flat params (the parameters are views into
-    it), the flat grads, this rank's shard of the grads, the groups its
-    shard is all-reduced over after the reduce-scatter, and the
-    reduce-scatter's count-down and work."""
+    """One zero2 bucket: its block (``zero2_bucket``), the flat params (the
+    parameters are views into it), the flat grads, this rank's shard of the
+    grads, the groups its shard is all-reduced over after the
+    reduce-scatter, and the reduce-scatter's arming (the backward that
+    lands the step's last gradients), count-down and work."""
 
+    key: str
     flat: torch.Tensor
     grads: torch.Tensor
     shard_grad: torch.Tensor
     n_params: int
     replicas: Tuple[dist.ProcessGroup, ...]
+    armed: bool = False
     pending: int = 0
     work: Any = None
 
@@ -814,10 +882,9 @@ class _Zero2Optimizer(Optimizer):
         for name, p, sharded in zip(names, model.parameters(), flags):
             by_key.setdefault((zero2_bucket(name), p.dtype, sharded), []).append(p)
         self.buckets: List[_Bucket] = []
-        self._last = False
         shards = []
         with torch.no_grad():
-            for (_, dtype, sharded), params in by_key.items():
+            for (key, dtype, sharded), params in by_key.items():
                 n = sum(p.numel() for p in params)
                 size = -(-n // dp)  # one rank's shard; the padding is zero
                 device = params[0].device
@@ -835,12 +902,15 @@ class _Zero2Optimizer(Optimizer):
                 shards.append(shard)
                 is_expert = sharded and expert is not None
                 replicas = tuple(g for g in (seq, None if is_expert else expert) if g is not None)
-                bucket = _Bucket(flat, grads, shard.grad, len(params), replicas)
+                bucket = _Bucket(key, flat, grads, shard.grad, len(params), replicas)
                 for p in params:
                     p.register_post_accumulate_grad_hook(functools.partial(self._ready, bucket))
                 self.buckets.append(bucket)
+        pipe = {}
+        if mesh.pipe_group is not None:
+            pipe = dict(pipe_group=mesh.pipe_group, pipe_shared=[key == "" for key, _, _ in by_key])
         super().__init__(strategy, shards, norm_group=self.group, shard_group=_shard_group(mesh),
-                         shard_flags=[sharded for _, _, sharded in by_key])
+                         shard_flags=[sharded for _, _, sharded in by_key], **pipe)
 
     def zero_grad(self) -> None:
         # The params' grads are views into the flat buffers: keep them.
@@ -850,19 +920,24 @@ class _Zero2Optimizer(Optimizer):
             self.host.begin_step()
 
     def sync_context(self, last: bool) -> ContextManager:
-        self._last = last
         for b in self.buckets:
-            b.pending, b.work = b.n_params, None
+            b.armed, b.pending, b.work = last, b.n_params, None
         return contextlib.nullcontext()
+
+    def last_backward(self, buckets: Iterable[str]) -> None:
+        keys = set(buckets)
+        for b in self.buckets:
+            if b.key in keys:
+                b.armed, b.pending = True, b.n_params
 
     def _launch(self, b: _Bucket) -> None:
         b.work = dist.reduce_scatter_tensor(b.shard_grad, b.grads, group=self.group,
                                             async_op=True)
 
     def _ready(self, b: _Bucket, _param: torch.Tensor) -> None:
-        """A parameter's gradient has landed; in the last micro-batch, the
-        bucket's reduce-scatter starts with its last one."""
-        if not self._last:
+        """A parameter's gradient has landed; in the bucket's last backward,
+        its reduce-scatter starts with its last one."""
+        if not b.armed:
             return
         b.pending -= 1
         if b.pending == 0:
@@ -882,7 +957,7 @@ class _Zero2Optimizer(Optimizer):
             for g in b.replicas:
                 dist.all_reduce(b.shard_grad, group=g)
             b.shard_grad.div_(self.ranks)
-        self._last = False
+            b.armed = False
         super().finish_grads(grad_accum)
 
     def step(self) -> None:
@@ -899,17 +974,23 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
 
 def _shard_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
     """The group whose ranks hold the other shards of the sharded leaves:
-    ``model`` or ``expert`` (never both wider than 1), or None."""
-    return mesh.expert_group if mesh.model_group is None else mesh.model_group
+    ``model``, ``pipe`` or ``expert`` (never two of them wider than 1), or
+    None."""
+    for group in (mesh.model_group, mesh.pipe_group):
+        if group is not None:
+            return group
+    return mesh.expert_group
 
 
 def _shard_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
     """Per parameter of ``model`` (in ``parameters()`` order): whether the
-    ``model`` axis shards it (``tp_axis``) or, under an ``expert`` axis, it
-    is an expert leaf."""
+    ``model`` axis shards it (``tp_axis``), a ``pipe`` axis (a block leaf:
+    each stage holds its own layers) or, under an ``expert`` axis, it is an
+    expert leaf."""
     tp, ep, kv = mesh.size(AXES.model), mesh.size(AXES.expert), model.config.kv_heads
+    pp = mesh.size(AXES.pipe)
     return [tp_axis(name, kv, tp) is not None or expert_axis(name, ep) is not None
-            for name, _ in model.named_parameters()]
+            or (pp > 1 and zero2_bucket(name) != "") for name, _ in model.named_parameters()]
 
 
 def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:
@@ -920,9 +1001,10 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
                    mesh: Optional[Mesh]) -> Tuple[torch.nn.Module, Optimizer]:
     """Lay the model out as the arm asks over ``mesh``'s ``data`` axis, and
     its ``seq`` and ``expert`` axes when they ride the group, and return
-    (the model to call, its optimizer); under a ``model`` axis the model
-    holds this rank's shards already and the arm lays those out over the
-    data x seq ranks of its ``model`` index. Without a process group (no
+    (the model to call, its optimizer); under a ``model`` or ``pipe`` axis
+    the model holds this rank's shards or stage already and the arm lays
+    those out over the data x seq ranks of its ``model`` and ``pipe``
+    indices. Without a process group (no
     ``mesh.device_mesh``) the model is returned as it is. Weights must be
     loaded before this call (``bridge.load_jax_params``)."""
     check_ported(strategy)
@@ -932,6 +1014,9 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
     shards = {}
     if _shard_group(mesh) is not None:
         shards = dict(shard_group=_shard_group(mesh), shard_flags=_shard_flags(model, mesh))
+    if mesh.pipe_group is not None:
+        shared = [zero2_bucket(name) == "" for name, _ in model.named_parameters()]
+        shards.update(pipe_group=mesh.pipe_group, pipe_shared=shared)
     experts = _expert_modules(model) if mesh.expert_group is not None else []
     if strategy.shard_params:
         shard_mesh = shard_data_mesh(mesh)
@@ -955,4 +1040,5 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
         process_group=mesh.arm_group, broadcast_buffers=False, gradient_as_bucket_view=True,
     )
     return ddp, _DDPOptimizer(strategy, ddp, expert_params, group,
-                              mesh.size(AXES.data) * mesh.size(AXES.expert), **shards)
+                              mesh.size(AXES.data) * mesh.size(AXES.expert),
+                              explicit=mesh.pipe_group is not None, **shards)

@@ -16,17 +16,20 @@ one card per process, or 1 without a group. Every rank runs this loop;
 rank 0 alone prints and emits the row, which carries the group's size and
 the highest peak memory of any rank.
 
+The ``seq``, ``model``, ``pipe`` and ``expert`` axes ride the group by the
+mesh's rule (``parallel/mesh.py``): ``world % (n * tp * pp * ep) == 0`` and
+``data`` has width ``world // (n * tp * pp * ep)``.
+
 ``sequence_parallel`` n > 1 runs ring or Ulysses attention over n sequence
-shards, by the mesh's rule (``parallel/mesh.py``): with a group of
-world > 1 the shards ride the group (``world % n == 0``, ``data`` width
-``world // n``, each rank holding S/n of the sequence); without a group, or
-at world 1, all n are held in one process on its card. The row stamps
+shards: with a group of world > 1 the shards ride the group (each rank
+holding S/n of the sequence); without a group, or at world 1, all n are
+held in one process on its card. The row stamps
 ``sequence_parallel`` beside ``world_size`` either way
 (``utils/metrics.py`` says how each form is accounted).
 
 ``n_experts`` E > 0 makes every block's MLP a top-k routed expert layer
 (``models/moe.py``); ``expert_parallel`` ep > 1 puts an ``expert`` axis on
-the group (``world % (n * tp * ep) == 0``), each rank holding E/ep experts
+the group, each rank holding E/ep experts
 and its own rows of a global micro-batch of ``pd * dp * ep``, with JAX's
 checks (``train/loop.py:464-479``). After the timed steps a MoE row gets
 ``expert_overflow_pct``: the capacity's dropped share of the assignments on
@@ -35,11 +38,25 @@ micro-batch (JAX's diagnostic). There is no CLI flag for either, as the
 JAX ``bench.py`` has none.
 
 ``tensor_parallel`` tp > 1 lays the model out Megatron-style over a
-``model`` axis of the group (``world % (tp * n) == 0``; ``parallel/mesh.py``,
-``parallel/tensor.py``), which needs a group: there is no one-process form.
+``model`` axis of the group (``parallel/tensor.py``), which needs a group:
+there is no one-process form.
 ``tp_collective_matmul`` runs its projections as the rings of
 ``ops/collective_matmul.py`` (inert at tp 1, and stamped on the row either
 way, as in JAX). The row stamps ``tensor_parallel``.
+
+``pipeline_parallel`` pp > 1 puts a ``pipe`` axis on the group, each rank
+holding one stage (which needs a group), and trains under
+``pipeline_schedule`` "gpipe", "1f1b" or "interleaved" (``virtual_stages``
+chunks per stage, 2 by default) with the step's ``grad_accum`` micro-batches
+as the schedule's microbatches (``parallel/pipeline.py``,
+``parallel/interleaved.py``), with JAX's checks (``train/loop.py:464-546``):
+``n_layer`` divisible by pp (by pp * V under interleaved), a known schedule,
+no ``tp_collective_matmul``. A ``model`` axis or an ``expert`` axis wider
+than 1 beside ``pipe`` is refused (ROADMAP Queue 1 items 13 and 12). The
+row stamps ``pipeline_parallel``, ``pipeline_schedule`` and
+``virtual_stages`` (1 unless interleaved). The MoE overflow diagnostic runs
+through the stages under gpipe and 1f1b and, as in JAX, is skipped under
+interleaved.
 
 The model's parameters are bf16 when the strategy's ``param_dtype`` is
 "bf16" or it offloads its optimizer state (``offload_opt_state``: fp32
@@ -68,6 +85,7 @@ from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
 from ..models.tinygpt import moe_overflow_fraction
 from ..ops.ulysses_attention import check_heads
 from ..parallel.mesh import AXES, Mesh, make_mesh
+from ..parallel.pipeline import Pipeline, check_pipeline
 from ..parallel.strategies import (
     StrategyConfig,
     apply_strategy,
@@ -139,8 +157,9 @@ def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
 def _tp_overrides(tensor_parallel: int, sequence_parallel: int,
                   tp_collective_matmul: bool, n_experts: int) -> dict:
     """The JAX loop's checks of the tensor-parallel options
-    (``train/loop.py:471-477,533-558``; the port has no pipeline schedule
-    to refuse) and the config override they give."""
+    (``train/loop.py:471-477,533-558``; the pipeline's refusal of the
+    collective matmul is ``parallel/pipeline.check_pipeline``'s) and the
+    config override they give."""
     if tensor_parallel < 1:
         raise ValueError(f"tensor_parallel must be >= 1, got {tensor_parallel}")
     if not tp_collective_matmul:
@@ -178,7 +197,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               causal: bool = False, ring_zigzag: Optional[bool] = None, seed: int = 42,
               device: Optional[str] = None, world_size: Optional[int] = None,
               tensor_parallel: int = 1, tp_collective_matmul: bool = False,
-              n_experts: int = 0, expert_parallel: int = 1) -> Run:
+              n_experts: int = 0, expert_parallel: int = 1, pipeline_parallel: int = 1,
+              pipeline_schedule: str = "gpipe", virtual_stages: int = 2) -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
@@ -186,8 +206,9 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     causal masking on (Llama is causal anyway); ``ring_zigzag`` None is
     auto; ``world_size`` None is the process group's size, and another
     value than that size is refused; ``tensor_parallel``,
-    ``tp_collective_matmul``, ``n_experts`` and ``expert_parallel`` as in
-    the module docstring."""
+    ``tp_collective_matmul``, ``n_experts``, ``expert_parallel``,
+    ``pipeline_parallel``, ``pipeline_schedule`` and ``virtual_stages`` as
+    in the module docstring."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -203,6 +224,9 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
                  "param_dtype": param_torch_dtype(strat)}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
     overrides.update(_moe_overrides(n_experts, expert_parallel))
+    check_pipeline(pipeline_parallel, pipeline_schedule, virtual_stages,
+                   get_config(model_family, tier, seq_len).n_layer, tensor_parallel,
+                   expert_parallel, tp_collective_matmul)
     overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul,
                                    n_experts))
     if dropout is not None:
@@ -213,7 +237,7 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     if attention_impl == "ulysses":
         check_heads(cfg.n_head // tensor_parallel, sequence_parallel)
     axes = [(AXES.seq, sequence_parallel), (AXES.model, tensor_parallel),
-            (AXES.expert, expert_parallel)]
+            (AXES.pipe, pipeline_parallel), (AXES.expert, expert_parallel)]
     axes = axes[:1] + [(a, w) for a, w in axes[1:] if w > 1]
     mesh = make_mesh(tuple(w for _, w in axes), tuple(a for a, _ in axes))
     kind = device_kind(dev)
@@ -228,13 +252,18 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     refusal = memory_mod.check_fits(est, kind)
     if refusal is not None:
         raise ValueError(refusal)
+    interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
     with torch.device(dev):
-        model = TinyGPT(cfg, mesh=mesh)
+        model = TinyGPT(cfg, mesh=mesh, virtual_stages=virtual_stages if interleaved else 1)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model, optimizer = apply_strategy(model, strat, mesh)
     table = SyntheticDataset(cfg.vocab_size, seq_len, DATASET_SIZE, seed).to_device(dev)
+    pipeline = None
+    if pipeline_parallel > 1:
+        pipeline = Pipeline(pipeline_schedule, mesh, grad_accum, dev, virtual_stages)
     step_fn = TrainStep(model, optimizer, grad_accum=grad_accum,
-                        micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh)
+                        micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh,
+                        pipeline=pipeline)
     return Run(dev, cfg, strat, model, table, step_fn, mesh)
 
 
@@ -261,9 +290,10 @@ def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
 
 
 def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, mesh: Mesh) -> int:
-    """The model's parameter count (a ``model`` or ``expert`` rank holds
-    only its shards: count the global model, built on the meta device)."""
-    if mesh.size(AXES.model) == 1 and mesh.size(AXES.expert) == 1:
+    """The model's parameter count (a ``model``, ``pipe`` or ``expert`` rank
+    holds only its shards: count the global model, built on the meta
+    device)."""
+    if all(mesh.size(a) == 1 for a in (AXES.model, AXES.pipe, AXES.expert)):
         return count_params(model)
     with torch.device("meta"):
         return count_params(TinyGPT(cfg))
@@ -277,7 +307,7 @@ def _overflow_pct(run: "Run", micro: int) -> float:
     global_micro = micro * step_fn.members
     row0 = step_fn.member * micro
     rows = step_batch(run.table, 0, 1, global_micro)[0, row0:row0 + micro]
-    frac = moe_overflow_fraction(inner, rows, row0, global_micro)
+    frac = moe_overflow_fraction(inner, rows, row0, global_micro, step_fn.pipeline)
     return round(float(frac) * 100.0, 4)
 
 
@@ -317,18 +347,25 @@ def run_benchmark(
     offload_log: Optional[dict] = None,
     n_experts: int = 0,
     expert_parallel: int = 1,
+    pipeline_parallel: int = 1,
+    pipeline_schedule: str = "gpipe",
+    virtual_stages: int = 2,
+    pipeline_log: Optional[dict] = None,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
     also writes ``result_<arm>.json`` there and prints the marker-delimited
     JSON. ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
     ``world_size``, ``tensor_parallel``, ``tp_collective_matmul``,
-    ``n_experts`` and ``expert_parallel`` as for :func:`build_run`;
+    ``n_experts``, ``expert_parallel``, ``pipeline_parallel``,
+    ``pipeline_schedule`` and ``virtual_stages`` as for :func:`build_run`;
     ``offload_dpu_start_step`` as in the module
     docstring. ``loss_log``, when given, gets every step's loss (mean over
     ranks) appended in order, warmup included; ``offload_log``, when given
     to an offload arm, gets the host arm's per-step times and bytes
-    (``parallel/offload.HostOffload.stats``)."""
+    (``parallel/offload.HostOffload.stats``); ``pipeline_log``, when given
+    to a pipelined run, gets this rank's stage, the messages it sent per
+    step in each direction and the ms per step it waited in receives."""
     if steps <= warmup_steps:
         raise ValueError(f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
     asked = get_strategy(strategy) if isinstance(strategy, str) else strategy
@@ -344,7 +381,8 @@ def run_benchmark(
                     ring_zigzag=ring_zigzag, seed=seed, device=device,
                     world_size=world_size, tensor_parallel=tensor_parallel,
                     tp_collective_matmul=tp_collective_matmul, n_experts=n_experts,
-                    expert_parallel=expert_parallel)
+                    expert_parallel=expert_parallel, pipeline_parallel=pipeline_parallel,
+                    pipeline_schedule=pipeline_schedule, virtual_stages=virtual_stages)
     dev, cfg, strat, model, table, step_fn, mesh = (
         run.device, run.config, run.strategy, run.model, run.table, run.step_fn, run.mesh)
     is_main = mesh.rank == 0
@@ -387,8 +425,21 @@ def run_benchmark(
 
     if offload_log is not None and step_fn.optimizer.host is not None:
         offload_log.update(step_fn.optimizer.host.stats())
+    if pipeline_log is not None and step_fn.pipeline is not None:
+        transport = step_fn.pipeline.transport
+        pipeline_log.update(stage=step_fn.pipeline.stage,
+                            sent_per_step=[n / steps for n in transport.sent],
+                            wait_ms_per_step=1e3 * transport.wait_s / steps,
+                            host_staged=transport.staged)
     peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
-    overflow = _overflow_pct(run, per_device_batch) if cfg.n_experts > 0 else None
+    interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
+    overflow = None
+    if cfg.n_experts > 0 and interleaved:
+        if is_main:
+            print("NOTE: MoE overflow diagnostic skipped under the interleaved schedule (its "
+                  "stages hold permuted layer chunks; JAX skips it there too)")
+    elif cfg.n_experts > 0:
+        overflow = _overflow_pct(run, per_device_batch)
     peak_gb = _max_over_ranks(peak_gb, mesh, dev)
     result = metrics_mod.compute_result(
         strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
@@ -406,7 +457,9 @@ def run_benchmark(
         param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
         offload_delayed_update=asked.offload_delayed_update,
         offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
-        n_experts=n_experts, expert_overflow_pct=overflow,
+        n_experts=n_experts, expert_overflow_pct=overflow, pipeline_parallel=pipeline_parallel,
+        pipeline_schedule=pipeline_schedule,
+        virtual_stages=virtual_stages if interleaved else 1,
     )
     if results_dir is not None and is_main:
         metrics_mod.emit_result(result, results_dir)

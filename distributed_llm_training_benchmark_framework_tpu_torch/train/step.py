@@ -1,7 +1,7 @@
-"""One optimizer step: the non-pipelined branch of the JAX train step.
+"""One optimizer step: the JAX train step, its pipelined branches included.
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
-(``make_train_step``, lines 315-331 and 400-501):
+(``make_train_step``, lines 315-331 and 355-501):
 
 - the step's global batch is gathered from the device-resident table,
   rows ``(step*G + arange(G)) % size`` laid out (accum, global micro, S),
@@ -51,6 +51,18 @@ sequence length and sliced to this rank's rows and columns
 draws the masks of the one-process run of the same global batch. JAX draws
 from its own PRNG, which no torch generator reproduces, so with dropout > 0
 the two agree only statistically; with dropout 0 they agree step for step.
+
+Under pipeline parallelism (a ``pipe`` axis, ``parallel/pipeline.py``) the
+step's (accum, batch, S) micro-batches are the schedule's M microbatches
+("the pipeline IS the gradient accumulation", as JAX says): every stage of
+a (data, seq) place takes the same rows and columns, the schedule runs its
+forward and backward units (each microbatch's loss entering as loss / M),
+and the arm reduces and steps. The step draws, per microbatch, the attention
+seeds of all n_layer layers and n_layer + 1 mask seeds (the embedding's and
+each layer's) from the CPU generator, the same on every rank, and each
+stage uses those of its layers, so every schedule draws the same masks.
+The loss is the last stage's mean (plus, with experts, every stage's aux
+term), summed over the group and divided by M and the ranks of one stage.
 """
 
 from __future__ import annotations
@@ -62,13 +74,14 @@ import torch.distributed as dist
 
 from ..data.synthetic import step_batch
 from ..parallel.mesh import Mesh
+from ..parallel.pipeline import Pipeline
 from ..parallel.strategies import Optimizer
 
 
 class TrainStep:
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer, *, grad_accum: int,
                  micro_batch: int, seed: int, device: torch.device,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, pipeline: Optional[Pipeline] = None):
         self.model = model
         # A DDP wrapper keeps the model (and its config) on ``.module``.
         self.config = getattr(model, "module", model).config
@@ -83,6 +96,9 @@ class TrainStep:
         self.world = mesh.world if mesh is not None else 1
         self.seed_gen = torch.Generator().manual_seed(seed)
         self.mask_gen = torch.Generator(device=device).manual_seed(seed)
+        self.pipeline = pipeline
+        # The ranks of one pipeline stage (the whole group without a pipeline).
+        self.stage_ranks = self.world // (mesh.size("pipe") if mesh is not None else 1)
 
     def _attn_seeds(self) -> Optional[List[int]]:
         c = self.config
@@ -91,9 +107,29 @@ class TrainStep:
         return torch.randint(0, 2**32, (c.n_layer,), generator=self.seed_gen,
                              dtype=torch.int64).tolist()
 
+    def _mask_seeds(self) -> Optional[List[int]]:
+        c = self.config
+        if c.dropout == 0.0:
+            return None
+        return torch.randint(0, 2**62, (c.n_layer + 1,), generator=self.seed_gen,
+                             dtype=torch.int64).tolist()
+
     def __call__(self, table: torch.Tensor, step: int) -> torch.Tensor:
         """Run optimizer step ``step``; returns the mean loss as a 0-d tensor
         on the device (reading it is the caller's sync point)."""
+        loss_sum = self.accumulate(table, step)
+        self.optimizer.step()
+        if self.loss_group is None:
+            return loss_sum / self.grad_accum
+        dist.all_reduce(loss_sum, op=dist.ReduceOp.SUM, group=self.loss_group)
+        return loss_sum / (self.grad_accum * self.stage_ranks)
+
+    def accumulate(self, table: torch.Tensor, step: int) -> torch.Tensor:
+        """Step ``step``'s forward and backward over its micro-batches, and
+        the arm's reduction (``.grad`` then holds the step's gradient, as the
+        optimizer takes it) -> this rank's sum of the micro-batches' losses
+        (under a pipeline: zero on all but the last stage, plus this stage's
+        aux term)."""
         global_micro = self.micro_batch * self.members
         row0 = self.member * self.micro_batch
         batch = step_batch(table, step, self.grad_accum, global_micro)
@@ -103,6 +139,8 @@ class TrainStep:
         if n > 1:
             cols = batch.shape[-1] // n
             batch = batch[..., s * cols:(s + 1) * cols]
+        if self.pipeline is not None:
+            return self._pipelined(batch, row0, global_micro)
         gen = self.mask_gen if self.config.dropout > 0.0 else None
         self.optimizer.zero_grad()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -113,8 +151,22 @@ class TrainStep:
                 loss.backward()
             loss_sum += loss.detach()
         self.optimizer.finish_grads(self.grad_accum)
-        self.optimizer.step()
-        if self.loss_group is not None:
-            dist.all_reduce(loss_sum, op=dist.ReduceOp.SUM, group=self.loss_group)
-            return loss_sum / (self.grad_accum * self.world)
-        return loss_sum / self.grad_accum
+        return loss_sum
+
+    def _pipelined(self, batch: torch.Tensor, row0: int, global_micro: int) -> torch.Tensor:
+        c = self.config
+        seeds = [(self._attn_seeds(), self._mask_seeds()) for _ in range(self.grad_accum)]
+
+        def call(inp, targets, unit, micro):
+            return self.model(inp, targets, unit=unit, attn_seeds=seeds[micro][0],
+                              batch_offset=row0, global_batch=global_micro)
+
+        self.optimizer.zero_grad()
+        aux_coef = c.router_aux_coef / c.n_layer if c.n_experts > 0 else 0.0
+        n_blocks = len(getattr(self.model, "module", self.model).blocks)
+        loss_sum, aux_sum = self.pipeline.run(call, self.optimizer, batch, c.compute_dtype,
+                                              c.n_embd, [m for _, m in seeds], aux_coef,
+                                              n_blocks)
+        # Each microbatch's loss entered as loss / M: the gradient is the mean.
+        self.optimizer.finish_grads(1)
+        return loss_sum if aux_sum is None else loss_sum + aux_coef * aux_sum

@@ -30,9 +30,10 @@ counterpart, since there is no XLA here).
   term keeps JAX's formula at the global ``seq_len``: it does not divide by
   ``seq``, though each rank holds S/n of the sequence. That over-count is
   the JAX package's, kept as it is.
-- **Under a ``model`` or an ``expert`` axis** (tensor or expert
-  parallelism; JAX's ``_EP_RULES`` put ``expert`` on the experts axis of
-  the expert leaves) the parameter, gradient
+- **Under a ``model``, ``pipe`` or ``expert`` axis** (tensor, pipeline or
+  expert parallelism; JAX's ``_EP_RULES`` put ``expert`` on the experts
+  axis of the expert leaves, its pipeline rule ``pipe`` on the layer axis
+  of the block leaves) the parameter, gradient
   and AdamW-moment bytes are the JAX package's: its layout rules
   (``parallel/strategies.param_partition_specs``, copied with the
   composed-mesh hygiene of a (data, model) mesh) over JAX's leaves, each
@@ -40,7 +41,9 @@ counterpart, since there is no XLA here).
   arm's spec, grads sharded when the arm shards them, moments sharded when
   the arm shards the optimizer state (optax's step counters, a few bytes,
   are not counted). The activation term divides by tp as JAX's does (the
-  logits term does not, as in JAX).
+  logits term does not, as in JAX), and counts the stage's ``L // pp``
+  layers of one micro-batch: JAX's term, though a GPipe stage holds all M
+  micro-batches' activations at once (an under-count kept as JAX has it).
 - The device-resident synthetic table is int64 here.
 """
 
@@ -174,8 +177,9 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     dp = mesh.size(AXES.data) if mesh is not None else 1
     tp = mesh.size(AXES.model) if mesh is not None else 1
     ep = mesh.size(AXES.expert) if mesh is not None else 1
+    pp = mesh.size(AXES.pipe) if mesh is not None else 1
     wrapped = mesh is not None and mesh.device_mesh is not None
-    if tp > 1 or ep > 1:
+    if tp > 1 or ep > 1 or pp > 1:
         params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
     else:
         params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped,
@@ -193,13 +197,14 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     dense_per_layer = dense_per_layer // tp
     if cfg.attention_impl == "reference":
         dense_per_layer += 2 * B * (H // tp) * S * S * 4
+    layers_here = L // pp
     pol = normalize_remat("full" if cfg.remat == "auto" else cfg.remat)
     if pol == "full":
-        act_b = L * 2 * B * S * D * cbytes + dense_per_layer
+        act_b = layers_here * 2 * B * S * D * cbytes + dense_per_layer
     elif pol == "dots":
-        act_b = L * 11 * B * S * D * cbytes + dense_per_layer
+        act_b = layers_here * 11 * B * S * D * cbytes + dense_per_layer
     else:
-        act_b = L * dense_per_layer
+        act_b = layers_here * dense_per_layer
     logits_b = 2 * B * S * V * 4
     dataset_b = dataset_size * seq_len * 8  # the int64 table on the device
     return HBMEstimate(params=params_b, grads=grads_b, opt_state=opt_b,

@@ -21,10 +21,13 @@ group. A sequence-parallel run is one of two forms (``parallel/mesh.py``):
 - ``seq`` in one process (``world_size`` 1): the n shards share the one
   card, ``dp = 1``, and ``sequence_parallel`` is stamped beside it.
 
-A tensor-parallel run's ``model`` ranks also compute one example jointly
-(JAX's ``utils/metrics.py``): ``dp = max(world_size // (tensor_parallel *
-sequence_parallel * expert_parallel), 1)``, the validator's formula
-(``analysis/validate_results.py``). The row stamps ``tensor_parallel`` and,
+A tensor-parallel run's ``model`` ranks also compute one example jointly,
+and so do a pipeline's stages (JAX's ``utils/metrics.py``): ``dp =
+max(world_size // (tensor_parallel * sequence_parallel * pipeline_parallel
+* expert_parallel), 1)``, the validator's formula
+(``analysis/validate_results.py``); MFU is over all ``world_size`` cards.
+A pipelined row stamps ``pipeline_parallel``, ``pipeline_schedule`` and
+``virtual_stages`` (1 unless the schedule is interleaved). The row stamps ``tensor_parallel`` and,
 ``tp_collective_matmul`` as it was asked for (inert at tp 1, and stamped
 all the same), as JAX's ``BenchmarkResult`` does, and so its
 ``param_dtype``, ``offload_opt_state``, ``offload_delayed_update`` and
@@ -131,6 +134,11 @@ class BenchmarkResult:
     expert_parallel: int = 1
     n_experts: int = 0
     expert_overflow_pct: Optional[float] = None
+    # Pipeline ('pipe') width over the group, its schedule (meaningful when
+    # pipeline_parallel > 1) and the interleaved schedule's chunks per stage.
+    pipeline_parallel: int = 1
+    pipeline_schedule: str = "gpipe"
+    virtual_stages: int = 1
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -154,7 +162,9 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    offload_opt_state: bool = False, offload_delayed_update: bool = False,
                    offload_dpu_start_step: int = 0, expert_parallel: int = 1,
                    n_experts: int = 0,
-                   expert_overflow_pct: Optional[float] = None) -> BenchmarkResult:
+                   expert_overflow_pct: Optional[float] = None, pipeline_parallel: int = 1,
+                   pipeline_schedule: str = "gpipe",
+                   virtual_stages: int = 1) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -162,7 +172,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         loss_first, loss_last = sum(losses[:lw]) / lw, sum(losses[-lw:]) / lw
     else:
         lw, loss_first, loss_last = 0, 0.0, 0.0
-    dp = max(world_size // (tensor_parallel * sequence_parallel * expert_parallel), 1)
+    dp = max(world_size // (tensor_parallel * sequence_parallel * pipeline_parallel
+                            * expert_parallel), 1)
     step_tokens = tokens_per_step(per_device_batch, grad_accum, seq_len, dp, expert_parallel)
     tps = step_tokens / mean_step if mean_step > 0 else 0.0
     h2d = per_device_batch * grad_accum * seq_len * 4 / mean_step / 1e9 if mean_step > 0 else 0.0
@@ -201,6 +212,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         offload_opt_state=offload_opt_state, offload_delayed_update=offload_delayed_update,
         offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
         n_experts=n_experts, expert_overflow_pct=expert_overflow_pct,
+        pipeline_parallel=pipeline_parallel, pipeline_schedule=pipeline_schedule,
+        virtual_stages=virtual_stages,
     )
 
 
