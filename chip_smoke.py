@@ -254,6 +254,31 @@ no kernel of its own: each stage runs K1-K3 on whole layers):
     replicated leaves over ``pipe``, the optimizer step (host clock, the
     card synchronized around each), and that sum alone over gloo.
 
+The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
+``telemetry/``, ``faults/``; no kernel of its own):
+
+20. the harness CLI as a subprocess on the card (its default device): (a)
+    the parity row (tier A, zero2, S 2048, b1 x accum 4, dropout 0.1,
+    flash) for 12 steps, warmup 2, ``--checkpoint-every 4``,
+    ``--inject-fault sigterm@6``: exit 75, an emergency checkpoint and a
+    final heartbeat carrying ``emergency_checkpoint_step``; then
+    ``--resume``: exit 0, ``resumed`` true, ``n_restarts`` 1; (b) the same
+    12 steps straight through: the per-step losses of (a), before and after
+    the resume, within ``RT_LOSS_RTOL`` of (b)'s (the telemetry's step
+    windows, 6 decimals; printed whether equal); (c) the costs, beside the
+    card's name and power limit: each save's gather / write / digest ms and
+    bytes (steps 4 and 6 synchronous; the resume runs with
+    ``--checkpoint-async``: step 8 staged and written on a thread, 11
+    synchronous), the restore's validate / load / apply ms, ms from the
+    SIGTERM to the process's exit, ``time_in_compile_sec``, and the step
+    ms of the straight run against each of the resumed run's steps (9-11
+    while step 8's save is written); (d) drills at tier S (plain attention: its 32-wide heads
+    are not the kernels'), the three chains at once: ``sigkill@5`` then ``--resume``
+    (resumed from step 4, ``n_restarts`` 1), a resume past the end (77),
+    ``torn-checkpoint`` (step 4 quarantined, the resume falls back to 2),
+    ``hang@3:30`` with ``--hang-timeout-sec 5`` (76 and a ``hang_dump``
+    event).
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
@@ -2390,6 +2415,219 @@ def phase_pipe(run_benchmark, smi) -> dict:
     return launches
 
 
+# Phase 20: the run-time layer, through the harness CLI as a subprocess on
+# the card. (a) to (c) run the parity row; (d) drills at tier S.
+RT_ROW = ["--strategy", "zero2", "--world-size", "1", "--tier", "A", "--seq-len", "2048",
+          "--per-device-batch", "1", "--grad-accum", "4", "--attention", "flash",
+          "--warmup-steps", "2", "--heartbeat-sec", "0"]
+RT_STEPS, RT_EVERY, RT_SIGTERM = 12, 4, 6
+# Tier S's heads are 32 wide, which the kernels do not take: plain attention.
+RT_DRILL = ["--strategy", "zero2", "--world-size", "1", "--tier", "S", "--seq-len", "128",
+            "--per-device-batch", "1", "--grad-accum", "2", "--attention", "reference",
+            "--warmup-steps", "1", "--steps", "8", "--heartbeat-sec", "0"]
+RT_LOSS_RTOL = 1e-5  # resumed per-step losses against the straight run's
+RT_MIN_FREE_GB = 20.0  # a tier-A checkpoint is ~2.8 GB; up to 3 kept, plus staging
+
+
+def harness(args: list, results: str, timeout: int) -> dict:
+    """Run the port's harness CLI once on the card (its default device):
+    exit code, stdout, the wall time and the unix time it exited; kills it
+    on the way out."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("INJECT_FAULT", None)
+    cmd = [sys.executable, "-m",
+           "distributed_llm_training_benchmark_framework_tpu_torch.train.harness",
+           "--results-dir", results] + args
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"rc": proc.returncode, "out": out, "exited": time.time(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def rt_events(results: str, arm: str) -> list:
+    from distributed_llm_training_benchmark_framework_tpu_torch.telemetry import read_events
+
+    return read_events(os.path.join(results, f"telemetry_{arm}.jsonl"))
+
+
+def rt_losses(events: list) -> dict:
+    """{step: loss} from per-step windows (the harness fences every step)."""
+    return {e["step"]: e["loss"] for e in events if e["event"] == "step_window"}
+
+
+def rt_step_ms(events: list) -> dict:
+    """{step: ms} from per-step windows."""
+    return {e["step"]: 1e3 * e["window_mean_step_time_sec"] for e in events
+            if e["event"] == "step_window"}
+
+
+def rt_row(results: str, arm: str) -> dict:
+    return json.load(open(os.path.join(results, f"result_{arm}.json")))
+
+
+def rt_expect(run: dict, rc: int, what: str) -> None:
+    assert run["rc"] == rc, f"[20] {what}: exit {run['rc']}, expected {rc}:\n{run['out'][-4000:]}"
+
+
+RT_S_ARM = "zero2_ws1_seq128_tierS"
+
+
+def rt_drill_kill(root: str) -> dict:
+    """``sigkill@5``, then ``--resume`` (from step 4, ``n_restarts`` 1)."""
+    ck = ["--checkpoint-dir", os.path.join(root, "d_kill"), "--checkpoint-every", "2"]
+    kill = harness(RT_DRILL + ck + ["--inject-fault", "sigkill@5"], os.path.join(root, "d1"),
+                   300)
+    rt_expect(kill, -9, "(d) sigkill@5")
+    back = harness(RT_DRILL + ck + ["--resume"], os.path.join(root, "d2"), 300)
+    rt_expect(back, 0, "(d) resume after sigkill")
+    r = rt_row(os.path.join(root, "d2"), RT_S_ARM)
+    assert (r["resumed"], r["n_restarts"], r["resume_step"]) == (True, 1, 4), r
+    return {"sigkill@5": {"exit": kill["rc"], "resume_exit": back["rc"],
+                          "resume_step": r["resume_step"], "n_restarts": r["n_restarts"]}}
+
+
+def rt_drill_torn(root: str) -> dict:
+    """``torn-checkpoint``: step 4 torn and the process killed; the resume
+    quarantines it and falls back to step 2."""
+    ck = ["--checkpoint-dir", os.path.join(root, "d_torn"), "--checkpoint-every", "2"]
+    torn = harness(RT_DRILL + ck + ["--inject-fault", "torn-checkpoint"],
+                   os.path.join(root, "d4"), 300)
+    rt_expect(torn, -9, "(d) torn-checkpoint")
+    fell = harness(RT_DRILL + ck + ["--resume"], os.path.join(root, "d5"), 300)
+    rt_expect(fell, 0, "(d) resume after the torn checkpoint")
+    note = os.path.join(root, "d_torn", "quarantine", "step_4", "QUARANTINE.json")
+    assert os.path.exists(note), f"[20] no {note}"
+    r = rt_row(os.path.join(root, "d5"), RT_S_ARM)
+    assert r["resume_step"] == 2, r["resume_step"]
+    return {"torn-checkpoint": {"exit": torn["rc"], "quarantined": json.load(open(note))["step"],
+                                "resume_step": r["resume_step"], "resume_exit": fell["rc"]}}
+
+
+def rt_drill_hang(root: str) -> dict:
+    """``hang@3:30`` under a 5 s watchdog: exit 76 and a ``hang_dump``; then
+    a resume of its step 2 with ``--steps 3``, past the end: 77."""
+    ck = ["--checkpoint-dir", os.path.join(root, "d_hang"), "--checkpoint-every", "2"]
+    hang = harness(RT_DRILL + ck + ["--inject-fault", "hang@3:30", "--hang-timeout-sec", "5"],
+                   os.path.join(root, "d6"), 300)
+    rt_expect(hang, 76, "(d) hang@3:30")
+    dump = [e for e in rt_events(os.path.join(root, "d6"), RT_S_ARM)
+            if e["event"] == "hang_dump"]
+    assert dump and dump[0]["stacks"], "[20] no hang_dump event"
+    past = harness(RT_DRILL + ck + ["--resume", "--steps", "3"], os.path.join(root, "d3"), 300)
+    rt_expect(past, 77, "(d) resume past the end")
+    assert "found checkpoint step 2" in past["out"], past["out"][-2000:]
+    return {"hang@3:30": {"exit": hang["rc"], "hang_dump_threads": len(dump[0]["stacks"]),
+                          "wall_s": hang["wall_s"]},
+            "resume past the end": {"exit": past["rc"]}}
+
+
+def phase_runtime(smi: str) -> dict:
+    """Phase 20: (a) preempt and resume at full width, (b) equal to the
+    straight run, (c) the costs on the card, (d) fault drills at tier S."""
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="runtime_smoke_")
+    free_gb = shutil.disk_usage(root).free / 1e9
+    assert free_gb >= RT_MIN_FREE_GB, f"[20] {free_gb:.1f} GB free under {root}"
+    log(f"[20] harness runs under {root} ({free_gb:.0f} GB free)")
+    arm = "zero2_ws1_seq2048_tierA"
+    row = RT_ROW + ["--steps", str(RT_STEPS)]
+    ck = ["--checkpoint-dir", os.path.join(root, "ck"), "--checkpoint-every", str(RT_EVERY)]
+    t0 = time.perf_counter()
+    # (a) async saves: step RT_EVERY's is staged and written on a thread
+    # while the next steps run; SIGTERM at the boundary of step RT_SIGTERM
+    # commits it (the emergency flush), and the resume restores that
+    # async-written step. The resume's only save, the final one, is sync.
+    pre = harness(row + ck + ["--checkpoint-async", "--inject-fault", f"sigterm@{RT_SIGTERM}"],
+                  os.path.join(root, "a1"), 600)
+    rt_expect(pre, 75, "(a) sigterm")
+    beats = [json.loads(ln.split(" ", 1)[1]) for ln in pre["out"].splitlines()
+             if ln.startswith("BENCHMARK_HEARTBEAT ")]
+    assert beats[-1].get("reason") == "preempted", beats[-1]
+    assert beats[-1].get("emergency_checkpoint_step") == RT_EVERY, beats[-1]
+    ev_pre = rt_events(os.path.join(root, "a1"), arm)
+    fault_ts = next(e["ts"] for e in ev_pre if e["event"] == "fault_injected")
+    flush = next(e for e in ev_pre if e["event"] == "emergency_flush")
+    assert (flush["mode"], flush["committed_step"], flush["steps_delta"]) == (
+        "async-delta", RT_EVERY, RT_SIGTERM - RT_EVERY), flush
+    saves = [e for e in ev_pre if e["event"] == "checkpoint_saved"]
+    assert [(e["step"], e["async"]) for e in saves] == [(RT_EVERY, True)], saves
+    res = harness(RT_ROW + ["--steps", str(RT_STEPS), "--checkpoint-dir", os.path.join(root, "ck"),
+                            "--resume"], os.path.join(root, "a2"), 600)
+    rt_expect(res, 0, "(a) resume")
+    resumed = rt_row(os.path.join(root, "a2"), arm)
+    assert (resumed["resumed"], resumed["n_restarts"], resumed["resume_step"]) == (
+        True, 1, RT_EVERY), {k: resumed[k] for k in ("resumed", "n_restarts", "resume_step")}
+    ev_res = rt_events(os.path.join(root, "a2"), arm)
+    restore = next(e for e in ev_res if e["event"] == "checkpoint_restored")
+    assert restore["step"] == RT_EVERY, restore
+    saves += [e for e in ev_res if e["event"] == "checkpoint_saved"]
+    assert [(e["step"], e["async"]) for e in saves] == [
+        (RT_EVERY, True), (RT_STEPS - 1, False)], saves
+    shutil.rmtree(os.path.join(root, "ck"))
+    # (b) the same steps straight through, no checkpoint, and (d) the drills
+    # at tier S, the three chains at once (independent directories), all
+    # started together: (b) is read for its losses only.
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        straight_job = pool.submit(harness, row, os.path.join(root, "b"), 600)
+        chains = [pool.submit(fn, root) for fn in (rt_drill_kill, rt_drill_torn, rt_drill_hang)]
+        straight = straight_job.result()
+        drills = {k: v for c in chains for k, v in c.result().items()}
+    rt_expect(straight, 0, "(b) straight")
+    want = rt_losses(rt_events(os.path.join(root, "b"), arm))
+    lost, redone = rt_losses(ev_pre), rt_losses(ev_res)
+    # Steps RT_EVERY + 1 .. RT_SIGTERM ran in both halves: each against (b).
+    assert sorted({**lost, **redone}) == sorted(want) == list(range(RT_STEPS)), (
+        sorted(lost), sorted(redone), sorted(want))
+    pairs = [(v, want[s]) for half in (lost, redone) for s, v in half.items()]
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    assert rel <= RT_LOSS_RTOL, f"[20] (b) resumed losses {rel:.3g} rel from the straight run"
+    log(f"[20] (a) --checkpoint-async, sigterm@{RT_SIGTERM}: exit 75, the in-flight async "
+        f"save of step {flush['committed_step']} committed by the emergency flush "
+        f"({flush['steps_delta']} steps to recompute); --resume from that step: exit 0, "
+        f"resumed {resumed['resumed']}, n_restarts {resumed['n_restarts']}; (b) per-step losses "
+        f"of (a), both halves, vs the straight run: max rel {rel:.3g} (limit {RT_LOSS_RTOL}), "
+        f"equal at the telemetry's 6 decimals: {all(a == b for a, b in pairs)}")
+    # (c) the costs, all from (a)'s two runs, which ran alone on the card.
+    # Step ms from the windows: the timed steps before the first save, the
+    # steps that ran while the async write was in flight, and the resumed
+    # run's (its first holds the restart).
+    pre_ms = rt_step_ms(ev_pre)
+    aborted = next(e for e in ev_pre if e["event"] == "run_aborted")
+    keep = ("step", "async", "gather_ms", "dispatch_ms", "write_ms", "write_wait_ms",
+            "digest_ms", "bytes")
+    costs = {
+        "card": smi,
+        "saves": [{k: e[k] for k in keep if k in e} for e in saves],
+        "restore": restore,
+        "sigterm_to_exit_ms": 1e3 * (pre["exited"] - fault_ts),
+        "time_in_compile_sec": {"preempted": aborted["phase_times"]["compile"],
+                                "resumed": resumed["time_in_compile_sec"]},
+        "time_in_checkpoint_sec": {"resumed": resumed["time_in_checkpoint_sec"]},
+        "step_ms": {
+            "no checkpoint, median of timed steps 2..4": statistics.median(
+                pre_ms[st] for st in range(2, RT_EVERY + 1)),
+            "async write in flight, per step": {
+                st: pre_ms[st] for st in range(RT_EVERY + 1, RT_SIGTERM + 1)},
+            "resumed, per step": rt_step_ms(ev_res)},
+        "wall_s": {"a1": pre["wall_s"], "a2": res["wall_s"], "b": straight["wall_s"]},
+    }
+    log(f"[20] (c) costs on {smi}: " + json.dumps(costs))
+    log(f"[20] (d) drills at tier S: {json.dumps(drills)}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[20] phase wall {time.perf_counter() - t0:.1f} s")
+    return {"costs": costs, "drills": drills, "loss_max_rel": rel}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -2472,6 +2710,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     pipe_launches = phase_pipe(run_benchmark, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_runtime(smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

@@ -8,8 +8,11 @@ repo-root ``bench.py``: ``metric`` (``{family}_tier{T}_seq{S}_tokens_per_sec_per
 ``value``, ``unit``, ``vs_baseline`` (against the reference's best published
 per-GPU throughput, DeepSpeed ZeRO-2 on 4x A10: 18,147 / 4 = 4,536.75
 tokens/s/GPU), the visibility keys ``attention_impl``, ``dropout``,
-``mfu_pct``, ``peak_hbm_gb``, ``peak_hbm_method``, ``device_kind``, and a
-``"flagship"`` sub-object: the llama family at per-device batch 2 x
+``mfu_pct``, ``peak_hbm_gb``, ``peak_hbm_method``, ``device_kind``, the
+flight recorder's ``wall_time_total_sec``, ``time_in_compile_sec`` (the
+first step up to its fence, the lazy ``nvcc`` build of the kernels
+included), ``time_in_timed_sec`` and ``n_anomalies`` (NaN-loss and
+step-time-spike events), and a ``"flagship"`` sub-object: the llama family at per-device batch 2 x
 grad-accum 2 with flash attention and its native dropout 0. Progress goes
 to stderr.
 
@@ -35,9 +38,11 @@ process group (``runtime.setup_distributed``: NCCL, or gloo with
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it fails rather than fall back. The graftcheck preflight,
-``--layer-loop``, ``--profile-dir``, ``--remat-sweep`` and the regress
-registry of the JAX bench are not part of the port yet; it writes to no
-registry.
+``--layer-loop``, ``--profile-dir``, ``--remat-sweep``, the regress
+registry and ``tokens_per_dollar`` of the JAX bench are not part of the
+port yet; it writes to no registry. Checkpoints, fault injection and the
+rest of the run-time flags are the harness's
+(``python -m distributed_llm_training_benchmark_framework_tpu_torch.train.harness``).
 """
 
 from __future__ import annotations
@@ -91,7 +96,9 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
         "loss_first_window": round(result.loss_first_window, 4),
         "loss_last_window": round(result.loss_last_window, 4),
         "wall_time_total_sec": round(result.wall_time_total_sec, 2),
+        "time_in_compile_sec": round(result.time_in_compile_sec, 2),
         "time_in_timed_sec": round(result.time_in_timed_sec, 2),
+        "n_anomalies": result.n_anomalies,
         **extra,
     }
 

@@ -106,6 +106,49 @@ def load_jax_params(model: TinyGPT, params_np: Dict,
     return model
 
 
+def leaf_key(path: Tuple) -> str:
+    """A JAX path as one string: ``wte``, ``blocks/wqkv/<global layer>``."""
+    return "/".join(str(part) for part in path)
+
+
+def shard_axes(model: TinyGPT, name: str) -> List[Tuple[int, int, int, Optional[dist.ProcessGroup]]]:
+    """(axis, this rank's index, width, group) for each of the ``model`` and
+    ``expert`` axes that shard the port parameter ``name``."""
+    (m, t), (e, ep) = model.tp, model.ep
+    axes = ((tp_axis(name, model.config.kv_heads, t), m, t, model.model_group),
+            (expert_axis(name, ep), e, ep, model.expert_group))
+    return [(ax, i, n, group) for ax, i, n, group in axes if ax is not None]
+
+
+def global_shape(model: TinyGPT, name: str, p: torch.Tensor) -> List[int]:
+    """The global shape of the leaf whose local part (or DTensor) is ``p``."""
+    shape = list(p.shape)
+    for ax, _, n, _ in shard_axes(model, name):
+        shape[ax] *= n
+    return shape
+
+
+def gather_leaf(model: TinyGPT, name: str, p: torch.Tensor) -> torch.Tensor:
+    """The global leaf of which ``p`` is this rank's part: a DTensor's full
+    tensor, then the ``model`` and ``expert`` shards gathered (collectives
+    that every rank of those groups calls)."""
+    if isinstance(p, DTensor):
+        p = p.full_tensor()
+    for ax, _, n, group in shard_axes(model, name):
+        parts = [torch.empty_like(p) for _ in range(n)]
+        dist.all_gather(parts, p.contiguous(), group=group)
+        p = torch.cat(parts, dim=ax)
+    return p
+
+
+def local_leaf(model: TinyGPT, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's ``model`` / ``expert`` part of a global leaf (a view; the
+    inverse of ``gather_leaf`` up to a DTensor's ``data`` sharding)."""
+    for ax, i, n, _ in shard_axes(model, name):
+        full = full.chunk(n, dim=ax)[i]
+    return full
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.bfloat16:
         return t.numpy()
@@ -124,18 +167,8 @@ def export_params(model: torch.nn.Module, layer_order: Optional[Sequence[int]] =
     out: Dict = {}
     stacks: Dict[str, list] = {}
     inner = getattr(model, "module", model)
-    (_, t), (_, ep) = inner.tp, inner.ep
     for (path, p), (name, _) in zip(leaf_map(inner), inner.named_parameters()):
-        p = p.detach()
-        if isinstance(p, DTensor):
-            p = p.full_tensor()
-        for ax, n, group in ((tp_axis(name, inner.config.kv_heads, t), t, inner.model_group),
-                             (expert_axis(name, ep), ep, inner.expert_group)):
-            if ax is not None:
-                parts = [torch.empty_like(p) for _ in range(n)]
-                dist.all_gather(parts, p.contiguous(), group=group)
-                p = torch.cat(parts, dim=ax)
-        arr = _numpy(p.to("cpu", copy=True))
+        arr = _numpy(gather_leaf(inner, name, p.detach()).to("cpu", copy=True))
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))
         else:

@@ -846,16 +846,17 @@ def zero2_bucket(port_name: str) -> str:
 @dataclasses.dataclass(eq=False)
 class _Bucket:
     """One zero2 bucket: its block (``zero2_bucket``), the flat params (the
-    parameters are views into it), the flat grads, this rank's shard of the
-    grads, the groups its shard is all-reduced over after the
-    reduce-scatter, and the reduce-scatter's arming (the backward that
-    lands the step's last gradients), count-down and work."""
+    parameters, ``params``, are views into it, laid end to end in order),
+    the flat grads, this rank's shard of the grads, the groups its shard is
+    all-reduced over after the reduce-scatter, and the reduce-scatter's
+    arming (the backward that lands the step's last gradients), count-down
+    and work."""
 
     key: str
     flat: torch.Tensor
     grads: torch.Tensor
     shard_grad: torch.Tensor
-    n_params: int
+    params: List[torch.nn.Parameter]
     replicas: Tuple[dist.ProcessGroup, ...]
     armed: bool = False
     pending: int = 0
@@ -902,7 +903,7 @@ class _Zero2Optimizer(Optimizer):
                 shards.append(shard)
                 is_expert = sharded and expert is not None
                 replicas = tuple(g for g in (seq, None if is_expert else expert) if g is not None)
-                bucket = _Bucket(key, flat, grads, shard.grad, len(params), replicas)
+                bucket = _Bucket(key, flat, grads, shard.grad, params, replicas)
                 for p in params:
                     p.register_post_accumulate_grad_hook(functools.partial(self._ready, bucket))
                 self.buckets.append(bucket)
@@ -921,14 +922,14 @@ class _Zero2Optimizer(Optimizer):
 
     def sync_context(self, last: bool) -> ContextManager:
         for b in self.buckets:
-            b.armed, b.pending, b.work = last, b.n_params, None
+            b.armed, b.pending, b.work = last, len(b.params), None
         return contextlib.nullcontext()
 
     def last_backward(self, buckets: Iterable[str]) -> None:
         keys = set(buckets)
         for b in self.buckets:
             if b.key in keys:
-                b.armed, b.pending = True, b.n_params
+                b.armed, b.pending = True, len(b.params)
 
     def _launch(self, b: _Bucket) -> None:
         b.work = dist.reduce_scatter_tensor(b.shard_grad, b.grads, group=self.group,

@@ -94,11 +94,13 @@ def read_env(env: Mapping[str, str] = os.environ, master_addr: Optional[str] = N
 
 class _Runtime:
     """The store this process made in ``setup_distributed`` and its place in
-    the job; None outside a group."""
+    the job; None outside a group. ``run`` counts the runs begun in this
+    process (``begin_run``): each run's flags live under its own number."""
 
     def __init__(self):
         self.store: Optional[dist.TCPStore] = None
         self.env: Optional[DistEnv] = None
+        self.run = 0
 
 
 _RT = _Runtime()
@@ -169,18 +171,31 @@ def barrier() -> None:
 
 # ---------------------------------------------------------------------------
 # Cross-rank "preempt soon" and "rank wedged" flags (the JAX package's
-# protocol over the store): a rank publishes ``<prefix><rank> = <step>``;
+# protocol over the store): a rank publishes ``<prefix><run>/<rank> = <step>``;
 # every rank polls the namespace at its fenced boundaries without blocking;
 # on a visible preempt flag each rank acks its boundary step and the agreed
-# stop step is the max of the acks.
+# stop step is the max of the acks. ``<run>`` keeps a later run in the same
+# group (the bench runs several rows in one process) from reading an
+# earlier run's flags, which the store keeps.
 # ---------------------------------------------------------------------------
 
 
+def begin_run() -> None:
+    """Start a new flag namespace; every rank calls it once per run, in the
+    same order, so their numbers agree."""
+    _RT.run += 1
+
+
+def _key(prefix: str, rank: int) -> str:
+    return f"{prefix}{_RT.run}/{rank}"
+
+
 def _publish_flag(prefix: str, step: int) -> bool:
-    """Write ``<prefix><my rank> = <step>``; False when there is no store."""
+    """Write ``<prefix><run>/<my rank> = <step>``; False when there is no
+    store."""
     if _RT.store is None:
         return False
-    _RT.store.set(f"{prefix}{_RT.env.rank}", str(int(step)))
+    _RT.store.set(_key(prefix, _RT.env.rank), str(int(step)))
     return True
 
 
@@ -190,7 +205,7 @@ def _flag_entries(prefix: str) -> List[Tuple[int, int]]:
         return []
     out = []
     for rank in range(_RT.env.world_size):
-        key = f"{prefix}{rank}"
+        key = _key(prefix, rank)
         if _RT.store.check([key]):
             out.append((rank, int(_RT.store.get(key))))
     return out
@@ -223,7 +238,7 @@ def agree_preempt_step(my_boundary_step: int,
     if _RT.store is None:
         return my_boundary_step
     me, store = _RT.env.rank, _RT.store
-    store.set(f"{_PREEMPT_ACK_PREFIX}{me}", str(int(my_boundary_step)))
+    store.set(_key(_PREEMPT_ACK_PREFIX, me), str(int(my_boundary_step)))
     deadline = time.monotonic() + timeout_sec
     acks = {me: int(my_boundary_step)}
     for rank in range(_RT.env.world_size):
@@ -232,7 +247,7 @@ def agree_preempt_step(my_boundary_step: int,
         remaining = deadline - time.monotonic()
         if remaining <= 0:
             return None
-        key = f"{_PREEMPT_ACK_PREFIX}{rank}"
+        key = _key(_PREEMPT_ACK_PREFIX, rank)
         try:
             store.wait([key], datetime.timedelta(seconds=remaining))
         except dist.DistStoreError:

@@ -7,8 +7,28 @@ build the model, optimizer and device-resident table, run
 ``warmup_steps`` untimed steps, then the timed steps in windows of
 ``sync_every`` steps fenced by ``torch.cuda.synchronize()`` (each step of a
 window is charged the window's mean), and compute the result row.
-Telemetry, checkpoints, fault injection, the numerics sentinel and the
-streaming input path are not ported yet.
+
+The run-time layer (JAX's ``train/loop.py`` hooks) rides the same fenced
+boundaries, so it adds no device sync and no collective to a timed window:
+
+- the flight recorder (``telemetry.TelemetryRecorder``) streams
+  ``telemetry_<arm>.jsonl`` beside the result and prints heartbeats; its
+  phases ``init`` / ``compile`` (the first dispatched step up to its fence,
+  the kernels' lazy build included) / ``warmup`` / ``timed`` /
+  ``checkpoint`` / ``finalize`` give the row's ``time_in_*_sec``, and a
+  ``step_window`` event and a heartbeat close every sync window;
+- periodic saves (``runtime.checkpoint``) at fenced boundaries, and a
+  final one; ``resume`` restores the newest valid step and continues at
+  the next (``NothingToResume`` past the end, with no telemetry trail);
+- the SIGTERM guard is polled at each boundary (across ranks over the
+  group's store: ``faults.preemption``); a preemption saves an emergency
+  checkpoint (or commits the async one in flight), sends the final
+  heartbeat and raises ``Preempted``; one during the last window
+  publishes the row instead;
+- the hang watchdog is beaten at each boundary, a peer's hang flag is
+  polled there, and the fault injector fires at exact boundaries.
+
+The numerics sentinel and the streaming input path are not ported yet.
 
 ``world_size`` is the size of the process group the caller
 (``runtime.setup_distributed``, or torchrun through the bench entry) made,
@@ -64,8 +84,8 @@ masters and AdamW on the host, ``parallel/offload.py``), as JAX's
 ``_resolve_model_config`` decides. ``offload_dpu_start_step`` k > 0 runs
 the delayed offload arm's first k steps as serial host updates and switches
 to the delayed update at step k, at a sync boundary, from an empty pending
-slot (JAX's ``--offload-dpu-start-step``). The port has no resume, so JAX's
-refusal of the knob under ``--resume`` has nothing to refuse.
+slot (JAX's ``--offload-dpu-start-step``), refused with ``resume`` as JAX
+refuses it (the two phases hold different optimizer state).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; with no CUDA device and
 no explicit ``cpu`` it raises.
@@ -74,6 +94,7 @@ no explicit ``cpu`` it raises.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import List, Optional, Union
 
@@ -81,10 +102,21 @@ import torch
 import torch.distributed as dist
 
 from ..data.synthetic import SyntheticDataset, step_batch
+from ..faults import (
+    ARMED_KINDS,
+    WAITS_FOR,
+    FaultInjector,
+    HangWatchdog,
+    NothingToResume,
+    Preempted,
+    PreemptionGuard,
+    parse_fault_spec,
+)
+from ..faults.watchdog import abort_on_peer_hang
 from ..models import TinyGPT, TinyGPTConfig, count_params, get_config
 from ..models.tinygpt import moe_overflow_fraction
 from ..ops.ulysses_attention import check_heads
-from ..parallel.mesh import AXES, Mesh, make_mesh
+from ..parallel.mesh import AXES, Mesh, make_mesh, mesh_axes_dict
 from ..parallel.pipeline import Pipeline, check_pipeline
 from ..parallel.strategies import (
     StrategyConfig,
@@ -94,6 +126,9 @@ from ..parallel.strategies import (
     get_strategy,
     param_torch_dtype,
 )
+from ..runtime import distributed as dist_rt
+from ..runtime.checkpoint import BenchmarkCheckpointer, TrainState
+from ..telemetry import TelemetryRecorder
 from ..utils import flops as flops_mod
 from ..utils import memory as memory_mod
 from ..utils import metrics as metrics_mod
@@ -198,7 +233,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               device: Optional[str] = None, world_size: Optional[int] = None,
               tensor_parallel: int = 1, tp_collective_matmul: bool = False,
               n_experts: int = 0, expert_parallel: int = 1, pipeline_parallel: int = 1,
-              pipeline_schedule: str = "gpipe", virtual_stages: int = 2) -> Run:
+              pipeline_schedule: str = "gpipe", virtual_stages: int = 2,
+              dataset_size: int = DATASET_SIZE, skip_memory_check: bool = False) -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
@@ -208,7 +244,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     value than that size is refused; ``tensor_parallel``,
     ``tp_collective_matmul``, ``n_experts``, ``expert_parallel``,
     ``pipeline_parallel``, ``pipeline_schedule`` and ``virtual_stages`` as
-    in the module docstring."""
+    in the module docstring; ``dataset_size`` rows in the synthetic table;
+    ``skip_memory_check`` attempts a run the memory model refuses."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -242,22 +279,25 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     mesh = make_mesh(tuple(w for _, w in axes), tuple(a for a, _ in axes))
     kind = device_kind(dev)
     strat = memory_mod.resolve_auto_remat(cfg, strat, mesh, per_device_batch, seq_len,
-                                          DATASET_SIZE, kind)
+                                          dataset_size, kind)
     cfg = dataclasses.replace(cfg, remat=strat.remat)
-    est = memory_mod.estimate_hbm(cfg, strat, mesh, per_device_batch, seq_len, DATASET_SIZE)
+    est = memory_mod.estimate_hbm(cfg, strat, mesh, per_device_batch, seq_len, dataset_size)
     if mesh.rank == 0:
         print(f"Strategy: {strat.describe()}")
         print(f"Mesh: {mesh.shape} over {kind!r}")
         print(memory_mod.format_breakdown(est, kind))
     refusal = memory_mod.check_fits(est, kind)
-    if refusal is not None:
-        raise ValueError(refusal)
+    if refusal is not None and skip_memory_check:
+        if mesh.rank == 0:
+            print(f"WARNING (--skip-memory-check): {refusal}")
+    elif refusal is not None:
+        raise ValueError(f"{refusal}\nPass --skip-memory-check to attempt the run anyway.")
     interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
     with torch.device(dev):
         model = TinyGPT(cfg, mesh=mesh, virtual_stages=virtual_stages if interleaved else 1)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model, optimizer = apply_strategy(model, strat, mesh)
-    table = SyntheticDataset(cfg.vocab_size, seq_len, DATASET_SIZE, seed).to_device(dev)
+    table = SyntheticDataset(cfg.vocab_size, seq_len, dataset_size, seed).to_device(dev)
     pipeline = None
     if pipeline_parallel > 1:
         pipeline = Pipeline(pipeline_schedule, mesh, grad_accum, dev, virtual_stages)
@@ -268,7 +308,7 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
 
 
 def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
-                     warmup_steps: int) -> None:
+                     warmup_steps: int, resume: bool = False) -> None:
     """JAX's checks of ``offload_dpu_start_step`` (``train/loop.py:655-695``)."""
     if start < 0:
         raise ValueError(f"--offload-dpu-start-step must be >= 0, got {start}")
@@ -276,6 +316,12 @@ def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
         return
     if not strategy.offload_delayed_update:
         raise ValueError("--offload-dpu-start-step requires --offload-delayed-update")
+    if resume:
+        raise ValueError(
+            "--offload-dpu-start-step is incompatible with --resume (the serial and delayed "
+            "phases checkpoint different optimizer-state layouts); restart the run, or drop "
+            "the start-step knob"
+        )
     if start >= steps:
         raise ValueError(
             f"--offload-dpu-start-step {start} >= --steps {steps}: the delayed phase would "
@@ -320,6 +366,49 @@ def _max_over_ranks(value: float, mesh: Mesh, dev: torch.device) -> float:
     return float(t.item())
 
 
+def _make_recorder(*, strategy: Union[str, StrategyConfig], world_size: Optional[int],
+                   tensor_parallel: int, sequence_parallel: int, pipeline_parallel: int,
+                   expert_parallel: int, pipeline_schedule: str, virtual_stages: int,
+                   n_experts: int, causal: bool, ring_zigzag: Optional[bool],
+                   tp_collective_matmul: bool, seq_len: int, tier: str, model_family: str,
+                   per_device_batch: int, grad_accum: int, attention_impl: str,
+                   results_dir: Optional[str], telemetry: bool, heartbeat_sec: float,
+                   steps: int) -> TelemetryRecorder:
+    """The run's flight recorder, made from ``run_benchmark``'s arguments
+    before any check or device work, so that even a refused run leaves a
+    ``run_aborted`` trail."""
+    name = strategy if isinstance(strategy, str) else strategy.name
+    world = world_size if world_size is not None else dist_rt.get_world_size()
+    tp, sp = int(tensor_parallel), int(sequence_parallel)
+    pp, ep = int(pipeline_parallel), int(expert_parallel)
+    dp = max(world // max(tp * sp * pp * ep, 1), 1)
+    rank = dist_rt.get_rank()
+    interleaved = pp > 1 and pipeline_schedule == "interleaved"
+    meta = {
+        "strategy": name, "world_size": world, "rank": rank, "seq_len": seq_len,
+        "tier": tier, "model_family": model_family,
+        "per_device_batch": per_device_batch, "grad_accum": grad_accum,
+        "attention_impl": attention_impl, "tensor_parallel": tp,
+        "sequence_parallel": sp, "pipeline_parallel": pp,
+        "pipeline_schedule": pipeline_schedule,
+        "virtual_stages": int(virtual_stages) if interleaved else 1,
+        "expert_parallel": ep, "n_experts": int(n_experts),
+        "causal": bool(causal),
+        "ring_zigzag": {None: "auto", True: "on", False: "off"}[ring_zigzag],
+    }
+    if tp_collective_matmul:
+        meta["tp_collective_matmul"] = True
+    rec = TelemetryRecorder(
+        metrics_mod.arm_slug(name, world, seq_len, tier, model_family),
+        results_dir=results_dir, is_main=rank == 0, enabled=bool(telemetry),
+        heartbeat_every_sec=float(heartbeat_sec),
+        tokens_per_step=metrics_mod.tokens_per_step(
+            per_device_batch, grad_accum, seq_len, dp, ep),
+        total_steps=int(steps), rank=rank, meta=meta)
+    rec.begin_phase("init")
+    return rec
+
+
 def run_benchmark(
     *,
     strategy: Union[str, StrategyConfig] = "zero2",
@@ -351,116 +440,375 @@ def run_benchmark(
     pipeline_schedule: str = "gpipe",
     virtual_stages: int = 2,
     pipeline_log: Optional[dict] = None,
+    dataset_size: int = DATASET_SIZE,
+    skip_memory_check: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+    checkpoint_async: bool = False,
+    resume: bool = False,
+    telemetry: bool = True,
+    heartbeat_sec: float = 30.0,
+    inject_fault: Optional[str] = None,
+    hang_timeout_sec: float = 0.0,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
     also writes ``result_<arm>.json`` there and prints the marker-delimited
-    JSON. ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
+    JSON, and every rank streams its telemetry beside it.
+    ``sequence_parallel``, ``causal``, ``ring_zigzag`` and
     ``world_size``, ``tensor_parallel``, ``tp_collective_matmul``,
     ``n_experts``, ``expert_parallel``, ``pipeline_parallel``,
-    ``pipeline_schedule`` and ``virtual_stages`` as for :func:`build_run`;
-    ``offload_dpu_start_step`` as in the module
-    docstring. ``loss_log``, when given, gets every step's loss (mean over
-    ranks) appended in order, warmup included; ``offload_log``, when given
-    to an offload arm, gets the host arm's per-step times and bytes
-    (``parallel/offload.HostOffload.stats``); ``pipeline_log``, when given
-    to a pipelined run, gets this rank's stage, the messages it sent per
-    step in each direction and the ms per step it waited in receives."""
-    if steps <= warmup_steps:
-        raise ValueError(f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
-    asked = get_strategy(strategy) if isinstance(strategy, str) else strategy
-    _check_dpu_start(asked, offload_dpu_start_step, steps, warmup_steps)
-    if offload_dpu_start_step > 0:
-        # Serial host updates first; the optimizer switches at the start step.
-        strategy = dataclasses.replace(asked, offload_delayed_update=False)
-    t_start = time.perf_counter()
-    run = build_run(strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
-                    per_device_batch=per_device_batch, grad_accum=grad_accum,
-                    attention_impl=attention_impl, dropout=dropout,
-                    sequence_parallel=sequence_parallel, causal=causal,
-                    ring_zigzag=ring_zigzag, seed=seed, device=device,
-                    world_size=world_size, tensor_parallel=tensor_parallel,
-                    tp_collective_matmul=tp_collective_matmul, n_experts=n_experts,
-                    expert_parallel=expert_parallel, pipeline_parallel=pipeline_parallel,
-                    pipeline_schedule=pipeline_schedule, virtual_stages=virtual_stages)
-    dev, cfg, strat, model, table, step_fn, mesh = (
-        run.device, run.config, run.strategy, run.model, run.table, run.step_fn, run.mesh)
-    is_main = mesh.rank == 0
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    _sync(dev)
-    phase = {"init": time.perf_counter() - t_start, "warmup": 0.0, "timed": 0.0}
+    ``pipeline_schedule``, ``virtual_stages``, ``dataset_size`` and
+    ``skip_memory_check`` as for :func:`build_run`;
+    ``offload_dpu_start_step`` as in the module docstring. ``loss_log``,
+    when given, gets every step's loss (mean over ranks) appended in order,
+    warmup included (from the first step run, after a resume);
+    ``offload_log``, when given to an offload arm, gets the host arm's
+    per-step times and bytes (``parallel/offload.HostOffload.stats``);
+    ``pipeline_log``, when given to a pipelined run, gets this rank's stage,
+    the messages it sent per step in each direction and the ms per step it
+    waited in receives.
 
-    timed_times, timed_losses, pending = [], [], []
-    t_window = time.perf_counter()
+    The run-time layer (module docstring): ``checkpoint_dir`` with
+    ``checkpoint_every`` N saves every N steps and at the end,
+    ``checkpoint_async`` makes the periodic saves asynchronous, ``resume``
+    restores the newest valid step; ``telemetry`` and ``heartbeat_sec``
+    drive the flight recorder; ``inject_fault`` arms one fault
+    (``faults.parse_fault_spec``; ``INJECT_FAULT`` when None);
+    ``hang_timeout_sec`` > 0 arms the hang watchdog.
 
-    def sync_window():
-        nonlocal t_window
+    This wrapper owns the recorder, the SIGTERM guard and the watchdog: any
+    exception that escapes the run is recorded as ``run_aborted`` with its
+    phase and last step, and the guard and the watchdog are taken down in
+    ``finally`` (the bench runs several rows in one process)."""
+    recorder = _make_recorder(
+        strategy=strategy, world_size=world_size, tensor_parallel=tensor_parallel,
+        sequence_parallel=sequence_parallel, pipeline_parallel=pipeline_parallel,
+        expert_parallel=expert_parallel, pipeline_schedule=pipeline_schedule,
+        virtual_stages=virtual_stages, n_experts=n_experts, causal=causal,
+        ring_zigzag=ring_zigzag, tp_collective_matmul=tp_collective_matmul, seq_len=seq_len,
+        tier=tier, model_family=model_family, per_device_batch=per_device_batch,
+        grad_accum=grad_accum, attention_impl=attention_impl, results_dir=results_dir,
+        telemetry=telemetry, heartbeat_sec=heartbeat_sec, steps=steps)
+    dist_rt.begin_run()
+    guard = PreemptionGuard()
+    rank = dist_rt.get_rank()
+    watchdog = HangWatchdog(hang_timeout_sec, recorder=recorder, rank=rank)
+    try:
+        if steps <= warmup_steps:
+            raise ValueError(
+                f"steps={steps} leaves no timed step after warmup_steps={warmup_steps}")
+        is_main = rank == 0
+        chaos = FaultInjector(
+            parse_fault_spec(inject_fault if inject_fault is not None
+                             else os.environ.get("INJECT_FAULT")),
+            recorder=recorder, is_main=is_main, rank=rank)
+        _check_runtime_options(checkpoint_dir, checkpoint_every, checkpoint_async, resume,
+                               chaos)
+        asked = get_strategy(strategy) if isinstance(strategy, str) else strategy
+        _check_dpu_start(asked, offload_dpu_start_step, steps, warmup_steps, resume)
+        if offload_dpu_start_step > 0:
+            # Serial host updates first; the optimizer switches at the start step.
+            strategy = dataclasses.replace(asked, offload_delayed_update=False)
+        built = build_run(
+            strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
+            per_device_batch=per_device_batch, grad_accum=grad_accum,
+            attention_impl=attention_impl, dropout=dropout, sequence_parallel=sequence_parallel,
+            causal=causal, ring_zigzag=ring_zigzag, seed=seed, device=device,
+            world_size=world_size, tensor_parallel=tensor_parallel,
+            tp_collective_matmul=tp_collective_matmul, n_experts=n_experts,
+            expert_parallel=expert_parallel, pipeline_parallel=pipeline_parallel,
+            pipeline_schedule=pipeline_schedule, virtual_stages=virtual_stages,
+            dataset_size=dataset_size, skip_memory_check=skip_memory_check)
+        dev, cfg, strat, model, table, step_fn, mesh = (
+            built.device, built.config, built.strategy, built.model, built.table, built.step_fn,
+            built.mesh)
+        interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
+        ckpt = state = None
+        start_step, n_restarts, resume_step = 0, 0, -1
+        resume_baseline_loss, resume_geometry_changed = 0.0, False
+        if checkpoint_dir is not None:
+            state = TrainState(model, step_fn.optimizer, step_fn)
+            # The physical layer layout: interleaved stages hold permuted chunks;
+            # gpipe / 1f1b / no pipeline share the contiguous layout.
+            ckpt = BenchmarkCheckpointer(
+                checkpoint_dir, save_every=checkpoint_every,
+                layout={"layer_layout": (f"interleaved:pp={pipeline_parallel}:v={virtual_stages}"
+                                         if interleaved else "contiguous")},
+                geometry={"mesh_axes": mesh_axes_dict(mesh), "world_size": mesh.world},
+                async_save=checkpoint_async)
+            if resume:
+                # Digests are checked newest first, torn steps quarantined; an
+                # empty or all-torn directory is a cold start (the retrying
+                # orchestration passes --resume on every retry).
+                restored = ckpt.restore_latest(state)
+                if restored is not None:
+                    resume_step = restored
+                    start_step = resume_step + 1
+                    if start_step >= steps:
+                        # A zero-step row would publish 0 tokens/s over the real
+                        # result; the refusal leaves no telemetry trail beside it.
+                        recorder.discard()
+                        raise NothingToResume(
+                            f"--resume found checkpoint step {resume_step} but --steps {steps} "
+                            "leaves no steps to run: the run already completed (or the "
+                            "checkpoint belongs to a longer configuration). Nothing to measure "
+                            "— not publishing a zero-step row.")
+                    recorder.note("checkpoint_restored", **ckpt.last_restore)
+                    resume_geometry_changed = ckpt.last_resume_geometry_changed
+                    n_restarts = ckpt.note_restart(geometry_changed=resume_geometry_changed)
+                    resume_baseline_loss = float(ckpt.step_meta(resume_step).get("last_loss")
+                                                 or 0.0)
+                    recorder.note_resume(step=resume_step, n_restarts=n_restarts,
+                                         baseline_loss=resume_baseline_loss or None,
+                                         geometry_changed=resume_geometry_changed,
+                                         source_geometry=ckpt.last_resume_source_geometry)
+                    if is_main:
+                        stitch = ", geometry changed" if resume_geometry_changed else ""
+                        print(f"Resumed from checkpoint at step {resume_step} "
+                              f"(restart #{n_restarts}{stitch})")
+                elif is_main:
+                    print("Resume requested but no valid checkpoint found — cold start")
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
-        now = time.perf_counter()
-        dt = (now - t_window) / len(pending)
-        for s, loss in pending:
-            lf = float(loss)
-            if loss_log is not None:
-                loss_log.append(lf)
-            if s >= warmup_steps:
-                timed_times.append(dt)
-                timed_losses.append(lf)
-            if s % LOG_EVERY == 0 and is_main:
-                print(f"[Step {s:04d}] Loss: {lf:.4f}, Time: {dt:.3f}s")
-        phase["timed" if pending[0][0] >= warmup_steps else "warmup"] += now - t_window
-        pending.clear()
-        t_window = now
 
-    for step in range(steps):
-        if offload_dpu_start_step > 0 and step == offload_dpu_start_step:
-            if pending:
-                sync_window()
-            step_fn.optimizer.host.begin_delayed()
+        timed_times, timed_losses, pending = [], [], []
+        last_loss: List[Optional[float]] = [None]
+
+        def note_commits() -> None:
+            for entry in ckpt.drain_commits():
+                recorder.note("checkpoint_saved", **entry)
+
+        def sync_window(t_start: float) -> None:
+            """Fence the window and charge each of its steps the window's mean;
+            the telemetry boundary (window event, heartbeat), the watchdog's
+            beat and, last, the injector's boundary faults (a fault's trail
+            records the window it killed)."""
+            if not pending:
+                return
+            _sync(dev)
+            dt = (time.perf_counter() - t_start) / len(pending)
+            losses = []
+            for s, loss in pending:
+                lf = float(loss)
+                losses.append(lf)
+                if loss_log is not None:
+                    loss_log.append(lf)
+                if s >= warmup_steps:
+                    timed_times.append(dt)
+                    timed_losses.append(lf)
+                if s % LOG_EVERY == 0 and is_main:
+                    print(f"[Step {s:04d}] Loss: {lf:.4f}, Time: {dt:.3f}s")
+            last = pending[-1][0]
+            recorder.step_window(last_step=last, losses=losses, window_mean_step_time_sec=dt)
+            last_loss[0] = losses[-1]
+            pending.clear()
+            watchdog.beat(last)
+            chaos.at_boundary(last)
+
+        def emergency_stop(at_step: int) -> None:
+            """SIGTERM landed: at this fenced boundary (nothing pending), save
+            (or, with async saves, commit the one in flight), send the final
+            heartbeat, record ``run_aborted reason=preempted`` and raise."""
+            saved = None
+            if (ckpt is not None and ckpt.async_save and at_step >= max(start_step, 0)
+                    and (ckpt.pending_async_step() is not None or ckpt.latest_step() is not None)):
+                recorder.begin_phase("checkpoint")
+                try:
+                    flushed = ckpt.finalize_pending()
+                    note_commits()
+                    saved = ckpt.latest_step() if flushed is None else flushed
+                    recorder.note("emergency_flush", mode="async-delta", step=at_step,
+                                  committed_step=saved,
+                                  steps_delta=at_step - saved if saved is not None else None)
+                    if is_main:
+                        print(f"Emergency flush: async checkpoint at step {saved} committed "
+                              f"(preempted at boundary {at_step}; {at_step - saved} step(s) of "
+                              "recompute on resume)")
+                except Exception as e:
+                    recorder.note("checkpoint_failed", step=at_step, error=str(e), emergency=True)
+                    saved = None
+                    if is_main:
+                        print(f"WARNING: emergency async flush at step {at_step} failed ({e}); "
+                              "aborting as a plain partial")
+            elif ckpt is not None and at_step >= max(start_step, 0):
+                if ckpt.latest_step() == at_step:
+                    saved = at_step
+                else:
+                    recorder.begin_phase("checkpoint")
+                    try:
+                        ckpt.save(at_step, state, force=True,
+                                  meta={"last_loss": last_loss[0], "emergency": True,
+                                        "reason": "preempted"})
+                        note_commits()
+                        saved = at_step
+                        if is_main:
+                            print(f"Emergency checkpoint saved at step {at_step} (preempted)")
+                    except Exception as e:
+                        recorder.note("checkpoint_failed", step=at_step, error=str(e),
+                                      emergency=True)
+                        if is_main:
+                            print(f"WARNING: emergency checkpoint at step {at_step} failed ({e}); "
+                                  "aborting as a plain partial")
+            recorder.emergency_heartbeat(reason="preempted",
+                                         extra={"emergency_checkpoint_step": saved})
+            recorder.abort("preempted")
+            raise Preempted(at_step, saved)
+
+        if guard.requested and dist_rt.get_world_size() <= 1:
+            emergency_stop(start_step - 1)
+
+        watchdog.start()
+        # The first dispatched step up to its fence: the kernels' lazy build
+        # and the allocator's first growth.
+        recorder.begin_phase("compile")
+        t_window = time.perf_counter()
+        for step in range(start_step, steps):
+            if step == warmup_steps and step > start_step:
+                if sync_every > 1:
+                    sync_window(t_window)
+                recorder.begin_phase("timed")
+                t_window = time.perf_counter()
+            if offload_dpu_start_step > 0 and step == offload_dpu_start_step:
+                sync_window(t_window)
+                step_fn.optimizer.host.begin_delayed()
+                if is_main:
+                    print(f"[Step {step:04d}] delayed-update phase begins")
+                t_window = time.perf_counter()
+            pending.append((step, chaos.corrupt_loss(step, step_fn(table, step))))
+            if step == start_step and step < warmup_steps:
+                sync_window(t_window)
+                recorder.begin_phase("warmup")
+                t_window = time.perf_counter()
+            if len(pending) >= sync_every or step == steps - 1:
+                sync_window(t_window)
+                if recorder.phase == "compile":
+                    recorder.begin_phase("timed")
+                t_window = time.perf_counter()
+            if (ckpt is not None and ckpt.should_save(step)
+                    and step >= offload_dpu_start_step):
+                sync_window(t_window)
+                recorder.begin_phase("checkpoint")
+                try:
+                    chaos.maybe_fail_save()
+                    ckpt.save(step, state, meta={"last_loss": last_loss[0]})
+                    note_commits()
+                    if is_main:
+                        mode = " (async dispatch)" if ckpt.async_save else ""
+                        print(f"Checkpoint saved at step {step}{mode}")
+                    chaos.after_save(ckpt, step)
+                except OSError as e:
+                    recorder.note("checkpoint_failed", step=step, error=str(e))
+                    if is_main:
+                        print(f"WARNING: checkpoint save at step {step} failed ({e}); continuing "
+                              "without")
+                recorder.begin_phase("timed" if step >= warmup_steps else "warmup")
+                t_window = time.perf_counter()
+            if not pending:
+                peer = watchdog.peer_hang()
+                if peer is not None:
+                    watchdog.disarm()
+                    abort_on_peer_hang(recorder, step, peer)
+                target = guard.coordinate(step)
+                if target is not None and target <= step < steps - 1:
+                    emergency_stop(step)
+
+        sync_window(t_window)
+        watchdog.beat(steps - 1)
+        if guard.requested and is_main:
+            print("NOTE: preemption requested during the final window; all steps completed — "
+                  "publishing the result before exiting")
+        if ckpt is not None:
+            recorder.begin_phase("checkpoint")
+            if steps - 1 not in (ckpt.latest_step(), ckpt.pending_async_step()):
+                try:
+                    chaos.maybe_fail_save()
+                    ckpt.save(steps - 1, state, force=True, meta={"last_loss": last_loss[0]})
+                except OSError as e:
+                    recorder.note("checkpoint_failed", step=steps - 1, error=str(e))
+                    if is_main:
+                        print(f"WARNING: final checkpoint save failed ({e})")
+            ckpt.close()
+            note_commits()
+            watchdog.beat(steps - 1)
+        recorder.begin_phase("finalize")
+        dist_rt.barrier()
+        watchdog.disarm()
+
+        if offload_log is not None and step_fn.optimizer.host is not None:
+            offload_log.update(step_fn.optimizer.host.stats())
+        if pipeline_log is not None and step_fn.pipeline is not None:
+            transport = step_fn.pipeline.transport
+            pipeline_log.update(stage=step_fn.pipeline.stage,
+                                       sent_per_step=[n / steps for n in transport.sent],
+                                       wait_ms_per_step=1e3 * transport.wait_s / steps,
+                                       host_staged=transport.staged)
+        peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
+        overflow = None
+        if cfg.n_experts > 0 and interleaved:
             if is_main:
-                print(f"[Step {step:04d}] delayed-update phase begins")
-        pending.append((step, step_fn(table, step)))
-        if len(pending) >= sync_every or step == warmup_steps - 1 or step == steps - 1:
-            sync_window()
+                print("NOTE: MoE overflow diagnostic skipped under the interleaved schedule (its "
+                      "stages hold permuted layer chunks; JAX skips it there too)")
+        elif cfg.n_experts > 0:
+            overflow = _overflow_pct(built, per_device_batch)
+        peak_gb = _max_over_ranks(peak_gb, mesh, dev)
+        result = metrics_mod.compute_result(
+            strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
+            steps=steps, per_device_batch=per_device_batch, grad_accum=grad_accum,
+            step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,
+            peak_method=peak_method, device_kind=device_kind(dev), backend=dev.type,
+            n_params=_global_params(cfg, model, mesh), attention_impl=cfg.attention_impl,
+            dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
+            flops_per_token=flops_mod.train_flops_per_token(cfg), sync_every=sync_every,
+            phase_times=recorder.phase_times(), wall_time_total_sec=recorder.wall_time_total(),
+            sequence_parallel=sequence_parallel,
+            ring_zigzag={None: "auto", True: "on", False: "off"}[cfg.ring_zigzag],
+            tensor_parallel=tensor_parallel,
+            tp_collective_matmul=tp_collective_matmul,
+            param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
+            offload_delayed_update=asked.offload_delayed_update,
+            offload_dpu_start_step=offload_dpu_start_step,
+            expert_parallel=expert_parallel, n_experts=n_experts,
+            expert_overflow_pct=overflow, pipeline_parallel=pipeline_parallel,
+            pipeline_schedule=pipeline_schedule,
+            virtual_stages=virtual_stages if interleaved else 1,
+            resumed=resume_step >= 0, n_restarts=n_restarts, resume_step=resume_step,
+            resume_baseline_loss=resume_baseline_loss,
+            resume_geometry_changed=resume_geometry_changed, n_anomalies=recorder.n_anomalies,
+        )
+        if results_dir is not None and is_main:
+            metrics_mod.emit_result(result, results_dir)
+        recorder.close("ok")
+        return result
+    except BaseException as e:
+        watchdog.join_firing()
+        recorder.abort(f"exception:{type(e).__name__}: {e}")
+        raise
+    finally:
+        watchdog.disarm()
+        guard.uninstall()
 
-    if offload_log is not None and step_fn.optimizer.host is not None:
-        offload_log.update(step_fn.optimizer.host.stats())
-    if pipeline_log is not None and step_fn.pipeline is not None:
-        transport = step_fn.pipeline.transport
-        pipeline_log.update(stage=step_fn.pipeline.stage,
-                            sent_per_step=[n / steps for n in transport.sent],
-                            wait_ms_per_step=1e3 * transport.wait_s / steps,
-                            host_staged=transport.staged)
-    peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
-    interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
-    overflow = None
-    if cfg.n_experts > 0 and interleaved:
-        if is_main:
-            print("NOTE: MoE overflow diagnostic skipped under the interleaved schedule (its "
-                  "stages hold permuted layer chunks; JAX skips it there too)")
-    elif cfg.n_experts > 0:
-        overflow = _overflow_pct(run, per_device_batch)
-    peak_gb = _max_over_ranks(peak_gb, mesh, dev)
-    result = metrics_mod.compute_result(
-        strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
-        steps=steps,
-        per_device_batch=per_device_batch, grad_accum=grad_accum,
-        step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,
-        peak_method=peak_method, device_kind=device_kind(dev), backend=dev.type,
-        n_params=_global_params(cfg, model, mesh), attention_impl=cfg.attention_impl,
-        dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
-        flops_per_token=flops_mod.train_flops_per_token(cfg), sync_every=sync_every,
-        phase_times=phase, wall_time_total_sec=time.perf_counter() - t_start,
-        sequence_parallel=sequence_parallel,
-        ring_zigzag={None: "auto", True: "on", False: "off"}[cfg.ring_zigzag],
-        tensor_parallel=tensor_parallel, tp_collective_matmul=tp_collective_matmul,
-        param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
-        offload_delayed_update=asked.offload_delayed_update,
-        offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
-        n_experts=n_experts, expert_overflow_pct=overflow, pipeline_parallel=pipeline_parallel,
-        pipeline_schedule=pipeline_schedule,
-        virtual_stages=virtual_stages if interleaved else 1,
-    )
-    if results_dir is not None and is_main:
-        metrics_mod.emit_result(result, results_dir)
-    return result
+
+def _check_runtime_options(checkpoint_dir: Optional[str], checkpoint_every: int,
+                           checkpoint_async: bool, resume: bool, chaos: FaultInjector) -> None:
+    """Refuse a run-time option that would have no effect: every accepted
+    option is live."""
+    if checkpoint_every < 0:
+        raise ValueError(f"--checkpoint-every must be >= 0, got {checkpoint_every}")
+    if checkpoint_dir is None:
+        given = [flag for flag, on in (("--checkpoint-every", checkpoint_every > 0),
+                                       ("--checkpoint-async", checkpoint_async),
+                                       ("--resume", resume)) if on]
+        if given:
+            raise ValueError(f"{', '.join(given)} need{'s' if len(given) == 1 else ''} "
+                             "--checkpoint-dir (there is nowhere to save or resume from)")
+    spec = chaos.spec
+    if spec is not None and spec.kind not in ARMED_KINDS:
+        raise ValueError(
+            f"--inject-fault {spec}: the {spec.kind!r} fault parses but is not armed in the "
+            f"port yet; it waits for {WAITS_FOR[spec.kind]}")
+    if spec is not None and spec.kind in ("torn-checkpoint", "enospc-on-save") and (
+            checkpoint_dir is None):
+        raise ValueError(f"--inject-fault {spec} fires on checkpoint saves and needs "
+                         "--checkpoint-dir")

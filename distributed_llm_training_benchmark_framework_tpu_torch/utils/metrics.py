@@ -36,6 +36,14 @@ all the same), as JAX's ``BenchmarkResult`` does, and so its
 dp * ep`` tokens (JAX's ``tokens_per_step``); a MoE row stamps
 ``expert_parallel``, ``n_experts`` and ``expert_overflow_pct`` (None for a
 dense row).
+
+The run-time layer's keys (JAX's ``utils/metrics.py``): ``resumed``,
+``n_restarts``, ``resume_step``, ``resume_baseline_loss`` and
+``resume_geometry_changed`` (a run that restored a checkpoint, from the
+checkpoint directory's restart ledger), ``time_in_compile_sec`` (the
+recorder's ``compile`` phase: the first dispatched step up to its fence,
+the lazy ``nvcc`` build of the kernels included), ``time_in_checkpoint_sec``
+and ``n_anomalies`` (the recorder's NaN-loss and step-time-spike events).
 """
 
 from __future__ import annotations
@@ -63,6 +71,17 @@ def tokens_per_step(per_device_batch: int, grad_accum: int, seq_len: int, dp: in
                     expert_parallel: int = 1) -> int:
     """Global tokens one optimizer step consumes."""
     return per_device_batch * grad_accum * seq_len * dp * expert_parallel
+
+
+def peak_hbm_bytes() -> Optional[int]:
+    """The CUDA allocator's high-water mark on the current card, or None when
+    this process has not touched a card (the recorder's sample)."""
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else None
+
+
+def hbm_bytes_in_use() -> Optional[int]:
+    """Bytes the CUDA allocator holds now, or None (see ``peak_hbm_bytes``)."""
+    return torch.cuda.memory_allocated() if torch.cuda.is_initialized() else None
 
 
 def measure_peak_memory(dev: torch.device) -> tuple[float, str]:
@@ -108,10 +127,23 @@ class BenchmarkResult:
     loss_first_window: float = 0.0
     loss_last_window: float = 0.0
     loss_window_steps: int = 0
+    # A run that restored a checkpoint (--resume): how many resumes the
+    # checkpoint directory's ledger counts, the restored step, the loss
+    # recorded at its save, and whether it was saved under another mesh.
+    resumed: bool = False
+    n_restarts: int = 0
+    resume_step: int = -1
+    resume_baseline_loss: float = 0.0
+    resume_geometry_changed: bool = False
+    # Phase attribution (telemetry.TelemetryRecorder): disjoint phases.
     wall_time_total_sec: float = 0.0
     time_in_init_sec: float = 0.0
+    time_in_compile_sec: float = 0.0
     time_in_warmup_sec: float = 0.0
     time_in_timed_sec: float = 0.0
+    time_in_checkpoint_sec: float = 0.0
+    # NaN-loss and step-time-spike events the recorder screened.
+    n_anomalies: int = 0
     # Sequence shards of ring / Ulysses attention: over the group when
     # world_size > 1 (world_size = dp * sequence_parallel), else all held in
     # one process on its card (world_size 1). See the module docstring.
@@ -164,7 +196,10 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    n_experts: int = 0,
                    expert_overflow_pct: Optional[float] = None, pipeline_parallel: int = 1,
                    pipeline_schedule: str = "gpipe",
-                   virtual_stages: int = 1) -> BenchmarkResult:
+                   virtual_stages: int = 1, resumed: bool = False, n_restarts: int = 0,
+                   resume_step: int = -1, resume_baseline_loss: float = 0.0,
+                   resume_geometry_changed: bool = False,
+                   n_anomalies: int = 0) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -204,8 +239,13 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         step_time_cv_pct=cv, loss_first_window=loss_first, loss_last_window=loss_last,
         loss_window_steps=lw, wall_time_total_sec=round(wall_time_total_sec, 4),
         time_in_init_sec=round(pt.get("init", 0.0), 4),
+        time_in_compile_sec=round(pt.get("compile", 0.0), 4),
         time_in_warmup_sec=round(pt.get("warmup", 0.0), 4),
         time_in_timed_sec=round(pt.get("timed", 0.0), 4),
+        time_in_checkpoint_sec=round(pt.get("checkpoint", 0.0), 4),
+        resumed=resumed, n_restarts=n_restarts, resume_step=resume_step,
+        resume_baseline_loss=round(resume_baseline_loss, 6),
+        resume_geometry_changed=resume_geometry_changed, n_anomalies=n_anomalies,
         sequence_parallel=sequence_parallel, ring_zigzag=ring_zigzag,
         tensor_parallel=tensor_parallel,
         tp_collective_matmul=tp_collective_matmul, param_dtype=param_dtype,

@@ -74,7 +74,8 @@ RECIPE = {"ddp": "ddp", "fsdp": "ddp", "zero2": "zero2", "zero3": "zero2"}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "attention_impl", "dropout",
               "model_tflops_per_sec_per_chip", "mfu_pct", "peak_hbm_gb", "peak_hbm_method",
               "device_kind", "mean_step_time_sec", "loss_first_window", "loss_last_window",
-              "wall_time_total_sec", "time_in_timed_sec"}
+              "wall_time_total_sec", "time_in_compile_sec", "time_in_timed_sec",
+              "n_anomalies"}
 
 
 def _jax_setup():

@@ -43,6 +43,10 @@ if rank != 2:
 rt.barrier()
 res["agreed"] = rt.agree_preempt_step(10 + rank, timeout_sec=30.0)
 rt.barrier()
+# A later run in the same group reads only its own flags.
+rt.begin_run()
+res["next_run"] = [rt.preempt_flag_entries(), rt.hang_flag_entries()]
+rt.barrier()
 rt.cleanup_distributed()
 res["after"] = [rt.get_world_size(), rt.publish_preempt_flag(3), rt.agree_preempt_step(5)]
 json.dump(res, open(f"{out}.{rank}.json", "w"))
@@ -85,6 +89,10 @@ def test_agree_preempt_step(ranks):
     for res in ranks[:2]:
         assert res["lonely"] is None and 0.9 <= res["lonely_wait"] < 10
     assert [res["agreed"] for res in ranks] == [12, 12, 12]
+
+
+def test_a_later_run_starts_with_no_flags(ranks):
+    assert [res["next_run"] for res in ranks] == [[[], []]] * 3
 
 
 @pytest.mark.parametrize("env,want", [
