@@ -278,6 +278,26 @@ The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
     ``torn-checkpoint`` (step 4 quarantined, the resume falls back to 2),
     ``hang@3:30`` with ``--hang-timeout-sec 5`` (76 and a ``hang_dump``
     event).
+21. the second half of the run-time layer (``faults/sentinel.py``,
+    ``data/stream.py``, ``data/prefetch.py``), the parity row at full width:
+    (a) three harness subprocesses at once on the card: the row with
+    ``--sentinel on --sentinel-checksum-every 4 --checkpoint-every 4
+    --inject-fault bitflip@7`` (exit 0, ``n_rollbacks`` 1, every replayed
+    loss finite, the restore's wall); ``opt-moments@5`` with the sentinel
+    and no checkpoint (healed from the host snapshot: the same assertions,
+    the trip on step 6, the first after the corruption); and, on shards written by the
+    port's writer (S 2048, vocab 32000, twice the records any run reads),
+    ``data-stall@4:120`` with ``--data-stall-timeout-sec 3`` (exit 78, an
+    emergency checkpoint of step 3 with its stream sidecar) and its
+    ``--resume`` (exit 0, the cursor continuing at record 16: steps 4-7 read
+    exactly records 16-31); (b) alone on the card, through
+    ``run_benchmark`` with K1-K3's launches counted: the row on the
+    synthetic table without and with the sentinel and on the stream, in
+    turns (off, on, stream, stream, on, off, off, on), their step ms (the
+    sentinel's per-step cost and the stream's against the table), the stream's
+    ``data_stall_frac`` and mean prefetch wait; ``data-corrupt-record@5``
+    on the stream (``records_skipped`` 1, finite losses); the parameter
+    checksum's ``device_ms`` against its bound (0.94 GB of fp32 read once).
 
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
@@ -2428,6 +2448,25 @@ RT_DRILL = ["--strategy", "zero2", "--world-size", "1", "--tier", "S", "--seq-le
 RT_LOSS_RTOL = 1e-5  # resumed per-step losses against the straight run's
 RT_MIN_FREE_GB = 20.0  # a tier-A checkpoint is ~2.8 GB; up to 3 kept, plus staging
 
+# Phase 21: the numerics sentinel and the streaming input path.
+RT2_BITFLIP = ["--steps", "9", "--sentinel", "on", "--sentinel-checksum-every", "4",
+               "--checkpoint-every", "4", "--inject-fault", "bitflip@7"]
+RT2_MOMENTS = ["--steps", "10", "--sentinel", "on", "--inject-fault", "opt-moments@5"]
+RT2_STALL = ["--steps", "8", "--inject-fault", "data-stall@4:120",
+             "--data-stall-timeout-sec", "3"]
+RT2_SHARDS = dict(num_shards=4, records_per_shard=32)  # 128 records; a run reads <= 48
+RT2_STEPS, RT2_WARMUP = 12, 2  # the in-process runs of (b)
+# (b)'s runs in turns, (name, sentinel, stream): three sentinel off / on
+# pairs and two stream / table pairs around them.
+RT2_TURNS = (("off", False, False), ("on", True, False), ("stream", False, True),
+             ("stream 2", False, True), ("on 2", True, False), ("off 2", False, False),
+             ("off 3", False, False), ("on 3", True, False))
+RT2_KW = dict(strategy="zero2", tier="A", seq_len=2048, per_device_batch=1, grad_accum=4,
+              attention_impl="flash", device="cuda")  # the parity row in process
+RT2_LAUNCHES = 16 * 4 * RT2_STEPS  # K1-K3 each: layers x micro-batches x steps
+RT2_ARM = "zero2_ws1_seq2048_tierA"
+RT2_VOCAB = 32000  # tier A's
+
 
 def harness(args: list, results: str, timeout: int) -> dict:
     """Run the port's harness CLI once on the card (its default device):
@@ -2628,6 +2667,140 @@ def phase_runtime(smi: str) -> dict:
     return {"costs": costs, "drills": drills, "loss_max_rel": rel}
 
 
+def rt2_losses_finite(results: str, arm: str) -> list:
+    """The run's events, once every step's last loss (a replayed step's is
+    its replay's) is finite."""
+    events = rt_events(results, arm)
+    losses = rt_losses(events)
+    assert losses and all(v is not None and math.isfinite(v) for v in losses.values()), losses
+    return events
+
+
+def rt2_sentinel_run(root: str, name: str, args: list) -> dict:
+    """One sentinel harness run of the parity row: exit 0, one rollback,
+    finite losses (replayed ones included); its trip, rollback and restore."""
+    arm = RT2_ARM
+    run = harness(RT_ROW + args, os.path.join(root, name), 600)
+    rt_expect(run, 0, f"(a) {name}")
+    events = rt2_losses_finite(os.path.join(root, name), arm)
+    row = rt_row(os.path.join(root, name), arm)
+    assert row["n_rollbacks"] == 1, row["n_rollbacks"]
+    trips = [(e["kind"], e["step"]) for e in events if e["event"] == "sentinel_trip"]
+    restore = next(e for e in events if e["event"] == "checkpoint_restored" and e.get("rollback"))
+    return {"exit": run["rc"], "n_rollbacks": row["n_rollbacks"],
+            "rollback_steps_replayed": row["rollback_steps_replayed"], "trips": trips,
+            "restore": restore, "wall_s": run["wall_s"],
+            "step_ms_median": statistics.median(rt_step_ms(events).values())}
+
+
+def rt2_stall_chain(root: str, shards: str) -> dict:
+    """``data-stall@4:120`` under a 3 s timeout: exit 78 with step 3 saved;
+    then the resume, whose cursor continues at the sidecar's."""
+    arm = RT2_ARM
+    ck = ["--data-path", shards, "--checkpoint-dir", os.path.join(root, "ck_stall")]
+    stall = harness(RT_ROW + RT2_STALL + ck, os.path.join(root, "stall"), 600)
+    rt_expect(stall, 78, "(a) data-stall")
+    fatal = [e for e in rt_events(os.path.join(root, "stall"), arm)
+             if e["event"] == "data_stall" and e["fatal"]]
+    assert len(fatal) == 1 and fatal[0]["step"] == 4, fatal
+    back = harness(RT_ROW + ["--steps", "8", "--resume"] + ck, os.path.join(root, "stall_back"),
+                   600)
+    rt_expect(back, 0, "(a) resume after the stall")
+    rt2_losses_finite(os.path.join(root, "stall_back"), arm)
+    row = rt_row(os.path.join(root, "stall_back"), arm)
+    got = (row["resume_step"], row["stream_cursor_start"], row["stream_cursor_end"],
+           row["records_consumed"])
+    assert got == (3, 16, 32, 16), got
+    return {"exit": stall["rc"], "stall_wait_sec": fatal[0]["wait_sec"], "resume_exit": back["rc"],
+            "resume_step": row["resume_step"],
+            "cursor": [row["stream_cursor_start"], row["stream_cursor_end"]],
+            "wall_s": [stall["wall_s"], back["wall_s"]]}
+
+
+def rt2_row(fa, run_benchmark, **kw) -> tuple:
+    """The parity row in process, K1-K3 counted: (result, runtime log)."""
+    log_, losses = {}, []
+    fa.reset_launch_counts()
+    res = run_benchmark(steps=RT2_STEPS, warmup_steps=RT2_WARMUP, telemetry=False,
+                        loss_log=losses, runtime_log=log_, **RT2_KW, **kw)
+    counts = fa.launch_counts()
+    assert all(n == RT2_LAUNCHES for n in counts.values()), (counts, RT2_LAUNCHES)
+    assert all(math.isfinite(v) for v in losses), losses
+    return res, log_
+
+
+def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
+    """Phase 21: the sentinel and the stream, (a) through the harness, (b)
+    in process (see the module docstring)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards import (
+        make_shards,
+    )
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="runtime2_smoke_")
+    shards = os.path.join(root, "shards")
+    make_shards(shards, seq_len=RT2_KW["seq_len"], vocab_size=RT2_VOCAB, seed=21, **RT2_SHARDS)
+    log(f"[21] shards: {RT2_SHARDS} records of S {RT2_KW['seq_len']} under {shards} "
+        f"({sum(os.path.getsize(os.path.join(shards, f)) for f in os.listdir(shards))} bytes)")
+    with ThreadPoolExecutor(3) as pool:
+        jobs = {
+            "bitflip@7": pool.submit(rt2_sentinel_run, root, "bitflip", RT2_BITFLIP + [
+                "--checkpoint-dir", os.path.join(root, "ck_bitflip")]),
+            "opt-moments@5 (snapshot)": pool.submit(rt2_sentinel_run, root, "moments",
+                                                    RT2_MOMENTS),
+            "data-stall@4:120": pool.submit(rt2_stall_chain, root, shards),
+        }
+        drills = {name: job.result() for name, job in jobs.items()}
+    # The trip lands on step 6, the step after the corruption (its first
+    # symptom: the guards judge the loss first, then the grad norm).
+    assert drills["opt-moments@5 (snapshot)"]["trips"][0][1] == 6, drills
+    log(f"[21] (a) three harness runs at once on {smi}: {json.dumps(drills)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {}
+    for name, sentinel, stream in RT2_TURNS:
+        res, log_ = rt2_row(fa, run_benchmark, sentinel=sentinel,
+                            data_path=shards if stream else None)
+        rows[name] = {"step_ms": 1e3 * res.mean_step_time_sec, "tokens_per_sec": res.tokens_per_sec,
+                      "data_stall_frac": res.data_stall_frac,
+                      "prefetch_wait_ms_mean": (statistics.mean(log_["data_wait_ms"])
+                                                if "data_wait_ms" in log_ else None),
+                      "records": [res.stream_cursor_start, res.stream_cursor_end]}
+        torch.cuda.empty_cache()
+    cost = {"sentinel_on_minus_off_ms": [rows[f"on{k}"]["step_ms"] - rows[f"off{k}"]["step_ms"]
+                                         for k in ("", " 2", " 3")],
+            "stream_minus_table_ms": [rows["stream"]["step_ms"] - rows["off"]["step_ms"],
+                                      rows["stream 2"]["step_ms"] - rows["off 2"]["step_ms"]]}
+    log(f"[21] (b) in process, K1-K3 {RT2_LAUNCHES} launches each per run, in turns on "
+        f"{smi}: {json.dumps(rows)}; {json.dumps(cost)}")
+    res, log_ = rt2_row(fa, run_benchmark, data_path=shards, inject_fault="data-corrupt-record@5")
+    assert res.records_skipped == 1, res.records_skipped
+    # The checksum alone: the fp32 global norm of the row's parameters.
+    from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
+
+    run = build_run(sentinel=True, **RT2_KW)
+    n_bytes = sum(p.numel() * p.element_size() for p in run.model.parameters())
+    dev_ms = median_ms(run.step_fn.param_checksum, warmup=3, reps=10, device_clock=True)
+    checksum = {"device_ms": dev_ms, "ms": median_ms(run.step_fn.param_checksum, 3, 10),
+                "bytes": n_bytes, "bound_ms": 1e3 * n_bytes / (platform_hbm_gbps() * 1e9),
+                "bound_by": "bytes"}
+    log(f"[21] (b) data-corrupt-record@5 on the stream: records_skipped {res.records_skipped}, "
+        f"finite losses; the parameter checksum on {smi}: {json.dumps(checksum)}")
+    del run
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[21] phase wall {time.perf_counter() - t0:.1f} s")
+    return {"drills": drills, "rows": rows, "cost": cost, "checksum": checksum}
+
+
+def platform_hbm_gbps() -> float:
+    from distributed_llm_training_benchmark_framework_tpu_torch.utils import platform
+
+    return platform.device_peak_hbm_gbps(torch.cuda.get_device_name(0))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -2713,6 +2886,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_runtime(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_runtime2(fa, run_benchmark, smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

@@ -9,14 +9,19 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/faults``:
   :class:`Preempted` control exception and :data:`EXIT_PREEMPTED`;
 - :mod:`.watchdog` — the hang watchdog: a deadline on the boundary cadence
   that dumps every thread's stack into a ``hang_dump`` event, aborts every
-  rank coherently over the group's store and exits :data:`EXIT_HUNG`.
+  rank coherently over the group's store and exits :data:`EXIT_HUNG`;
+- :mod:`.sentinel` — the numerics sentinel: boundary guards (loss envelope,
+  global grad-norm, a parameter checksum every N steps) whose trip rolls
+  the run back in process to the last validated checkpoint and replays,
+  with ``n_rollbacks`` / ``rollback_steps_replayed`` on the row.
 
 The exit codes the retrying orchestration keys on live here: 75
 (preempted), 76 (hung) and 78 (the input stream stalled) are retryable
 with ``--resume``; 77 (nothing left to resume) is terminal.
-``EXIT_DATA_STALL`` is held here until the streaming input path
-(``data/stream.py``) is ported and raises it.
+``EXIT_DATA_STALL`` is ``data/stream.py``'s, re-exported here.
 """
+
+from ..data.stream import EXIT_DATA_STALL  # noqa: F401  (the exit codes in one place)
 
 from .injection import (  # noqa: F401
     ARMED_KINDS,
@@ -34,11 +39,8 @@ from .preemption import (  # noqa: F401
     Preempted,
     PreemptionGuard,
 )
+from .sentinel import NumericsSentinel, SentinelTripped  # noqa: F401
 from .watchdog import EXIT_HUNG, HangWatchdog, Hung  # noqa: F401
-
-#: Exit code of a run whose streaming input starved the timed loop
-#: (retryable with --resume); the JAX package's ``data/stream.py`` value.
-EXIT_DATA_STALL = 78
 
 __all__ = [
     "ARMED_KINDS",
@@ -53,8 +55,10 @@ __all__ = [
     "HangWatchdog",
     "Hung",
     "NothingToResume",
+    "NumericsSentinel",
     "Preempted",
     "PreemptionGuard",
+    "SentinelTripped",
     "WAITS_FOR",
     "parse_fault_spec",
 ]

@@ -9,19 +9,24 @@ fault fires at an exact, reproducible point:
   ``hang@N[:SECS]``, ``stall-rank@N:R[:SECS]``) fire at the first
   sync-window boundary whose last completed step is >= N;
 - ``nan-loss@N`` turns step N's loss into NaN as it is dispatched;
+- ``bitflip@N`` / ``grad-explode@N`` poison the parameters just before step
+  N dispatches (one huge element / one scaled leaf) and ``opt-moments@N``
+  the AdamW moments: the numerics sentinel's proof faults
+  (``faults/sentinel.py``), which the run must detect, roll back and replay;
 - ``torn-checkpoint`` fires after the first save that leaves a *previous*
   committed step behind it: it truncates one file of the newest step and
   SIGKILLs, so the resume must quarantine that step and fall back;
 - ``enospc-on-save`` raises ``OSError(ENOSPC)`` from every save: the run
   must degrade (a warning and a telemetry event) and still finish.
 
-``bitflip``, ``grad-explode`` and ``opt-moments`` (the numerics sentinel's
-proof faults) and the ``data-*`` kinds (the streaming input path's) parse
-here; ``ARMED_KINDS`` lists what this injector fires, and
-``train.loop.run_benchmark`` refuses the others, naming the module each
-waits for (``WAITS_FOR``). A fault announces itself with a
-``fault_injected`` telemetry event before firing (the JSONL is
-line-buffered, so even a SIGKILL's trail records what killed it).
+- the ``data-*`` kinds fire inside the streaming input path
+  (``data/stream.py``, ``data/prefetch.py``) through the ``data_*`` hooks,
+  at an exact record, shard or step, without touching the shard files.
+
+Every kind is armed (``ARMED_KINDS``; ``WAITS_FOR`` is empty). A fault
+announces itself with a ``fault_injected`` telemetry event before firing
+(the JSONL is line-buffered, so even a SIGKILL's trail records what killed
+it).
 """
 
 from __future__ import annotations
@@ -123,6 +128,22 @@ DATA_KINDS = frozenset(
     {"data-stall", "data-corrupt-record", "data-slow-reader",
      "data-missing-shard"}
 )
+
+#: The bitflip magnitude: its square overflows fp32, so the sentinel's
+#: checksum and grad-norm guards trip at the next boundary.
+BITFLIP_VALUE = 1e30
+#: grad-explode scales one leaf by this factor: logits saturate and the loss
+#: and grad-norm jump by orders of magnitude without going non-finite (the
+#: envelope guards must catch it, not a NaN screen).
+GRAD_EXPLODE_SCALE = 1e3
+#: opt-moments: the second moments collapse and the first moments burst.
+#: A collapse alone cannot spike the next step (AdamW refills the
+#: denominator with (1 - b2) g^2 within the corrupted step); the first
+#: moment keeps its corruption through b1 * m, so the update explodes
+#: while the corrupted step's own loss and gradients stay healthy, and the
+#: next step's grad-norm is the first symptom.
+MOMENT_COLLAPSE_SCALE = 1e-8
+MOMENT_BURST_SCALE = 1e4
 
 #: Default stall for ``hang`` when the spec carries no ``:SECS``. Long
 #: enough that any sane per-run timeout (or the k8s liveness probe) fires
@@ -272,17 +293,60 @@ def parse_fault_spec(spec: Optional[str]) -> Optional[FaultSpec]:
 
 
 
-#: The kinds this injector fires.
-ARMED_KINDS = frozenset({"sigkill", "sigterm", "sigterm-rank", "nan-loss", "hang", "stall-rank",
-                         "torn-checkpoint", "enospc-on-save"})
+#: The kinds this injector fires: all of them.
+ARMED_KINDS = frozenset(FAULT_KINDS)
 
 #: The parsed kinds that have no consumer in the port yet -> what they wait for.
-WAITS_FOR = {
-    **{k: "faults/sentinel.py (the numerics sentinel and its rollback)"
-       for k in ("bitflip", "grad-explode", "opt-moments")},
-    **{k: "data/stream.py and data/prefetch.py (the streaming input path, --data-path)"
-       for k in DATA_KINDS},
-}
+WAITS_FOR: dict = {}
+
+
+def _jax_path_str(path: tuple) -> str:
+    """``str`` of the JAX tree path of a leaf (a tuple of ``DictKey``), the
+    tie-break of the JAX injector's victim sort; ``path`` is the leaf's
+    bridge path without the layer index."""
+    return "(" + ", ".join(f"DictKey(key={k!r})" for k in path) + ("," if len(path) == 1
+                                                                    else "") + ")"
+
+
+def _owns_first_element(model, name: str, p) -> bool:
+    """Whether this rank's part of parameter ``name`` holds the global
+    element ``[0, ...]`` of its leaf: the first shard on every ``model`` /
+    ``expert`` axis that cuts it, and a DTensor shard at global offset 0."""
+    from .. import bridge
+
+    if any(index != 0 for _ax, index, _n, _g in bridge.shard_axes(model, name)):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor):
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        shape, offset = compute_local_shape_and_global_offset(p.shape, p.device_mesh,
+                                                              p.placements)
+        return all(o == 0 for o in offset) and all(n > 0 for n in shape)
+    return p.numel() > 0
+
+
+def corruption_victim(model, grad_explode: bool = False) -> tuple:
+    """The JAX injector's victim leaf on a port model: the largest leaf of
+    the global tree (a block leaf counts all its layers, as JAX stacks them),
+    ties broken on the JAX path's ``str``; ``grad_explode`` keeps the
+    leaves named ``wte``. -> (JAX path without the layer index, its global
+    stacked size). Needs no communication: sizes come from the config."""
+    import math
+
+    from .. import bridge
+
+    sizes = {}
+    for (path, p), (name, _) in zip(bridge.leaf_map(model), model.named_parameters()):
+        leaf = path[:2] if path[0] == "blocks" else path
+        layers = model.config.n_layer if path[0] == "blocks" else 1
+        sizes[leaf] = math.prod(bridge.global_shape(model, name, p)) * layers
+    if grad_explode:
+        named = {k: v for k, v in sizes.items() if "wte" in _jax_path_str(k)}
+        sizes = named or sizes
+    victim = sorted(sizes, key=lambda k: (-sizes[k], _jax_path_str(k)))[0]
+    return victim, sizes[victim]
 
 
 def _tear_newest_file(step_dir: str) -> Optional[str]:
@@ -311,8 +375,10 @@ class FaultInjector:
     """Arms one :class:`FaultSpec` against the train loop's boundaries. Call
     sites, all at device-fenced points (the injector adds no sync):
     :meth:`at_boundary` at the end of ``sync_window``, :meth:`corrupt_loss`
-    on each dispatched loss, :meth:`maybe_fail_save` before a save and
-    :meth:`after_save` after one. Inert without a spec."""
+    on each dispatched loss, :meth:`corrupt_params` and
+    :meth:`corrupt_opt_state` before each dispatch, :meth:`maybe_fail_save`
+    before a save and :meth:`after_save` after one; the streaming input path
+    calls the ``data_*`` hooks. Inert without a spec."""
 
     def __init__(self, spec: Optional[FaultSpec] = None, recorder=None, is_main: bool = True,
                  rank: int = 0):
@@ -365,6 +431,72 @@ class FaultInjector:
         self._announce(f"NaN loss injected at step {step}")
         return loss * float("nan")
 
+    # -- parameter and optimizer-state corruption (the sentinel's proofs) --
+
+    def corrupt_params(self, step: int, model) -> None:
+        """Poison the parameters in place just before step N dispatches, for
+        ``bitflip@N`` (element ``[0, ...]`` of the JAX injector's victim leaf
+        set to :data:`BITFLIP_VALUE`) and ``grad-explode@N`` (the ``wte``
+        leaf scaled by :data:`GRAD_EXPLODE_SCALE`); else nothing.
+
+        ``model`` is the TinyGPT the arm wraps. A block leaf's element
+        ``[0, ...]`` is global layer 0's. Where the leaf is sharded (a
+        ``model`` or ``expert`` axis, FSDP2's DTensor shards) only the rank
+        holding the global element writes it; a replicated leaf (DDP,
+        zero2's gathered buffers, a pipeline's shared leaves) is written on
+        every rank that holds it, as JAX writes every replica of its global
+        array."""
+        if (self.spec is None or self.fired or self.spec.kind not in ("bitflip", "grad-explode")
+                or step != self.spec.step):
+            return
+        self.fired = True
+        import torch
+
+        from .. import bridge
+
+        victim, _size = corruption_victim(model, grad_explode=self.spec.kind == "grad-explode")
+        label = "params" + "".join(f"[{k!r}]" for k in victim)
+        with torch.no_grad():
+            for (path, p), (name, _) in zip(bridge.leaf_map(model), model.named_parameters()):
+                if tuple(path[:len(victim)]) != victim:
+                    continue
+                local = p.to_local() if hasattr(p, "to_local") else p
+                if self.spec.kind == "grad-explode":
+                    local.mul_(GRAD_EXPLODE_SCALE)
+                elif (path[0] != "blocks" or path[2] == 0) and _owns_first_element(model, name, p):
+                    local.view(-1)[0] = BITFLIP_VALUE
+        if self.spec.kind == "bitflip":
+            self._announce(f"bitflip: {label}[0...] = {BITFLIP_VALUE:g} before step {step}")
+        else:
+            self._announce(f"grad-explode: {label} scaled x{GRAD_EXPLODE_SCALE:g} before "
+                           f"step {step}")
+
+    def corrupt_opt_state(self, step: int, optimizer) -> None:
+        """Corrupt the AdamW moments in place just before step N dispatches
+        (``opt-moments@N``; else nothing): every second moment
+        (``exp_avg_sq``, optax's nu) scaled by :data:`MOMENT_COLLAPSE_SCALE`
+        and every first moment (``exp_avg``, mu) by :data:`MOMENT_BURST_SCALE`,
+        wherever the arm keeps them: ``torch.optim.AdamW``'s state (ddp,
+        fsdp, zero2's shards) or the host offload's pinned buffers. Each rank
+        scales the moments it holds. With no moment buffer yet the fault says
+        it is inert."""
+        if (self.spec is None or self.fired or self.spec.kind != "opt-moments"
+                or step != self.spec.step):
+            return
+        self.fired = True
+        adamw = optimizer.host.adamw if optimizer.host is not None else optimizer.adamw
+        states = [st for st in adamw.state.values() if "exp_avg_sq" in st]
+        if not states:
+            self._announce("opt-moments: no Adam moment (mu/nu) buffers in this optimizer "
+                           "state — fault inert")
+            return
+        self._announce(f"opt-moments: collapsing {len(states)} second-moment (nu) buffers "
+                       f"x{MOMENT_COLLAPSE_SCALE:g} and bursting the paired mu buffers "
+                       f"x{MOMENT_BURST_SCALE:g} before step {step}")
+        for st in states:
+            st["exp_avg_sq"].mul_(MOMENT_COLLAPSE_SCALE)
+            st["exp_avg"].mul_(MOMENT_BURST_SCALE)
+
     def maybe_fail_save(self) -> None:
         """Raise ENOSPC from the save path for ``enospc-on-save``."""
         if self.spec is None or self.spec.kind != "enospc-on-save":
@@ -384,3 +516,53 @@ class FaultInjector:
         torn = _tear_newest_file(ckpt.step_dir(max(steps)))
         self._announce(f"tore checkpoint step {max(steps)} ({torn}); SIGKILL")
         os.kill(os.getpid(), signal.SIGKILL)
+
+    # -- data-path faults (consumed by data/stream.py and data/prefetch.py) --
+
+    def data_missing_shard(self) -> Optional[int]:
+        """Shard index to withhold from discovery (``data-missing-shard@K``),
+        or None. Fires at stream construction, before any device work."""
+        if self.spec is None or self.spec.kind != "data-missing-shard":
+            return None
+        if not self.fired:
+            self.fired = True
+            self._announce(f"shard {self.spec.step} withheld from discovery — the stream must "
+                           "refuse loudly naming it")
+        return self.spec.step
+
+    def data_stall_sec(self, step: int) -> float:
+        """Seconds the prefetch producer sleeps before the batch for step N
+        (``data-stall@N[:SECS]``); 0.0 otherwise. Runs on the prefetch
+        thread; the announce reaches the JSONL before the consumer starves."""
+        if (self.spec is None or self.fired or self.spec.kind != "data-stall"
+                or step != self.spec.step):
+            return 0.0
+        self.fired = True
+        secs = self.spec.hang_sec or HANG_DEFAULT_SEC
+        self._announce(f"input source silent for {secs:g}s before the batch for step {step}")
+        return secs
+
+    def data_corrupt_payload(self, global_index: int, payload: bytes) -> bytes:
+        """Flip one byte of global record N's payload as it is read
+        (``data-corrupt-record@N``; else passthrough): bit-rot without
+        mutating the shard files, which the CRC check must catch."""
+        if (self.spec is None or self.fired or self.spec.kind != "data-corrupt-record"
+                or global_index != self.spec.step):
+            return payload
+        self.fired = True
+        self._announce(f"flipped one payload byte of global record {global_index} (CRC must "
+                       "catch it; slot heals by substitution)")
+        return bytes([payload[0] ^ 0xFF]) + payload[1:]
+
+    def data_read_delay_sec(self, global_index: int) -> float:
+        """Extra per-record read latency from record N on
+        (``data-slow-reader@N:MS``); 0.0 otherwise. ``fired`` gates only the
+        announce: the degradation lasts for the rest of the run."""
+        if (self.spec is None or self.spec.kind != "data-slow-reader"
+                or global_index < (self.spec.step or 0)):
+            return 0.0
+        if not self.fired:
+            self.fired = True
+            self._announce(f"every record read from global record {self.spec.step} on takes "
+                           f"+{self.spec.delay_ms:g} ms (degraded mount)")
+        return (self.spec.delay_ms or 0.0) / 1000.0

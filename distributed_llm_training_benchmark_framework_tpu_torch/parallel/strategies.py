@@ -623,6 +623,18 @@ def _total_norm(grads: List[torch.Tensor], f32: bool) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
 
 
+#: The largest norm whose square fits fp32: past it JAX's fp32 sum of squares
+#: (``global_norm_f32``) is inf, and so are the sentinel's values here.
+F32_NORM_LIMIT = math.sqrt(torch.finfo(torch.float32).max)
+
+
+def _f32_sum_semantics(norm: torch.Tensor) -> torch.Tensor:
+    """``norm`` as an fp32 sum of squares gives it: inf once the squares
+    overflow fp32 (an fp64 sum, or the CPU's double accumulation, keeps a
+    flipped exponent finite; the sentinel must see it as JAX does)."""
+    return torch.where(norm > F32_NORM_LIMIT, torch.full_like(norm, math.inf), norm)
+
+
 class Optimizer:
     """Global-norm clip (optional) + AdamW under the arm's lr schedule, over
     ``.grad`` of the given parameters. ``count`` is optax's update count.
@@ -643,7 +655,15 @@ class Optimizer:
     the same local tensors and runs the update; ``step`` hands it the
     gradients and the clip's scale. Its delayed form starts the host's
     worker in ``zero_grad``, at the start of a step, and joins it in
-    ``step``."""
+    ``step``.
+
+    ``track_grad_norm`` (the numerics sentinel): each ``step`` leaves the
+    fp32 global norm of the gradients it was given, before the clip, in
+    ``grad_norm`` (a 0-d device tensor; reading it is the caller's sync).
+    Where the gradients are fp32 it is the clip's own norm; bf16 gradients,
+    or no clip, take one fp32 pass of their own. ``param_norm`` is the fp32
+    global norm of the parameters over the same groups (the sentinel's
+    checksum). Both are inf where JAX's fp32 sum of squares overflows."""
 
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
                  norm_group: Optional[dist.ProcessGroup] = None,
@@ -672,6 +692,8 @@ class Optimizer:
                 eps=strategy.eps, weight_decay=strategy.weight_decay,
             )
         self.count = 0
+        self.track_grad_norm = False
+        self.grad_norm: Optional[torch.Tensor] = None
 
     def zero_grad(self) -> None:
         _zero_grads(self.params, set_to_none=True)
@@ -715,14 +737,18 @@ class Optimizer:
         dist.all_reduce(sq, group=self.norm_group)
         return sq.sqrt()
 
-    def _global_norm_sharded(self, f32: bool = False) -> torch.Tensor:
+    def _global_norm_sharded(self, f32: bool = False,
+                             tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """The norm over every element once: the flagged leaves' squares
         summed over ``shard_group``, the replicated ones' counted once,
-        then (shards of one gradient) summed over ``norm_group``."""
+        then (shards of one gradient) summed over ``norm_group``.
+        ``tensors``: one per parameter, laid out as it (default: the grads)."""
         parts = {True: [], False: []}
-        for p, sharded in zip(self.params, self.shard_flags):
-            if p.grad is not None:
-                parts[sharded].append(_local(p.grad))
+        if tensors is None:
+            tensors = [p.grad for p in self.params]
+        for t, sharded in zip(tensors, self.shard_flags):
+            if t is not None:
+                parts[sharded].append(_local(t))
         norms = {sharded: _total_norm(grads, f32) for sharded, grads in parts.items() if grads}
         some = next(iter(norms.values()))
         sq = {sharded: norms[sharded] ** 2 if sharded in norms else torch.zeros_like(some)
@@ -733,23 +759,44 @@ class Optimizer:
             dist.all_reduce(total, group=self.norm_group)
         return total.sqrt()
 
-    def _clip_norm(self, f32: bool = False) -> torch.Tensor:
+    def _clip_norm(self, f32: bool = False,
+                   tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """The clip's global norm: fp32 (an fp64 sum of fp32 gradients'
-        squares rounded once), or the bf16 gradients' own dtype."""
+        squares rounded once), or the bf16 gradients' own dtype.
+        ``tensors`` as for ``_global_norm_sharded``."""
         if self.shard_group is None:
-            norm = self._global_norm(self._grads(), f32)
+            local = (self._grads() if tensors is None
+                     else [_local(t) for t in tensors if t is not None])
+            norm = self._global_norm(local, f32)
         else:
-            norm = self._global_norm_sharded(f32)
+            norm = self._global_norm_sharded(f32, tensors)
         return norm.float() if norm.dtype == torch.float64 else norm
+
+    @torch.no_grad()
+    def param_norm(self) -> torch.Tensor:
+        """The fp32 global L2 norm of the parameters, every element counted
+        once (collective over the norm groups): JAX's ``make_param_norm_fn``."""
+        return _f32_sum_semantics(
+            self._clip_norm(f32=True, tensors=[p.detach() for p in self.params]))
+
+    def _note_grad_norm(self, g_norm: Optional[torch.Tensor]) -> None:
+        """Keep the pre-clip fp32 norm for the sentinel: ``g_norm`` when it
+        is fp32 already (the clip's), else one fp32 pass."""
+        if self.track_grad_norm:
+            self.grad_norm = _f32_sum_semantics(
+                g_norm if g_norm is not None and g_norm.dtype == torch.float32
+                else self._clip_norm(f32=True))
 
     @torch.no_grad()
     def clip(self) -> None:
         """optax clip_by_global_norm, in place on ``.grad``."""
         c = self.strategy.grad_clip
         if c is None:
+            self._note_grad_norm(None)
             return
         grads = self._grads()
         g_norm = self._clip_norm()
+        self._note_grad_norm(g_norm)
         trigger = g_norm < c
         one = torch.ones((), dtype=g_norm.dtype, device=g_norm.device)
         # (g / g_norm) * c when clipping, g / 1 * 1 otherwise: no host sync.
@@ -764,8 +811,10 @@ class Optimizer:
         they are; the host folds the scale into their upcast."""
         c = self.strategy.grad_clip
         if c is None:
+            self._note_grad_norm(None)
             return None
         g_norm = self._clip_norm(f32=True)
+        self._note_grad_norm(g_norm)
         return torch.div(torch.full_like(g_norm, c), torch.clamp(g_norm, min=c))
 
     def step(self) -> None:

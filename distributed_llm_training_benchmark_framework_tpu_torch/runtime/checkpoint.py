@@ -23,6 +23,12 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/runtime/checkpoint.py
   run's: a tree that does not fit (another tier, family or ``seq_len``)
   is refused by name; another mesh restores (elastic resume) and sets
   ``last_resume_geometry_changed``.
+- **Stream sidecars.** A run on the streaming input path (``--data-path``)
+  saves the stream's exact-resume state (``data/stream.py``: the records
+  delivered through the step, and the skip total) as ``stream_<step>.json``
+  beside the step, so a resume consumes precisely the records the run had
+  not consumed; the cursor is geometry-free, so it survives a resume onto
+  another mesh.
 - **Async saves** (``async_save``): a periodic save stages the state into
   host memory and returns while DCP's ``async_save`` writes it on a
   thread; the commit (rename, digest, geometry) is fenced at a later
@@ -356,8 +362,10 @@ class BenchmarkCheckpointer:
             warnings.filterwarnings("ignore", message="torch.distributed is disabled",
                                     category=UserWarning)
         self.rank = dist.get_rank() if self.distributed else 0
-        #: (step, meta, future, dispatch stats) of an async save not yet committed.
-        self._pending_async: Optional[Tuple[int, Dict[str, Any], Any, Dict[str, Any]]] = None
+        #: (step, meta, future, dispatch stats, stream state) of an async save
+        #: not yet committed.
+        self._pending_async: Optional[Tuple[int, Dict[str, Any], Any, Dict[str, Any],
+                                            Optional[Dict[str, Any]]]] = None
         #: Committed saves since the last ``drain_commits`` (timings, bytes).
         self._commits: List[Dict[str, Any]] = []
         #: Set by restore(): whether the step was saved under another mesh,
@@ -402,6 +410,9 @@ class BenchmarkCheckpointer:
 
     def _geometry_path(self, step: int) -> str:
         return os.path.join(self.directory, f"geometry_{step}.json")
+
+    def _stream_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"stream_{step}.json")
 
     @property
     def quarantine_dir(self) -> str:
@@ -524,6 +535,35 @@ class BenchmarkCheckpointer:
             return None
         return raw
 
+    def _write_stream_state(self, step: int, state: Optional[Dict[str, Any]]) -> None:
+        """The step's stream sidecar (rank 0); a failed write warns, and the
+        resume falls back to the closed-form cursor."""
+        if state is None:
+            return
+        try:
+            _atomic_write_json(self._stream_path(step), dict(state))
+        except OSError as e:
+            print(f"WARNING: stream-state sidecar for step {step} not written ({e}); resume "
+                  "will use the closed-form cursor")
+
+    def read_stream_state(self, step: int) -> Optional[Dict[str, Any]]:
+        """The step's stream sidecar, or None (a synthetic-path checkpoint,
+        an unreadable sidecar, or a newer schema)."""
+        from ..data.stream import STREAM_STATE_SCHEMA_VERSION
+
+        path = self._stream_path(step)
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+        except (ValueError, OSError):
+            return None
+        ver = raw.get("schema_version")
+        if not isinstance(ver, int) or ver > STREAM_STATE_SCHEMA_VERSION:
+            return None
+        return raw
+
     def _geometry_differs(self, saved_geom: Optional[Dict[str, Any]]) -> bool:
         """The sidecar's mesh differs from this run's (width-1 axes ignored)."""
         if not saved_geom or not self.geometry:
@@ -549,7 +589,7 @@ class BenchmarkCheckpointer:
         expected = self._read_digest(step) or {}
         if os.path.isdir(self.step_dir(step)):
             shutil.move(self.step_dir(step), os.path.join(dest, str(step)))
-        for path in (self._digest_path(step), self._geometry_path(step)):
+        for path in (self._digest_path(step), self._geometry_path(step), self._stream_path(step)):
             if os.path.exists(path):
                 shutil.move(path, os.path.join(dest, os.path.basename(path)))
         _atomic_write_json(os.path.join(dest, "QUARANTINE.json"), {
@@ -667,7 +707,8 @@ class BenchmarkCheckpointer:
         out, self._commits = self._commits, []
         return out
 
-    def _commit(self, step: int, meta: Dict[str, Any], stats: Dict[str, Any]) -> None:
+    def _commit(self, step: int, meta: Dict[str, Any], stats: Dict[str, Any],
+                stream_state: Optional[Dict[str, Any]] = None) -> None:
         """Every rank's files are down: rank 0 renames the step into place,
         hashes it and writes the sidecars (collective)."""
         self._barrier()
@@ -683,6 +724,7 @@ class BenchmarkCheckpointer:
                       "will restore as legacy-valid")
             stats["digest_ms"] = 1e3 * (time.perf_counter() - t0)
             self._write_geometry(step)
+            self._write_stream_state(step, stream_state)
             stats["bytes"] = sum(os.path.getsize(os.path.join(d, f))
                                  for d, _, fs in os.walk(self.step_dir(step)) for f in fs)
             self._gc()
@@ -694,19 +736,21 @@ class BenchmarkCheckpointer:
         committed step, or None when nothing was pending."""
         if self._pending_async is None:
             return None
-        step, meta, future, stats = self._pending_async
+        step, meta, future, stats, stream_state = self._pending_async
         self._pending_async = None
         t0 = time.perf_counter()
         future.result()
         stats["write_wait_ms"] = 1e3 * (time.perf_counter() - t0)
-        self._commit(step, meta, stats)
+        self._commit(step, meta, stats, stream_state)
         return step
 
     def save(self, step: int, state: TrainState, force: bool = False,
-             meta: Optional[Dict[str, Any]] = None) -> bool:
-        """Save ``state`` as ``step`` (collective). A periodic save (not
-        ``force``) with ``async_save`` returns once the state is staged in
-        host memory; its commit waits for ``finalize_pending``."""
+             meta: Optional[Dict[str, Any]] = None,
+             stream_state: Optional[Dict[str, Any]] = None) -> bool:
+        """Save ``state`` as ``step`` (collective), with the stream sidecar
+        ``stream_state`` when given. A periodic save (not ``force``) with
+        ``async_save`` returns once the state is staged in host memory; its
+        commit waits for ``finalize_pending``."""
         self.finalize_pending()
         needs_stamp = self._check_layout_for_save()
         self._barrier()
@@ -724,12 +768,12 @@ class BenchmarkCheckpointer:
         if self.async_save and not force:
             future = dcp.async_save(sd, checkpoint_id=self._tmp_dir(step), **self._dcp_kwargs())
             stats["dispatch_ms"] = 1e3 * (time.perf_counter() - t0)
-            self._pending_async = (step, dict(meta or {}), future, stats)
+            self._pending_async = (step, dict(meta or {}), future, stats, stream_state)
             return True
         dcp.save(sd, checkpoint_id=self._tmp_dir(step), **self._dcp_kwargs())
         stats["write_ms"] = 1e3 * (time.perf_counter() - t1)
         stats["dispatch_ms"] = 1e3 * (time.perf_counter() - t0)
-        self._commit(step, dict(meta or {}), stats)
+        self._commit(step, dict(meta or {}), stats, stream_state)
         return True
 
     def _gc(self) -> None:
@@ -740,7 +784,8 @@ class BenchmarkCheckpointer:
             shutil.rmtree(self.step_dir(step), ignore_errors=True)
         live = set(self.all_steps())
         for name in os.listdir(self.directory):
-            prefix = next((p for p in ("digest_", "geometry_") if name.startswith(p)), None)
+            prefix = next((p for p in ("digest_", "geometry_", "stream_") if name.startswith(p)),
+                          None)
             if prefix is None or not name.endswith(".json"):
                 continue
             try:

@@ -24,6 +24,9 @@ process group rendezvous over it), which carries the cross-rank
 "preempt soon" and "rank wedged" flags and the preempt-step agreement
 (the JAX package rides the coordination service's key-value store for
 the same): a flag costs host round trips to the store and no device work.
+On the streaming input path it also carries each step's "batch ready or
+starved" verdicts (``agree_data_ready``), so a stall on one rank stops
+every rank at the same boundary.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.distributed as dist
 _PREEMPT_FLAG_PREFIX = "benchpreempt/flag/"
 _PREEMPT_ACK_PREFIX = "benchpreempt/ack/"
 _HANG_FLAG_PREFIX = "benchhang/flag/"
+_DATA_READY_PREFIX = "benchdata/ready/"
 
 #: How long start-up and each collective wait for every rank.
 RENDEZVOUS_TIMEOUT_SEC = 600.0
@@ -254,3 +258,35 @@ def agree_preempt_step(my_boundary_step: int,
             return None
         acks[rank] = int(store.get(key))
     return max(acks.values())
+
+
+def agree_data_ready(step: int, stalled_sec: Optional[float], timeout_sec: float,
+                     generation: int = 0) -> Optional[float]:
+    """Before step ``step`` dispatches on the streaming input path: publish
+    this rank's verdict (None: its batch is here; else the seconds it
+    starved past the stall timeout) and read every rank's -> None when
+    every rank has its batch, else the longest starvation, the same on
+    every rank. A healthy rank waits here for a starving peer's verdict
+    (up to ``timeout_sec``, the peer's own timeout plus slack) instead of
+    entering the step's collectives without it. ``generation`` (the
+    rollbacks so far) keeps a replayed step's verdicts apart from its first
+    pass's. Without a store (one process) the answer is this rank's
+    verdict."""
+    if _RT.store is None or _RT.env.world_size <= 1:
+        return stalled_sec
+    me, store = _RT.env.rank, _RT.store
+    prefix = f"{_DATA_READY_PREFIX}{int(generation)}/{int(step)}/"
+    store.set(_key(prefix, me), "ok" if stalled_sec is None else repr(float(stalled_sec)))
+    worst = stalled_sec
+    for rank in range(_RT.env.world_size):
+        if rank == me:
+            continue
+        key = _key(prefix, rank)
+        store.wait([key], datetime.timedelta(seconds=timeout_sec))
+        verdict = store.get(key).decode()
+        if verdict != "ok":
+            worst = max(worst or 0.0, float(verdict))
+    # Every peer read this rank's verdict of step - 2 before publishing its
+    # own of step - 1, which this rank has just read: it can go.
+    store.delete_key(_key(f"{_DATA_READY_PREFIX}{int(generation)}/{int(step) - 2}/", me))
+    return worst

@@ -258,6 +258,14 @@ class TelemetryRecorder:
         self._n_anomalies = 0
         self._nan_anomalies = 0
         self._last_hbm_peak_gib: Optional[float] = None
+        # Streaming-data accounting (data/prefetch.py): the wait the loop
+        # spent starved for input against the window wall it happened in,
+        # and the quarantine ledger's total. Synthetic runs never pass the
+        # fields, so their telemetry and heartbeat bytes are unchanged.
+        self._has_data_path = False
+        self._cum_data_wait_sec = 0.0
+        self._cum_data_window_sec = 0.0
+        self._records_skipped: Optional[int] = None
         self._open_spike: Optional[int] = None  # step that opened the spike
         self._spike_dts: List[float] = []  # window dts while a spike is open
         self.path: Optional[str] = None
@@ -405,12 +413,24 @@ class TelemetryRecorder:
     # Step windows (called at sync boundaries only)
     # ------------------------------------------------------------------
 
+    @property
+    def data_stall_frac(self) -> Optional[float]:
+        """Fraction of the streamed windows' wall time spent starved for
+        input so far (None on synthetic runs)."""
+        if not self._has_data_path:
+            return None
+        if self._cum_data_window_sec <= 0:
+            return 0.0
+        return max(0.0, min(self._cum_data_wait_sec / self._cum_data_window_sec, 1.0))
+
     def step_window(
         self,
         *,
         last_step: int,
         losses: List[float],
         window_mean_step_time_sec: float,
+        data_wait_sec: Optional[float] = None,
+        records_skipped: Optional[int] = None,
     ) -> None:
         """Record one synced window: per-window stats + anomaly screening.
 
@@ -443,6 +463,19 @@ class TelemetryRecorder:
             # Live high-water mark for the heartbeat channel: the
             # liveness probe surfaces memory pressure mid-run.
             self._last_hbm_peak_gib = round(hbm / 2**30, 3)
+        # Streaming-data fields (stream runs only): the window's wait for
+        # input and the quarantine total make the stall timeline
+        # reconstructible from the JSONL alone.
+        data_fields: Dict[str, Any] = {}
+        if data_wait_sec is not None:
+            self._has_data_path = True
+            self._cum_data_wait_sec += max(data_wait_sec, 0.0)
+            self._cum_data_window_sec += n * window_mean_step_time_sec
+            data_fields["data_wait_sec"] = round(data_wait_sec, 6)
+        if records_skipped is not None:
+            self._has_data_path = True
+            self._records_skipped = int(records_skipped)
+            data_fields["records_skipped"] = int(records_skipped)
         self._emit(
             "step_window",
             step=last_step,
@@ -456,6 +489,7 @@ class TelemetryRecorder:
             peak_hbm_bytes=hbm,
             hbm_bytes_in_use=hbm_now,
             phase=self._phase,
+            **data_fields,
         )
         self._screen_anomalies(last_step, losses, window_mean_step_time_sec)
         self._heartbeat(last_step, loss, tps, window_mean_step_time_sec)
@@ -534,6 +568,12 @@ class TelemetryRecorder:
             # Live memory pressure in the scrape channel
             # (scripts/liveness_probe.sh surfaces it mid-run).
             payload["hbm_peak_gib"] = self._last_hbm_peak_gib
+        if self._has_data_path:
+            # Input-path pressure in the scrape channel: an input-bound run
+            # is visible mid-run, and a salvaged partial row carries the
+            # stall and skip accounting.
+            payload["data_stall_frac"] = round(self.data_stall_frac or 0.0, 4)
+            payload["records_skipped"] = self._records_skipped or 0
         payload.update(self.meta)
         # flush=True: heartbeats must reach a pipe/pod log immediately —
         # a block-buffered stdout would hold them hostage past a SIGKILL.
@@ -569,6 +609,12 @@ class TelemetryRecorder:
         }
         if self._last_hbm_peak_gib is not None:
             payload["hbm_peak_gib"] = self._last_hbm_peak_gib
+        if self._has_data_path:
+            # Input-path pressure in the scrape channel: an input-bound run
+            # is visible mid-run, and a salvaged partial row carries the
+            # stall and skip accounting.
+            payload["data_stall_frac"] = round(self.data_stall_frac or 0.0, 4)
+            payload["records_skipped"] = self._records_skipped or 0
         payload.update(self.meta)
         payload.update(extra or {})
         print(f"{HEARTBEAT_MARKER} {json.dumps(payload)}", flush=True)
@@ -587,6 +633,12 @@ class TelemetryRecorder:
             "n_anomalies": self._n_anomalies,
             "n_unresolved_anomalies": self.n_unresolved_anomalies,
         }
+        if self._has_data_path:
+            # The terminal event carries the input-path accounting too: a
+            # JSONL alone still shows whether the run was input-bound or
+            # healed records.
+            fields["data_stall_frac"] = round(self.data_stall_frac or 0.0, 6)
+            fields["records_skipped"] = self._records_skipped or 0
         if self.meta.get("resumed"):
             # Stitched runs carry their accounting into the terminal
             # event too, so a JSONL alone (no result row) still shows

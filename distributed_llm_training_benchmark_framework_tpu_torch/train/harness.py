@@ -21,10 +21,18 @@ runs on the host).
   (``parallel.strategies.from_deepspeed_config``), and the ZeRO arms read
   ``configs/strategies/<arm>.json`` when none is given, as the reference
   demands a config for them.
+- ``--sentinel on`` arms the numerics sentinel (``--sentinel-checksum-every``
+  N adds its parameter checksum every N steps), which heals a trip by an
+  in-process rollback; a trip it cannot heal (no checkpoint and no
+  snapshot, or its rollbacks spent) fails the run plainly
+  (``SentinelTripped``, exit 1). ``--data-path DIR`` trains on the shard
+  stream under DIR (make shards with ``python -m
+  distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards``),
+  and ``--data-stall-timeout-sec`` bounds the wait for a batch.
 - Exit codes (``faults``): 0 done; 75 preempted after an emergency
-  checkpoint and 76 hung (a watchdog abort), both retryable with
-  ``--resume``; 77 a ``--resume`` with no steps left, terminal. 78 (the
-  input stream stalled) waits for the streaming input path.
+  checkpoint, 76 hung (a watchdog abort) and 78 the input stream stalled
+  (an emergency checkpoint with the stream's cursor), all retryable with
+  ``--resume``; 77 a ``--resume`` with no steps left, terminal.
 """
 
 from __future__ import annotations
@@ -42,7 +50,9 @@ from ..parallel.strategies import (
     is_deepspeed_config,
     load_strategy_config,
 )
+from ..data import DataStalled
 from ..faults import (
+    EXIT_DATA_STALL,
     EXIT_HUNG,
     EXIT_NOTHING_TO_RESUME,
     EXIT_PREEMPTED,
@@ -53,17 +63,11 @@ from ..faults import (
 from ..runtime import distributed as dist_rt
 from .loop import run_benchmark
 
-_NEXT_SLICE = "the numerics sentinel (faults/sentinel.py), not ported yet"
-_STREAM = "the streaming input path (data/stream.py, data/prefetch.py), not ported yet"
 _XLA = ("an XLA or Pallas knob with no counterpart in the port: the Hopper kernels' tiles "
         "and backward are fixed (ROADMAP Queue 3, decided differences)")
 
 #: dest -> (the port's default, the reason any other value is refused).
 REFUSED = {
-    "sentinel": ("off", _NEXT_SLICE),
-    "sentinel_checksum_every": (0, _NEXT_SLICE),
-    "data_path": (None, _STREAM),
-    "data_stall_timeout_sec": (60.0, _STREAM),
     "profile_dir": (None, "a profiler trace of the harness run, not ported yet (ROADMAP Queue 1 "
                           "item 0; scripts/torch_step_profile.py profiles the step)"),
     "layer_loop": ("unrolled", "eager PyTorch runs the layers as a Python loop; a 'scan' form "
@@ -125,11 +129,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Model family")
     p.add_argument("--seq-len", type=int, required=True)
     p.add_argument("--synthetic", action="store_true", default=True,
-                   help="Synthetic data (the device-resident table; the only input path "
-                        "ported)")
-    p.add_argument("--data-path", type=str, default=None, help=f"Refused: {_STREAM}")
+                   help="Synthetic data (the device-resident table; --data-path overrides it "
+                        "with the streaming path)")
+    p.add_argument("--data-path", type=str, default=None,
+                   help="Directory of tokenized record shards (data/make_shards.py format): the "
+                        "streaming input path, with checksummed records, skip-and-quarantine, "
+                        "bounded read retries, exact-resume cursor sidecars and a published "
+                        "data_stall_frac")
     p.add_argument("--data-stall-timeout-sec", type=float, default=60.0,
-                   help=f"Refused when set: {_STREAM}")
+                   help="With --data-path: stop as reason=data_stall (exit 78, retryable with "
+                        "--resume) when the loop waits this long for a batch; keep it below "
+                        "--hang-timeout-sec")
     p.add_argument("--dataset-size", type=int, default=1000,
                    help="Rows of the synthetic table")
     p.add_argument("--attention", type=str, default="reference",
@@ -199,14 +209,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inject-fault", type=str, default=None,
                    help="Arm one deterministic fault: sigkill@N, sigterm@N, "
                         "sigterm-rank@N:R, nan-loss@N, hang@N[:SECS], stall-rank@N:R[:SECS], "
-                        "torn-checkpoint, enospc-on-save (INJECT_FAULT when not given)")
+                        "bitflip@N, grad-explode@N, opt-moments@N, torn-checkpoint, "
+                        "enospc-on-save, data-stall@N[:SECS], data-corrupt-record@N, "
+                        "data-slow-reader@N:MS, data-missing-shard@K (INJECT_FAULT when not "
+                        "given)")
     p.add_argument("--hang-timeout-sec", type=float, default=0.0,
                    help="Arm the hang watchdog: no sync-window boundary for this long dumps "
                         "every thread's stack into a hang_dump event and exits 76 (0: off)")
     p.add_argument("--sentinel", choices=["on", "off"], default="off",
-                   help=f"Refused when on: {_NEXT_SLICE}")
+                   help="Numerics sentinel: judge each synced step's loss and global grad norm; "
+                        "on a trip roll back in process to the last validated checkpoint (or, "
+                        "with no checkpoint cadence on one process, a host snapshot) and replay")
     p.add_argument("--sentinel-checksum-every", type=int, default=0,
-                   help=f"Refused when set: {_NEXT_SLICE}")
+                   help="With --sentinel on: every N steps, checksum the parameters (global L2 "
+                        "norm) at a fenced boundary to catch silent corruption (0: off)")
     p.add_argument("--xla-latency-hiding", action="store_true", help="Refused: " + _XLA)
     return p
 
@@ -297,6 +313,8 @@ def main(argv=None) -> int:
             checkpoint_async=args.checkpoint_async, resume=args.resume,
             telemetry=args.telemetry == "on", heartbeat_sec=args.heartbeat_sec,
             inject_fault=args.inject_fault, hang_timeout_sec=args.hang_timeout_sec,
+            sentinel=args.sentinel == "on", sentinel_checksum_every=args.sentinel_checksum_every,
+            data_path=args.data_path, data_stall_timeout_sec=args.data_stall_timeout_sec,
         )
     except Preempted as e:
         print(f"PREEMPTED: {e} — exiting {EXIT_PREEMPTED} (resume with --resume)", flush=True)
@@ -304,6 +322,9 @@ def main(argv=None) -> int:
     except NothingToResume as e:
         print(f"NOTHING TO RESUME: {e} — exiting {EXIT_NOTHING_TO_RESUME}", flush=True)
         return EXIT_NOTHING_TO_RESUME
+    except DataStalled as e:
+        print(f"DATA STALL: {e} — exiting {EXIT_DATA_STALL} (resume with --resume)", flush=True)
+        return EXIT_DATA_STALL
     except Hung as e:
         print(f"HUNG: {e} — exiting {EXIT_HUNG} (retryable with --resume)", flush=True)
         return EXIT_HUNG

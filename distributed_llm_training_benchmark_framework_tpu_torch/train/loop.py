@@ -26,9 +26,28 @@ boundaries, so it adds no device sync and no collective to a timed window:
   heartbeat and raises ``Preempted``; one during the last window
   publishes the row instead;
 - the hang watchdog is beaten at each boundary, a peer's hang flag is
-  polled there, and the fault injector fires at exact boundaries.
-
-The numerics sentinel and the streaming input path are not ported yet.
+  polled there, and the fault injector fires at exact boundaries;
+- the numerics sentinel (``sentinel``, ``faults.NumericsSentinel``) judges
+  every step's loss and fp32 grad norm (read at the boundary with the loss)
+  and, every ``sentinel_checksum_every`` steps and before every save, the
+  parameters' checksum. A trip is healed at the top of the next iteration,
+  before anything dispatches: the newest valid checkpoint is restored (or,
+  at world 1 with no checkpoint cadence, the host snapshot taken before the
+  first dispatch), the step cursor rewinds (``_StepCursor``), the poisoned
+  tail leaves the timed lists, and the run replays; a save over an open
+  trip is skipped. On the synthetic path a replay reads the table at
+  ``step + k * steps`` after k rollbacks and reseeds both dropout
+  generators (``TrainStep.reseed``), so it draws fresh rows and masks; on
+  the stream it re-consumes the same records;
+- the streaming input path (``data_path``: ``data/stream.py`` behind
+  ``data/prefetch.py``) replaces the table. The prefetcher's ``get`` is the
+  one blocking pull inside the timed loop; its waits give the row's
+  ``data_stall_frac``. Every save writes the stream's cursor of the
+  consumed batches in a ``stream_<step>.json`` sidecar, from which a resume
+  (or a rollback) continues. A wait past ``data_stall_timeout_sec`` on any
+  rank stops every rank at the same boundary (the ranks agree over the
+  group's store before each step): an emergency save with its sidecar, a
+  fatal ``data_stall`` event and ``DataStalled`` (exit 78).
 
 ``world_size`` is the size of the process group the caller
 (``runtime.setup_distributed``, or torchrun through the bench entry) made,
@@ -101,15 +120,18 @@ from typing import List, Optional, Union
 import torch
 import torch.distributed as dist
 
+from ..data.prefetch import DataStallTimeout, HostPrefetcher
+from ..data.stream import STREAM_STATE_SCHEMA_VERSION, DataStalled, ShardedTokenStream
 from ..data.synthetic import SyntheticDataset, step_batch
 from ..faults import (
-    ARMED_KINDS,
-    WAITS_FOR,
+    DATA_KINDS,
     FaultInjector,
     HangWatchdog,
     NothingToResume,
+    NumericsSentinel,
     Preempted,
     PreemptionGuard,
+    SentinelTripped,
     parse_fault_spec,
 )
 from ..faults.watchdog import abort_on_peer_hang
@@ -137,6 +159,9 @@ from .step import TrainStep
 
 DATASET_SIZE = 1000  # rows of the synthetic table (the reference's size)
 LOG_EVERY = 10
+#: How much longer than the stall timeout a rank waits for a starving
+#: peer's verdict before the step (``runtime.distributed.agree_data_ready``).
+DATA_AGREE_SLACK_SEC = 60.0
 
 
 def _sync(dev: torch.device) -> None:
@@ -152,7 +177,7 @@ class Run:
     config: TinyGPTConfig
     strategy: StrategyConfig  # remat resolved
     model: torch.nn.Module  # the arm's wrapper (DDP) or the TinyGPT itself
-    table: torch.Tensor
+    table: Optional[torch.Tensor]  # None on the streaming input path
     step_fn: TrainStep
     mesh: Mesh
 
@@ -234,7 +259,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               tensor_parallel: int = 1, tp_collective_matmul: bool = False,
               n_experts: int = 0, expert_parallel: int = 1, pipeline_parallel: int = 1,
               pipeline_schedule: str = "gpipe", virtual_stages: int = 2,
-              dataset_size: int = DATASET_SIZE, skip_memory_check: bool = False) -> Run:
+              dataset_size: int = DATASET_SIZE, skip_memory_check: bool = False,
+              sentinel: bool = False, synthetic: bool = True) -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
@@ -244,8 +270,11 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     value than that size is refused; ``tensor_parallel``,
     ``tp_collective_matmul``, ``n_experts``, ``expert_parallel``,
     ``pipeline_parallel``, ``pipeline_schedule`` and ``virtual_stages`` as
-    in the module docstring; ``dataset_size`` rows in the synthetic table;
-    ``skip_memory_check`` attempts a run the memory model refuses."""
+    in the module docstring; ``dataset_size`` rows in the synthetic table
+    (``synthetic`` False: no table, the streaming input path feeds the
+    step); ``skip_memory_check`` attempts a run the memory model refuses;
+    ``sentinel`` makes the step keep its gradient norm for the numerics
+    sentinel."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -297,13 +326,14 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
         model = TinyGPT(cfg, mesh=mesh, virtual_stages=virtual_stages if interleaved else 1)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     model, optimizer = apply_strategy(model, strat, mesh)
-    table = SyntheticDataset(cfg.vocab_size, seq_len, dataset_size, seed).to_device(dev)
+    table = (SyntheticDataset(cfg.vocab_size, seq_len, dataset_size, seed).to_device(dev)
+             if synthetic else None)
     pipeline = None
     if pipeline_parallel > 1:
         pipeline = Pipeline(pipeline_schedule, mesh, grad_accum, dev, virtual_stages)
     step_fn = TrainStep(model, optimizer, grad_accum=grad_accum,
                         micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh,
-                        pipeline=pipeline)
+                        pipeline=pipeline, sentinel=sentinel)
     return Run(dev, cfg, strat, model, table, step_fn, mesh)
 
 
@@ -373,7 +403,7 @@ def _make_recorder(*, strategy: Union[str, StrategyConfig], world_size: Optional
                    tp_collective_matmul: bool, seq_len: int, tier: str, model_family: str,
                    per_device_batch: int, grad_accum: int, attention_impl: str,
                    results_dir: Optional[str], telemetry: bool, heartbeat_sec: float,
-                   steps: int) -> TelemetryRecorder:
+                   steps: int, data_path: Optional[str]) -> TelemetryRecorder:
     """The run's flight recorder, made from ``run_benchmark``'s arguments
     before any check or device work, so that even a refused run leaves a
     ``run_aborted`` trail."""
@@ -396,6 +426,10 @@ def _make_recorder(*, strategy: Union[str, StrategyConfig], world_size: Optional
         "causal": bool(causal),
         "ring_zigzag": {None: "auto", True: "on", False: "off"}[ring_zigzag],
     }
+    if data_path:
+        # Stream identity in every heartbeat (synthetic runs omit the key, as
+        # in JAX, so their bytes stay as they were).
+        meta["data_mode"] = "stream"
     if tp_collective_matmul:
         meta["tp_collective_matmul"] = True
     rec = TelemetryRecorder(
@@ -407,6 +441,39 @@ def _make_recorder(*, strategy: Union[str, StrategyConfig], world_size: Optional
         total_steps=int(steps), rank=rank, meta=meta)
     rec.begin_phase("init")
     return rec
+
+
+class _StepCursor:
+    """The loop's step iterator: ``start .. stop - 1`` like the ``range`` it
+    replaces, which the sentinel's rollback rewinds (:meth:`rollback`).
+    ``replay_until`` is the highest step measured once already: replayed
+    steps up to it stay out of the timed step-time distribution (their
+    windows hold the restore; the poisoned measurements were dropped)."""
+
+    def __init__(self, start: int, stop: int):
+        self.next_step = start
+        self.stop = stop
+        self.replay_until = -1
+
+    def __iter__(self) -> "_StepCursor":
+        return self
+
+    def __next__(self) -> int:
+        if self.next_step >= self.stop:
+            raise StopIteration
+        s = self.next_step
+        self.next_step = s + 1
+        return s
+
+    def rollback(self, to_step: int, tripped_at: int) -> None:
+        self.next_step = to_step + 1
+        self.replay_until = max(self.replay_until, tripped_at)
+
+
+def _host_copy(sd: dict) -> dict:
+    """A host copy of a ``TrainState.state_dict()`` (whose entries may alias
+    the live tensors)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
 
 def run_benchmark(
@@ -450,6 +517,11 @@ def run_benchmark(
     heartbeat_sec: float = 30.0,
     inject_fault: Optional[str] = None,
     hang_timeout_sec: float = 0.0,
+    sentinel: bool = False,
+    sentinel_checksum_every: int = 0,
+    data_path: Optional[str] = None,
+    data_stall_timeout_sec: float = 60.0,
+    runtime_log: Optional[dict] = None,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
@@ -462,7 +534,9 @@ def run_benchmark(
     ``skip_memory_check`` as for :func:`build_run`;
     ``offload_dpu_start_step`` as in the module docstring. ``loss_log``,
     when given, gets every step's loss (mean over ranks) appended in order,
-    warmup included (from the first step run, after a resume);
+    warmup included (from the first step run, after a resume; a rollback
+    drops the losses of the steps it undoes, so the list holds the healed
+    run's);
     ``offload_log``, when given to an offload arm, gets the host arm's
     per-step times and bytes (``parallel/offload.HostOffload.stats``);
     ``pipeline_log``, when given to a pipelined run, gets this rank's stage,
@@ -475,12 +549,20 @@ def run_benchmark(
     restores the newest valid step; ``telemetry`` and ``heartbeat_sec``
     drive the flight recorder; ``inject_fault`` arms one fault
     (``faults.parse_fault_spec``; ``INJECT_FAULT`` when None);
-    ``hang_timeout_sec`` > 0 arms the hang watchdog.
+    ``hang_timeout_sec`` > 0 arms the hang watchdog; ``sentinel`` arms the
+    numerics sentinel, with a parameter checksum every
+    ``sentinel_checksum_every`` steps (0: none); ``data_path`` trains on the
+    shard stream under that directory instead of the synthetic table, and
+    a wait for a batch past ``data_stall_timeout_sec`` stops the run
+    (``DataStalled``). ``runtime_log``, when given, gets the sentinel's
+    per-checksum device ms and each rollback's restore wall, and the stream
+    path's per-step waits.
 
     This wrapper owns the recorder, the SIGTERM guard and the watchdog: any
     exception that escapes the run is recorded as ``run_aborted`` with its
     phase and last step, and the guard and the watchdog are taken down in
-    ``finally`` (the bench runs several rows in one process)."""
+    ``finally`` (the bench runs several rows in one process), and so is a
+    prefetch thread."""
     recorder = _make_recorder(
         strategy=strategy, world_size=world_size, tensor_parallel=tensor_parallel,
         sequence_parallel=sequence_parallel, pipeline_parallel=pipeline_parallel,
@@ -489,11 +571,13 @@ def run_benchmark(
         ring_zigzag=ring_zigzag, tp_collective_matmul=tp_collective_matmul, seq_len=seq_len,
         tier=tier, model_family=model_family, per_device_batch=per_device_batch,
         grad_accum=grad_accum, attention_impl=attention_impl, results_dir=results_dir,
-        telemetry=telemetry, heartbeat_sec=heartbeat_sec, steps=steps)
+        telemetry=telemetry, heartbeat_sec=heartbeat_sec, steps=steps, data_path=data_path)
     dist_rt.begin_run()
     guard = PreemptionGuard()
     rank = dist_rt.get_rank()
     watchdog = HangWatchdog(hang_timeout_sec, recorder=recorder, rank=rank)
+    # The input stream and its prefetch thread, stopped in ``finally``.
+    live: dict = {"stream": None, "prefetch": None}
     try:
         if steps <= warmup_steps:
             raise ValueError(
@@ -504,12 +588,22 @@ def run_benchmark(
                              else os.environ.get("INJECT_FAULT")),
             recorder=recorder, is_main=is_main, rank=rank)
         _check_runtime_options(checkpoint_dir, checkpoint_every, checkpoint_async, resume,
-                               chaos)
+                               chaos, sentinel, sentinel_checksum_every, data_path,
+                               data_stall_timeout_sec)
         asked = get_strategy(strategy) if isinstance(strategy, str) else strategy
         _check_dpu_start(asked, offload_dpu_start_step, steps, warmup_steps, resume)
         if offload_dpu_start_step > 0:
             # Serial host updates first; the optimizer switches at the start step.
             strategy = dataclasses.replace(asked, offload_delayed_update=False)
+        use_stream = data_path is not None
+        stream = None
+        if use_stream:
+            # The stream's open proves the shard set complete before any
+            # device work: a missing shard is refused here, by name.
+            stream = live["stream"] = ShardedTokenStream(data_path, seq_len=seq_len,
+                                                         injector=chaos)
+            if is_main:
+                print(f"ShardedTokenStream: {stream.describe()}")
         built = build_run(
             strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
             per_device_batch=per_device_batch, grad_accum=grad_accum,
@@ -519,16 +613,23 @@ def run_benchmark(
             tp_collective_matmul=tp_collective_matmul, n_experts=n_experts,
             expert_parallel=expert_parallel, pipeline_parallel=pipeline_parallel,
             pipeline_schedule=pipeline_schedule, virtual_stages=virtual_stages,
-            dataset_size=dataset_size, skip_memory_check=skip_memory_check)
+            dataset_size=dataset_size, skip_memory_check=skip_memory_check,
+            sentinel=sentinel, synthetic=not use_stream)
         dev, cfg, strat, model, table, step_fn, mesh = (
             built.device, built.config, built.strategy, built.model, built.table, built.step_fn,
             built.mesh)
+        inner = getattr(model, "module", model)
         interleaved = pipeline_parallel > 1 and pipeline_schedule == "interleaved"
+        numerics = NumericsSentinel(recorder=recorder, is_main=is_main) if sentinel else None
+        if numerics is not None and pipeline_parallel > 1 and is_main:
+            print("SENTINEL: grad-norm guard unavailable on pipelined arms (their step returns "
+                  "no norm, as JAX's); loss-envelope and checksum guards remain active")
         ckpt = state = None
+        if checkpoint_dir is not None or numerics is not None:
+            state = TrainState(model, step_fn.optimizer, step_fn)
         start_step, n_restarts, resume_step = 0, 0, -1
         resume_baseline_loss, resume_geometry_changed = 0.0, False
         if checkpoint_dir is not None:
-            state = TrainState(model, step_fn.optimizer, step_fn)
             # The physical layer layout: interleaved stages hold permuted chunks;
             # gpipe / 1f1b / no pipeline share the contiguous layout.
             ckpt = BenchmarkCheckpointer(
@@ -569,12 +670,62 @@ def run_benchmark(
                               f"(restart #{n_restarts}{stitch})")
                 elif is_main:
                     print("Resume requested but no valid checkpoint found — cold start")
+
+        # The streaming input path: the records of every step's global batch
+        # are consecutive from the cursor; each rank reads its own rows.
+        global_micro = per_device_batch * step_fn.members
+        records_per_step = grad_accum * global_micro
+        cursor_start = 0
+        data_meta: List[Optional[dict]] = [None]  # resume meta of the last CONSUMED batch
+        data_wait_win, data_wait_timed = [0.0], [0.0]
+
+        def start_prefetch(first_step: int) -> None:
+            live["prefetch"] = HostPrefetcher(
+                stream, grad_accum=grad_accum, global_micro=global_micro, seq_len=seq_len,
+                start_step=first_step, stop_step=steps, device=dev,
+                row0=step_fn.member * per_device_batch, micro=per_device_batch,
+                seq_shard=step_fn.seq_shard, injector=chaos).start()
+
+        if use_stream:
+            # The restored step's sidecar is the authoritative position (its
+            # cursor is geometry-free); without one, the closed form, exact
+            # for a resume at the same geometry.
+            cursor_start = start_step * records_per_step
+            if ckpt is not None and resume_step >= 0:
+                side = ckpt.read_stream_state(resume_step)
+                if side is not None:
+                    cursor_start = int(side.get("cursor", cursor_start))
+                elif is_main:
+                    print("WARNING: resumed checkpoint has no stream-state sidecar; using the "
+                          f"closed-form cursor {cursor_start} (exact only for same-geometry "
+                          "resumes)")
+            stream.seek(cursor_start)
+            start_prefetch(start_step)
+            if is_main:
+                print(f"Streaming data path: cursor {cursor_start}, {records_per_step} "
+                      f"records/step, stall timeout {data_stall_timeout_sec:g}s")
+
+        # The sentinel's rollback target when there is no checkpoint cadence:
+        # the state before the first dispatch, on the host (world 1 only: a
+        # rollback on one rank alone would leave its peers in the next
+        # collective; never across the offload's serial -> delayed switch,
+        # whose optimizer state changes form).
+        mem_snapshot = None
+        if (numerics is not None and offload_dpu_start_step == 0 and mesh.world == 1
+                and (ckpt is None or checkpoint_every <= 0)):
+            mem_snapshot = (_host_copy(state.state_dict()), start_step - 1)
+            if is_main:
+                print("SENTINEL: no checkpoint cadence — holding an in-memory params/opt-state "
+                      "snapshot as the rollback target")
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
 
+        # Timed stats keyed by step, so a rollback can drop a poisoned tail.
         timed_times, timed_losses, pending = [], [], []
+        logged: List[int] = []  # the step of each loss_log entry
         last_loss: List[Optional[float]] = [None]
+        cursor = _StepCursor(start_step, steps)
 
         def note_commits() -> None:
             for entry in ckpt.drain_commits():
@@ -582,30 +733,204 @@ def run_benchmark(
 
         def sync_window(t_start: float) -> None:
             """Fence the window and charge each of its steps the window's mean;
-            the telemetry boundary (window event, heartbeat), the watchdog's
-            beat and, last, the injector's boundary faults (a fault's trail
-            records the window it killed)."""
+            the sentinel judges each step's loss and grad norm, then the
+            telemetry boundary (window event, heartbeat, the stream's
+            quarantine and stall events), the watchdog's beat and, last, the
+            injector's boundary faults (a fault's trail records the window it
+            killed)."""
             if not pending:
                 return
             _sync(dev)
             dt = (time.perf_counter() - t_start) / len(pending)
             losses = []
-            for s, loss in pending:
+            for s, loss, g_norm in pending:
                 lf = float(loss)
                 losses.append(lf)
                 if loss_log is not None:
                     loss_log.append(lf)
+                    logged.append(s)
                 if s >= warmup_steps:
-                    timed_times.append(dt)
-                    timed_losses.append(lf)
+                    if s > cursor.replay_until:
+                        timed_times.append((s, dt))
+                    timed_losses.append((s, lf))
                 if s % LOG_EVERY == 0 and is_main:
                     print(f"[Step {s:04d}] Loss: {lf:.4f}, Time: {dt:.3f}s")
+                if numerics is not None:
+                    numerics.observe(s, lf, float(g_norm) if g_norm is not None else None)
             last = pending[-1][0]
-            recorder.step_window(last_step=last, losses=losses, window_mean_step_time_sec=dt)
+            prefetch = live["prefetch"]
+            recorder.step_window(
+                last_step=last, losses=losses, window_mean_step_time_sec=dt,
+                data_wait_sec=round(data_wait_win[0], 6) if prefetch is not None else None,
+                records_skipped=((data_meta[0] or {}).get("records_skipped")
+                                 if prefetch is not None else None))
+            if prefetch is not None:
+                # One data_corrupt_record event per healed record, and a
+                # non-fatal data_stall event for a window that starved for
+                # more than half its wall.
+                for entry in stream.drain_quarantine():
+                    recorder.note("data_corrupt_record", step=last, **entry)
+                window_wall = dt * len(losses)
+                if data_wait_win[0] > max(0.5 * window_wall, 0.05):
+                    recorder.note("data_stall", step=last, fatal=False,
+                                  wait_sec=round(data_wait_win[0], 6),
+                                  window_sec=round(window_wall, 6))
+                data_wait_win[0] = 0.0
             last_loss[0] = losses[-1]
             pending.clear()
             watchdog.beat(last)
             chaos.at_boundary(last)
+
+        last_checksum = [start_step]
+
+        def observe_checksum(at_step: int) -> None:
+            """The parameter checksum at a fenced boundary (device work off
+            the timed path: the caller restarts the window clock)."""
+            t0 = time.perf_counter()
+            value = float(step_fn.param_checksum())
+            if runtime_log is not None:
+                runtime_log.setdefault("checksum_ms", []).append(
+                    1e3 * (time.perf_counter() - t0))
+            numerics.observe_param_checksum(at_step, value)
+
+        def prepare_rollback() -> int:
+            """Restore the last validated checkpoint (or the in-memory
+            snapshot) for the open trip -> the restored step. Raises
+            ``SentinelTripped`` when healing is impossible: no checkpoint
+            behind the run and no snapshot, or MAX_ROLLBACKS spent."""
+            trip = numerics.trip
+            if not numerics.rollback_allowed:
+                raise SentinelTripped(
+                    trip["kind"], trip["step"],
+                    f"{trip['detail']}; {numerics.n_rollbacks} rollback(s) already spent — "
+                    "persistent numerics failure, not a transient")
+            t0 = time.perf_counter()
+            if ckpt is not None:
+                recorder.begin_phase("checkpoint")
+                restored = ckpt.restore_latest(state)
+                if restored is not None:
+                    wall = 1e3 * (time.perf_counter() - t0)
+                    recorder.note("checkpoint_restored", rollback=True, wall_ms=wall,
+                                  **ckpt.last_restore)
+                    if runtime_log is not None:
+                        runtime_log.setdefault("restore_wall_ms", []).append(wall)
+                    return restored
+            if mem_snapshot is not None:
+                recorder.begin_phase("checkpoint")
+                snap, snap_step = mem_snapshot
+                state.load_state_dict(snap)
+                _sync(dev)
+                wall = 1e3 * (time.perf_counter() - t0)
+                recorder.note("checkpoint_restored", rollback=True, source="memory",
+                              step=snap_step, wall_ms=wall)
+                if runtime_log is not None:
+                    runtime_log.setdefault("restore_wall_ms", []).append(wall)
+                if is_main:
+                    print("SENTINEL: rolling back to the in-memory snapshot (no checkpoint "
+                          "cadence)")
+                return snap_step
+            raise SentinelTripped(
+                trip["kind"], trip["step"],
+                f"{trip['detail']}; " + ("no validated checkpoint committed yet"
+                                         if ckpt is not None else
+                                         "no --checkpoint-dir (and no in-memory snapshot on "
+                                         "this run shape) to roll back to"))
+
+        def rewind_stream(rb_step: int) -> None:
+            """The replay's input: stop the prefetcher (joined: its thread
+            advances ``stream.cursor`` as it reads ahead), seek to the
+            restored step's sidecar cursor (the closed form without one), and
+            start a new prefetcher at ``rb_step + 1``. The replay re-consumes
+            the same records: the poison was the device state, not the
+            stream."""
+            live["prefetch"].stop(join=True)
+            rewind = cursor_start + max(rb_step + 1 - start_step, 0) * records_per_step
+            if ckpt is not None and rb_step >= 0:
+                side = ckpt.read_stream_state(rb_step)
+                if side is not None:
+                    rewind = int(side.get("cursor", rewind))
+            stream.seek(rewind)
+            data_meta[0] = None
+            start_prefetch(rb_step + 1)
+            if is_main:
+                print(f"SENTINEL: stream rewound to cursor {rewind} — replaying records from "
+                      f"step {rb_step + 1}", flush=True)
+
+        def roll_back_if_tripped() -> bool:
+            """The whole heal of an open trip: restore, drop the poisoned tail
+            from the timed lists (and ``loss_log``), record the rollback,
+            rewind the step cursor and the input (the stream's cursor, or the
+            dropout generators on a fresh stream: the synthetic path also
+            folds the replay count into the table's row index)."""
+            if numerics.trip is None:
+                return False
+            tripped_at = numerics.trip["step"]
+            rb_step = prepare_rollback()
+            timed_times[:] = [e for e in timed_times if e[0] <= rb_step]
+            timed_losses[:] = [e for e in timed_losses if e[0] <= rb_step]
+            if loss_log is not None:
+                keep = [i for i, s in enumerate(logged) if s <= rb_step]
+                loss_log[:] = [loss_log[i] for i in keep]
+                logged[:] = [logged[i] for i in keep]
+            numerics.note_rollback(from_step=tripped_at, to_step=rb_step)
+            recorder.begin_phase("timed" if rb_step + 1 >= warmup_steps else "warmup")
+            cursor.rollback(rb_step, tripped_at)
+            if live["prefetch"] is not None:
+                rewind_stream(rb_step)
+            else:
+                step_fn.reseed(seed, numerics.data_reseeds)
+            return True
+
+        def stream_state_for(at_step: int) -> Optional[dict]:
+            """The stream sidecar of a boundary at ``at_step``: the records
+            delivered to training through it (closed form from the run's own
+            consumption, never the prefetcher's read-ahead position)."""
+            if stream is None:
+                return None
+            delivered = cursor_start + max(at_step + 1 - start_step, 0) * records_per_step
+            return {"schema_version": STREAM_STATE_SCHEMA_VERSION, "cursor": delivered,
+                    "records_skipped": (data_meta[0] or {}).get("records_skipped",
+                                                                stream.records_skipped),
+                    "total_records": stream.total_records}
+
+        def data_stall_stop(at_step: int, waited: float) -> None:
+            """The input starved the loop past the timeout, at a fenced
+            boundary (the device state is healthy): save with the stream
+            sidecar (not over an open sentinel trip), emit the fatal
+            ``data_stall`` event and a final heartbeat, record ``run_aborted
+            reason=data_stall`` and raise ``DataStalled`` (exit 78 in the
+            harness; the sidecar makes the retry consume exactly the records
+            not consumed)."""
+            saved = None
+            if (ckpt is not None and at_step >= max(start_step, 0)
+                    and (numerics is None or numerics.trip is None)):
+                recorder.begin_phase("checkpoint")
+                try:
+                    ckpt.finalize_pending()
+                    note_commits()
+                    if ckpt.latest_step() == at_step:
+                        saved = at_step
+                    else:
+                        ckpt.save(at_step, state, force=True,
+                                  meta={"last_loss": last_loss[0], "emergency": True,
+                                        "reason": "data_stall"},
+                                  stream_state=stream_state_for(at_step))
+                        note_commits()
+                        saved = at_step
+                        if is_main:
+                            print(f"Emergency checkpoint saved at step {at_step} (data stall)")
+                except Exception as e:
+                    recorder.note("checkpoint_failed", step=at_step, error=str(e),
+                                  emergency=True)
+                    if is_main:
+                        print(f"WARNING: emergency checkpoint at step {at_step} failed ({e}); "
+                              "aborting as a plain data-stall partial")
+            recorder.note("data_stall", step=at_step + 1, fatal=True, wait_sec=round(waited, 3),
+                          timeout_sec=data_stall_timeout_sec)
+            recorder.emergency_heartbeat(reason="data_stall",
+                                         extra={"emergency_checkpoint_step": saved})
+            recorder.abort("data_stall")
+            raise DataStalled(at_step + 1, waited, saved_step=saved)
 
         def emergency_stop(at_step: int) -> None:
             """SIGTERM landed: at this fenced boundary (nothing pending), save
@@ -640,7 +965,8 @@ def run_benchmark(
                     try:
                         ckpt.save(at_step, state, force=True,
                                   meta={"last_loss": last_loss[0], "emergency": True,
-                                        "reason": "preempted"})
+                                        "reason": "preempted"},
+                                  stream_state=stream_state_for(at_step))
                         note_commits()
                         saved = at_step
                         if is_main:
@@ -664,7 +990,21 @@ def run_benchmark(
         # and the allocator's first growth.
         recorder.begin_phase("compile")
         t_window = time.perf_counter()
-        for step in range(start_step, steps):
+        for step in cursor:
+            # Sentinel boundary work first (nothing pending: the previous
+            # iteration ended at a fenced boundary): an open trip is rolled
+            # back before anything dispatches on the poisoned state.
+            if numerics is not None and not pending:
+                rolled = roll_back_if_tripped()
+                if (not rolled and sentinel_checksum_every > 0
+                        and step - last_checksum[0] >= sentinel_checksum_every):
+                    last_checksum[0] = step
+                    observe_checksum(step - 1)
+                    rolled = roll_back_if_tripped()
+                    t_window = time.perf_counter()
+                if rolled:
+                    t_window = time.perf_counter()
+                    continue
             if step == warmup_steps and step > start_step:
                 if sync_every > 1:
                     sync_window(t_window)
@@ -676,7 +1016,38 @@ def run_benchmark(
                 if is_main:
                     print(f"[Step {step:04d}] delayed-update phase begins")
                 t_window = time.perf_counter()
-            pending.append((step, chaos.corrupt_loss(step, step_fn(table, step))))
+            # The sentinel's proof faults poison the state just before step N.
+            chaos.corrupt_params(step, inner)
+            chaos.corrupt_opt_state(step, step_fn.optimizer)
+            if live["prefetch"] is not None:
+                # The one blocking pull on the input path inside the timed
+                # loop: its wait feeds data_stall_frac; a starvation past the
+                # timeout on any rank stops every rank at this boundary.
+                try:
+                    batch, meta, waited = live["prefetch"].get(step,
+                                                               timeout=data_stall_timeout_sec)
+                    starved = None
+                except DataStallTimeout as e:
+                    batch, meta, waited, starved = None, None, e.waited_sec, e.waited_sec
+                starved = dist_rt.agree_data_ready(
+                    step, starved, data_stall_timeout_sec + DATA_AGREE_SLACK_SEC,
+                    generation=numerics.n_rollbacks if numerics is not None else 0)
+                if starved is not None:
+                    sync_window(t_window)
+                    data_stall_stop(step - 1, starved)
+                data_meta[0] = meta
+                data_wait_win[0] += waited
+                if step >= warmup_steps:
+                    data_wait_timed[0] += waited
+                if runtime_log is not None:
+                    runtime_log.setdefault("data_wait_ms", []).append(1e3 * waited)
+                loss = step_fn.run_batch(batch)
+            else:
+                # After k rollbacks the synthetic path reads the table at
+                # step + k * steps: a replay draws fresh rows (as JAX folds it).
+                loss = step_fn(table, step + (numerics.data_reseeds * steps
+                                              if numerics is not None else 0))
+            pending.append((step, chaos.corrupt_loss(step, loss), step_fn.optimizer.grad_norm))
             if step == start_step and step < warmup_steps:
                 sync_window(t_window)
                 recorder.begin_phase("warmup")
@@ -689,20 +1060,33 @@ def run_benchmark(
             if (ckpt is not None and ckpt.should_save(step)
                     and step >= offload_dpu_start_step):
                 sync_window(t_window)
-                recorder.begin_phase("checkpoint")
-                try:
-                    chaos.maybe_fail_save()
-                    ckpt.save(step, state, meta={"last_loss": last_loss[0]})
-                    note_commits()
+                if numerics is not None and numerics.trip is None:
+                    # The pre-save checksum, whatever the cadence: no save may
+                    # persist a state the checksum guard would reject.
+                    last_checksum[0] = step
+                    observe_checksum(step)
+                if numerics is not None and numerics.trip is not None:
+                    # Saving now would checkpoint the poison; the rollback runs
+                    # at the top of the next iteration.
                     if is_main:
-                        mode = " (async dispatch)" if ckpt.async_save else ""
-                        print(f"Checkpoint saved at step {step}{mode}")
-                    chaos.after_save(ckpt, step)
-                except OSError as e:
-                    recorder.note("checkpoint_failed", step=step, error=str(e))
-                    if is_main:
-                        print(f"WARNING: checkpoint save at step {step} failed ({e}); continuing "
-                              "without")
+                        print(f"SENTINEL: skipping checkpoint save at step {step} (open "
+                              f"{numerics.trip['kind']} trip)")
+                else:
+                    recorder.begin_phase("checkpoint")
+                    try:
+                        chaos.maybe_fail_save()
+                        ckpt.save(step, state, meta={"last_loss": last_loss[0]},
+                                  stream_state=stream_state_for(step))
+                        note_commits()
+                        if is_main:
+                            mode = " (async dispatch)" if ckpt.async_save else ""
+                            print(f"Checkpoint saved at step {step}{mode}")
+                        chaos.after_save(ckpt, step)
+                    except OSError as e:
+                        recorder.note("checkpoint_failed", step=step, error=str(e))
+                        if is_main:
+                            print(f"WARNING: checkpoint save at step {step} failed ({e}); "
+                                  "continuing without")
                 recorder.begin_phase("timed" if step >= warmup_steps else "warmup")
                 t_window = time.perf_counter()
             if not pending:
@@ -716,15 +1100,32 @@ def run_benchmark(
 
         sync_window(t_window)
         watchdog.beat(steps - 1)
+        if numerics is not None and numerics.trip is not None:
+            # A trip at the last boundary: no step is left to replay the
+            # poison out of, and publishing would put it in the row.
+            trip = numerics.trip
+            raise SentinelTripped(trip["kind"], trip["step"],
+                                  f"{trip['detail']}; tripped at the final boundary — nothing "
+                                  "left to replay, not publishing a poisoned row")
         if guard.requested and is_main:
             print("NOTE: preemption requested during the final window; all steps completed — "
                   "publishing the result before exiting")
         if ckpt is not None:
             recorder.begin_phase("checkpoint")
             if steps - 1 not in (ckpt.latest_step(), ckpt.pending_async_step()):
+                if numerics is not None:
+                    # The final state is what every later --resume restores.
+                    observe_checksum(steps - 1)
+                    if numerics.trip is not None:
+                        trip = numerics.trip
+                        raise SentinelTripped(
+                            trip["kind"], trip["step"],
+                            f"{trip['detail']}; final-state checksum failed — not committing "
+                            "a poisoned final checkpoint")
                 try:
                     chaos.maybe_fail_save()
-                    ckpt.save(steps - 1, state, force=True, meta={"last_loss": last_loss[0]})
+                    ckpt.save(steps - 1, state, force=True, meta={"last_loss": last_loss[0]},
+                              stream_state=stream_state_for(steps - 1))
                 except OSError as e:
                     recorder.note("checkpoint_failed", step=steps - 1, error=str(e))
                     if is_main:
@@ -735,6 +1136,10 @@ def run_benchmark(
         recorder.begin_phase("finalize")
         dist_rt.barrier()
         watchdog.disarm()
+        if live["prefetch"] is not None:
+            # Every step consumed its batch: release the thread and the files.
+            live["prefetch"].stop()
+            stream.close()
 
         if offload_log is not None and step_fn.optimizer.host is not None:
             offload_log.update(step_fn.optimizer.host.stats())
@@ -750,13 +1155,30 @@ def run_benchmark(
             if is_main:
                 print("NOTE: MoE overflow diagnostic skipped under the interleaved schedule (its "
                       "stages hold permuted layer chunks; JAX skips it there too)")
+        elif cfg.n_experts > 0 and use_stream:
+            if is_main:
+                print("NOTE: MoE overflow diagnostic skipped on the streaming data path (its "
+                      "probe batch is the synthetic table's; JAX skips it there too)")
         elif cfg.n_experts > 0:
             overflow = _overflow_pct(built, per_device_batch)
         peak_gb = _max_over_ranks(peak_gb, mesh, dev)
+        step_times = [dt for _s, dt in timed_times]
+        losses = [lf for _s, lf in timed_losses]
+        # The stream's row accounting: data_stall_frac is the share of the
+        # timed steps' wall spent waiting for input; the cursor pair is the
+        # measured position (the last consumed batch's snapshot).
+        data_stall_frac, stream_cursor_end, records_consumed, records_skipped = None, -1, 0, 0
+        if use_stream:
+            timed_total = sum(step_times)
+            data_stall_frac = (max(0.0, min(data_wait_timed[0] / timed_total, 1.0))
+                               if timed_total > 0 else 0.0)
+            stream_cursor_end = (data_meta[0] or {}).get("cursor", cursor_start)
+            records_consumed = stream_cursor_end - cursor_start
+            records_skipped = stream.records_skipped
         result = metrics_mod.compute_result(
             strategy=strat.name, world_size=mesh.world, seq_len=seq_len, tier=tier,
             steps=steps, per_device_batch=per_device_batch, grad_accum=grad_accum,
-            step_times=timed_times, losses=timed_losses, peak_gb=peak_gb,
+            step_times=step_times, losses=losses, peak_gb=peak_gb,
             peak_method=peak_method, device_kind=device_kind(dev), backend=dev.type,
             n_params=_global_params(cfg, model, mesh), attention_impl=cfg.attention_impl,
             dropout=cfg.dropout, causal=cfg.causal, model_family=model_family,
@@ -776,6 +1198,15 @@ def run_benchmark(
             resumed=resume_step >= 0, n_restarts=n_restarts, resume_step=resume_step,
             resume_baseline_loss=resume_baseline_loss,
             resume_geometry_changed=resume_geometry_changed, n_anomalies=recorder.n_anomalies,
+            n_rollbacks=numerics.n_rollbacks if numerics is not None else 0,
+            rollback_steps_replayed=(numerics.rollback_steps_replayed
+                                     if numerics is not None else 0),
+            data_mode="stream" if use_stream else "synthetic",
+            data_stall_frac=round(data_stall_frac, 6) if data_stall_frac is not None else None,
+            data_stall_sec=round(data_wait_timed[0], 4), records_consumed=records_consumed,
+            records_skipped=records_skipped,
+            stream_cursor_start=cursor_start if use_stream else -1,
+            stream_cursor_end=stream_cursor_end,
         )
         if results_dir is not None and is_main:
             metrics_mod.emit_result(result, results_dir)
@@ -788,10 +1219,17 @@ def run_benchmark(
     finally:
         watchdog.disarm()
         guard.uninstall()
+        if live["prefetch"] is not None:
+            live["prefetch"].stop(join=True)
+        if live["stream"] is not None:
+            live["stream"].close()
 
 
 def _check_runtime_options(checkpoint_dir: Optional[str], checkpoint_every: int,
-                           checkpoint_async: bool, resume: bool, chaos: FaultInjector) -> None:
+                           checkpoint_async: bool, resume: bool, chaos: FaultInjector,
+                           sentinel: bool = False, sentinel_checksum_every: int = 0,
+                           data_path: Optional[str] = None,
+                           data_stall_timeout_sec: float = 60.0) -> None:
     """Refuse a run-time option that would have no effect: every accepted
     option is live."""
     if checkpoint_every < 0:
@@ -803,11 +1241,23 @@ def _check_runtime_options(checkpoint_dir: Optional[str], checkpoint_every: int,
         if given:
             raise ValueError(f"{', '.join(given)} need{'s' if len(given) == 1 else ''} "
                              "--checkpoint-dir (there is nowhere to save or resume from)")
-    spec = chaos.spec
-    if spec is not None and spec.kind not in ARMED_KINDS:
+    if sentinel_checksum_every < 0:
         raise ValueError(
-            f"--inject-fault {spec}: the {spec.kind!r} fault parses but is not armed in the "
-            f"port yet; it waits for {WAITS_FOR[spec.kind]}")
+            f"--sentinel-checksum-every must be >= 0, got {sentinel_checksum_every}")
+    if sentinel_checksum_every > 0 and not sentinel:
+        raise ValueError("--sentinel-checksum-every needs --sentinel on (the checksum is one of "
+                         "the sentinel's guards)")
+    if data_path is not None and data_stall_timeout_sec <= 0:
+        # A non-positive timeout would call every batch wait a fatal stall.
+        raise ValueError(f"--data-stall-timeout-sec must be > 0, got {data_stall_timeout_sec}")
+    spec = chaos.spec
+    if spec is not None and spec.kind in DATA_KINDS and data_path is None:
+        # Without the stream the data hooks have no consumer: the run would
+        # pass off an inert injection as a survived one.
+        raise ValueError(
+            f"--inject-fault {spec} is a streaming-data fault and requires --data-path "
+            "(without the stream the injector's data hooks have no consumer and the chaos run "
+            "is inert)")
     if spec is not None and spec.kind in ("torn-checkpoint", "enospc-on-save") and (
             checkpoint_dir is None):
         raise ValueError(f"--inject-fault {spec} fires on checkpoint saves and needs "

@@ -63,6 +63,25 @@ each layer's) from the CPU generator, the same on every rank, and each
 stage uses those of its layers, so every schedule draws the same masks.
 The loss is the last stage's mean (plus, with experts, every stage's aux
 term), summed over the group and divided by M and the ranks of one stage.
+
+The streaming input path (``data/prefetch.py``) hands the step this rank's
+rows already cut, ``(accum, micro, S/n)``: ``run_batch`` takes them as
+they are (JAX's ``from_table=False``), where ``__call__`` gathers them
+from the table.
+
+With ``sentinel`` (the numerics sentinel, JAX ``train/step.py:459``) a step
+off a pipeline also leaves the fp32 global norm of its averaged gradients,
+before the clip, in ``optimizer.grad_norm`` (``parallel.strategies.
+Optimizer``'s ``track_grad_norm``): a 0-d device tensor the loop reads at
+its fenced boundary with the loss, so it adds no host sync. A pipelined
+step leaves None, as JAX's pipelined arms return no norm. ``param_checksum`` is the
+parameters' fp32 global norm (JAX ``make_param_norm_fn``).
+
+``reseed(seed, k)`` puts both dropout generators on a fresh stream, the
+k-th replay's: the sentinel's rollback restores the generators with the
+parameters, and a replay of the synthetic path must not redraw the
+poisoned pass's masks (JAX folds ``k * steps`` into the step index, whose
+keys feed its dropout).
 """
 
 from __future__ import annotations
@@ -81,7 +100,8 @@ from ..parallel.strategies import Optimizer
 class TrainStep:
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer, *, grad_accum: int,
                  micro_batch: int, seed: int, device: torch.device,
-                 mesh: Optional[Mesh] = None, pipeline: Optional[Pipeline] = None):
+                 mesh: Optional[Mesh] = None, pipeline: Optional[Pipeline] = None,
+                 sentinel: bool = False):
         self.model = model
         # A DDP wrapper keeps the model (and its config) on ``.module``.
         self.config = getattr(model, "module", model).config
@@ -99,6 +119,20 @@ class TrainStep:
         self.pipeline = pipeline
         # The ranks of one pipeline stage (the whole group without a pipeline).
         self.stage_ranks = self.world // (mesh.size("pipe") if mesh is not None else 1)
+        optimizer.track_grad_norm = sentinel and pipeline is None
+
+    def reseed(self, seed: int, k: int) -> None:
+        """Both dropout generators on the stream of replay ``k`` (>= 1): the
+        seed ``seed + k * 0x9E3779B97F4A7C15`` modulo 2**63, a stream no
+        earlier pass drew from."""
+        s = (seed + k * 0x9E3779B97F4A7C15) % 2**63
+        self.seed_gen.manual_seed(s)
+        self.mask_gen.manual_seed(s)
+
+    def param_checksum(self) -> torch.Tensor:
+        """The parameters' fp32 global L2 norm, a 0-d device tensor
+        (collective over the arm's groups)."""
+        return self.optimizer.param_norm()
 
     def _attn_seeds(self) -> Optional[List[int]]:
         c = self.config
@@ -117,19 +151,20 @@ class TrainStep:
     def __call__(self, table: torch.Tensor, step: int) -> torch.Tensor:
         """Run optimizer step ``step``; returns the mean loss as a 0-d tensor
         on the device (reading it is the caller's sync point)."""
-        loss_sum = self.accumulate(table, step)
+        return self.run_batch(self.rows(table, step))
+
+    def run_batch(self, batch: torch.Tensor) -> torch.Tensor:
+        """One optimizer step over this rank's rows ``batch`` (accum, micro,
+        S/n); returns the mean loss as ``__call__`` does."""
+        loss_sum = self.accumulate_batch(batch)
         self.optimizer.step()
         if self.loss_group is None:
             return loss_sum / self.grad_accum
         dist.all_reduce(loss_sum, op=dist.ReduceOp.SUM, group=self.loss_group)
         return loss_sum / (self.grad_accum * self.stage_ranks)
 
-    def accumulate(self, table: torch.Tensor, step: int) -> torch.Tensor:
-        """Step ``step``'s forward and backward over its micro-batches, and
-        the arm's reduction (``.grad`` then holds the step's gradient, as the
-        optimizer takes it) -> this rank's sum of the micro-batches' losses
-        (under a pipeline: zero on all but the last stage, plus this stage's
-        aux term)."""
+    def rows(self, table: torch.Tensor, step: int) -> torch.Tensor:
+        """This rank's rows and columns of step ``step``'s global batch."""
         global_micro = self.micro_batch * self.members
         row0 = self.member * self.micro_batch
         batch = step_batch(table, step, self.grad_accum, global_micro)
@@ -139,6 +174,20 @@ class TrainStep:
         if n > 1:
             cols = batch.shape[-1] // n
             batch = batch[..., s * cols:(s + 1) * cols]
+        return batch
+
+    def accumulate(self, table: torch.Tensor, step: int) -> torch.Tensor:
+        """Step ``step``'s forward and backward over its micro-batches, and
+        the arm's reduction (``.grad`` then holds the step's gradient, as the
+        optimizer takes it) -> this rank's sum of the micro-batches' losses
+        (under a pipeline: zero on all but the last stage, plus this stage's
+        aux term)."""
+        return self.accumulate_batch(self.rows(table, step))
+
+    def accumulate_batch(self, batch: torch.Tensor) -> torch.Tensor:
+        """``accumulate`` over this rank's rows ``batch``."""
+        global_micro = self.micro_batch * self.members
+        row0 = self.member * self.micro_batch
         if self.pipeline is not None:
             return self._pipelined(batch, row0, global_micro)
         gen = self.mask_gen if self.config.dropout > 0.0 else None

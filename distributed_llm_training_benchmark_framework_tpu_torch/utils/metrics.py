@@ -43,7 +43,13 @@ The run-time layer's keys (JAX's ``utils/metrics.py``): ``resumed``,
 checkpoint directory's restart ledger), ``time_in_compile_sec`` (the
 recorder's ``compile`` phase: the first dispatched step up to its fence,
 the lazy ``nvcc`` build of the kernels included), ``time_in_checkpoint_sec``
-and ``n_anomalies`` (the recorder's NaN-loss and step-time-spike events).
+and ``n_anomalies`` (the recorder's NaN-loss and step-time-spike events);
+the numerics sentinel's ``n_rollbacks`` and ``rollback_steps_replayed``; and
+the input path's ``data_mode`` ("synthetic", or "stream" under
+``--data-path``), ``data_stall_frac`` (the share of the timed steps' wall
+spent waiting for input; None on the synthetic path), ``data_stall_sec``,
+``records_consumed``, ``records_skipped`` (corrupt records healed) and
+``stream_cursor_start`` / ``stream_cursor_end`` (-1 off the stream).
 """
 
 from __future__ import annotations
@@ -144,6 +150,10 @@ class BenchmarkResult:
     time_in_checkpoint_sec: float = 0.0
     # NaN-loss and step-time-spike events the recorder screened.
     n_anomalies: int = 0
+    # The numerics sentinel's in-process rollbacks and the steps they
+    # replayed (replayed steps stay out of the step-time distribution).
+    n_rollbacks: int = 0
+    rollback_steps_replayed: int = 0
     # Sequence shards of ring / Ulysses attention: over the group when
     # world_size > 1 (world_size = dp * sequence_parallel), else all held in
     # one process on its card (world_size 1). See the module docstring.
@@ -171,6 +181,16 @@ class BenchmarkResult:
     pipeline_parallel: int = 1
     pipeline_schedule: str = "gpipe"
     virtual_stages: int = 1
+    # The input path: identity, and on the stream the measured wait for
+    # input, the records consumed and healed, and the cursor pair (a resume
+    # must start where the checkpoint's sidecar left off).
+    data_mode: str = "synthetic"
+    data_stall_frac: Optional[float] = None
+    data_stall_sec: float = 0.0
+    records_consumed: int = 0
+    records_skipped: int = 0
+    stream_cursor_start: int = -1
+    stream_cursor_end: int = -1
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -199,7 +219,12 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    virtual_stages: int = 1, resumed: bool = False, n_restarts: int = 0,
                    resume_step: int = -1, resume_baseline_loss: float = 0.0,
                    resume_geometry_changed: bool = False,
-                   n_anomalies: int = 0) -> BenchmarkResult:
+                   n_anomalies: int = 0, n_rollbacks: int = 0,
+                   rollback_steps_replayed: int = 0, data_mode: str = "synthetic",
+                   data_stall_frac: Optional[float] = None, data_stall_sec: float = 0.0,
+                   records_consumed: int = 0, records_skipped: int = 0,
+                   stream_cursor_start: int = -1,
+                   stream_cursor_end: int = -1) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -253,7 +278,11 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
         n_experts=n_experts, expert_overflow_pct=expert_overflow_pct,
         pipeline_parallel=pipeline_parallel, pipeline_schedule=pipeline_schedule,
-        virtual_stages=virtual_stages,
+        virtual_stages=virtual_stages, n_rollbacks=n_rollbacks,
+        rollback_steps_replayed=rollback_steps_replayed, data_mode=data_mode,
+        data_stall_frac=data_stall_frac, data_stall_sec=data_stall_sec,
+        records_consumed=records_consumed, records_skipped=records_skipped,
+        stream_cursor_start=stream_cursor_start, stream_cursor_end=stream_cursor_end,
     )
 
 
@@ -270,6 +299,16 @@ def emit_result(result: BenchmarkResult, results_dir: str) -> str:
     print(f"  Mean step time:   {result.mean_step_time_sec:.4f}s")
     print(f"  Peak memory:      {result.peak_hbm_gb:.2f} GB ({result.peak_hbm_method})")
     print(f"  Mean loss:        {result.mean_loss:.4f}")
+    if result.data_mode == "stream":
+        print(f"  Data path:        stream — stall "
+              f"{100.0 * (result.data_stall_frac or 0.0):.1f}% of timed wall "
+              f"({result.data_stall_sec:.2f}s), {result.records_consumed} records consumed "
+              f"(cursor {result.stream_cursor_start} -> {result.stream_cursor_end}), "
+              f"{result.records_skipped} skipped/quarantined")
+    if result.n_rollbacks > 0:
+        print(f"  ROLLBACKS:        {result.n_rollbacks} sentinel rollback(s), "
+              f"{result.rollback_steps_replayed} step(s) replayed — healed run, never a "
+              "regression baseline")
     print("=" * 80 + "\n")
     os.makedirs(results_dir, exist_ok=True)
     path = os.path.join(results_dir, result.result_filename())

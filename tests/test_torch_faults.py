@@ -8,8 +8,9 @@
 - the SIGTERM guard's install / uninstall, the hang watchdog firing at a
   1 s timeout with the same ``hang_dump`` trail as JAX's, and a watchdog
   abort of a real harness run (exit 76);
-- ``enospc-on-save`` and ``nan-loss`` through ``run_benchmark``, and the
-  kinds the port parses but does not arm yet refused by name;
+- ``enospc-on-save`` and ``nan-loss`` through ``run_benchmark``, and every
+  kind armed (the sentinel's and the stream's are tested in
+  ``tests/test_torch_sentinel.py`` and ``tests/test_torch_stream.py``);
 - two harness ranks over gloo: ``sigterm-rank`` stops both at one step with
   one emergency checkpoint (the store's flag and agreement), and
   ``stall-rank`` aborts both with 76 (the store's hang flag).
@@ -203,20 +204,13 @@ def test_nan_loss_is_an_unresolved_anomaly(tmp_path):
     assert any("unresolved anomaly" in f for f in failures)
 
 
-@pytest.mark.parametrize("spec", ["bitflip@2", "grad-explode@1", "opt-moments@1",
-                                  "data-stall@1", "data-corrupt-record@3",
-                                  "data-slow-reader@1:5", "data-missing-shard@0"])
-def test_unarmed_kinds_are_refused_by_name(spec):
-    kind = spec.split("@")[0]
-    module = "faults/sentinel.py" if kind in ("bitflip", "grad-explode", "opt-moments") \
-        else "data/stream.py"
-    with pytest.raises(ValueError, match=module):
-        run_benchmark(steps=2, inject_fault=spec, **SMALL)
+def test_every_kind_is_armed():
+    assert tfaults.ARMED_KINDS == set(tfaults.FAULT_KINDS) and tfaults.WAITS_FOR == {}
 
 
 def test_inject_fault_env_is_the_fallback(monkeypatch):
-    monkeypatch.setenv("INJECT_FAULT", "bitflip@1")
-    with pytest.raises(ValueError, match="bitflip"):
+    monkeypatch.setenv("INJECT_FAULT", "data-stall@1")
+    with pytest.raises(ValueError, match="data-stall@1 is a streaming-data fault"):
         run_benchmark(steps=2, **SMALL)
     with pytest.raises(ValueError, match="needs --checkpoint-dir"):
         run_benchmark(steps=2, inject_fault="torn-checkpoint", **SMALL)

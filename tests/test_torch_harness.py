@@ -58,11 +58,7 @@ def test_every_jax_option_is_live_or_refused():
         assert port_opts[dest].default == default and reason, dest
 
 
-REFUSALS = [(["--sentinel", "on"], "faults/sentinel.py"),
-            (["--sentinel-checksum-every", "5"], "faults/sentinel.py"),
-            (["--data-path", "x"], "data/stream.py"),
-            (["--data-stall-timeout-sec", "5"], "data/stream.py"),
-            (["--profile-dir", "p"], "not ported yet"),
+REFUSALS = [(["--profile-dir", "p"], "not ported yet"),
             (["--layer-loop", "scan"], "Queue 1 item 0"),
             (["--xla-latency-hiding"], "XLA or Pallas"),
             (["--prng-impl", "threefry"], "threefry"),
