@@ -299,6 +299,30 @@ The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
     on the stream (``records_skipped`` 1, finite losses); the parameter
     checksum's ``device_ms`` against its bound (0.94 GB of fp32 read once).
 
+The supervisor and the run registry (``runtime/supervisor.py``,
+``runtime/launch.py``, ``regress/``, ``analysis/``; no kernel of its own):
+
+22. (a) ``python -m ...runtime.supervisor`` over ``runtime.launch --nproc
+    1`` over the harness on the card: the parity row (tier A, zero2, S
+    2048, b1 x accum 4, dropout 0.1, flash: K1-K3 in the child), 8 steps,
+    ``--checkpoint-every 4``, ``--inject-fault sigterm@6``, a policy with
+    ``preempted -> resume``: the ledger ``[preempted/resume, ok]``, the
+    fault dropped from attempt 2, whose telemetry and heartbeats carry
+    ``supervised_attempt: 2``, the final row stamped (``supervision``
+    ``n_attempts`` 2, ``resumed`` true) and passed by the port's
+    validator; (b) the supervisor's device probe (a torch import in a
+    subprocess) returns the card count, 1; the same command with
+    ``--resume`` past the end exits 77 and the supervisor gives up with
+    that code after one attempt; (c) the port's ``regress`` ingests (a)'s
+    results into a temporary registry, keeps the resumed row out of the
+    baseline and ``gate`` skips it (exit 0); ``parse_metrics`` writes
+    metrics.csv (``supervised_attempts`` 2), ``telemetry_report`` and
+    ``make_report`` run over the same directory. Printed beside the card's
+    name and power limit: each attempt's wall, the supervisor's own time
+    between attempts (its wall less the children's, backoff 0), the
+    probe's wall and the ingest / gate / csv / telemetry-report / report
+    walls.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
@@ -2795,6 +2819,159 @@ def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
     return {"drills": drills, "rows": rows, "cost": cost, "checksum": checksum}
 
 
+# Phase 22: the supervisor over the harness, then the post-run path.
+SV_STEPS, SV_EVERY, SV_SIGTERM = 8, 4, 6
+SV_POLICY = {"schema_version": 1, "backoff_base_sec": 0.0, "backoff_max_sec": 0.0,
+             "jitter_frac": 0.0,
+             "classes": {"preempted": {"action": "resume", "max_attempts": 2},
+                         "nothing-to-resume": {"action": "give-up", "max_attempts": 0}}}
+PKG = "distributed_llm_training_benchmark_framework_tpu_torch"
+
+
+def supervised(sup_args: list, child: list, results: str, timeout: int) -> dict:
+    """The port's supervisor over ``child`` as a subprocess: exit code,
+    output (stdout and stderr) and wall; kills it on the way out."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    for var in ("INJECT_FAULT", "SUPERVISOR_CHAOS", "RECOVERY_POLICY", "SUPERVISOR_DEVICE_COUNT",
+                "BENCH_SUPERVISED_ATTEMPT"):
+        env.pop(var, None)
+    cmd = ([sys.executable, "-m", f"{PKG}.runtime.supervisor"] + sup_args
+           + ["--results-dir", results, "--"] + child)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"rc": proc.returncode, "out": out, "wall_s": time.perf_counter() - t0}
+
+
+def timed_call(fn, *args, **kw):
+    """(result, stdout it printed, wall s)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    return res, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_supervisor(smi: str) -> dict:
+    """Phase 22: (a) the supervisor over a preempted parity row, (b) its
+    probe and a give-up, (c) ingest / gate / csv / reports on the results."""
+    import shutil
+
+    from distributed_llm_training_benchmark_framework_tpu_torch.analysis import (
+        make_report,
+        parse_metrics,
+        telemetry_report,
+        validate_results,
+    )
+    from distributed_llm_training_benchmark_framework_tpu_torch.regress import compare, store
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import supervisor
+
+    root = tempfile.mkdtemp(prefix="supervisor_smoke_")
+    free_gb = shutil.disk_usage(root).free / 1e9
+    assert free_gb >= RT_MIN_FREE_GB, f"[22] {free_gb:.1f} GB free under {root}"
+    t0 = time.perf_counter()
+    results, ck = os.path.join(root, "r"), os.path.join(root, "ck")
+    policy = os.path.join(root, "policy.json")
+    with open(policy, "w") as f:
+        json.dump(SV_POLICY, f)
+
+    def child(out: str) -> list:
+        """runtime.launch --nproc 1 over the harness, writing under ``out``."""
+        return ([sys.executable, "-m", f"{PKG}.runtime.launch", "--nproc", "1", "--",
+                 sys.executable, "-m", f"{PKG}.train.harness"] + RT_ROW
+                + ["--steps", str(SV_STEPS), "--results-dir", out, "--checkpoint-dir", ck,
+                   "--checkpoint-every", str(SV_EVERY)])
+
+    sup = ["--policy", policy, "--resume-flag", "--resume"]
+    # (a) preempted at SV_SIGTERM, resumed by the policy with the fault dropped.
+    run = supervised(sup + ["--drop-on-retry", "--inject-fault"],
+                     child(results) + ["--inject-fault", f"sigterm@{SV_SIGTERM}"], results, 900)
+    assert run["rc"] == 0, f"[22] (a) supervisor exit {run['rc']}:\n{run['out'][-4000:]}"
+    ledger = json.load(open(os.path.join(results, supervisor.LEDGER_NAME)))
+    (path,) = [os.path.join(results, n) for n in os.listdir(results) if n.startswith("result_")]
+    arm = os.path.basename(path)[len("result_"):-len(".json")]
+    got = [(a["class"], a["action"], a["rc"]) for a in ledger["attempts"]]
+    assert got == [("preempted", "resume", 75), ("ok", None, 0)], got
+    assert "--inject-fault" not in ledger["attempts"][1]["cmd"], ledger["attempts"][1]["cmd"]
+    assert ledger["attempts"][1]["cmd"][-1] == "--resume", ledger["attempts"][1]["cmd"]
+    meta = rt_events(results, arm)[0]
+    assert meta["event"] == "run_meta" and meta.get("supervised_attempt") == 2, meta
+    beats = [json.loads(ln.split(" ", 1)[1]) for ln in run["out"].splitlines()
+             if ln.startswith("BENCHMARK_HEARTBEAT ")]
+    second = [b for b in beats if b.get("supervised_attempt") == 2]
+    assert second and all(b["step"] > SV_EVERY for b in second), beats[-1]
+    assert all(b["step"] <= SV_SIGTERM + 1 for b in beats if "supervised_attempt" not in b)
+    row = rt_row(results, arm)
+    sv = row["supervision"]
+    assert (sv["n_attempts"], sv["classes"], sv["actions"], row["resumed"]) == (
+        2, ["preempted", "ok"], ["resume"], True), (sv, row["resumed"])
+    assert row["attention_impl"] == "flash" and row["resume_step"] >= SV_EVERY, row
+    bad = (validate_results.validate_result(row, "[22]")
+           + validate_results.validate_telemetry(path, row, "[22]"))
+    assert bad == [], bad
+    walls = [a["duration_sec"] for a in ledger["attempts"]]
+    log(f"[22] (a) supervised parity row: ledger {got}, attempt walls {walls} s, supervisor "
+        f"wall {run['wall_s']:.2f} s, its own time between attempts "
+        f"{run['wall_s'] - sum(walls):.2f} s (backoff 0); row stamped {sv}, "
+        f"resume_step {row['resume_step']}, {row['tokens_per_sec']:.0f} tok/s, "
+        f"port validator: pass; on {smi}")
+    # (b) the probe, and a give-up: the checkpoint now holds the last step.
+    probe_t0 = time.perf_counter()
+    n = supervisor.probe_device_count()
+    probe_s = time.perf_counter() - probe_t0
+    assert n == torch.cuda.device_count() == 1, n
+    r77 = os.path.join(root, "r77")
+    give = supervised(sup, child(r77) + ["--resume"], r77, 600)
+    led77 = json.load(open(os.path.join(r77, supervisor.LEDGER_NAME)))
+    assert give["rc"] == 77 and led77["gave_up"] and led77["n_attempts"] == 1, (
+        give["rc"], led77, give["out"][-3000:])
+    assert led77["attempts"][0]["class"] == "nothing-to-resume", led77
+    log(f"[22] (b) probe: {n} device(s) in {probe_s:.2f} s (a torch import in a subprocess); "
+        f"--resume past the end: exit 77, gave up after 1 attempt "
+        f"({led77['attempts'][0]['give_up_reason']}), wall {give['wall_s']:.2f} s; on {smi}")
+    # (c) the post-run path over (a)'s results.
+    reg = os.path.join(root, "reg")
+    rc_ingest, out_ingest, ingest_s = timed_call(
+        compare.main, ["--registry", reg, "ingest", "--results-dir", results])
+    rc_gate, out_gate, gate_s = timed_call(compare.main, ["--registry", reg, "gate", "--all"])
+    assert (rc_ingest, rc_gate) == (0, 0), (out_ingest, out_gate)
+    registry = store.Registry(reg)
+    assert len(registry.records(arm)) == 1 and registry.baseline(arm) is None
+    assert f"SKIP arm={arm}" in out_gate and "resumed (stitched)" in out_gate, out_gate
+    df, _, csv_s = timed_call(
+        lambda: parse_metrics.add_scaling_efficiency(parse_metrics.load_results(results)))
+    parse_metrics.to_csv(df, os.path.join(root, "summary", "metrics.csv"))
+    assert list(df["supervised_attempts"]) == [2] and list(df["supervised_actions"]) == [
+        "resume"], df.to_dict("records")
+    rc_tr, out_tr, tr_s = timed_call(telemetry_report.main, ["--results-dir", results])
+    assert rc_tr == 0 and "Phase attribution" in out_tr, out_tr[-2000:]
+    md, _, md_s = timed_call(make_report.build_report, df, registry_root=reg)
+    assert md.startswith(make_report.TITLE) and "Supervised recoveries:** 1 arm(s)" in md, md
+    with open(os.path.join(root, "summary", "BENCHMARK_REPORT.md"), "w") as f:
+        f.write(md)
+    costs = {"card": smi, "attempt_wall_s": walls, "supervisor_wall_s": run["wall_s"],
+             "supervisor_between_attempts_s": run["wall_s"] - sum(walls),
+             "probe_s": probe_s, "give_up_wall_s": give["wall_s"], "ingest_s": ingest_s,
+             "gate_s": gate_s, "metrics_csv_s": csv_s, "telemetry_report_s": tr_s,
+             "make_report_s": md_s}
+    log(f"[22] (c) ingest {ingest_s:.3f} s, gate {gate_s:.3f} s (the resumed row kept out of "
+        f"the baseline: SKIP), metrics.csv {csv_s:.3f} s, telemetry report {tr_s:.3f} s, "
+        f"report {md_s:.3f} s on {smi}")
+    log(f"[22] costs: {json.dumps(costs)}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[22] phase wall {time.perf_counter() - t0:.1f} s")
+    return costs
+
+
 def platform_hbm_gbps() -> float:
     from distributed_llm_training_benchmark_framework_tpu_torch.utils import platform
 
@@ -2889,6 +3066,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_runtime2(fa, run_benchmark, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_supervisor(smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

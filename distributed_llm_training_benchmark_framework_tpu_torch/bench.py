@@ -36,11 +36,19 @@ strategy. Under a launcher (torchrun's
 process group (``runtime.setup_distributed``: NCCL, or gloo with
 ``--device cpu``) and every arm lays its model out over it.
 
+``--regress auto|on|off`` and ``--registry`` are JAX's (``bench.py:313-322``):
+after the line is printed, the rows are recorded in the port's registry
+(``regress.store``: ``results/registry_torch``, or
+``$REGRESS_REGISTRY_TORCH``, or ``--registry``) with a one-line verdict
+against the last known good, on stderr and best-effort; ``auto`` (the
+default) records only when that registry exists, so a default run writes
+nothing. Each record carries the row's ``device_kind`` and ``backend``.
+
 Runs on the CUDA device unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it fails rather than fall back. The graftcheck preflight,
-``--layer-loop``, ``--profile-dir``, ``--remat-sweep``, the regress
-registry and ``tokens_per_dollar`` of the JAX bench are not part of the
-port yet; it writes to no registry. Checkpoints, fault injection and the
+``--layer-loop``, ``--profile-dir``, ``--remat-sweep`` (and with it the
+per-policy registry records) and ``tokens_per_dollar`` of the JAX bench are
+not part of the port yet. Checkpoints, fault injection and the
 rest of the run-time flags are the harness's
 (``python -m distributed_llm_training_benchmark_framework_tpu_torch.train.harness``).
 """
@@ -124,7 +132,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp-collective-matmul", action="store_true",
                    help="run the tensor-parallel projections as collective matmuls (needs a "
                         ">1 'model' axis to have any effect)")
+    p.add_argument("--regress", default="auto", choices=["auto", "on", "off"],
+                   help="record the rows in the port's registry with a verdict vs the last "
+                        "known good on stderr (auto: only when the registry exists)")
+    p.add_argument("--registry", default=None,
+                   help="registry root (default: $REGRESS_REGISTRY_TORCH or "
+                        "results/registry_torch)")
     return p
+
+
+def registry_rows(args, payload, backend=None):
+    """(source, contract_row, run_params) per registry record to ingest.
+
+    Run parameters ride into each record, as in JAX: the registry's
+    config_key includes them, so a --steps 12 smoke invocation forms its
+    own lineage instead of polluting the default 100-step headline's noise
+    floor. ``backend`` (the row's) rides beside the contract's
+    ``device_kind``.
+    """
+    run_params = {
+        "strategy": args.strategy, "tier": args.tier,
+        "seq_len": args.seq_len, "steps": args.steps,
+        "warmup_steps": args.warmup_steps,
+        "sync_every": args.sync_every,
+        "backend": backend,
+    }
+    rows = [("bench.py", {k: v for k, v in payload.items() if k != "flagship"},
+             dict(run_params, model_family=args.model_family,
+                  per_device_batch=args.per_device_batch,
+                  grad_accum=args.grad_accum,
+                  layer_loop=FLAGSHIP_LAYER_LOOP))]
+    if "flagship" in payload:
+        # The flagship sub-object already carries its geometry; only the
+        # shared run length is added.
+        rows.append(("bench.py:flagship", payload["flagship"], run_params))
+    return rows
+
+
+def record_in_registry(args, payload, backend=None) -> None:
+    """Ingest this invocation's rows and report a verdict vs last-good.
+
+    Best-effort, as in JAX: a broken registry must degrade the accounting,
+    never fail the benchmark that just measured. Everything prints to
+    stderr; exceptions are reported, not raised.
+    """
+    if args.regress == "off":
+        return
+    try:
+        from .regress import compare as regress_compare
+        from .regress import store as regress_store
+
+        reg = regress_store.Registry(args.registry)
+        if args.regress == "auto" and not reg.exists():
+            print(f"regress: no registry at {reg.root} — skipping ingest (pass --regress on "
+                  "to create it)", file=sys.stderr)
+            return
+        for source, row, extra in registry_rows(args, payload, backend):
+            rec = regress_store.record_from_bench_row(row, source=source, extra_result=extra)
+            rec, created = reg.ingest(rec)
+            tag = "" if created else " (already ingested)"
+            print(f"regress: recorded {rec['arm']} {rec['record_id']}{tag} -> {reg.root}",
+                  file=sys.stderr)
+            print(regress_compare.verdict_line_for_bench(reg, rec), file=sys.stderr)
+    except Exception as e:  # never fail a measured run on bookkeeping
+        print(f"WARNING: regress registry unavailable: {type(e).__name__}: {e}",
+              file=sys.stderr)
 
 
 def main(argv=None):
@@ -156,7 +228,8 @@ def main(argv=None):
                 "layer_loop": FLAGSHIP_LAYER_LOOP,
             }
         if dist_rt.is_main_process():
-            print(json.dumps(payload))
+            print(json.dumps(payload), flush=True)
+            record_in_registry(args, payload, backend=top.backend)
         return results
     finally:
         if made_group:

@@ -43,6 +43,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..exit_codes import EXIT_DATA_STALL  # noqa: F401  (the harness's exit 78)
+
 #: On-disk shard format magic + version (bump on any layout change; readers
 #: refuse a newer magic rather than guess).
 SHARD_MAGIC = b"TOKREC01"
@@ -59,13 +61,6 @@ _CRC_BYTES = 4
 #: that needs more than ~3 tries is an incident, not a transient.
 DEFAULT_READ_RETRIES = 3
 DEFAULT_RETRY_BACKOFF_SEC = 0.05
-
-#: Exit code for a run aborted as input-starved (``reason=data_stall``):
-#: distinct from preempted (75) and hung (76) — the device was healthy and
-#: the process alive, the INPUT path starved the timed loop. Retryable
-#: with --resume: the emergency checkpoint + stream sidecar make the
-#: retry consume exactly the un-consumed records.
-EXIT_DATA_STALL = 78
 
 
 class MissingShardError(ValueError):

@@ -15,13 +15,19 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/faults``:
   the run back in process to the last validated checkpoint and replays,
   with ``n_rollbacks`` / ``rollback_steps_replayed`` on the row.
 
-The exit codes the retrying orchestration keys on live here: 75
-(preempted), 76 (hung) and 78 (the input stream stalled) are retryable
-with ``--resume``; 77 (nothing left to resume) is terminal.
-``EXIT_DATA_STALL`` is ``data/stream.py``'s, re-exported here.
+The exit codes the retrying orchestration keys on are re-exported here
+from the package's ``exit_codes`` (which imports nothing, so the supervisor
+reads them without torch): 75 (preempted), 76 (hung) and 78 (the input
+stream stalled) are retryable with ``--resume``; 77 (nothing left to
+resume) is terminal.
 """
 
-from ..data.stream import EXIT_DATA_STALL  # noqa: F401  (the exit codes in one place)
+from ..exit_codes import (  # noqa: F401
+    EXIT_DATA_STALL,
+    EXIT_HUNG,
+    EXIT_NOTHING_TO_RESUME,
+    EXIT_PREEMPTED,
+)
 
 from .injection import (  # noqa: F401
     ARMED_KINDS,
@@ -33,14 +39,12 @@ from .injection import (  # noqa: F401
     parse_fault_spec,
 )
 from .preemption import (  # noqa: F401
-    EXIT_NOTHING_TO_RESUME,
-    EXIT_PREEMPTED,
     NothingToResume,
     Preempted,
     PreemptionGuard,
 )
 from .sentinel import NumericsSentinel, SentinelTripped  # noqa: F401
-from .watchdog import EXIT_HUNG, HangWatchdog, Hung  # noqa: F401
+from .watchdog import HangWatchdog, Hung  # noqa: F401
 
 __all__ = [
     "ARMED_KINDS",

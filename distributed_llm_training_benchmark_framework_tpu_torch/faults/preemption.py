@@ -27,13 +27,7 @@ from typing import Optional
 
 from ..runtime import distributed as dist_rt
 
-#: Exit code of a preempted-but-checkpointed run: BSD's EX_TEMPFAIL
-#: ("temporary failure, retry"), apart from crash codes and timeout(1)'s 124.
-EXIT_PREEMPTED = 75
-
-#: Exit code of a --resume that found a checkpoint but no steps left to run.
-#: Deterministic: a retry would refuse the same way, so wrappers stop.
-EXIT_NOTHING_TO_RESUME = 77
+from ..exit_codes import EXIT_NOTHING_TO_RESUME, EXIT_PREEMPTED  # noqa: F401
 
 
 class NothingToResume(RuntimeError):

@@ -34,10 +34,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 from ..runtime import distributed as dist_rt
 
-#: Exit code of a run aborted by the hang watchdog: apart from crash codes,
-#: timeout(1)'s 124 and EXIT_PREEMPTED; retryable with --resume (the
-#: checkpoints are intact, only the process wedged).
-EXIT_HUNG = 76
+from ..exit_codes import EXIT_HUNG  # noqa: F401
 
 
 class Hung(RuntimeError):

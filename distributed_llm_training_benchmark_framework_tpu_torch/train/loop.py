@@ -432,6 +432,12 @@ def _make_recorder(*, strategy: Union[str, StrategyConfig], world_size: Optional
         meta["data_mode"] = "stream"
     if tp_collective_matmul:
         meta["tp_collective_matmul"] = True
+    sup_attempt = os.environ.get("BENCH_SUPERVISED_ATTEMPT", "")
+    if sup_attempt.isdigit() and int(sup_attempt) > 1:
+        # A supervisor's recovery attempt (runtime/supervisor.py) rides
+        # run_meta and every heartbeat, as in JAX; a first attempt and an
+        # unsupervised run omit the key.
+        meta["supervised_attempt"] = int(sup_attempt)
     rec = TelemetryRecorder(
         metrics_mod.arm_slug(name, world, seq_len, tier, model_family),
         results_dir=results_dir, is_main=rank == 0, enabled=bool(telemetry),

@@ -63,6 +63,7 @@ from test_torch_arms_worker import (
     spawn_ranks,
     wait_ranks,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 S, MICRO, ACCUM, STEPS = 64, 1, 2, 3
 WORLDS = (2, 3)

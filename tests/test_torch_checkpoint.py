@@ -46,6 +46,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.runtime.checkpoint i
 )
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
 from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_ckpt_worker import (  # noqa: E402
@@ -61,16 +62,6 @@ from torch_ckpt_worker import (  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 FROZEN = REPO / "tests" / "fixtures" / "checkpoint_quarantine_frozen"
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tier S is too small to gain from intra-op threads, and the suite's
-    workers share the host's cores: one thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # Without a group every arm is its recipe on the plain model (fsdp is ddp's,

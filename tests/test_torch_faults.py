@@ -25,7 +25,6 @@ import time
 from pathlib import Path
 
 import pytest
-import torch
 
 from distributed_llm_training_benchmark_framework_tpu import faults as jfaults
 from distributed_llm_training_benchmark_framework_tpu import telemetry as jtel
@@ -37,21 +36,12 @@ from distributed_llm_training_benchmark_framework_tpu_torch import telemetry as 
 from distributed_llm_training_benchmark_framework_tpu_torch.faults import injection as tinj
 from distributed_llm_training_benchmark_framework_tpu_torch.faults import watchdog as twatch
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 HARNESS = [sys.executable, "-m", "distributed_llm_training_benchmark_framework_tpu_torch"
            ".train.harness", "--device", "cpu", "--strategy", "zero2", "--world-size", "1",
            "--tier", "S", "--seq-len", "64", "--per-device-batch", "1", "--grad-accum", "2"]
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tier S is too small to gain from intra-op threads, and the suite's
-    workers share the host's cores: one thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 GOOD = ["sigkill@10", "hang@6:45", "torn-checkpoint", "enospc-on-save", None, "", "sigterm@3",
         " sigterm@3 ", "sigterm-rank@3:1", "stall-rank@4:1", "stall-rank@4:1:2.5", "nan-loss@0",

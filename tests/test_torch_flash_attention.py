@@ -17,6 +17,7 @@ import torch
 
 from distributed_llm_training_benchmark_framework_tpu.ops import flash_attention as jfa
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 B, S, H = 1, 64, 2
 SEED = 0xC0FFEE

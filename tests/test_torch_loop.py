@@ -19,6 +19,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.train import run_ben
 from distributed_llm_training_benchmark_framework_tpu_torch.utils import flops as tflops
 from distributed_llm_training_benchmark_framework_tpu_torch.utils import metrics as tmetrics
 from distributed_llm_training_benchmark_framework_tpu_torch.utils import platform as tplatform
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = "distributed_llm_training_benchmark_framework_tpu_torch"
@@ -28,7 +29,7 @@ SMALL = ["--tier", "S", "--seq-len", "64", "--steps", "3", "--warmup-steps", "1"
 
 
 def _env(**kw):
-    env = dict(os.environ, PYTHONPATH=str(REPO), **kw)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", **kw)
     return env
 
 

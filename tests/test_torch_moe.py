@@ -57,6 +57,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.models.tinygpt impor
 from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies as tstrat
 from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
 from distributed_llm_training_benchmark_framework_tpu_torch.utils import flops as tflops
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 S, E, D, F = 64, 4, 128, 512
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -91,6 +91,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.train.step import Tr
 from distributed_llm_training_benchmark_framework_tpu_torch.utils import memory as tmemory
 
 from test_torch_arms_worker import master_tree
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 S, MICRO, ACCUM, STEPS = 64, 1, 2, 3
 CPU = torch.device("cpu")

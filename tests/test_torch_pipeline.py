@@ -98,6 +98,7 @@ from torch_pipe_worker import (
     strategy,
     wait_ranks,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 AXES5 = ("data", "seq", "model", "pipe", "expert")
 RECIPE = {"ddp": "ddp", "fsdp": "ddp", "zero2": "zero2", "zero3": "zero2"}

@@ -39,6 +39,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
 
 from torch_seq_parallel_worker import spawn_ranks, wait_ranks
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 N = 4  # sequence shards

@@ -63,6 +63,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.telemetry import rea
 from distributed_llm_training_benchmark_framework_tpu_torch.train import loop as tloop
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
 from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sentinel_worker as worker  # noqa: E402
@@ -76,16 +77,6 @@ JAX_CONFIG = {"tinygpt": jtiny.get_model_config, "llama": jllama.get_llama_confi
 SMALL = dict(tier="S", seq_len=32, warmup_steps=2, device="cpu", sync_every=2,
              per_device_batch=1, grad_accum=1, heartbeat_sec=0)
 ARM = "zero2_ws1_seq32_tierS"
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tier S is too small to gain from intra-op threads, and the suite's
-    workers share the host's cores: one thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the guards: JAX's cases through both sentinels ----------------------------

@@ -46,6 +46,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.runtime.checkpoint i
 )
 from distributed_llm_training_benchmark_framework_tpu_torch.telemetry import read_events
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 SHARDS = REPO / "tests" / "fixtures" / "shards"
@@ -56,16 +57,6 @@ SEQ = 16  # the fixture shards' record length (3 shards x 8 records, vocab 64)
 SMALL = dict(tier="S", seq_len=SEQ, warmup_steps=2, device="cpu", sync_every=2,
              per_device_batch=1, grad_accum=2, heartbeat_sec=0)
 ARM = f"zero2_ws1_seq{SEQ}_tierS"
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tier S is too small to gain from intra-op threads, and the suite's
-    workers share the host's cores: one thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the shard format ------------------------------------------------------------

@@ -20,16 +20,7 @@ from distributed_llm_training_benchmark_framework_tpu.analysis import telemetry_
 from distributed_llm_training_benchmark_framework_tpu.analysis import validate_results as jvalid
 from distributed_llm_training_benchmark_framework_tpu_torch import telemetry as ttel
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tier S is too small to gain from intra-op threads, and the suite's
-    workers share the host's cores: one thread each, restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 META = {"strategy": "zero2", "world_size": 1, "seq_len": 64, "tier": "S"}
 # Window step times: three to set the median, a 4x spike, then back to normal.

@@ -78,6 +78,7 @@ from torch_tp_worker import (
     spawn_ranks,
     wait_ranks,
 )
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 JAX_CONFIG = {"tinygpt": (jtiny.get_model_config, {}), "llama": (jllama.get_llama_config, {}),
               "llama4": (jllama.get_llama_config, {"n_head": 4, "n_kv_head": 2})}

@@ -36,6 +36,7 @@ from distributed_llm_training_benchmark_framework_tpu_torch.ops import ulysses_a
 from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make_mesh
 
 from torch_seq_parallel_worker import SEED, spawn_ranks, wait_ranks
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CASES = [(n, c, r) for n in (2, 4) for c in (False, True) for r in (0.0, 0.1)]
 NAMES = ("out", "dq", "dk", "dv")
