@@ -323,6 +323,27 @@ The supervisor and the run registry (``runtime/supervisor.py``,
     probe's wall and the ingest / gate / csv / telemetry-report / report
     walls.
 
+The trace and memory anatomy (``analysis/{profile_summary,step_anatomy,
+memory_anatomy}.py``; no kernel of its own):
+
+23. trains the parity and flagship rows of phase 3 again, 3 + 10 steps,
+    through ``run_benchmark(profile_dir=...)`` (one timed window), and
+    checks on each: the trace and ``cost_analysis.json`` exist; the step
+    anatomy has 10 steps, clipped to the telemetry's timed phase with no
+    lane falling back; compute + exposed + idle = 1 within 1e-6 and no
+    exposed collective (world 1 runs no NCCL kernel:
+    ``comms_exposed_frac`` 0.0, ``comms_overlap_frac`` null); the trace
+    holds K1-K3 64 / 64 / 64 (parity) and 32 / 32 / 32 (flagship) times
+    per traced step; the memory anatomy's source is the allocator and the
+    port's validator accepts the row. It prints the kineto categories,
+    where the step markers fall, each op's device start less its host
+    launch (the two clocks' agreement), the trace's bytes and its stop /
+    export / load / analysis seconds, the anatomy's idle beside 1 - busy /
+    phase 3's unprofiled wall, tokens/s profiled / phase 3's, the device ms
+    per step by class, the bytes earlier phases still hold and
+    ``hbm_model_drift_frac``, and writes the whole as
+    ``build/phase23_profile.json``.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
@@ -2972,6 +2993,200 @@ def phase_supervisor(smi: str) -> dict:
     return costs
 
 
+PROFILE_ROWS = {
+    "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16),
+    "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
+}
+PROFILE_KERNELS = {"flash_fwd_kernel": "flash_fwd", "flash_bwd_dq_kernel": "flash_bwd_dq",
+                   "flash_bwd_dkv_kernel": "flash_bwd_dkv"}
+
+
+def launch_times(ps, events: list) -> dict:
+    """{correlation: host ts} of the trace's launch calls."""
+    return {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("ph") == "X" and e.get("cat") in ps.LAUNCH_CATS
+            and "correlation" in (e.get("args") or {})}
+
+
+def launch_latency(ps, events: list) -> dict:
+    """Device start less host launch time (us) of every device op joined to
+    its launch by ``correlation``: the two clocks' agreement. A negative
+    value is an op that started before its launch, which only a skew
+    between the converted device clock and the host clock can produce."""
+    launched = launch_times(ps, events)
+    lat = sorted(e["ts"] - launched[c] for ops in ps.device_ops(events).values() for e in ops
+                 if (c := (e.get("args") or {}).get("correlation")) in launched)
+    return {"n": len(lat), "min_us": round(lat[0], 1), "median_us": round(lat[len(lat) // 2], 1),
+            "max_us": round(lat[-1], 1), "n_negative": sum(x < 0 for x in lat)} if lat else {}
+
+
+def marker_layout(ps, events: list, n: int = 2) -> list:
+    """Where the step markers of the first ``n`` and the last traced step fall
+    (us after the first host marker): the host ``ProfilerStep#N`` span, its
+    ``gpu_user_annotation`` mirror on the card (None when kineto wrote none),
+    the step's device window (first op to the next step's first op), and
+    its first device op's start less that op's host launch time."""
+    host = ps.host_steps(events)
+    t_ref = host[0][1]
+    gpu = {e["name"]: ps._span(e) for e in events
+           if e.get("cat") == "gpu_user_annotation" and ps.STEP_MARKER_RE.match(e["name"])}
+    (wins,) = ps.device_steps(events).values()
+    windows = {name: (t0, t1) for name, t0, t1 in wins}
+    launched = launch_times(ps, events)
+    first_op = {e["ts"]: e for ops in ps.device_ops(events).values() for e in ops}
+    out = []
+    for step, h0, h1 in host[:n] + host[-1:]:
+        g = gpu.get(f"ProfilerStep#{step}")
+        w = windows.get(str(step))
+        op = first_op.get(w[0]) if w is not None else None
+        corr = (op.get("args") or {}).get("correlation") if op is not None else None
+        out.append({"step": step, "host": [round(h0 - t_ref, 1), round(h1 - t_ref, 1)],
+                    "gpu_annotation": None if g is None else [round(g[0] - t_ref, 1),
+                                                              round(g[1] - t_ref, 1)],
+                    "device_window": None if w is None else [round(w[0] - t_ref, 1),
+                                                             round(w[1] - t_ref, 1)],
+                    "first_op": None if op is None else op["name"][:60],
+                    "first_op_launch_to_start_us": (round(w[0] - launched[corr], 1)
+                                                    if corr in launched else None)})
+    return out
+
+
+def phase_profile(fa, run_benchmark, unprofiled: dict, smi: str) -> dict:
+    """Phase 23: both tier-A rows profiled through run_benchmark(profile_dir=...):
+    the trace, the cost JSON, the step anatomy (10 steps, clipped, fractions
+    summing to 1, no exposed collective at world 1), K1-K3 launches per traced
+    step in the trace, and the memory anatomy from the allocator."""
+    import shutil
+
+    from distributed_llm_training_benchmark_framework_tpu_torch.analysis import (
+        profile_summary as ps,
+        step_anatomy as sa,
+        validate_results,
+    )
+
+    root = tempfile.mkdtemp(prefix="profile_smoke_")
+    t_phase = time.perf_counter()
+    out = {}
+    for name, row in PROFILE_ROWS.items():
+        prof, results = os.path.join(root, name), os.path.join(root, f"results_{name}")
+        held_gib = torch.cuda.memory_allocated() / 2**30  # earlier phases' live tensors
+        fa.reset_launch_counts()
+        res = run_benchmark(
+            strategy="zero2", tier="A", seq_len=2048, model_family=row["model_family"],
+            steps=WARMUP_STEPS + TIMED_STEPS, warmup_steps=WARMUP_STEPS,
+            per_device_batch=row["per_device_batch"], grad_accum=row["grad_accum"],
+            attention_impl="flash", sync_every=TIMED_STEPS, device="cuda",
+            results_dir=results, profile_dir=prof)
+        counts = fa.launch_counts()
+        per_micro = row["layers"] * row["grad_accum"]
+        for kernel, n in counts.items():
+            assert n == per_micro * (WARMUP_STEPS + TIMED_STEPS), (
+                f"[23] {name}: {kernel} launched {n} times")
+        (trace,) = ps.trace_files(prof)
+        assert os.path.exists(os.path.join(prof, sa.COST_JSON_FILENAME)), f"[23] {name}: no cost"
+        arm = res.result_filename()[len("result_"):-len(".json")]
+        tel = os.path.join(results, f"telemetry_{arm}.jsonl")
+        (exported,) = [e for e in rt_events(results, arm) if e["event"] == "profile_trace"]
+        t0 = time.perf_counter()
+        events = ps.load_events(trace)
+        load_s = time.perf_counter() - t0
+        summary = ps.summarize(events)
+        summarize_s = time.perf_counter() - t0 - load_s
+        layout = marker_layout(ps, events)
+        latency = launch_latency(ps, events)
+        busy_us = sum(summary["op_classes"].values())
+        del events
+        t0 = time.perf_counter()
+        report = sa.analyze_profile_dir(prof, telemetry_path=tel)
+        analyze_s = time.perf_counter() - t0
+        agg = report["agg"]
+        log(f"[23] {name}: trace {exported['bytes']} bytes, {summary['n_events']} events (stop "
+            f"{exported['stop_sec']:.2f} s, export {exported['export_sec']:.2f} s, time_in_trace "
+            f"{res.time_in_trace_sec:.2f} s; load {load_s:.2f} s, summary "
+            f"{summarize_s:.2f} s, analysis {analyze_s:.2f} s)")
+        log(f"[23] {name}: kineto categories "
+            f"{json.dumps(dict(summary['categories'].most_common()))}")
+        log(f"[23] {name}: step markers (us after the first host marker) "
+            f"{json.dumps(layout)}")
+        log(f"[23] {name}: device start less host launch over {latency.get('n')} ops (us): "
+            f"{json.dumps(latency)}; traced steps {agg['n_steps']}, clipped "
+            f"{agg['clipped_to_timed']}, fallback lanes {agg['clip_fallback_lanes']}")
+        assert agg["n_steps"] == TIMED_STEPS, f"[23] {name}: {agg['n_steps']} traced steps"
+        assert agg["clipped_to_timed"] is True and agg["clip_fallback_lanes"] == 0, agg
+        total = agg["compute_frac"] + agg["comms_exposed_frac"] + agg["idle_frac"]
+        assert abs(total - 1.0) <= 1e-6, f"[23] {name}: fractions sum to {total!r}"
+        assert agg["comms_exposed_frac"] == 0.0 and agg["comms_overlap_frac"] is None, agg
+        assert res.comms_exposed_frac == 0.0 and res.comms_overlap_frac is None, res
+        assert res.anatomy_compute_frac is not None and res.anatomy_idle_frac is not None
+        assert res.roofline_flops_pct_of_peak is not None, res
+        per_step = {PROFILE_KERNELS[k]: summary["op_counts"][k] / agg["n_steps"]
+                    for k in PROFILE_KERNELS}
+        assert set(per_step.values()) == {per_micro}, f"[23] {name}: {per_step} per step"
+        assert res.hbm_attribution_source == "allocator", res.hbm_attribution_source
+        assert res.hbm_model_drift_frac is not None, res
+        path = os.path.join(results, res.result_filename())
+        row_dict = json.load(open(path))
+        bad = (validate_results.validate_result(row_dict, f"[23] {name}")
+               + validate_results.validate_telemetry(path, row_dict, f"[23] {name}"))
+        assert bad == [], bad
+        base = unprofiled[name]
+        busy_ms = busy_us / 1e3 / agg["n_steps"]
+        out[name] = {
+            "card": smi,
+            "trace_bytes": exported["bytes"], "trace_events": summary["n_events"],
+            "stop_s": exported["stop_sec"], "export_s": exported["export_sec"],
+            "time_in_trace_sec": res.time_in_trace_sec, "load_s": load_s,
+            "summarize_s": summarize_s, "analyze_s": analyze_s,
+            "categories": dict(summary["categories"].most_common()),
+            "markers": layout, "launch_to_start_us": latency,
+            "anatomy": {k: agg[k] for k in ("compute_frac", "comms_exposed_frac", "idle_frac",
+                                            "median_step_us", "mean_step_us")},
+            "roofline_flops_pct_of_peak": res.roofline_flops_pct_of_peak,
+            "op_ms_per_step": {k: v / 1e3 / agg["n_steps"]
+                               for k, v in summary["op_classes"].most_common()},
+            "op_launches_per_step": {k: v / agg["n_steps"]
+                                     for k, v in summary["op_counts"].most_common()},
+            "kernel_launches_per_step": per_step,
+            "busy_ms_per_step": busy_ms,
+            "profiled_step_ms": 1e3 * res.mean_step_time_sec,
+            "unprofiled_step_ms": 1e3 * base.mean_step_time_sec,
+            "idle_unprofiled": 1.0 - busy_ms / (1e3 * base.mean_step_time_sec),
+            "tokens_per_sec": res.tokens_per_sec,
+            "tokens_per_sec_unprofiled": base.tokens_per_sec,
+            "tokens_ratio": res.tokens_per_sec / base.tokens_per_sec,
+            "held_before_gib": held_gib, "peak_hbm_gb": res.peak_hbm_gb,
+            "hbm_measured_gib": res.hbm_measured, "hbm_estimate_gib":
+                res.hbm_estimate["total_gib"], "hbm_attribution": res.hbm_attribution,
+            "hbm_model_drift_frac": res.hbm_model_drift_frac,
+        }
+        o = out[name]
+        log(f"[23] {name}: anatomy over {agg['n_steps']} steps (clipped, fallback 0): compute "
+            f"{agg['compute_frac']!r} + exposed {agg['comms_exposed_frac']!r} + idle "
+            f"{agg['idle_frac']!r} = {total!r}; median step {agg['median_step_us'] / 1e3:.3f} "
+            f"ms; roofline {res.roofline_flops_pct_of_peak}% of bf16 peak (model FLOPs)")
+        log(f"[23] {name}: K1-K3 per traced step {per_step}; device busy {busy_ms:.3f} ms/step; "
+            f"idle: anatomy {agg['idle_frac']:.4f} (profiled), 1 - busy / unprofiled wall "
+            f"{o['idle_unprofiled']:.4f} (phase 3's {o['unprofiled_step_ms']:.2f} ms); "
+            f"tok/s profiled {res.tokens_per_sec:.1f} / phase 3's {base.tokens_per_sec:.1f} = "
+            f"{o['tokens_ratio']:.4f}")
+        log(f"[23] {name}: device ms per step by class "
+            + json.dumps({k: round(v, 3) for k, v in o["op_ms_per_step"].items()}))
+        log(f"[23] {name}: memory anatomy: allocator {res.hbm_measured} GiB (the process's peak "
+            f"{res.peak_hbm_gb:.2f} GB less {held_gib:.4f} GiB held before the arm) vs estimate "
+            f"{o['hbm_estimate_gib']:.4f} GiB, hbm_model_drift_frac {res.hbm_model_drift_frac}, "
+            f"attribution {json.dumps(res.hbm_attribution)}; port validator: pass; on {smi}")
+        shutil.rmtree(prof, ignore_errors=True)
+        del report
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.makedirs("build", exist_ok=True)
+    with open(os.path.join("build", "phase23_profile.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[23] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def platform_hbm_gbps() -> float:
     from distributed_llm_training_benchmark_framework_tpu_torch.utils import platform
 
@@ -3069,6 +3284,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_supervisor(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_profile(fa, run_benchmark, row_results, smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

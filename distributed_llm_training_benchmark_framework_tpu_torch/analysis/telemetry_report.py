@@ -15,10 +15,13 @@ died" from the JSONL alone:
   always carries the endpoints and extrema);
 - **anomalies**: NaN-loss and step-time-spike events, with whether they
   resolved;
-- **profiler join** (``--profile-dir``): not in the port yet. JAX's joins
-  the JSONL's step windows against its profiler trace through
-  ``profile_summary`` / ``step_anatomy``, which wait for ROADMAP Queue 1
-  item 16; the port refuses the flag (and ``--run``) with that reason;
+- **profiler join** (``--profile-dir``): lines the JSONL's host-clock
+  step windows up against the trace's device steps from
+  ``profile_summary`` (the ``ProfilerStep#N`` windows on the card), so
+  host-side overhead (dispatch, sync, python) is separable from device
+  time, and names the op class that grew in each step-time spike the
+  trace covered (``step_anatomy.per_step_op_classes``). ``--run`` picks a
+  run when the profile dir holds several;
 - **cross-run comparison** (``--compare A.jsonl B.jsonl``): per-phase
   wall-time deltas plus timed-window step-time/throughput distributions
   with significance verdicts, delegated to the ``regress.stats`` engine
@@ -29,11 +32,11 @@ partial timeline (that is the point of a flight recorder).
 
     python -m distributed_llm_training_benchmark_framework_tpu_torch.analysis.telemetry_report \
         --telemetry results/run_results/telemetry_zero2_ws4_seq2048_tierA.jsonl \
-        [--plots-out plots/]
+        [--profile-dir /tmp/prof [--run <name>]] [--plots-out plots/]
 
 Port of ``distributed_llm_training_benchmark_framework_tpu/analysis/telemetry_report.py``
-over the port's telemetry: the same timeline, report text, rank merge,
-comparison and plots; only the profiler join is left out (above).
+over the port's telemetry and ``torch.profiler`` traces: the same
+timeline, report text, rank merge, comparison, plots and joins.
 """
 
 from __future__ import annotations
@@ -49,13 +52,6 @@ from ..telemetry import (
     rank_telemetry_files,
     read_events,
 )
-
-#: Why ``--profile-dir`` is refused in the port.
-PROFILE_JOIN_REFUSED = (
-    "the profiler join reads traces through profile_summary / step_anatomy, "
-    "the analysis tied to the backend (ROADMAP Queue 1 item 16)"
-)
-
 
 # ---------------------------------------------------------------------------
 # Timeline reconstruction
@@ -384,6 +380,153 @@ def format_rank_merge(ranks: Dict[int, Dict[str, Any]]) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Profiler join
+# ---------------------------------------------------------------------------
+
+
+def join_profile(
+    tl: Dict[str, Any], profile_dir: str, run: Optional[str] = None
+) -> str:
+    """Line the JSONL host-clock windows up against the device step lane."""
+    from . import profile_summary as ps
+
+    trace = ps.find_trace_file(profile_dir, run=run)
+    if trace is None:
+        return f"== Profiler join ==\n  no trace under {profile_dir}"
+    s = ps.summarize(ps.load_events(trace))
+    dev = sorted(s["step_durs_us"])
+    out = ["== Profiler join ==", f"  trace: {trace}"]
+    if not dev:
+        out.append("  trace has no device step lane (no device op inside a "
+                   "ProfilerStep#N marker)")
+        return "\n".join(out)
+    dev_med = dev[len(dev) // 2] / 1e6
+    # Only the timed windows are comparable: the trace starts after warmup
+    # (train/loop.py starts it at the warmup boundary), so compile/warmup
+    # windows would skew the host-side median.
+    host = sorted(
+        w["window_mean_step_time_sec"] for w in tl["windows"]
+        if w.get("phase") == "timed"
+    ) or sorted(w["window_mean_step_time_sec"] for w in tl["windows"])
+    out.append(f"  device steps traced: {len(dev)}, median {dev_med:.4f}s")
+    if not host:
+        # JAX's join indexes an empty list here; a telemetry file with no
+        # step window (a run killed before its first fence) has nothing
+        # to line up.
+        out.append("  telemetry windows:   0 (no step window to compare)")
+        return "\n".join(out)
+    host_med = host[len(host) // 2]
+    overhead = host_med - dev_med
+    out.append(f"  telemetry windows:   {len(host)}, median host step "
+               f"{host_med:.4f}s")
+    out.append(
+        f"  host-side overhead:  {overhead:+.4f}s/step "
+        f"({100.0 * overhead / host_med if host_med else 0:.1f}% of the "
+        "host step — dispatch, sync RPCs, python)"
+    )
+    return "\n".join(out)
+
+
+# ---------------------------------------------------------------------------
+# Anomaly <-> trace join (telemetry follow-up (b))
+# ---------------------------------------------------------------------------
+
+
+def _match_traced_step(
+    anomaly: Dict[str, Any],
+    window: Optional[Dict[str, Any]],
+    traced: List[Dict[str, Any]],
+) -> Optional[Dict[str, Any]]:
+    """The traced step covering one spike anomaly, or None.
+
+    Two rungs: the trace's step names ARE the loop's step numbers
+    (``ProfilerStep#N``), so an exact name match wins; otherwise the spike
+    window's wall-clock span (the ``step_window`` event's unix ``ts``,
+    trace ``ts`` in epoch microseconds) catches traces whose step counter
+    restarted.
+    """
+    step = anomaly.get("step")
+    for t in traced:
+        try:
+            if int(t["step"]) == step:
+                return t
+        except (TypeError, ValueError):
+            pass
+    if window is not None and window.get("ts"):
+        n = window.get("steps_in_window", 1) or 1
+        dt = window.get("window_mean_step_time_sec", 0.0) or 0.0
+        hi = float(window["ts"]) * 1e6
+        lo = hi - n * dt * 1e6
+        for t in traced:
+            mid = (t["t0"] + t["t1"]) / 2.0
+            if lo <= mid <= hi:
+                return t
+    return None
+
+
+def join_anomaly_trace(
+    tl: Dict[str, Any], profile_dir: str, run: Optional[str] = None
+) -> Optional[str]:
+    """Name the op class that grew in each spiked step vs the median step.
+
+    Auto-joins the recorder's ``step_time_spike`` anomalies against the
+    profiler trace whenever ``--profile-dir`` covered the spike window:
+    the spiked step's per-op-class self time is compared against the
+    per-class median over the other traced steps, and the class with the
+    largest growth is named — the triage answer ("the all-reduce grew,
+    not the matmuls") that used to require a by-hand trace read. Returns
+    None when the run recorded no spikes.
+    """
+    spikes = [a for a in tl["anomalies"]
+              if a.get("event") == "anomaly"
+              and a.get("kind") == "step_time_spike"]
+    if not spikes:
+        return None
+    from . import step_anatomy as sa
+
+    out = ["== Anomaly <-> trace join =="]
+    traces = sa.discover_traces(profile_dir, run=run)
+    if 0 not in traces:
+        out.append(f"  no trace under {profile_dir} — spikes not joinable")
+        return "\n".join(out)
+    from . import profile_summary as ps
+
+    traced = sa.per_step_op_classes(ps.load_events(traces[0]))
+    if len(traced) < 2:
+        out.append("  trace holds < 2 device steps — no median to compare "
+                   "a spike against")
+        return "\n".join(out)
+    windows_by_step = {w.get("step"): w for w in tl["windows"]}
+    for a in spikes:
+        target = _match_traced_step(a, windows_by_step.get(a.get("step")),
+                                    traced)
+        if target is None:
+            out.append(
+                f"  spike at step {a.get('step')}: outside the traced "
+                "window (the profiler did not cover the spike)"
+            )
+            continue
+        others = [t for t in traced if t is not target]
+        growth: List[tuple] = []
+        for cls, dur in target["classes"].items():
+            meds = sorted(t["classes"].get(cls, 0.0) for t in others)
+            med = meds[len(meds) // 2] if meds else 0.0
+            growth.append((dur - med, med, dur, cls))
+        if not growth:
+            out.append(f"  spike at step {a.get('step')}: traced step has "
+                       "no op self-time to attribute")
+            continue
+        delta, med, dur, cls = max(growth)
+        ratio = f"{dur / med:.1f}x" if med > 0 else "new"
+        out.append(
+            f"  spike at step {a.get('step')}: '{cls}' grew {ratio} vs "
+            f"the median step ({med / 1e3:.2f} ms -> {dur / 1e3:.2f} ms, "
+            f"+{delta / 1e3:.2f} ms)"
+        )
+    return "\n".join(out)
+
+
+# ---------------------------------------------------------------------------
 # Cross-run comparison (--compare A.jsonl B.jsonl)
 # ---------------------------------------------------------------------------
 
@@ -542,15 +685,14 @@ def main(argv=None) -> int:
                           "per-window delta tables with significance "
                           "verdicts (regress.stats engine)")
     p.add_argument("--profile-dir", default=None,
-                   help="refused: " + PROFILE_JOIN_REFUSED)
+                   help="the harness's --profile-dir: join the JSONL step "
+                        "windows against the Chrome-trace device steps")
     p.add_argument("--run", default=None,
-                   help="refused with --profile-dir")
+                   help="profile run to join when --profile-dir holds "
+                        "several (see profile_summary --run)")
     p.add_argument("--plots-out", default=None,
                    help="directory for loss/step-time/HBM trajectory PNGs")
     args = p.parse_args(argv)
-    if args.profile_dir or args.run:
-        p.error(f"--profile-dir / --run are not supported by the port: "
-                f"{PROFILE_JOIN_REFUSED}")
 
     if args.compare:
         return run_compare(args.compare[0], args.compare[1])
@@ -580,6 +722,23 @@ def main(argv=None) -> int:
         if len(ranks) > 1:
             print()
             print(format_rank_merge(ranks))
+        if args.profile_dir:
+            print()
+            try:
+                print(join_profile(tl, args.profile_dir, run=args.run))
+                # Spikes auto-join against the trace whenever the profile
+                # dir covered them.
+                anomaly_join = join_anomaly_trace(
+                    tl, args.profile_dir, run=args.run
+                )
+                if anomaly_join:
+                    print()
+                    print(anomaly_join)
+            except ValueError as e:
+                # Bad/ambiguous --run: report and keep going — the JSONL
+                # reports for the remaining files are still wanted.
+                print(f"ERROR: {e}")
+                rc = 1
         if args.plots_out:
             for out in write_plots(tl, args.plots_out):
                 print(f"Wrote {out}")

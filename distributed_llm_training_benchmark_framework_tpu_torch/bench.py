@@ -44,9 +44,20 @@ against the last known good, on stderr and best-effort; ``auto`` (the
 default) records only when that registry exists, so a default run writes
 nothing. Each record carries the row's ``device_kind`` and ``backend``.
 
+``--profile-dir DIR`` is JAX's (``bench.py:297-300``): the top row traces its
+timed window with ``torch.profiler`` into DIR and the flagship row into
+``DIR_flagship``, and each profiled row carries its step anatomy
+(``anatomy_compute_frac``, ``comms_exposed_frac``, ``comms_overlap_frac``,
+``anatomy_idle_frac``, ``bubble_frac`` and the roofline percentages, the
+non-null ones). Every row carries its memory anatomy in JAX's keys and
+order (``hbm_estimate_gib``, ``hbm_measured``, ``hbm_measured_reason``,
+``hbm_attribution``, ``hbm_attribution_source``, ``hbm_reference_gib``,
+``hbm_model_drift_frac``): the estimate against the allocator's peak on
+the card, the estimate alone on the CPU.
+
 Runs on the CUDA device unless ``--device cpu`` is given; with no GPU and no
-``--device cpu`` it fails rather than fall back. The graftcheck preflight,
-``--layer-loop``, ``--profile-dir``, ``--remat-sweep`` (and with it the
+``--device cpu`` it fails rather than fall back. The graftcheck preflight
+(``--skip-preflight``), ``--layer-loop``, ``--remat-sweep`` (and with it the
 per-policy registry records) and ``tokens_per_dollar`` of the JAX bench are
 not part of the port yet. Checkpoints, fault injection and the
 rest of the run-time flags are the harness's
@@ -74,7 +85,7 @@ FLAGSHIP_LAYER_LOOP = "unrolled"  # eager PyTorch runs the layers as a Python lo
 
 
 def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: int,
-                attention_impl: str, dropout):
+                attention_impl: str, dropout, profile_dir=None):
     """Run one arm; return its contract-shaped row and the result row it
     was made from."""
     with contextlib.redirect_stdout(sys.stderr):
@@ -84,10 +95,27 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
             per_device_batch=per_device_batch, grad_accum=grad_accum,
             attention_impl=attention_impl, dropout=dropout, sync_every=args.sync_every,
             device=args.device, world_size=args.world_size,
-            tp_collective_matmul=args.tp_collective_matmul,
+            tp_collective_matmul=args.tp_collective_matmul, profile_dir=profile_dir,
         )
     per_chip = result.tokens_per_sec / result.world_size
     extra = {"tp_collective_matmul": True} if result.tp_collective_matmul else {}
+    if result.comms_exposed_frac is not None:
+        # The step anatomy, only on a profiled row (JAX's bench.py:159-174).
+        extra.update({k: getattr(result, k) for k in (
+            "anatomy_compute_frac", "comms_exposed_frac", "comms_overlap_frac",
+            "anatomy_idle_frac", "bubble_frac", "roofline_flops_pct_of_peak",
+            "roofline_hbm_pct_of_peak") if getattr(result, k) is not None})
+    if result.hbm_attribution is not None:
+        # The memory anatomy (JAX's bench.py:186-199).
+        extra.update({
+            "hbm_estimate_gib": (result.hbm_estimate or {}).get("total_gib"),
+            "hbm_measured": result.hbm_measured,
+            "hbm_measured_reason": result.hbm_measured_reason,
+            "hbm_attribution": result.hbm_attribution,
+            "hbm_attribution_source": result.hbm_attribution_source,
+            "hbm_reference_gib": result.hbm_reference_gib,
+            "hbm_model_drift_frac": result.hbm_model_drift_frac,
+        })
     return result, {
         "metric": f"{model_family}_tier{args.tier}_seq{args.seq_len}_tokens_per_sec_per_chip",
         "value": round(per_chip, 2),
@@ -132,6 +160,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp-collective-matmul", action="store_true",
                    help="run the tensor-parallel projections as collective matmuls (needs a "
                         ">1 'model' axis to have any effect)")
+    p.add_argument("--profile-dir", default=None,
+                   help="trace the top row's timed window with torch.profiler into this "
+                        "directory (the flagship row's into <dir>_flagship) and put each "
+                        "row's step anatomy into the line")
     p.add_argument("--regress", default="auto", choices=["auto", "on", "off"],
                    help="record the rows in the port's registry with a verdict vs the last "
                         "known good on stderr (auto: only when the registry exists)")
@@ -208,14 +240,18 @@ def main(argv=None):
         top, payload = measure_row(args, model_family=args.model_family,
                                    per_device_batch=args.per_device_batch,
                                    grad_accum=args.grad_accum, attention_impl=args.attention,
-                                   dropout=args.dropout)
+                                   dropout=args.dropout, profile_dir=args.profile_dir)
         results = [top]
         if args.flagship == "on" or (args.flagship == "auto"
                                      and args.model_family != FLAGSHIP_FAMILY):
             flagship, row = measure_row(args, model_family=FLAGSHIP_FAMILY,
                                         per_device_batch=FLAGSHIP_PER_DEVICE_BATCH,
                                         grad_accum=FLAGSHIP_GRAD_ACCUM, attention_impl="flash",
-                                        dropout=None)
+                                        dropout=None,
+                                        # Two arms' traces in one directory would
+                                        # make the run selection ambiguous.
+                                        profile_dir=(f"{args.profile_dir}_flagship"
+                                                     if args.profile_dir else None))
             results.append(flagship)
             payload["flagship"] = {
                 **row,

@@ -29,6 +29,11 @@ runs on the host).
   stream under DIR (make shards with ``python -m
   distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards``),
   and ``--data-stall-timeout-sec`` bounds the wait for a batch.
+- ``--profile-dir DIR`` traces the timed window with ``torch.profiler``
+  (rank 0) into DIR, with ``cost_analysis.json`` beside it, and puts the
+  step anatomy into the row (``analysis/step_anatomy.py``; read the trace
+  again with ``analysis.profile_summary`` / ``analysis.step_anatomy`` /
+  ``analysis.telemetry_report --profile-dir``).
 - Exit codes (``faults``): 0 done; 75 preempted after an emergency
   checkpoint, 76 hung (a watchdog abort) and 78 the input stream stalled
   (an emergency checkpoint with the stream's cursor), all retryable with
@@ -68,8 +73,6 @@ _XLA = ("an XLA or Pallas knob with no counterpart in the port: the Hopper kerne
 
 #: dest -> (the port's default, the reason any other value is refused).
 REFUSED = {
-    "profile_dir": (None, "a profiler trace of the harness run, not ported yet (ROADMAP Queue 1 "
-                          "item 0; scripts/torch_step_profile.py profiles the step)"),
     "layer_loop": ("unrolled", "eager PyTorch runs the layers as a Python loop; a 'scan' form "
                                "has no meaning here yet (ROADMAP Queue 1 item 0)"),
     "xla_latency_hiding": (False, _XLA),
@@ -188,7 +191,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Alias for --strategy-config (reference CLI parity)")
     # Output
     p.add_argument("--results-dir", type=str, required=True)
-    p.add_argument("--profile-dir", type=str, default=None, help="Refused: not ported yet")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="Trace the timed window with torch.profiler into this directory (rank "
+                        "0) and put its step anatomy into the result")
     p.add_argument("--telemetry", choices=["on", "off"], default="on",
                    help="Flight-recorder telemetry: telemetry_<arm>.jsonl beside the result "
                         "and BENCHMARK_HEARTBEAT stdout markers")
@@ -315,6 +320,7 @@ def main(argv=None) -> int:
             inject_fault=args.inject_fault, hang_timeout_sec=args.hang_timeout_sec,
             sentinel=args.sentinel == "on", sentinel_checksum_every=args.sentinel_checksum_every,
             data_path=args.data_path, data_stall_timeout_sec=args.data_stall_timeout_sec,
+            profile_dir=args.profile_dir,
         )
     except Preempted as e:
         print(f"PREEMPTED: {e} — exiting {EXIT_PREEMPTED} (resume with --resume)", flush=True)

@@ -47,7 +47,14 @@ boundaries, so it adds no device sync and no collective to a timed window:
   (or a rollback) continues. A wait past ``data_stall_timeout_sec`` on any
   rank stops every rank at the same boundary (the ranks agree over the
   group's store before each step): an emergency save with its sidecar, a
-  fatal ``data_stall`` event and ``DataStalled`` (exit 78).
+  fatal ``data_stall`` event and ``DataStalled`` (exit 78);
+- ``profile_dir`` (JAX's ``--profile-dir``): rank 0 runs ``torch.profiler``
+  from the warmup boundary to the end of the timed steps (phase ``trace``
+  around its start and its stop and export), with a ``ProfilerStep#N``
+  marker per step, and the row gets the trace's step anatomy
+  (``analysis/step_anatomy.py``); every run's row gets the memory anatomy
+  (``analysis/memory_anatomy.py``: the estimate against the allocator's
+  peak).
 
 ``world_size`` is the size of the process group the caller
 (``runtime.setup_distributed``, or torchrun through the bench entry) made,
@@ -114,7 +121,9 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 import time
+import warnings
 from typing import List, Optional, Union
 
 import torch
@@ -169,6 +178,47 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _start_trace(dev: torch.device, step: int) -> torch.profiler.profile:
+    """Start ``torch.profiler`` (host and, on the card, CUDA activity) with a
+    ``ProfilerStep#<step>`` marker open: a schedule that records every step
+    makes ``profile.step`` mark the steps."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=acts, schedule=lambda _: torch.profiler.ProfilerAction.RECORD)
+    prof.step_num = step
+    with warnings.catch_warnings():
+        # One cycle, so its note that a cycle clears its events is moot;
+        # acc_events=True would silence it too, but it makes stop() turn
+        # every event into a Python object (parity: 64 s instead of 7 s).
+        warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
+        prof.start()
+    return prof
+
+
+def _trace_step(prof: torch.profiler.profile, step: int) -> None:
+    """Close the open step marker and open ``ProfilerStep#<step>``: the
+    loop's own step number, also after a rollback rewinds it."""
+    prof.step_num = step - 1
+    prof.step()
+
+
+def _stop_trace(prof: torch.profiler.profile, profile_dir: str) -> dict:
+    """Stop the profiler and export its Chrome trace into ``profile_dir`` as
+    ``tensorboard_trace_handler`` names it (``<host>_<pid>.<ms>.pt.trace.json``);
+    -> the file's path and bytes and the stop's and export's seconds."""
+    t0 = time.perf_counter()
+    prof.stop()
+    t1 = time.perf_counter()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{socket.gethostname()}_{os.getpid()}."
+                                     f"{time.time_ns() // 1_000_000}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return {"path": path, "bytes": os.path.getsize(path), "stop_sec": round(t1 - t0, 4),
+            "export_sec": round(time.perf_counter() - t1, 4)}
+
+
 @dataclasses.dataclass
 class Run:
     """Everything one benchmark arm trains with."""
@@ -180,6 +230,7 @@ class Run:
     table: Optional[torch.Tensor]  # None on the streaming input path
     step_fn: TrainStep
     mesh: Mesh
+    estimate: Optional[memory_mod.HBMEstimate] = None  # the pre-flight memory model
 
 
 def _ring_overrides(attention_impl: str, sequence_parallel: int, causal: bool,
@@ -334,7 +385,7 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     step_fn = TrainStep(model, optimizer, grad_accum=grad_accum,
                         micro_batch=per_device_batch, seed=seed, device=dev, mesh=mesh,
                         pipeline=pipeline, sentinel=sentinel)
-    return Run(dev, cfg, strat, model, table, step_fn, mesh)
+    return Run(dev, cfg, strat, model, table, step_fn, mesh, est)
 
 
 def _check_dpu_start(strategy: StrategyConfig, start: int, steps: int,
@@ -528,6 +579,7 @@ def run_benchmark(
     data_path: Optional[str] = None,
     data_stall_timeout_sec: float = 60.0,
     runtime_log: Optional[dict] = None,
+    profile_dir: Optional[str] = None,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
@@ -564,6 +616,17 @@ def run_benchmark(
     per-checksum device ms and each rollback's restore wall, and the stream
     path's per-step waits.
 
+    ``profile_dir``, as JAX's: rank 0 traces the timed window with
+    ``torch.profiler`` (from the warmup boundary to the last timed step,
+    one ``ProfilerStep#N`` marker per step; the card's CUDA activity too),
+    exports the Chrome trace into the directory, writes
+    ``cost_analysis.json`` beside it and puts the step anatomy
+    (``analysis/step_anatomy.py``) into the row and a ``step_anatomy``
+    telemetry event. Every run, traced or not, reconciles its memory
+    (``analysis/memory_anatomy.py``) into the row and a ``memory_anatomy``
+    event. Both are best-effort, as in JAX: a failure prints a WARNING
+    and leaves the fields null.
+
     This wrapper owns the recorder, the SIGTERM guard and the watchdog: any
     exception that escapes the run is recorded as ``run_aborted`` with its
     phase and last step, and the guard and the watchdog are taken down in
@@ -582,8 +645,9 @@ def run_benchmark(
     guard = PreemptionGuard()
     rank = dist_rt.get_rank()
     watchdog = HangWatchdog(hang_timeout_sec, recorder=recorder, rank=rank)
-    # The input stream and its prefetch thread, stopped in ``finally``.
-    live: dict = {"stream": None, "prefetch": None}
+    # The input stream, its prefetch thread and the profiler, stopped in
+    # ``finally``.
+    live: dict = {"stream": None, "prefetch": None, "prof": None}
     try:
         if steps <= warmup_steps:
             raise ValueError(
@@ -610,6 +674,9 @@ def run_benchmark(
                                                          injector=chaos)
             if is_main:
                 print(f"ShardedTokenStream: {stream.describe()}")
+        # What the process already holds on the card (an earlier arm's
+        # tensors): not this arm's, so the memory anatomy takes it off the peak.
+        held_bytes = metrics_mod.hbm_bytes_in_use()
         built = build_run(
             strategy=strategy, tier=tier, seq_len=seq_len, model_family=model_family,
             per_device_batch=per_device_batch, grad_accum=grad_accum,
@@ -723,9 +790,14 @@ def run_benchmark(
             if is_main:
                 print("SENTINEL: no checkpoint cadence — holding an in-memory params/opt-state "
                       "snapshot as the rollback target")
+        prior_peak_bytes = None
         if dev.type == "cuda":
+            # This arm's peak from here: the bytes it holds now are the
+            # memory anatomy's floor for "this run raised the mark".
             torch.cuda.reset_peak_memory_stats(dev)
+            prior_peak_bytes = metrics_mod.peak_hbm_bytes()
         _sync(dev)
+        trace: dict = {}  # the exported trace (rank 0, profile_dir)
 
         # Timed stats keyed by step, so a rollback can drop a poisoned tail.
         timed_times, timed_losses, pending = [], [], []
@@ -1011,6 +1083,15 @@ def run_benchmark(
                 if rolled:
                     t_window = time.perf_counter()
                     continue
+            if profile_dir and step == warmup_steps and is_main and live["prof"] is None:
+                # The trace covers the timed window, as JAX's: it starts at
+                # the warmup boundary, fenced, its start charged to 'trace'.
+                sync_window(t_window)
+                recorder.begin_phase("trace")
+                live["prof"] = _start_trace(dev, step)
+                t_window = time.perf_counter()
+            elif live["prof"] is not None:
+                _trace_step(live["prof"], step)
             if step == warmup_steps and step > start_step:
                 if sync_every > 1:
                     sync_window(t_window)
@@ -1060,7 +1141,10 @@ def run_benchmark(
                 t_window = time.perf_counter()
             if len(pending) >= sync_every or step == steps - 1:
                 sync_window(t_window)
-                if recorder.phase == "compile":
+                if recorder.phase in ("compile", "trace"):
+                    # A first step that is also timed (warmup 0, or a resume
+                    # past warmup, which may also trace): its window holds the
+                    # compile, and everything after is 'timed'.
                     recorder.begin_phase("timed")
                 t_window = time.perf_counter()
             if (ckpt is not None and ckpt.should_save(step)
@@ -1106,6 +1190,15 @@ def run_benchmark(
 
         sync_window(t_window)
         watchdog.beat(steps - 1)
+        if live["prof"] is not None:
+            # Stopping serializes the trace: seconds for a long run, so it
+            # is charged to 'trace', not to the phase the loop left open.
+            recorder.begin_phase("trace")
+            prof, live["prof"] = live["prof"], None
+            trace = _stop_trace(prof, profile_dir)
+            recorder.note("profile_trace", **trace)
+            print(f"Profiler trace: {trace['path']} ({trace['bytes']} bytes; stop "
+                  f"{trace['stop_sec']:.2f} s, export {trace['export_sec']:.2f} s)")
         if numerics is not None and numerics.trip is not None:
             # A trip at the last boundary: no step is left to replay the
             # poison out of, and publishing would put it in the row.
@@ -1156,6 +1249,19 @@ def run_benchmark(
                                        wait_ms_per_step=1e3 * transport.wait_s / steps,
                                        host_staged=transport.staged)
         peak_gb, peak_method = metrics_mod.measure_peak_memory(dev)
+        # The anatomies read the peak before the MoE diagnostic's forward, as
+        # JAX's loop does.
+        memory_anatomy = _memory_anatomy(built.estimate, prior_peak_bytes, held_bytes, dev,
+                                         recorder, is_main)
+        dp = max(mesh.world // (tensor_parallel * sequence_parallel * pipeline_parallel
+                                * expert_parallel), 1)
+        step_anatomy = _step_anatomy(
+            trace, profile_dir, recorder,
+            cost_flops_per_token=flops_mod.train_flops_per_token(cfg),
+            step_tokens=metrics_mod.tokens_per_step(per_device_batch, grad_accum, seq_len, dp,
+                                                    expert_parallel),
+            kind=device_kind(dev), world=mesh.world,
+            pipeline_schedule=pipeline_schedule if pipeline_parallel > 1 else None)
         overflow = None
         if cfg.n_experts > 0 and interleaved:
             if is_main:
@@ -1213,6 +1319,7 @@ def run_benchmark(
             records_skipped=records_skipped,
             stream_cursor_start=cursor_start if use_stream else -1,
             stream_cursor_end=stream_cursor_end,
+            step_anatomy=step_anatomy, memory_anatomy=memory_anatomy,
         )
         if results_dir is not None and is_main:
             metrics_mod.emit_result(result, results_dir)
@@ -1225,10 +1332,70 @@ def run_benchmark(
     finally:
         watchdog.disarm()
         guard.uninstall()
+        if live["prof"] is not None:
+            # A run that died inside the traced window: the process's
+            # profiler must not stay on under the next run.
+            live["prof"].stop()
         if live["prefetch"] is not None:
             live["prefetch"].stop(join=True)
         if live["stream"] is not None:
             live["stream"].close()
+
+
+def _step_anatomy(trace: dict, profile_dir: Optional[str], recorder: TelemetryRecorder, *,
+                  cost_flops_per_token: float, step_tokens: int, kind: str, world: int,
+                  pipeline_schedule: Optional[str]) -> Optional[dict]:
+    """The row's step-anatomy fields from the trace this run exported (None
+    when it exported none): the cost JSON beside it (the model's FLOPs of a
+    step), the analysis clipped to the telemetry's timed phase, a
+    ``step_anatomy`` event with the exposed time by collective class, and
+    the report printed. Best-effort, as in JAX: a trace the engine cannot
+    read (a CPU run's has no device step) leaves the fields null."""
+    if not trace:
+        return None
+    try:
+        from ..analysis import profile_summary, step_anatomy as anatomy_mod
+
+        cost = anatomy_mod.cost_from_model(cost_flops_per_token, step_tokens, device_kind=kind,
+                                           world_size=world)
+        if cost is not None:
+            anatomy_mod.write_cost_json(profile_dir, cost)
+        report = anatomy_mod.analyze_profile_dir(
+            profile_dir, run=profile_summary.run_name(trace["path"]),
+            telemetry_path=recorder.path, cost=cost, pipeline_schedule=pipeline_schedule)
+        fields = anatomy_mod.result_fields(report)
+        recorder.note("step_anatomy", **fields,
+                      comms_exposed_by_class=anatomy_mod.exposed_by_class_fracs(report))
+        print(anatomy_mod.format_report(report))
+        return fields
+    except Exception as e:  # never fail a measured run on its analysis
+        print(f"WARNING: step-anatomy attribution skipped: {e}")
+        return None
+
+
+def _memory_anatomy(est: memory_mod.HBMEstimate, prior_peak_bytes: Optional[int],
+                    held_bytes: Optional[int], dev: torch.device, recorder: TelemetryRecorder,
+                    is_main: bool) -> Optional[dict]:
+    """The row's memory-anatomy fields: the estimate reconciled with the
+    allocator's peak on the card (the estimate alone on the CPU), a
+    ``memory_anatomy`` event and, on rank 0, the report. Best-effort, as in
+    JAX."""
+    try:
+        from ..analysis import memory_anatomy as memano
+
+        measured, reason = memano.measured_peak_bytes(prior_peak_bytes, device=dev,
+                                                      held_bytes=held_bytes)
+        report = memano.reconcile(est, compile_mem=memano.compile_memory_fields(),
+                                  measured_bytes=measured, measured_reason=reason)
+        fields = memano.result_fields(report, est_breakdown=est.breakdown())
+        recorder.note("memory_anatomy", **fields)
+        if is_main:
+            print(memano.format_report(report))
+        return fields
+    except Exception as e:  # never fail a measured run on its accounting
+        if is_main:
+            print(f"WARNING: memory-anatomy reconciliation skipped: {e}")
+        return None
 
 
 def _check_runtime_options(checkpoint_dir: Optional[str], checkpoint_every: int,

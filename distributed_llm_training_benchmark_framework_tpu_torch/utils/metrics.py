@@ -50,6 +50,18 @@ the input path's ``data_mode`` ("synthetic", or "stream" under
 spent waiting for input; None on the synthetic path), ``data_stall_sec``,
 ``records_consumed``, ``records_skipped`` (corrupt records healed) and
 ``stream_cursor_start`` / ``stream_cursor_end`` (-1 off the stream).
+
+The analysis tied to the backend adds JAX's step-anatomy fields
+(``anatomy_compute_frac``, ``comms_exposed_frac``, ``comms_overlap_frac``,
+``anatomy_idle_frac``, ``bubble_frac``, the roofline percentages and
+``straggler_skew_pct``: ``analysis/step_anatomy.result_fields``, set only
+on a run that traced with ``profile_dir``), its memory-anatomy fields
+(``hbm_estimate``, ``hbm_measured`` and its reason, ``hbm_attribution``
+and its source, ``hbm_reference_gib``, ``hbm_model_drift_frac``:
+``analysis/memory_anatomy.result_fields``, on every run) and
+``time_in_trace_sec`` (the recorder's ``trace`` phase: the profiler's
+start, stop and export). ``compute_result`` refuses keys of either
+mapping that the row does not have, as JAX's does.
 """
 
 from __future__ import annotations
@@ -65,6 +77,18 @@ from . import flops as flops_mod
 
 MARKER_START = "BENCHMARK_RESULT_JSON_START"
 MARKER_END = "BENCHMARK_RESULT_JSON_END"
+
+#: ``analysis.step_anatomy.result_fields`` keys, in the row's order.
+STEP_ANATOMY_FIELDS = (
+    "anatomy_compute_frac", "comms_exposed_frac", "comms_overlap_frac",
+    "anatomy_idle_frac", "bubble_frac", "roofline_flops_pct_of_peak",
+    "roofline_hbm_pct_of_peak", "straggler_skew_pct",
+)
+#: ``analysis.memory_anatomy.result_fields`` keys, in the row's order.
+MEMORY_ANATOMY_FIELDS = (
+    "hbm_estimate", "hbm_measured", "hbm_measured_reason", "hbm_attribution",
+    "hbm_attribution_source", "hbm_reference_gib", "hbm_model_drift_frac",
+)
 
 
 def arm_slug(strategy: str, world_size: int, seq_len: int, tier: str,
@@ -148,8 +172,34 @@ class BenchmarkResult:
     time_in_warmup_sec: float = 0.0
     time_in_timed_sec: float = 0.0
     time_in_checkpoint_sec: float = 0.0
+    time_in_trace_sec: float = 0.0
     # NaN-loss and step-time-spike events the recorder screened.
     n_anomalies: int = 0
+    # Step anatomy (analysis/step_anatomy.py): the timed device steps of a
+    # --profile-dir trace split into compute + exposed comms + idle (which
+    # sum to 1; overlapped collective time is inside compute, and
+    # comms_overlap_frac is a fraction OF collective time), the pipeline
+    # bubble, the roofline position and the skew across device lanes. None
+    # on a run without a trace, or whose trace has no device step.
+    anatomy_compute_frac: Optional[float] = None
+    comms_exposed_frac: Optional[float] = None
+    comms_overlap_frac: Optional[float] = None
+    anatomy_idle_frac: Optional[float] = None
+    bubble_frac: Optional[float] = None
+    roofline_flops_pct_of_peak: Optional[float] = None
+    roofline_hbm_pct_of_peak: Optional[float] = None
+    straggler_skew_pct: Optional[float] = None
+    # Memory anatomy (analysis/memory_anatomy.py): the estimate's breakdown
+    # (GiB), the allocator's peak (GiB; None with a reason on the CPU), the
+    # reference peak attributed over the classes with a signed residual,
+    # and |reference - analytic| / analytic.
+    hbm_estimate: Optional[Dict[str, float]] = None
+    hbm_measured: Optional[float] = None
+    hbm_measured_reason: str = ""
+    hbm_attribution: Optional[Dict[str, float]] = None
+    hbm_attribution_source: str = ""
+    hbm_reference_gib: Optional[float] = None
+    hbm_model_drift_frac: Optional[float] = None
     # The numerics sentinel's in-process rollbacks and the steps they
     # replayed (replayed steps stay out of the step-time distribution).
     n_rollbacks: int = 0
@@ -224,7 +274,9 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    data_stall_frac: Optional[float] = None, data_stall_sec: float = 0.0,
                    records_consumed: int = 0, records_skipped: int = 0,
                    stream_cursor_start: int = -1,
-                   stream_cursor_end: int = -1) -> BenchmarkResult:
+                   stream_cursor_end: int = -1,
+                   step_anatomy: Optional[Dict[str, Any]] = None,
+                   memory_anatomy: Optional[Dict[str, Any]] = None) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -248,6 +300,20 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
     else:
         p50 = p95 = t_max = cv = 0.0
     pt = phase_times or {}
+    # The analyses' result_fields keys: unknown keys are refused rather
+    # than dropped, so an engine and the row cannot drift apart (JAX's rule).
+    anatomy = dict(step_anatomy or {})
+    anatomy_fields = {k: anatomy.pop(k, None) for k in STEP_ANATOMY_FIELDS}
+    if anatomy:
+        raise ValueError(f"unknown step_anatomy keys {sorted(anatomy)} (the engine's "
+                         "result_fields and BenchmarkResult must agree)")
+    mem = dict(memory_anatomy or {})
+    mem_fields = {k: mem.pop(k, None) for k in MEMORY_ANATOMY_FIELDS}
+    for k in ("hbm_measured_reason", "hbm_attribution_source"):
+        mem_fields[k] = mem_fields[k] or ""
+    if mem:
+        raise ValueError(f"unknown memory_anatomy keys {sorted(mem)} (the engine's "
+                         "result_fields and BenchmarkResult must agree)")
     return BenchmarkResult(
         strategy=strategy, world_size=world_size, rank=0, seq_len=seq_len, tier=tier,
         steps=steps, per_device_batch=per_device_batch, grad_accum=grad_accum,
@@ -268,6 +334,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         time_in_warmup_sec=round(pt.get("warmup", 0.0), 4),
         time_in_timed_sec=round(pt.get("timed", 0.0), 4),
         time_in_checkpoint_sec=round(pt.get("checkpoint", 0.0), 4),
+        time_in_trace_sec=round(pt.get("trace", 0.0), 4),
         resumed=resumed, n_restarts=n_restarts, resume_step=resume_step,
         resume_baseline_loss=round(resume_baseline_loss, 6),
         resume_geometry_changed=resume_geometry_changed, n_anomalies=n_anomalies,
@@ -283,6 +350,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         data_stall_frac=data_stall_frac, data_stall_sec=data_stall_sec,
         records_consumed=records_consumed, records_skipped=records_skipped,
         stream_cursor_start=stream_cursor_start, stream_cursor_end=stream_cursor_end,
+        **anatomy_fields, **mem_fields,
     )
 
 
@@ -298,6 +366,18 @@ def emit_result(result: BenchmarkResult, results_dir: str) -> str:
               f"  (MFU {result.mfu_pct:.1f}%)")
     print(f"  Mean step time:   {result.mean_step_time_sec:.4f}s")
     print(f"  Peak memory:      {result.peak_hbm_gb:.2f} GB ({result.peak_hbm_method})")
+    if result.hbm_attribution is not None:
+        attr = result.hbm_attribution
+        measured = (f"{result.hbm_measured:.2f} GiB measured" if result.hbm_measured is not None
+                    else f"measured n/a ({result.hbm_measured_reason})")
+        drift = (f", model drift {100.0 * result.hbm_model_drift_frac:.1f}%"
+                 if result.hbm_model_drift_frac is not None else "")
+        print(f"  HBM anatomy:      {measured}; {result.hbm_attribution_source} peak "
+              f"{result.hbm_reference_gib or 0:.2f} GiB = params {attr.get('params', 0):.2f} + "
+              f"grads {attr.get('grads', 0):.2f} + opt {attr.get('opt_state', 0):.2f} + act "
+              f"{attr.get('activations', 0):.2f} + data {attr.get('dataset', 0):.2f} + xla-temp "
+              f"{attr.get('xla_temp', 0):.2f} {attr.get('unattributed', 0):+.2f} "
+              f"residual{drift}")
     print(f"  Mean loss:        {result.mean_loss:.4f}")
     if result.data_mode == "stream":
         print(f"  Data path:        stream — stall "
@@ -305,6 +385,17 @@ def emit_result(result: BenchmarkResult, results_dir: str) -> str:
               f"({result.data_stall_sec:.2f}s), {result.records_consumed} records consumed "
               f"(cursor {result.stream_cursor_start} -> {result.stream_cursor_end}), "
               f"{result.records_skipped} skipped/quarantined")
+    if result.comms_exposed_frac is not None:
+        anatomy = (f"  Step anatomy:     compute "
+                   f"{100.0 * (result.anatomy_compute_frac or 0):.1f}% / exposed comms "
+                   f"{100.0 * result.comms_exposed_frac:.1f}% / idle "
+                   f"{100.0 * (result.anatomy_idle_frac or 0):.1f}%")
+        if result.comms_overlap_frac is not None:
+            anatomy += (f"  (overlap {100.0 * result.comms_overlap_frac:.1f}% of collective "
+                        "time)")
+        if result.bubble_frac is not None:
+            anatomy += f"  bubble {100.0 * result.bubble_frac:.1f}%"
+        print(anatomy)
     if result.n_rollbacks > 0:
         print(f"  ROLLBACKS:        {result.n_rollbacks} sentinel rollback(s), "
               f"{result.rollback_steps_replayed} step(s) replayed — healed run, never a "

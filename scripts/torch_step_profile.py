@@ -23,9 +23,10 @@ warmup steps, times ``--steps`` steps on the host clock (synchronised), and
 profiles the same number of steps with ``torch.profiler``. It reports, per
 step: the wall time, the device-busy time (sum of kernel, memcpy and memset
 time on the card), the idle share (1 - busy / unprofiled wall), the device time by
-class (the ring block kernel, the three flash kernels, whose backward pair
-the ring launches in its fp32 mode, GEMMs, everything else) and the ten
-longest kernels. The rows run without a process group, as the bench
+class (``analysis.profile_summary.op_class``: each hand kernel by name, the
+ring's backward pair being the flash pair in its fp32 mode; GEMMs; NCCL
+collectives by JAX's class names; memcpy; memset; everything else) and the
+ten longest kernels. The rows run without a process group, as the bench
 does on one card. ``--arms`` then profiles the parity row once more under
 each named strategy arm inside a single-rank NCCL group
 (``runtime.setup_distributed``), where the arm wraps the model (rows
@@ -68,7 +69,6 @@ ROWS = {
     "moe_bf16": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, seq_len=2048,
                      n_experts=8, param_dtype="bf16"),
 }
-GEMM_MARKERS = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
 def _free_port() -> int:
@@ -78,13 +78,13 @@ def _free_port() -> int:
 
 
 def kernel_class(name: str) -> str:
-    for k in ("ring_fwd_block_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
-              "flash_bwd_dkv_kernel"):
-        if k in name:
-            return k
-    if any(m in name.lower() for m in GEMM_MARKERS):
-        return "gemm"
-    return "other"
+    """The device op's class, by the package's ``op_class``, so that this
+    script and a row's step anatomy cannot disagree on a class."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.analysis.profile_summary import (
+        op_class,
+    )
+
+    return op_class(name)
 
 
 def device_events(prof):

@@ -3,7 +3,8 @@
 - ``analysis.telemetry_report``: ``build_timeline``, the report text, the
   CLI over a file, a directory and ``--compare`` (the ``regress.stats``
   engine), all equal to JAX's on ``tests/fixtures/telemetry_*.jsonl``;
-  ``--profile-dir`` refused, naming ROADMAP item 16;
+  ``--profile-dir`` / ``--run`` (the profiler join) equal to JAX's on its
+  pipeline trace fixture rendered in torch's dialect;
 - ``analysis.validate_results``: every finding on a good row and on broken
   ones, the marker contract and the CLI's exit codes, equal to JAX's; the
   one named difference is the device capacity (the port's table knows the
@@ -45,8 +46,12 @@ from distributed_llm_training_benchmark_framework_tpu_torch.analysis import (
 )
 from distributed_llm_training_benchmark_framework_tpu_torch.regress import store as tstore
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_trace_render as render  # noqa: E402
+
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "fixtures"
+TRACE_FROZEN_PP = FIXTURES / "trace_frozen_pipeline"
 TELEMETRY = [FIXTURES / n for n in ("telemetry_frozen.jsonl", "telemetry_compare_a.jsonl",
                                     "telemetry_compare_b_slow.jsonl")]
 
@@ -120,14 +125,24 @@ def test_telemetry_report_plots_equal_jax(tmp_path):
     assert names[0] == names[1] and names[1]
 
 
-@pytest.mark.parametrize("flag", [["--profile-dir", "/tmp/prof"], ["--run", "r0"]])
-def test_profile_join_is_refused_naming_item_16(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        ttrep.main(["--telemetry", str(TELEMETRY[0])] + flag)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP Queue 1 item 16" in err and "--profile-dir" in err
-    assert not hasattr(ttrep, "join_profile") and hasattr(jtrep, "join_profile")
+@pytest.mark.parametrize("run", [False, True], ids=["profile_dir", "run"])
+def test_profile_join_is_live(run, tmp_path):
+    """``--profile-dir`` (and ``--run``) join the telemetry against the trace
+    as JAX's do: on JAX's pipeline fixture and its rendering in torch's
+    dialect the reports are equal but for the trace's path."""
+    torch_dir = render.render_dir(str(TRACE_FROZEN_PP), str(tmp_path / "pp"))
+    base = ["--telemetry", str(TELEMETRY[0]), "--profile-dir"]
+    jax_side, port_side = _both(
+        lambda: jtrep.main(base + [str(TRACE_FROZEN_PP)] + (["--run", "."] if run else [])),
+        lambda: ttrep.main(base + [torch_dir] + (["--run", "host_4242"] if run else [])))
+
+    def strip(side):
+        res, out, err = side
+        return res, [ln for ln in out.splitlines() if not ln.startswith("  trace: ")], err
+
+    assert strip(port_side) == strip(jax_side)
+    assert port_side[0] == 0 and "== Profiler join ==" in port_side[1]
+    assert "device steps traced: 3, median 0.0100s" in port_side[1]
 
 
 # ---------------------------------------------------------------------------

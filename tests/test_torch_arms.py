@@ -76,7 +76,10 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "attention_impl", "dropo
               "model_tflops_per_sec_per_chip", "mfu_pct", "peak_hbm_gb", "peak_hbm_method",
               "device_kind", "mean_step_time_sec", "loss_first_window", "loss_last_window",
               "wall_time_total_sec", "time_in_compile_sec", "time_in_timed_sec",
-              "n_anomalies"}
+              "n_anomalies",
+              # The memory anatomy, on every row (JAX's bench.py:186-199).
+              "hbm_estimate_gib", "hbm_measured", "hbm_measured_reason", "hbm_attribution",
+              "hbm_attribution_source", "hbm_reference_gib", "hbm_model_drift_frac"}
 
 
 def _jax_setup():
@@ -261,7 +264,8 @@ def test_bench_line_and_its_row_validate(arm, capsys):
 
 def test_bench_default_line_keeps_todays_keys(capsys):
     """No strategy or geometry flag and no group: the line and its
-    flagship object carry exactly the keys they carried before the flags."""
+    flagship object carry exactly the keys they carried before the flags,
+    with the memory anatomy's beside them (every row carries it)."""
     results = tbench.main(["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps",
                            "2", "--warmup-steps", "1"])
     (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]

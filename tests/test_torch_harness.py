@@ -2,6 +2,7 @@
 
 - every option of JAX's ``build_parser()`` is in the port's with the same
   default, or is refused (with its reason) when set away from the port's;
+  ``--profile-dir`` is live and reaches ``run_benchmark``;
 - ``--device cpu`` subprocess runs: exit 0, the result marker block, and a
   result file JAX's ``analysis/validate_results.py`` accepts;
 - ``sigterm@N`` -> 75 with an emergency checkpoint and a final heartbeat
@@ -58,8 +59,7 @@ def test_every_jax_option_is_live_or_refused():
         assert port_opts[dest].default == default and reason, dest
 
 
-REFUSALS = [(["--profile-dir", "p"], "not ported yet"),
-            (["--layer-loop", "scan"], "Queue 1 item 0"),
+REFUSALS = [(["--layer-loop", "scan"], "Queue 1 item 0"),
             (["--xla-latency-hiding"], "XLA or Pallas"),
             (["--prng-impl", "threefry"], "threefry"),
             (["--flash-block-q", "128"], "XLA or Pallas"),
@@ -76,6 +76,18 @@ def test_unported_flags_are_refused_with_their_reason(tmp_path, flag, reason):
         tharness.main(["--device", "cpu", "--strategy", "ddp", "--steps", "3",
                        "--results-dir", str(tmp_path)] + SMALL + flag)
     assert flag[0] in str(refused.value)
+
+
+def test_profile_dir_is_live(tmp_path, monkeypatch):
+    """``--profile-dir`` reaches ``run_benchmark`` as JAX's harness passes it
+    (the trace it makes: ``tests/test_torch_profile_summary.py``)."""
+    seen = {}
+    monkeypatch.setattr(tharness, "run_benchmark", lambda **kw: seen.update(kw))
+    assert tharness.main(["--device", "cpu", "--strategy", "ddp", "--steps", "3",
+                          "--results-dir", str(tmp_path), "--profile-dir",
+                          str(tmp_path / "p")] + SMALL) == 0
+    assert seen["profile_dir"] == str(tmp_path / "p")
+    assert "profile_dir" not in tharness.REFUSED
 
 
 def test_runtime_flags_without_a_checkpoint_dir_are_refused(tmp_path):
