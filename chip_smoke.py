@@ -344,6 +344,21 @@ memory_anatomy}.py``; no kernel of its own):
     ``hbm_model_drift_frac``, and writes the whole as
     ``build/phase23_profile.json``.
 
+The static audit (``analysis/static``: graftcheck; no kernel of its own):
+
+24. runs the graftcheck CLI in child processes on the card's host, as the
+    port's bench runs its preflight: (a) ``bench.PREFLIGHT_ARGS`` (the lint
+    and the collective audit of ``llama-tp2-gqa``), which must exit 0; (b)
+    the lint alone, exit 0; (c) the collective audit of the whole roster
+    against the budgets, which were frozen under another torch version:
+    exit 0 says this torch's fake process group and dispatch mode see the
+    same ``c10d`` ops, bytes and group sizes; (d) ``--inject bad-cmm-ring
+    --arms llama-tp2-gqa-cmm``, which must exit 1 naming the arm. Each
+    child must print ``torch.cuda.is_initialized() = False``. Printed
+    beside the card's name and power limit: each run's wall. This script
+    calls the bench CLI nowhere (it trains through ``run_benchmark``), so
+    no call of it needs ``--skip-preflight``.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
@@ -3193,6 +3208,47 @@ def platform_hbm_gbps() -> float:
     return platform.device_peak_hbm_gbps(torch.cuda.get_device_name(0))
 
 
+def phase_static(smi: str) -> dict:
+    """Phase 24: the graftcheck CLI as the bench's preflight runs it, the lint
+    alone, the roster's collective audit and an injected seed bug, each in a
+    child process that must not initialize CUDA."""
+    from distributed_llm_training_benchmark_framework_tpu_torch import bench
+    from distributed_llm_training_benchmark_framework_tpu_torch.analysis.static import (
+        collective_audit as ca,
+    )
+
+    frozen = ca.load_budgets()["torch_version"]
+    runs = {
+        "preflight": (list(bench.PREFLIGHT_ARGS), 0),
+        "lint": (["--lint"], 0),
+        "roster": (["--audit", "--arms", ",".join(ca.ROSTER)], 0),
+        "inject": (["--audit", "--inject", "bad-cmm-ring", "--arms", "llama-tp2-gqa-cmm"], 1),
+    }
+    t0 = time.perf_counter()
+    out = {}
+    for tag, (args, want) in runs.items():
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.analysis.static", *args],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t1
+        assert proc.returncode == want, (
+            f"[24] {tag}: exit {proc.returncode}, want {want}:\n{proc.stderr[-4000:]}")
+        cuda = re.findall(r"torch\.cuda\.is_initialized\(\) = (\w+)", proc.stderr)
+        assert cuda == ["False"], f"[24] {tag}: the audit process initialized CUDA: {cuda}"
+        if tag == "inject":
+            assert "llama-tp2-gqa-cmm:" in proc.stderr, proc.stderr[-4000:]
+        summary = [ln for ln in proc.stderr.splitlines()
+                   if "finding(s)" in ln or "graftcheck lint:" in ln]
+        out[tag] = {"rc": proc.returncode, "wall_s": round(wall, 2), "summary": summary}
+        log(f"[24] ({'abcd'[len(out) - 1]}) {tag}: exit {proc.returncode} in {wall:.2f} s, "
+            f"torch.cuda.is_initialized() False; {' / '.join(summary)}")
+    log(f"[24] budgets frozen on torch {frozen}, this torch {torch.__version__}; walls "
+        + json.dumps({t: r["wall_s"] for t, r in out.items()}) + f" on {smi}")
+    log(f"[24] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -3287,6 +3343,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_profile(fa, run_benchmark, row_results, smi)
+    phase_static(smi)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {

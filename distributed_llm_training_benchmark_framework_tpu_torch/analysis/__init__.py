@@ -4,8 +4,8 @@ analysis tied to the backend: the profile summary and the step anatomy
 over ``torch.profiler`` traces, and the memory anatomy over the CUDA
 allocator.
 
-Port of ``distributed_llm_training_benchmark_framework_tpu/analysis`` but
-its static audit (``analysis/static``: ROADMAP Queue 1 item 16b).
+Port of ``distributed_llm_training_benchmark_framework_tpu/analysis``; its
+static audit (graftcheck) is ``analysis/static``.
 """
 
 from .memory_anatomy import ATTRIBUTION_CLASSES

@@ -56,10 +56,16 @@ order (``hbm_estimate_gib``, ``hbm_measured``, ``hbm_measured_reason``,
 the card, the estimate alone on the CPU.
 
 Runs on the CUDA device unless ``--device cpu`` is given; with no GPU and no
-``--device cpu`` it fails rather than fall back. The graftcheck preflight
-(``--skip-preflight``), ``--layer-loop``, ``--remat-sweep`` (and with it the
-per-policy registry records) and ``tokens_per_dollar`` of the JAX bench are
-not part of the port yet. Checkpoints, fault injection and the
+``--device cpu`` it fails rather than fall back.
+
+Before any arm, as JAX's (``bench.py:38-70,354-355``), it runs the graftcheck
+preflight (``analysis.static``: ``--lint --audit --arms llama-tp2-gqa``, the
+port's lint and the collective audit of the arm that guards the GQA layout,
+on the CPU in a child process, about ten seconds) with its output on stderr,
+and on a finding exits 2 before printing anything on stdout;
+``--skip-preflight`` skips it. ``--layer-loop``, ``--remat-sweep`` (and
+with it the per-policy registry records) and ``tokens_per_dollar`` of the
+JAX bench are not part of the port yet. Checkpoints, fault injection and the
 rest of the run-time flags are the harness's
 (``python -m distributed_llm_training_benchmark_framework_tpu_torch.train.harness``).
 """
@@ -69,6 +75,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import subprocess
 import sys
 
 from .models import MODEL_FAMILIES
@@ -82,6 +90,33 @@ FLAGSHIP_FAMILY = "llama"
 FLAGSHIP_PER_DEVICE_BATCH = 2
 FLAGSHIP_GRAD_ACCUM = 2
 FLAGSHIP_LAYER_LOOP = "unrolled"  # eager PyTorch runs the layers as a Python loop
+
+# The graftcheck preflight's scope (JAX's): the lint rules plus the
+# collective audit of the arm whose budget guards the GQA layout. The whole
+# roster runs in the tests and in scripts/torch_graftcheck.sh.
+PREFLIGHT_ARGS = ("--lint", "--audit", "--arms", "llama-tp2-gqa")
+
+
+def run_preflight() -> None:
+    """Run graftcheck in a child process (the audit plays a fake process
+    group of its own, on the CPU) with its output on stderr; refuse to
+    launch the arms on a finding (exit 2)."""
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "distributed_llm_training_benchmark_framework_tpu_torch.analysis.static",
+         *PREFLIGHT_ARGS],
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        capture_output=True, text=True,
+    )
+    sys.stderr.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        print(
+            "bench.py: graftcheck preflight FAILED (see above) — refusing "
+            "to launch benchmark arms. Fix the findings, or rerun with "
+            "--skip-preflight to measure anyway.",
+            file=sys.stderr,
+        )
+        sys.exit(2)
 
 
 def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: int,
@@ -167,6 +202,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--regress", default="auto", choices=["auto", "on", "off"],
                    help="record the rows in the port's registry with a verdict vs the last "
                         "known good on stderr (auto: only when the registry exists)")
+    p.add_argument("--skip-preflight", action="store_true",
+                   help="skip the graftcheck static preflight gate")
     p.add_argument("--registry", default=None,
                    help="registry root (default: $REGRESS_REGISTRY_TORCH or "
                         "results/registry_torch)")
@@ -235,6 +272,8 @@ def main(argv=None):
     """Run the rows and print the line (rank 0); returns the result rows
     the line was made from."""
     args = build_parser().parse_args(argv)
+    if not args.skip_preflight:
+        run_preflight()
     made_group = dist_rt.setup_distributed(device=args.device)
     try:
         top, payload = measure_row(args, model_family=args.model_family,

@@ -309,9 +309,10 @@ def reference_attention(q, k, v, causal: bool = False, dropout_rate: float = 0.0
     if dropout_rate > 0.0 and dropout_seed is not None:
         B, H = q.shape[0], q.shape[2]
         n = H if n_heads is None else n_heads
-        idx = torch.arange(S, device=q.device)
-        bh = ((batch_offset + torch.arange(B, device=q.device))[:, None] * n + head_offset
-              + torch.arange(H, device=q.device)[None, :]).reshape(B * H)
+        idx = torch.arange(S, dtype=torch.int64, device=q.device)
+        bh = ((batch_offset + torch.arange(B, dtype=torch.int64, device=q.device))[:, None] * n
+              + head_offset
+              + torch.arange(H, dtype=torch.int64, device=q.device)[None, :]).reshape(B * H)
         keep = dropout_keep(int(dropout_seed), bh[:, None, None],
                             idx[None, :, None], idx[None, None, :],
                             dropout_threshold(dropout_rate)).reshape(B, H, S, S)

@@ -149,8 +149,8 @@ def flash_forward_plain(
     BH, S, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
-    rows = torch.arange(S, device=q.device)[:, None]
-    cols = torch.arange(S, device=q.device)[None, :]
+    rows = torch.arange(S, dtype=torch.int64, device=q.device)[:, None]
+    cols = torch.arange(S, dtype=torch.int64, device=q.device)[None, :]
     mask = rows >= cols
     if causal:
         s = torch.where(mask, s, NEG_INF)
@@ -161,7 +161,8 @@ def flash_forward_plain(
     l = p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         bh = (bhv.to(device=q.device, dtype=torch.int64) if bhv is not None
-              else bh_offset + torch.arange(BH, device=q.device))[:, None, None]
+              else bh_offset + torch.arange(BH, dtype=torch.int64,
+                                            device=q.device))[:, None, None]
         keep = dropout_keep(seed, bh, rows[None], cols[None], dropout_threshold(dropout_rate))
         p_acc = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     else:
@@ -183,7 +184,7 @@ def _plain_bwd_blocks(q, k, v, dout, lse, delta, causal, dropout_rate, seed,
     rows = _tile_coords(qoff, S, q.device)
     cols_all = _tile_coords(koff, k.shape[1], q.device)
     bh = (bhv.to(torch.int64) if bhv is not None
-          else torch.arange(BH, device=q.device))[:, None, None]
+          else torch.arange(BH, dtype=torch.int64, device=q.device))[:, None, None]
     qf, dof = q.float(), dout.float()
     for k0 in range(0, k.shape[1], block_k):
         kb, vb = k[:, k0:k0 + block_k].float(), v[:, k0:k0 + block_k].float()

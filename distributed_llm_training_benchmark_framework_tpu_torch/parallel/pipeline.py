@@ -134,6 +134,7 @@ class _Inbound:
         self.work.wait(timeout=self.transport.timeout)
         out = self.buf
         if self.transport.staged:  # ordered on the stream; the pinned block outlives the copy
+            # graftcheck: disable=GC109 (gloo's staging of a CUDA message, by design)
             out = out.to(self.transport.device, non_blocking=True)
         self.transport.wait_s += time.perf_counter() - t0
         return out
@@ -142,13 +143,15 @@ class _Inbound:
 class Transport:
     """The messages of one stage with its neighbours on the ``pipe`` ring:
     the forward stream goes to the next stage, gradients to the previous
-    one. Counts what it sends (per direction) and the time spent waiting
-    for receives."""
+    one, over the mesh's ``pipe`` group (the peers are global ranks, which
+    ``P2POp`` maps into it). Counts what it sends (per direction) and the
+    time spent waiting for receives."""
 
     def __init__(self, mesh, device: torch.device, timeout: float = RECV_TIMEOUT_SEC):
         self.prev, self.next = mesh.pipe_neighbours
+        self.group = mesh.pipe_group
         self.device = device
-        self.staged = dist.get_backend(mesh.pipe_group) == "gloo" and device.type == "cuda"
+        self.staged = dist.get_backend(self.group) == "gloo" and device.type == "cuda"
         self.timeout = datetime.timedelta(seconds=timeout)
         self.sent = [0, 0]
         self.wait_s = 0.0
@@ -162,18 +165,20 @@ class Transport:
         for direction, t in sends:
             t = t.detach()
             if self.staged:
+                # graftcheck: disable=GC109 (gloo's staging of a CUDA message, by design)
                 t = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
             else:
                 t = t.contiguous()
             peer = self.next if direction == FWD else self.prev
-            ops.append(dist.P2POp(dist.isend, t, peer, tag=direction))
+            ops.append(dist.P2POp(dist.isend, t, peer, self.group, tag=direction))
             self.sent[direction] += 1
         bufs = []
         for direction, shape, dtype in recvs:
+            # graftcheck: disable=GC109 (gloo's staging of a CUDA message, by design)
             buf = torch.empty(shape, dtype=dtype, device="cpu" if self.staged else self.device,
                               pin_memory=self.staged)
             peer = self.prev if direction == FWD else self.next
-            ops.append(dist.P2POp(dist.irecv, buf, peer, tag=direction))
+            ops.append(dist.P2POp(dist.irecv, buf, peer, self.group, tag=direction))
             bufs.append((direction, buf))
         if not ops:
             return inbound

@@ -311,7 +311,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               n_experts: int = 0, expert_parallel: int = 1, pipeline_parallel: int = 1,
               pipeline_schedule: str = "gpipe", virtual_stages: int = 2,
               dataset_size: int = DATASET_SIZE, skip_memory_check: bool = False,
-              sentinel: bool = False, synthetic: bool = True) -> Run:
+              sentinel: bool = False, synthetic: bool = True,
+              n_layer: Optional[int] = None) -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
@@ -325,7 +326,8 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     (``synthetic`` False: no table, the streaming input path feeds the
     step); ``skip_memory_check`` attempts a run the memory model refuses;
     ``sentinel`` makes the step keep its gradient norm for the numerics
-    sentinel."""
+    sentinel; ``n_layer`` overrides the tier's depth (the static audit's
+    interleaved arm, as JAX's audit overrides its config)."""
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -341,9 +343,11 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
                  "param_dtype": param_torch_dtype(strat)}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
     overrides.update(_moe_overrides(n_experts, expert_parallel))
+    if n_layer is not None:
+        overrides["n_layer"] = n_layer
     check_pipeline(pipeline_parallel, pipeline_schedule, virtual_stages,
-                   get_config(model_family, tier, seq_len).n_layer, tensor_parallel,
-                   expert_parallel, tp_collective_matmul)
+                   get_config(model_family, tier, seq_len, **overrides).n_layer,
+                   tensor_parallel, expert_parallel, tp_collective_matmul)
     overrides.update(_tp_overrides(tensor_parallel, sequence_parallel, tp_collective_matmul,
                                    n_experts))
     if dropout is not None:

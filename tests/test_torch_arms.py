@@ -250,7 +250,7 @@ def test_bench_line_and_its_row_validate(arm, capsys):
     schema)."""
     (result,) = tbench.main(["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps",
                              "3", "--warmup-steps", "1", "--strategy", arm, "--flagship",
-                             "off"])
+                             "off", "--skip-preflight"])
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert len(lines) == 1
     line = json.loads(lines[0])
@@ -267,7 +267,7 @@ def test_bench_default_line_keeps_todays_keys(capsys):
     flagship object carry exactly the keys they carried before the flags,
     with the memory anatomy's beside them (every row carries it)."""
     results = tbench.main(["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps",
-                           "2", "--warmup-steps", "1"])
+                           "2", "--warmup-steps", "1", "--skip-preflight"])
     (line,) = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()]
     assert set(line) == BENCH_KEYS | {"flagship"}
     assert set(line["flagship"]) == BENCH_KEYS | {
@@ -280,7 +280,8 @@ def test_bench_default_line_keeps_todays_keys(capsys):
 def test_bench_refuses_a_world_size_that_is_not_the_groups():
     with pytest.raises(ValueError, match="world_size=2 but the process group has 1"):
         tbench.main(["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps", "2",
-                     "--warmup-steps", "1", "--world-size", "2", "--flagship", "off"])
+                     "--warmup-steps", "1", "--world-size", "2", "--flagship", "off",
+                     "--skip-preflight"])
     args = tbench.build_parser().parse_args([])
     assert (args.strategy, args.per_device_batch, args.grad_accum, args.world_size,
             args.model_family, args.flagship, args.attention, args.dropout,

@@ -74,8 +74,8 @@ def test_bench_cpu_prints_one_contract_line():
 
 
 def test_bench_without_device_refuses_cpu_fallback():
-    proc = subprocess.run(BENCH + SMALL, capture_output=True, text=True, timeout=300,
-                          env=_env(CUDA_VISIBLE_DEVICES=""), cwd=REPO)
+    proc = subprocess.run(BENCH + SMALL + ["--skip-preflight"], capture_output=True,
+                          text=True, timeout=300, env=_env(CUDA_VISIBLE_DEVICES=""), cwd=REPO)
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "no CUDA device" in proc.stderr

@@ -273,7 +273,7 @@ def test_schema_drift_is_refused_as_in_jax(tmp_path, where):
 
 BENCH = [sys.executable, "-m", "distributed_llm_training_benchmark_framework_tpu_torch.bench",
          "--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps", "3",
-         "--warmup-steps", "1", "--flagship", "off"]
+         "--warmup-steps", "1", "--flagship", "off", "--skip-preflight"]
 
 
 def _bench(*extra):

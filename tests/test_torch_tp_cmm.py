@@ -163,7 +163,7 @@ def test_bench_stamps_the_inert_knob_at_model_width_1(capsys):
     changes nothing and is recorded on the line; the default line has no
     such key."""
     args = ["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps", "2",
-            "--warmup-steps", "1", "--flagship", "off"]
+            "--warmup-steps", "1", "--flagship", "off", "--skip-preflight"]
     (off,) = tbench.main(args)
     off_line = json.loads(capsys.readouterr().out.strip())
     (on,) = tbench.main(args + ["--tp-collective-matmul"])

@@ -261,7 +261,7 @@ def test_bench_runs_ulysses_as_flash_at_seq_width_1(capsys):
     ``--attention ulysses`` runs at ``seq`` width 1, where Ulysses is flash:
     the same per-step losses bit for bit, the row stamped ``ulysses``."""
     args = ["--device", "cpu", "--tier", "S", "--seq-len", "64", "--steps", "3",
-            "--warmup-steps", "1", "--flagship", "off"]
+            "--warmup-steps", "1", "--flagship", "off", "--skip-preflight"]
     (ulysses,) = tbench.main(args + ["--attention", "ulysses"])
     (flash,) = tbench.main(args + ["--attention", "flash"])
     line = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.strip()][0]
