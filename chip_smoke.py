@@ -41,7 +41,7 @@ and fails, printing no result, if any phase fails:
    like factor (``rate0_*``). (u) and (v) are timed the same way;
 3. trains both bench rows at full tier-A width through
    ``train.loop.run_benchmark`` (parity: TinyGPT b1 x accum 4, dropout 0.1;
-   flagship: Llama b2 x accum 2), 3 warmup + 10 timed steps each, and checks
+   flagship: Llama b2 x accum 2), 3 warmup + 6 timed steps each, and checks
    the losses fall and each kernel's launch count equals layers x
    micro-batches x steps;
 4. checks that the first-step tier-A loss (dropout 0) through the kernels
@@ -73,7 +73,7 @@ the flagship ring row trains at), shards of 2048 as zigzag half-chunks of
 8. trains both ring rows through ``run_benchmark`` with
    ``sequence_parallel=4, attention_impl="ring"`` (parity ring: TinyGPT b1 x
    accum 1, dropout 0.1; flagship ring: Llama b1 x accum 2, causal, zigzag
-   auto), 3 warmup + 10 timed steps, and checks the losses fall, K4, K2′ and
+   auto), 3 warmup + 6 timed steps, and checks the losses fall, K4, K2′ and
    K3′ each launched layers x micro-batches x steps x 16 times and K1-K3 not
    at all;
 9. checks the first-step tier-A loss at S 8192 (dropout 0) through the ring
@@ -105,9 +105,9 @@ Dh 64 (the microbench's default, the parity row's attention block at rate
 The strategy arms (``parallel/strategies.py``) on the parity row:
 
 12. runs one tier-A micro-batch at dropout 0.1 under remat none, dots and
-    full with the same seeds and generator (gradients within 1e-5
+    full with the same seeds (gradients within 1e-5
     relative, K1 launched twice per layer under remat), then trains the
-    parity row 3 warmup + 10 timed steps under each arm (ddp, fsdp, zero2,
+    parity row 3 warmup + 6 timed steps under each arm (ddp, fsdp, zero2,
     zero3) without a process group, and again inside a single-rank NCCL
     group made by ``runtime.setup_distributed``, where each arm lays the
     model out (DDP, FSDP2's DTensors, zero2's flat buffers; checked), and
@@ -133,7 +133,7 @@ sequence shards, (u) and (v) above:
 14. trains the two Ulysses rows through ``run_benchmark`` with
     ``sequence_parallel=4, attention_impl="ulysses"``, all shards on the one
     card (parity Ulysses: TinyGPT b1 x accum 1, dropout 0.1; flagship
-    Ulysses: Llama b1 x accum 2, causal), 3 warmup + 10 timed steps, and
+    Ulysses: Llama b1 x accum 2, causal), 3 warmup + 6 timed steps, and
     checks the losses fall, K1-K3 each launched layers x micro-batches x
     steps x 4 times (64 / 128 per step) and the ring kernels not at all;
 15. inside phase 12's single-rank NCCL group, runs the group forms once,
@@ -179,7 +179,7 @@ batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
     runs on the CPU only (its tests).
 
 17. the host-offload arm and bf16 parameters (``parallel/offload.py``):
-    (a) the parity row (zero2, 3 warmup + 10 timed steps through
+    (a) the parity row (zero2, 3 warmup + 6 timed steps through
     ``run_benchmark``) at ``param_dtype`` bf16, under the serial offload
     arm and under the delayed one, each beside phase 3's fp32 row: tokens/s,
     step ms, peak device memory against ``estimate_hbm``, K1-K3 launches,
@@ -207,7 +207,7 @@ is batched ``torch.bmm``, the attention K1-K3):
 18. (a) the 1.18B MoE row on one card, no group: TinyGPT tier A with 8
     experts, top-2, capacity factor 1.25 (1,176,635,392 parameters), S
     2048, b1 x accum 4, zero2, dropout 0.1, through ``run_benchmark(
-    n_experts=8)``, 3 warmup + 10 timed steps, at fp32 and at bf16
+    n_experts=8)``, 3 warmup + 6 timed steps, at fp32 and at bf16
     parameters: tokens/s, step ms, MFU (active experts' FLOPs), peak memory
     against ``estimate_hbm``, ``expert_overflow_pct``; the loss falls, K1-K3
     launch 64 times each per step (K1 16 more: the overflow diagnostic's
@@ -238,7 +238,7 @@ no kernel of its own: each stage runs K1-K3 on whole layers):
     ``pipeline_parallel`` 2 (TinyGPT tier A, 8 layers per stage, S 2048, b1
     x accum 4 = M 4 microbatches, zero2, dropout 0.1) through
     ``run_benchmark`` under gpipe, 1f1b and interleaved (V 2, 4 layers per
-    chunk), 3 warmup + 10 timed steps each: per schedule and stage the
+    chunk), 2 warmup + 4 timed steps each: per schedule and stage the
     tokens/s and step ms (two stages time-sliced on one card: not a
     scaling number), peak memory against ``estimate_hbm``, messages sent
     per step against the law (M(P-1) per direction, M(PV-1) interleaved),
@@ -259,20 +259,19 @@ The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
 
 20. the harness CLI as a subprocess on the card (its default device): (a)
     the parity row (tier A, zero2, S 2048, b1 x accum 4, dropout 0.1,
-    flash) for 12 steps, warmup 2, ``--checkpoint-every 4``,
+    flash) for 8 steps, warmup 2, ``--checkpoint-every 4``,
     ``--inject-fault sigterm@6``: exit 75, an emergency checkpoint and a
     final heartbeat carrying ``emergency_checkpoint_step``; then
     ``--resume``: exit 0, ``resumed`` true, ``n_restarts`` 1; (b) the same
-    12 steps straight through: the per-step losses of (a), before and after
+    8 steps straight through: the per-step losses of (a), before and after
     the resume, within ``RT_LOSS_RTOL`` of (b)'s (the telemetry's step
     windows, 6 decimals; printed whether equal); (c) the costs, beside the
     card's name and power limit: each save's gather / write / digest ms and
-    bytes (steps 4 and 6 synchronous; the resume runs with
-    ``--checkpoint-async``: step 8 staged and written on a thread, 11
-    synchronous), the restore's validate / load / apply ms, ms from the
-    SIGTERM to the process's exit, ``time_in_compile_sec``, and the step
-    ms of the straight run against each of the resumed run's steps (9-11
-    while step 8's save is written); (d) drills at tier S (plain attention: its 32-wide heads
+    bytes (step 4's save asynchronous, committed by the SIGTERM's flush;
+    the resume's final save of step 7 synchronous), the restore's validate
+    / load / apply ms, ms from the SIGTERM to the process's exit,
+    ``time_in_compile_sec``, and the step ms before the first save, under
+    the async write (steps 5-6) and resumed (steps 5-7); (d) drills at tier S (plain attention: its 32-wide heads
     are not the kernels'), the three chains at once: ``sigkill@5`` then ``--resume``
     (resumed from step 4, ``n_restarts`` 1), a resume past the end (77),
     ``torn-checkpoint`` (step 4 quarantined, the resume falls back to 2),
@@ -293,7 +292,7 @@ The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
     exactly records 16-31); (b) alone on the card, through
     ``run_benchmark`` with K1-K3's launches counted: the row on the
     synthetic table without and with the sentinel and on the stream, in
-    turns (off, on, stream, stream, on, off, off, on), their step ms (the
+    turns (off, on, stream), their step ms (the
     sentinel's per-step cost and the stream's against the table), the stream's
     ``data_stall_frac`` and mean prefetch wait; ``data-corrupt-record@5``
     on the stream (``records_skipped`` 1, finite losses); the parameter
@@ -311,7 +310,7 @@ The supervisor and the run registry (``runtime/supervisor.py``,
     ``supervised_attempt: 2``, the final row stamped (``supervision``
     ``n_attempts`` 2, ``resumed`` true) and passed by the port's
     validator; (b) the supervisor's device probe (a torch import in a
-    subprocess) returns the card count, 1; the same command with
+    subprocess) returns the card count, 1, while the same command with
     ``--resume`` past the end exits 77 and the supervisor gives up with
     that code after one attempt; (c) the port's ``regress`` ingests (a)'s
     results into a temporary registry, keeps the resumed row out of the
@@ -321,15 +320,16 @@ The supervisor and the run registry (``runtime/supervisor.py``,
     name and power limit: each attempt's wall, the supervisor's own time
     between attempts (its wall less the children's, backoff 0), the
     probe's wall and the ingest / gate / csv / telemetry-report / report
-    walls.
+    walls. The phase runs beside phase 20 (b) and (d), so these walls are
+    taken with those processes on the same host and card.
 
 The trace and memory anatomy (``analysis/{profile_summary,step_anatomy,
 memory_anatomy}.py``; no kernel of its own):
 
-23. trains the parity and flagship rows of phase 3 again, 3 + 10 steps,
+23. trains the parity and flagship rows of phase 3 again, 3 + 6 steps,
     through ``run_benchmark(profile_dir=...)`` (one timed window), and
     checks on each: the trace and ``cost_analysis.json`` exist; the step
-    anatomy has 10 steps, clipped to the telemetry's timed phase with no
+    anatomy has 6 steps, clipped to the telemetry's timed phase with no
     lane falling back; compute + exposed + idle = 1 within 1e-6 and no
     exposed collective (world 1 runs no NCCL kernel:
     ``comms_exposed_frac`` 0.0, ``comms_overlap_frac`` null); the trace
@@ -349,20 +349,47 @@ The static audit (``analysis/static``: graftcheck; no kernel of its own):
 24. runs the graftcheck CLI in child processes on the card's host, as the
     port's bench runs its preflight: (a) ``bench.PREFLIGHT_ARGS`` (the lint
     and the collective audit of ``llama-tp2-gqa``), which must exit 0; (b)
-    the lint alone, exit 0; (c) the collective audit of the whole roster
-    against the budgets, which were frozen under another torch version:
-    exit 0 says this torch's fake process group and dispatch mode see the
-    same ``c10d`` ops, bytes and group sizes; (d) ``--inject bad-cmm-ring
-    --arms llama-tp2-gqa-cmm``, which must exit 1 naming the arm. Each
+    the collective audit of the whole roster against the budgets, which
+    were frozen under another torch version: exit 0 says this torch's fake
+    process group and dispatch mode see the same ``c10d`` ops, bytes and
+    group sizes; (c) ``--inject bad-cmm-ring --arms llama-tp2-gqa-cmm``,
+    which must exit 1 naming the arm. Each
     child must print ``torch.cuda.is_initialized() = False``. Printed
     beside the card's name and power limit: each run's wall. This script
     calls the bench CLI nowhere (it trains through ``run_benchmark``), so
     no call of it needs ``--skip-preflight``.
 
+The suite layer (``scripts/torch_chaos_suite.sh``,
+``scripts/torch_with_retries.sh``, ``scripts/torch_run_all_benchmarks.sh``,
+the bench's ``--remat-sweep``; no kernel of its own):
+
+25. (a) ``scripts/torch_chaos_suite.sh --smoke --jobs 4`` with
+    ``CHAOS_ON_DEVICE=1``: sigkill, torn-checkpoint, bitflip and
+    data-corrupt-record, each through the harness on the card at tier S,
+    must each print ``CHAOS OK`` and the suite exit 0, with every row's
+    ``backend`` cuda; (b) ``scripts/torch_run_all_benchmarks.sh`` at its
+    default full width (tier A, S 2048, b1 x accum 4) with ``STRATEGIES="ddp
+    fsdp zero2 zero3" WORLD_SIZES=1 ATTENTION=flash STEPS=12
+    WARMUP_STEPS=3 REMAT_SWEEP=1 SKIP_CHAOS=1 SKIP_PREFLIGHT=1
+    ARM_CHECKPOINT_EVERY=0`` ((a) ran the chaos smoke and phase 24
+    graftcheck): "Suite complete: 4 passed, 0 failed", ``VALIDATE PASS``,
+    the gate's 0 regressions, one metrics.csv row per arm on cuda, the
+    report's Key findings and remat frontier, the four policies' rows. The
+    suite's processes write their kernel launches at exit
+    (``KERNEL_LAUNCHES_DIR``): each arm's K1-K3 16 x 4 x 12 times; the
+    sweep's process (its top row, the parity row, then the flagship once
+    per policy) K2-K3 16 x 4 x 12 + 16 x 2 x 12 x 4 times and K1 once more
+    per layer under a recomputing policy. Printed beside the card's name and power limit:
+    the walls of (a), of each stage of (b), the arms' tokens/s and peak
+    memory, the frontier (tokens/s, peak, headroom per policy). (a) runs
+    beside phase 24, which needs only the host: phase 24's walls are
+    taken with it running.
+
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
-19's launches per stage and step), the nvidia-smi line, and, last,
+19's launches per stage and step and phase 25's in the suite's arms, the
+flagship row's phase 25's in the remat sweep), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without those lines when
 no CUDA device is available.
 """
@@ -375,6 +402,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -393,7 +421,7 @@ HASH_OPS_PER_ELEMENT = 10  # mix32 (2 mul, 3 shift, 3 xor) + add + compare
 # and clock. Written beside the softmax variants' bound, not part of it.
 H100_EXP_OPS = 16 * 132 * 1.98e9
 
-WARMUP_STEPS, TIMED_STEPS = 3, 10
+WARMUP_STEPS, TIMED_STEPS = 3, 6
 
 
 def log(msg: str) -> None:
@@ -1306,19 +1334,19 @@ def free_port() -> int:
 
 def phase_remat(fa, models):
     """Phase 12, first part: one tier-A micro-batch of the parity model at
-    dropout 0.1 under remat none, dots and full, same seeds and generator:
+    dropout 0.1 under remat none, dots and full, same seeds:
     equal gradients, and K1 launched once more per layer under remat."""
     cfg = models.get_config("tinygpt", "A", 2048, dropout=0.1, attention_impl="flash")
     batch = torch.randint(0, cfg.vocab_size, (1, 2048), device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(5))
+    mask_seeds = models.draw_mask_seeds(torch.Generator().manual_seed(3), cfg.n_layer)
     grads = {}
     for remat in ("none", "dots", "full"):
         with torch.device("cuda"):
             model = models.TinyGPT(dataclasses.replace(cfg, remat=remat))
         model.init_weights(torch.Generator(device="cuda").manual_seed(0))
         fa.reset_launch_counts()
-        _, loss = model(batch, batch, attn_seeds=list(range(1, 17)),
-                        generator=torch.Generator(device="cuda").manual_seed(3))
+        _, loss = model(batch, batch, attn_seeds=list(range(1, 17)), mask_seeds=mask_seeds)
         loss.backward()
         counts = fa.launch_counts()
         want = {"flash_fwd": 16 * (1 if remat == "none" else 2), "flash_bwd_dq": 16,
@@ -1433,7 +1461,7 @@ TP_ROWS = {
     "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
 }
 TP_ARMS = ("ddp", "zero2")
-TP_STEPS, TP_WARMUP, TP_WIDTH = 5, 2, 2
+TP_STEPS, TP_WARMUP, TP_WIDTH = 3, 1, 2
 # Largest relative difference allowed between a step's loss at tp 2 and on
 # one card without a group (same seeds and masks; bf16, where the tp path
 # sums each row-parallel product's fp32 halves over the group before
@@ -2235,6 +2263,7 @@ def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi) -> dict:
 PIPE = dict(width=2, tier="A", seq_len=2048, per_device_batch=1, grad_accum=4, layers=16,
             virtual=2, dropout=0.1)
 PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PIPE_WARMUP, PIPE_TIMED = 2, 4  # per schedule
 PIPE_VS_ONE_STEPS = 3
 # JAX's schedule-against-schedule tests hold the losses to 2e-3 (its
 # tests/test_pipeline.py); the schedules here draw the same masks and differ
@@ -2295,8 +2324,8 @@ def pipe_worker(rank: int, port: int, outdir: str) -> int:
     assert rt.setup_distributed(num_processes=PIPE["width"], process_id=rank, master_port=port,
                                 device="cuda", backend="gloo")
     out = {}
-    steps = WARMUP_STEPS + TIMED_STEPS
-    runs = [(sched, PIPE["dropout"], steps, WARMUP_STEPS) for sched in PIPE_SCHEDULES]
+    runs = [(sched, PIPE["dropout"], PIPE_WARMUP + PIPE_TIMED, PIPE_WARMUP)
+            for sched in PIPE_SCHEDULES]
     runs.append(("gpipe_dropout0", 0.0, PIPE_VS_ONE_STEPS, 1))
     try:
         for label, dropout, n, warm in runs:
@@ -2500,7 +2529,7 @@ def phase_pipe(run_benchmark, smi) -> dict:
 RT_ROW = ["--strategy", "zero2", "--world-size", "1", "--tier", "A", "--seq-len", "2048",
           "--per-device-batch", "1", "--grad-accum", "4", "--attention", "flash",
           "--warmup-steps", "2", "--heartbeat-sec", "0"]
-RT_STEPS, RT_EVERY, RT_SIGTERM = 12, 4, 6
+RT_STEPS, RT_EVERY, RT_SIGTERM = 8, 4, 6
 # Tier S's heads are 32 wide, which the kernels do not take: plain attention.
 RT_DRILL = ["--strategy", "zero2", "--world-size", "1", "--tier", "S", "--seq-len", "128",
             "--per-device-batch", "1", "--grad-accum", "2", "--attention", "reference",
@@ -2515,12 +2544,10 @@ RT2_MOMENTS = ["--steps", "10", "--sentinel", "on", "--inject-fault", "opt-momen
 RT2_STALL = ["--steps", "8", "--inject-fault", "data-stall@4:120",
              "--data-stall-timeout-sec", "3"]
 RT2_SHARDS = dict(num_shards=4, records_per_shard=32)  # 128 records; a run reads <= 48
-RT2_STEPS, RT2_WARMUP = 12, 2  # the in-process runs of (b)
-# (b)'s runs in turns, (name, sentinel, stream): three sentinel off / on
-# pairs and two stream / table pairs around them.
-RT2_TURNS = (("off", False, False), ("on", True, False), ("stream", False, True),
-             ("stream 2", False, True), ("on 2", True, False), ("off 2", False, False),
-             ("off 3", False, False), ("on 3", True, False))
+RT2_STEPS, RT2_WARMUP = 8, 2  # the in-process runs of (b)
+# (b)'s runs in turns, (name, sentinel, stream): the sentinel on and the
+# stream, each against the run with neither.
+RT2_TURNS = (("off", False, False), ("on", True, False), ("stream", False, True))
 RT2_KW = dict(strategy="zero2", tier="A", seq_len=2048, per_device_batch=1, grad_accum=4,
               attention_impl="flash", device="cuda")  # the parity row in process
 RT2_LAUNCHES = 16 * 4 * RT2_STEPS  # K1-K3 each: layers x micro-batches x steps
@@ -2627,10 +2654,12 @@ def rt_drill_hang(root: str) -> dict:
             "resume past the end": {"exit": past["rc"]}}
 
 
-def phase_runtime(smi: str) -> dict:
+def phase_runtime(smi: str, beside=None) -> dict:
     """Phase 20: (a) preempt and resume at full width, (b) equal to the
-    straight run, (c) the costs on the card, (d) fault drills at tier S."""
-    import shutil
+    straight run, (c) the costs on the card, (d) fault drills at tier S.
+    ``beside`` (a callable, or None) runs beside (b) and (d), after (a)'s
+    two runs, which have the card to themselves; its result is returned
+    under "beside"."""
 
     root = tempfile.mkdtemp(prefix="runtime_smoke_")
     free_gb = shutil.disk_usage(root).free / 1e9
@@ -2673,14 +2702,16 @@ def phase_runtime(smi: str) -> dict:
     shutil.rmtree(os.path.join(root, "ck"))
     # (b) the same steps straight through, no checkpoint, and (d) the drills
     # at tier S, the three chains at once (independent directories), all
-    # started together: (b) is read for its losses only.
+    # started together with ``beside``: (b) is read for its losses only.
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
+        side_job = pool.submit(beside) if beside is not None else None
         straight_job = pool.submit(harness, row, os.path.join(root, "b"), 600)
         chains = [pool.submit(fn, root) for fn in (rt_drill_kill, rt_drill_torn, rt_drill_hang)]
         straight = straight_job.result()
         drills = {k: v for c in chains for k, v in c.result().items()}
+        side = side_job.result() if side_job is not None else None
     rt_expect(straight, 0, "(b) straight")
     want = rt_losses(rt_events(os.path.join(root, "b"), arm))
     lost, redone = rt_losses(ev_pre), rt_losses(ev_res)
@@ -2723,8 +2754,9 @@ def phase_runtime(smi: str) -> dict:
     log(f"[20] (c) costs on {smi}: " + json.dumps(costs))
     log(f"[20] (d) drills at tier S: {json.dumps(drills)}")
     shutil.rmtree(root, ignore_errors=True)
-    log(f"[20] phase wall {time.perf_counter() - t0:.1f} s")
-    return {"costs": costs, "drills": drills, "loss_max_rel": rel}
+    log(f"[20] phase wall {time.perf_counter() - t0:.1f} s"
+        + (" (phase 22 beside (b) and (d))" if beside is not None else ""))
+    return {"costs": costs, "drills": drills, "loss_max_rel": rel, "beside": side}
 
 
 def rt2_losses_finite(results: str, arm: str) -> list:
@@ -2792,7 +2824,6 @@ def rt2_row(fa, run_benchmark, **kw) -> tuple:
 def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
     """Phase 21: the sentinel and the stream, (a) through the harness, (b)
     in process (see the module docstring)."""
-    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     from distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards import (
@@ -2830,10 +2861,8 @@ def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
                                                 if "data_wait_ms" in log_ else None),
                       "records": [res.stream_cursor_start, res.stream_cursor_end]}
         torch.cuda.empty_cache()
-    cost = {"sentinel_on_minus_off_ms": [rows[f"on{k}"]["step_ms"] - rows[f"off{k}"]["step_ms"]
-                                         for k in ("", " 2", " 3")],
-            "stream_minus_table_ms": [rows["stream"]["step_ms"] - rows["off"]["step_ms"],
-                                      rows["stream 2"]["step_ms"] - rows["off 2"]["step_ms"]]}
+    cost = {"sentinel_on_minus_off_ms": rows["on"]["step_ms"] - rows["off"]["step_ms"],
+            "stream_minus_table_ms": rows["stream"]["step_ms"] - rows["off"]["step_ms"]}
     log(f"[21] (b) in process, K1-K3 {RT2_LAUNCHES} launches each per run, in turns on "
         f"{smi}: {json.dumps(rows)}; {json.dumps(cost)}")
     res, log_ = rt2_row(fa, run_benchmark, data_path=shards, inject_fault="data-corrupt-record@5")
@@ -2899,8 +2928,10 @@ def timed_call(fn, *args, **kw):
 
 def phase_supervisor(smi: str) -> dict:
     """Phase 22: (a) the supervisor over a preempted parity row, (b) its
-    probe and a give-up, (c) ingest / gate / csv / reports on the results."""
-    import shutil
+    probe beside a give-up, (c) ingest / gate / csv / reports on the
+    results. ``main`` runs it beside phase 20 (b) and (d), so its walls
+    are taken with those processes on the same host and card."""
+    from concurrent.futures import ThreadPoolExecutor
 
     from distributed_llm_training_benchmark_framework_tpu_torch.analysis import (
         make_report,
@@ -2960,18 +2991,21 @@ def phase_supervisor(smi: str) -> dict:
         f"{run['wall_s'] - sum(walls):.2f} s (backoff 0); row stamped {sv}, "
         f"resume_step {row['resume_step']}, {row['tokens_per_sec']:.0f} tok/s, "
         f"port validator: pass; on {smi}")
-    # (b) the probe, and a give-up: the checkpoint now holds the last step.
-    probe_t0 = time.perf_counter()
-    n = supervisor.probe_device_count()
-    probe_s = time.perf_counter() - probe_t0
-    assert n == torch.cuda.device_count() == 1, n
+    # (b) the probe, beside a give-up: the checkpoint now holds the last step.
     r77 = os.path.join(root, "r77")
-    give = supervised(sup, child(r77) + ["--resume"], r77, 600)
+    with ThreadPoolExecutor(1) as pool:
+        probe_t0 = time.perf_counter()
+        probe_job = pool.submit(lambda: (supervisor.probe_device_count(), time.perf_counter()))
+        give = supervised(sup, child(r77) + ["--resume"], r77, 600)
+        n, probe_t1 = probe_job.result()
+    probe_s = probe_t1 - probe_t0
+    assert n == torch.cuda.device_count() == 1, n
     led77 = json.load(open(os.path.join(r77, supervisor.LEDGER_NAME)))
     assert give["rc"] == 77 and led77["gave_up"] and led77["n_attempts"] == 1, (
         give["rc"], led77, give["out"][-3000:])
     assert led77["attempts"][0]["class"] == "nothing-to-resume", led77
-    log(f"[22] (b) probe: {n} device(s) in {probe_s:.2f} s (a torch import in a subprocess); "
+    log(f"[22] (b) probe: {n} device(s) in {probe_s:.2f} s (a torch import in a subprocess, "
+        f"beside the give-up); "
         f"--resume past the end: exit 77, gave up after 1 attempt "
         f"({led77['attempts'][0]['give_up_reason']}), wall {give['wall_s']:.2f} s; on {smi}")
     # (c) the post-run path over (a)'s results.
@@ -3068,10 +3102,9 @@ def marker_layout(ps, events: list, n: int = 2) -> list:
 
 def phase_profile(fa, run_benchmark, unprofiled: dict, smi: str) -> dict:
     """Phase 23: both tier-A rows profiled through run_benchmark(profile_dir=...):
-    the trace, the cost JSON, the step anatomy (10 steps, clipped, fractions
+    the trace, the cost JSON, the step anatomy (6 steps, clipped, fractions
     summing to 1, no exposed collective at world 1), K1-K3 launches per traced
     step in the trace, and the memory anatomy from the allocator."""
-    import shutil
 
     from distributed_llm_training_benchmark_framework_tpu_torch.analysis import (
         profile_summary as ps,
@@ -3220,7 +3253,6 @@ def phase_static(smi: str) -> dict:
     frozen = ca.load_budgets()["torch_version"]
     runs = {
         "preflight": (list(bench.PREFLIGHT_ARGS), 0),
-        "lint": (["--lint"], 0),
         "roster": (["--audit", "--arms", ",".join(ca.ROSTER)], 0),
         "inject": (["--audit", "--inject", "bad-cmm-ring", "--arms", "llama-tp2-gqa-cmm"], 1),
     }
@@ -3241,12 +3273,166 @@ def phase_static(smi: str) -> dict:
         summary = [ln for ln in proc.stderr.splitlines()
                    if "finding(s)" in ln or "graftcheck lint:" in ln]
         out[tag] = {"rc": proc.returncode, "wall_s": round(wall, 2), "summary": summary}
-        log(f"[24] ({'abcd'[len(out) - 1]}) {tag}: exit {proc.returncode} in {wall:.2f} s, "
+        log(f"[24] ({'abc'[len(out) - 1]}) {tag}: exit {proc.returncode} in {wall:.2f} s, "
             f"torch.cuda.is_initialized() False; {' / '.join(summary)}")
     log(f"[24] budgets frozen on torch {frozen}, this torch {torch.__version__}; walls "
         + json.dumps({t: r["wall_s"] for t, r in out.items()}) + f" on {smi}")
     log(f"[24] phase wall {time.perf_counter() - t0:.1f} s")
     return out
+
+
+# Phase 25: the suite layer, through the port's own scripts.
+# SKIP_CHAOS: (a) ran the smoke; SKIP_PREFLIGHT: phase 24 ran graftcheck.
+SUITE_ENV = {"STRATEGIES": "ddp fsdp zero2 zero3", "WORLD_SIZES": "1", "ATTENTION": "flash",
+             "STEPS": "12", "WARMUP_STEPS": "3", "REMAT_SWEEP": "1", "SKIP_CHAOS": "1",
+             "SKIP_PREFLIGHT": "1", "ARM_CHECKPOINT_EVERY": "0"}
+SUITE_STEPS = 12  # warmup included, as run_benchmark counts them
+SUITE_SMOKE = ("sigkill", "torn-checkpoint", "bitflip", "data-corrupt-record")
+SUITE_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SUITE_ARM_LAUNCHES = 16 * 4 * SUITE_STEPS  # parity: layers x micro-batches x steps
+SUITE_SWEEP_LAUNCHES = 16 * 2 * SUITE_STEPS  # flagship: layers x micro-batches x steps
+# The sweep's bench process also runs its top row, the parity row, first.
+
+
+def start_script(script: str, args: list, env_extra: dict) -> dict:
+    """Start one of the port's suite scripts in a session of its own, its
+    output (stdout and stderr) to a file; ``finish_script`` waits."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, PYTHON_BIN=sys.executable, **env_extra)
+    for var in ("INJECT_FAULT", "SUPERVISOR_CHAOS", "RECOVERY_POLICY", "SUPERVISOR_DEVICE_COUNT",
+                "BENCH_SUPERVISED_ATTEMPT", "REGISTRY_DIR", "DEVICE"):
+        env.pop(var, None)
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(["bash", os.path.join(here, "scripts", script), *args], cwd=here,
+                            env=env, stdout=out, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    return {"proc": proc, "out": out, "t0": time.perf_counter()}
+
+
+def stop_script(run: dict) -> None:
+    """Kill what is left of a started script's session and reap it."""
+    import signal
+
+    try:
+        os.killpg(run["proc"].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    run["proc"].wait()
+
+
+def finish_script(run: dict, timeout: int) -> dict:
+    """Wait for a started script: exit code, output and wall; kills its
+    whole session on the way out."""
+    proc = run["proc"]
+    try:
+        proc.wait(timeout=max(timeout - (time.perf_counter() - run["t0"]), 1))
+    finally:
+        if proc.poll() is None:
+            stop_script(run)
+    run["out"].seek(0)
+    return {"rc": proc.returncode, "out": run["out"].read(),
+            "wall_s": time.perf_counter() - run["t0"]}
+
+
+def suite_script(script: str, args: list, env_extra: dict, timeout: int) -> dict:
+    """Run one of the port's suite scripts to its end (``start_script``,
+    ``finish_script``)."""
+    return finish_script(start_script(script, args, env_extra), timeout)
+
+
+def start_chaos_smoke(root: str) -> dict:
+    """Phase 25 (a), started: the chaos smoke with CHAOS_ON_DEVICE=1, whose
+    one-rank arms pass no --device, so run on cuda. It needs the card
+    lightly (tier S) and the host mostly (process starts), so ``main``
+    runs it beside phase 24, which uses the host alone."""
+    return start_script("torch_chaos_suite.sh",
+                        ["--smoke", "--jobs", "4", "--keep", "--results-dir",
+                         os.path.join(root, "chaos")], {"CHAOS_ON_DEVICE": "1"})
+
+
+def phase_suite(smi: str, chaos_run: dict = None, root: str = None) -> dict:
+    """Phase 25: (a) the chaos smoke's one-rank arms on the card (started
+    by ``start_chaos_smoke`` under ``root``, or here), (b) the port's local
+    suite at full tier-A width with the remat sweep."""
+    import csv
+    import glob
+
+    if chaos_run is None:
+        root = tempfile.mkdtemp(prefix="suite_smoke_")
+        chaos_run = start_chaos_smoke(root)
+    t0 = time.perf_counter()
+    chaos = finish_script(chaos_run, 900)
+    assert chaos["rc"] == 0, f"[25] (a) chaos smoke exit {chaos['rc']}:\n{chaos['out'][-6000:]}"
+    oks = re.findall(r"^CHAOS OK +(\S+):", chaos["out"], re.M)
+    assert sorted(oks) == sorted(SUITE_SMOKE), oks
+    backends = {f: json.load(open(os.path.join(root, "chaos", f, "results",
+                                               "result_ddp_ws1_seq32_tierS.json")))["backend"]
+                for f in SUITE_SMOKE}
+    assert set(backends.values()) == {"cuda"}, backends
+    log(f"[25] (a) torch_chaos_suite.sh --smoke --jobs 4, CHAOS_ON_DEVICE=1: exit 0, CHAOS OK {oks}, "
+        f"rows on {set(backends.values())}, wall {chaos['wall_s']:.1f} s (from its start) on {smi}")
+    # (b) the suite; its processes write their kernel launch counts at exit.
+    launches_dir = os.path.join(root, "launches")
+    os.makedirs(launches_dir)
+    results = os.path.join(root, "suite")
+    suite = suite_script("torch_run_all_benchmarks.sh", [],
+                         {**SUITE_ENV, "RESULTS_DIR": results,
+                          "KERNEL_LAUNCHES_DIR": launches_dir}, 1200)
+    out = suite["out"]
+    stages = {m[0]: float(m[1]) for m in re.findall(r"^STAGE (\w+) wall ([\d.]+)s", out, re.M)}
+    log(f"[25] (b) torch_run_all_benchmarks.sh: exit {suite['rc']}, stage walls "
+        f"{json.dumps(stages)} s, suite wall {suite['wall_s']:.1f} s on {smi}")
+    assert suite["rc"] == 0, f"[25] (b) suite exit {suite['rc']}:\n{out[-8000:]}"
+    assert "Suite complete: 4 passed, 0 failed" in out, out[-4000:]
+    assert "VALIDATE PASS" in out and "REGRESSION GATE FAILED" not in out, out[-4000:]
+    gate = re.findall(r"regress gate: (\d+) arm\(s\) checked, (\d+) regression", out)
+    assert gate and gate[-1][1] == "0", gate
+    assert set(stages) == {"arms", "analysis", "regress", "remat_sweep"}, stages
+    with open(os.path.join(results, "summary", "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    assert sorted(r["strategy"] for r in rows) == ["ddp", "fsdp", "zero2", "zero3"], rows
+    assert all(r["backend"] == "cuda" and "H100" in r["device_kind"] for r in rows), rows
+    report = open(os.path.join(results, "summary", "BENCHMARK_REPORT.md")).read()
+    assert "## Key findings" in report and "## Remat/HBM frontier" in report, report[:2000]
+    arms = {}
+    for path in glob.glob(os.path.join(results, "*_results", "result_*.json")):
+        r = json.load(open(path))
+        assert r["attention_impl"] == "flash" and r["tier"] == "A", path
+        arms[r["strategy"]] = {"tokens_per_sec": r["tokens_per_sec"],
+                               "step_ms": 1e3 * r["mean_step_time_sec"],
+                               "peak_hbm_gb": r["peak_hbm_gb"], "mfu_pct": r["mfu_pct"]}
+    sweep = json.loads(open(os.path.join(results, "remat_sweep.json")).read().splitlines()[-1])
+    frontier = {pol: {"resolved": r["remat_policy_resolved"], "tokens_per_sec": r["value"],
+                      "peak_hbm_gb": r["peak_hbm_gb"], "headroom_gb": r["hbm_headroom_gb"]}
+                for pol, r in sweep["remat_sweep"].items()}
+    assert list(frontier) == ["none", "dots", "full", "auto"], frontier
+    assert all(v["tokens_per_sec"] > 0 and v["peak_hbm_gb"] > 0 for v in frontier.values())
+    # The launches: each arm process K1-K3 as layers x micro-batches x steps;
+    # the sweep's process its top row (the parity row) and then the flagship
+    # once per policy, K1 twice per layer under a recomputing policy.
+    counts = [json.load(open(p)) for p in glob.glob(os.path.join(launches_dir, "*.json"))]
+    per_arm = [c for c in counts if c.get("flash_bwd_dq") == SUITE_ARM_LAUNCHES]
+    sweep_counts = [c for c in counts if c not in per_arm]
+    assert len(per_arm) == 4 and all(
+        [c.get(k) for k in SUITE_FLASH] == [SUITE_ARM_LAUNCHES] * 3 for c in per_arm), counts
+    recompute = sum(2 if v["resolved"] != "none" else 1 for v in frontier.values())
+    assert sweep_counts == [{
+        "flash_fwd": SUITE_ARM_LAUNCHES + SUITE_SWEEP_LAUNCHES * recompute,
+        "flash_bwd_dq": SUITE_ARM_LAUNCHES + SUITE_SWEEP_LAUNCHES * 4,
+        "flash_bwd_dkv": SUITE_ARM_LAUNCHES + SUITE_SWEEP_LAUNCHES * 4}], sweep_counts
+    launches = {"arms": {k: 4 * SUITE_ARM_LAUNCHES for k in SUITE_FLASH},
+                "remat_sweep": sweep_counts[0]}
+    log(f"[25] (b) torch_run_all_benchmarks.sh ({' '.join(f'{k}={v}' for k, v in SUITE_ENV.items())}"
+        f"): exit 0, 'Suite complete: 4 passed, 0 failed', VALIDATE PASS, gate "
+        f"{gate[-1][0]} arm(s) 0 regressions, metrics.csv {len(rows)} rows on cuda, the report's "
+        f"Key findings and remat frontier")
+    log(f"[25] (b) arms, 12 steps (3 warmup) on {smi}: {json.dumps(arms)}")
+    log(f"[25] (b) remat sweep (flagship row, 12 steps) on {smi}: {json.dumps(frontier)}")
+    log(f"[25] (b) K1-K3 launches in the suite's processes: {json.dumps(launches)}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[25] phase wall {time.perf_counter() - t0:.1f} s")
+    return {"chaos_wall_s": chaos["wall_s"], "suite_wall_s": suite["wall_s"], "stages": stages,
+            "arms": arms, "frontier": frontier, "launches": launches}
 
 
 def main() -> int:
@@ -3308,42 +3494,58 @@ def main() -> int:
             if "wgmma" in ln.lower() and "Compiling entry function" not in ln:
                 log(f"[0]   ptxas: {ln.strip()}")
 
-    timing = phase_kernels(fa, peaks)
-    launches, row_losses, row_results = phase_train(fa, ra, run_benchmark)
-    phase_whole_model(fa, models, SyntheticDataset)
-    ring_timing = phase_ring_kernels(fa, ra, peaks)
-    phase_ring_vs_flash(fa, ra)
-    ring_launches = phase_ring_train(fa, ra, run_benchmark)
-    phase_ring_whole_model(fa, models, SyntheticDataset, make_mesh)
-    fwd_timing = phase_fwd_variants(fa, fv, peaks)
-    mb_launches = phase_microbench(_build, mb)
-    phase_ulysses(fa, ua)
-    launches.update(phase_ulysses_train(fa, ra, run_benchmark))
-    arms = phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop)
-    tp_timing = phase_tp_kernels(fa, ra, peaks)
-    tp_launches = phase_tp_train({
+    def walled(phases: str, fn, *args):
+        """Run ``fn`` and log its wall under its phase numbers."""
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[{phases}] phase wall {time.perf_counter() - t:.1f} s")
+        return out
+
+    timing = walled("1-2", phase_kernels, fa, peaks)
+    launches, row_losses, row_results = walled("3", phase_train, fa, ra, run_benchmark)
+    walled("4", phase_whole_model, fa, models, SyntheticDataset)
+    ring_timing = walled("5-6", phase_ring_kernels, fa, ra, peaks)
+    walled("7", phase_ring_vs_flash, fa, ra)
+    ring_launches = walled("8", phase_ring_train, fa, ra, run_benchmark)
+    walled("9", phase_ring_whole_model, fa, models, SyntheticDataset, make_mesh)
+    fwd_timing = walled("10", phase_fwd_variants, fa, fv, peaks)
+    mb_launches = walled("11", phase_microbench, _build, mb)
+    walled("13", phase_ulysses, fa, ua)
+    launches.update(walled("14", phase_ulysses_train, fa, ra, run_benchmark))
+    arms = walled("12, 15", phase_arms, fa, ra, ua, models, make_mesh, get_strategy, rt, memory,
+                  loop)
+    tp_timing = walled("16 (a)", phase_tp_kernels, fa, ra, peaks)
+    tp_launches = walled("16 (b)", phase_tp_train, {
         ("parity", "zero2"): row_losses["parity"], ("flagship", "zero2"): row_losses["flagship"],
         ("parity", "ddp"): arms["ddp"]["plain"]["losses"],
         ("flagship", "ddp"): no_group_ddp_flagship(run_benchmark)})
-    phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
-                  row_results["parity"])
-    phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi)
+    walled("17", phase_offload, fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
+           row_results["parity"])
+    walled("18", phase_moe, fa, loop, memory, models, get_strategy, make_mesh, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    pipe_launches = phase_pipe(run_benchmark, smi)
+    pipe_launches = walled("19", phase_pipe, run_benchmark, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_runtime(smi)
+    # Phase 22's chain of processes runs beside phase 20's straight run and
+    # drills: each is mostly process starts and checkpoint I/O.
+    phase_runtime(smi, beside=lambda: phase_supervisor(smi))
     gc.collect()
     torch.cuda.empty_cache()
     phase_runtime2(fa, run_benchmark, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_supervisor(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
     phase_profile(fa, run_benchmark, row_results, smi)
-    phase_static(smi)
+    suite_root = tempfile.mkdtemp(prefix="suite_smoke_")
+    chaos_run = start_chaos_smoke(suite_root)
+    try:
+        phase_static(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        suite = phase_suite(smi, chaos_run, suite_root)
+    finally:
+        stop_script(chaos_run)
+        shutil.rmtree(suite_root, ignore_errors=True)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -3381,6 +3583,9 @@ def main() -> int:
                 entry["pipeline_launches_per_stage_per_step"] = {
                     sched: [stage[names[kind]] for stage in stages]
                     for sched, stages in pipe_launches.items()}
+                entry["suite_launches"] = suite["launches"]["arms"][names[kind]]
+            if key == "b":
+                entry["suite_launches"] = suite["launches"]["remat_sweep"][names[kind]]
             kernels.append(entry)
     ring_kernels = {
         "fwd": ("ring_fwd_block", "ring_fwd_block",

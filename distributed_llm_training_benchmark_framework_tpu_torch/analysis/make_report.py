@@ -11,7 +11,8 @@ over the port's ``regress`` and ``scaling``. The Markdown is JAX's line for
 line except for these, which name the port's hardware and collectives:
 the title (``TITLE``), the four ``TRADEOFFS`` blurbs (DDP, FSDP2 and the
 hand-written ZeRO arms over NCCL, where JAX's XLA runs the collectives over
-ICI) and the remat frontier's headroom note ("blank off the card").
+ICI) and the remat frontier's headroom note ("blank off the card"), to
+which the port adds ``FRONTIER_WINDOW_NOTE``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ from . import ATTRIBUTION_CLASSES as _HBM_CLASSES
 
 #: The report's title (JAX: "# TPU Distributed Training Benchmark Report").
 TITLE = "# GPU Distributed Training Benchmark Report (PyTorch port)"
+
+#: What the frontier's tokens/sec can rank (the port's addition to the
+#: headroom note): the rows of one sweep run one after another, each for
+#: the run's few timed steps, and on the card the same policy measured
+#: twice has differed by more than the gap between two policies.
+FRONTIER_WINDOW_NOTE = (
+    "Each row's tokens/sec is one window of the run's timed steps (`--steps` "
+    "less `--warmup-steps`): a short run does not rank two policies whose "
+    "tokens/sec differ by less than repeated runs of one policy spread; "
+    "peak HBM does not spread so.")
 
 TRADEOFFS = {
     "ddp": (
@@ -218,7 +229,8 @@ def remat_frontier_section(registry_root: str) -> List[str]:
                "recompute-for-memory trade (docs/PERFORMANCE.md). Each "
                "policy is its own regress lineage (the policy is part of "
                "the registry config key); *headroom* is per-chip HBM "
-               "capacity minus the measured peak (blank off the card).", ""]
+               "capacity minus the measured peak (blank off the card). "
+               + FRONTIER_WINDOW_NOTE, ""]
         if omitted:
             out.append(f"_{omitted} older-lineage sweep record(s) "
                        "(different run shape) omitted from the tables._")

@@ -63,9 +63,18 @@ preflight (``analysis.static``: ``--lint --audit --arms llama-tp2-gqa``, the
 port's lint and the collective audit of the arm that guards the GQA layout,
 on the CPU in a child process, about ten seconds) with its output on stderr,
 and on a finding exits 2 before printing anything on stdout;
-``--skip-preflight`` skips it. ``--layer-loop``, ``--remat-sweep`` (and
-with it the per-policy registry records) and ``tokens_per_dollar`` of the
-JAX bench are not part of the port yet. Checkpoints, fault injection and the
+``--skip-preflight`` skips it.
+
+``--remat-sweep`` is JAX's (``bench.py:81-84,344-347,418-436``): the flagship
+configuration once more per remat policy of ``REMAT_SWEEP_POLICIES``, in an
+additive ``remat_sweep`` sub-object keyed by the requested policy; each row
+carries ``remat_policy`` (requested), ``remat_policy_resolved`` (what ran:
+``auto`` resolves by the memory model, ``utils/memory.resolve_auto_remat``)
+and ``hbm_headroom_gb`` (the card's capacity less the measured peak; None
+on the CPU), and becomes a registry record of its own lineage
+(``bench.py:remat-sweep:<policy>``), from which ``analysis.make_report``
+renders the frontier. ``--layer-loop`` and ``tokens_per_dollar`` of the JAX
+bench are not part of the port yet. Checkpoints, fault injection and the
 rest of the run-time flags are the harness's
 (``python -m distributed_llm_training_benchmark_framework_tpu_torch.train.harness``).
 """
@@ -74,15 +83,17 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 
 from .models import MODEL_FAMILIES
-from .parallel.strategies import STRATEGIES
+from .parallel.strategies import STRATEGIES, get_strategy
 from .runtime import distributed as dist_rt
 from .train.loop import run_benchmark
+from .utils import memory as memory_mod
 
 REFERENCE_BEST_TOKENS_PER_SEC_PER_GPU = 18147.0 / 4
 
@@ -90,6 +101,11 @@ FLAGSHIP_FAMILY = "llama"
 FLAGSHIP_PER_DEVICE_BATCH = 2
 FLAGSHIP_GRAD_ACCUM = 2
 FLAGSHIP_LAYER_LOOP = "unrolled"  # eager PyTorch runs the layers as a Python loop
+
+# The remat/HBM frontier (--remat-sweep), JAX's: every policy the model
+# takes (models/tinygpt.normalize_remat) and 'auto', from no recompute to
+# full recompute.
+REMAT_SWEEP_POLICIES = ("none", "dots", "full", "auto")
 
 # The graftcheck preflight's scope (JAX's): the lint rules plus the
 # collective audit of the arm whose budget guards the GQA layout. The whole
@@ -120,12 +136,15 @@ def run_preflight() -> None:
 
 
 def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: int,
-                attention_impl: str, dropout, profile_dir=None):
-    """Run one arm; return its contract-shaped row and the result row it
-    was made from."""
+                attention_impl: str, dropout, profile_dir=None, remat=None):
+    """Run one arm (``remat``: the strategy's remat policy replaced, for the
+    sweep); return its contract-shaped row and the result row it was made
+    from."""
+    strategy = (args.strategy if remat is None
+                else dataclasses.replace(get_strategy(args.strategy), remat=remat))
     with contextlib.redirect_stdout(sys.stderr):
         result = run_benchmark(
-            strategy=args.strategy, tier=args.tier, seq_len=args.seq_len,
+            strategy=strategy, tier=args.tier, seq_len=args.seq_len,
             model_family=model_family, steps=args.steps, warmup_steps=args.warmup_steps,
             per_device_batch=per_device_batch, grad_accum=grad_accum,
             attention_impl=attention_impl, dropout=dropout, sync_every=args.sync_every,
@@ -150,6 +169,15 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
             "hbm_attribution_source": result.hbm_attribution_source,
             "hbm_reference_gib": result.hbm_reference_gib,
             "hbm_model_drift_frac": result.hbm_model_drift_frac,
+        })
+    if remat is not None:
+        # The sweep's provenance (JAX's bench.py:199-212): the requested
+        # policy keys the registry lineage, the resolved one is what ran.
+        cap = memory_mod.device_hbm_bytes(result.device_kind)
+        extra.update({
+            "remat_policy": remat,
+            "remat_policy_resolved": result.remat_policy,
+            "hbm_headroom_gb": round(cap / 2**30 - result.peak_hbm_gb, 2) if cap else None,
         })
     return result, {
         "metric": f"{model_family}_tier{args.tier}_seq{args.seq_len}_tokens_per_sec_per_chip",
@@ -207,6 +235,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--registry", default=None,
                    help="registry root (default: $REGRESS_REGISTRY_TORCH or "
                         "results/registry_torch)")
+    p.add_argument("--remat-sweep", action="store_true",
+                   help="sweep the flagship arm across remat policies "
+                        f"{REMAT_SWEEP_POLICIES} (the memory-vs-recompute frontier; "
+                        "make_report renders the table)")
     return p
 
 
@@ -226,7 +258,8 @@ def registry_rows(args, payload, backend=None):
         "sync_every": args.sync_every,
         "backend": backend,
     }
-    rows = [("bench.py", {k: v for k, v in payload.items() if k != "flagship"},
+    rows = [("bench.py", {k: v for k, v in payload.items()
+                          if k not in ("flagship", "remat_sweep")},
              dict(run_params, model_family=args.model_family,
                   per_device_batch=args.per_device_batch,
                   grad_accum=args.grad_accum,
@@ -235,6 +268,14 @@ def registry_rows(args, payload, backend=None):
         # The flagship sub-object already carries its geometry; only the
         # shared run length is added.
         rows.append(("bench.py:flagship", payload["flagship"], run_params))
+    for pol, row in sorted(payload.get("remat_sweep", {}).items()):
+        # One record per policy: the row's remat_policy keeps each its own
+        # lineage; the flagship geometry is added as for the flagship.
+        rows.append((f"bench.py:remat-sweep:{pol}", row,
+                     dict(run_params, model_family=FLAGSHIP_FAMILY,
+                          per_device_batch=FLAGSHIP_PER_DEVICE_BATCH,
+                          grad_accum=FLAGSHIP_GRAD_ACCUM,
+                          layer_loop=FLAGSHIP_LAYER_LOOP)))
     return rows
 
 
@@ -302,6 +343,16 @@ def main(argv=None):
                 "grad_accum": FLAGSHIP_GRAD_ACCUM,
                 "layer_loop": FLAGSHIP_LAYER_LOOP,
             }
+        if args.remat_sweep:
+            sweep = {}
+            for pol in REMAT_SWEEP_POLICIES:
+                result, sweep[pol] = measure_row(
+                    args, model_family=FLAGSHIP_FAMILY,
+                    per_device_batch=FLAGSHIP_PER_DEVICE_BATCH,
+                    grad_accum=FLAGSHIP_GRAD_ACCUM, attention_impl="flash", dropout=None,
+                    remat=pol)
+                results.append(result)
+            payload["remat_sweep"] = sweep
         if dist_rt.is_main_process():
             print(json.dumps(payload), flush=True)
             record_in_registry(args, payload, backend=top.backend)

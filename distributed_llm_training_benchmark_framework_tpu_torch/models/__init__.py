@@ -1,5 +1,5 @@
 from .llama import get_llama_config
-from .tinygpt import TinyGPT, TinyGPTConfig, count_params, get_model_config
+from .tinygpt import TinyGPT, TinyGPTConfig, count_params, draw_mask_seeds, get_model_config
 
 MODEL_FAMILIES = ("tinygpt", "llama")
 
@@ -14,6 +14,6 @@ def get_config(model_family: str, tier: str, seq_len: int, **overrides) -> TinyG
 
 
 __all__ = [
-    "MODEL_FAMILIES", "TinyGPT", "TinyGPTConfig", "count_params", "get_config",
-    "get_llama_config", "get_model_config",
+    "MODEL_FAMILIES", "TinyGPT", "TinyGPTConfig", "count_params", "draw_mask_seeds",
+    "get_config", "get_llama_config", "get_model_config",
 ]

@@ -33,8 +33,8 @@ Remat (``config.remat``, JAX's policies) wraps each block in
 block in the backward; ``dots`` keeps the outputs of the x @ W products
 (``aten.mm`` / ``aten.addmm``, JAX's ``dots_with_no_batch_dims_saveable``)
 and recomputes the rest, attention included. A block's MLP dropout mask is
-drawn from the explicit generator before the block runs and passed in, so
-a recompute reuses it (checkpoint restores only the default generators);
+drawn from its site seed before the block runs and passed in, so a
+recompute reuses it (checkpoint restores only the default generators);
 the attention mask is a hash of a host seed and needs nothing.
 
 The LM head gives fp32 logits from bf16 operands without rounding them to
@@ -69,13 +69,18 @@ holds global layer ``layer_ids[i]``. The leaves outside the blocks are on
 every stage, as JAX's ``pipeline_param_specs`` replicates them. A schedule
 calls the model one unit at a time (``StageUnit``): ``embed``, a chunk's
 blocks (``run_blocks``) and the final norm, head and loss (``head_loss``).
-A unit draws its embedding and MLP dropout masks from generators seeded by
-(step, micro-batch, global layer), one seed each (``mask_seeds``: the
-embedding's, then layer l's at 1 + l), so every schedule and every
-recompute of a unit draws the same masks, as JAX folds the global layer
-into its key; the attention seeds are indexed by global layer as well.
-The whole model's forward without a pipeline keeps drawing its masks from
-the one generator in layer order.
+A unit's embedding and MLP dropout masks come from one seed per site and
+micro-batch (``mask_seeds``: the embedding's, then layer l's at 1 + l), so
+every schedule and every recompute of a unit draws the same masks, as JAX
+folds the global layer into its key; the attention seeds are indexed by
+global layer as well. The whole model's forward takes the same seeds.
+
+Within a site, global batch row r draws its keep-mask at the full
+sequence from a generator seeded ``row_seed(site seed, r)``, and keeps its
+rank's columns of it in a buffer of their own. So a row's mask does not
+depend on which rank draws it (every layout of one global batch draws the
+same masks), and a rank draws and keeps only its own rows and columns: its
+masks do not grow with ``data``, as JAX draws each device's shard only.
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -271,15 +276,44 @@ def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
     return torch.cat((x1 * cos - x2 * sin, x2 * cos + x1 * sin), dim=-1).to(x.dtype)
 
 
-def _dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
-                  device, window: Optional[Tuple[slice, slice]] = None) -> Optional[torch.Tensor]:
-    """Keep mask of inverted dropout, drawn from an explicit generator (None:
-    no dropout). ``window`` (rows, columns): the mask is drawn at ``shape``,
-    the global (batch, sequence, ...) one, and this slice of it is kept."""
-    if rate == 0.0 or generator is None:
+_M64 = (1 << 64) - 1
+
+
+def row_seed(seed: int, row: int) -> int:
+    """The generator seed of global batch row ``row`` at a dropout site
+    seeded ``seed``: splitmix64's finalizer over seed + (row + 1) times the
+    golden ratio, cut to 63 bits."""
+    z = (seed + (row + 1) * 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def draw_mask_seeds(generator: torch.Generator, n_layer: int) -> List[int]:
+    """One site seed each for the embedding and the ``n_layer`` MLPs (layer
+    l's at 1 + l), drawn from ``generator`` (a device generator's draw is
+    read back to the host)."""
+    return torch.randint(0, 2**62, (n_layer + 1,), generator=generator,
+                         device=generator.device, dtype=torch.int64).tolist()
+
+
+def _dropout_mask(seed: Optional[int], rate: float, rows: range, row_shape: Tuple[int, ...],
+                  cols: slice, device) -> Optional[torch.Tensor]:
+    """Keep mask of inverted dropout for the global batch rows ``rows`` of
+    the site seeded ``seed`` (None: no dropout), shape (len(rows), the
+    columns ``cols`` of ``row_shape[0]``, *row_shape[1:]). Row r is drawn at
+    ``row_shape`` (the full sequence) from a generator seeded
+    ``row_seed(seed, r)`` and its window written into a buffer of exactly
+    the kept size, so no kept mask holds a larger storage alive."""
+    if rate == 0.0 or seed is None:
         return None
-    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - rate
-    return keep if window is None else keep[window]
+    n_cols = len(range(row_shape[0])[cols])
+    keep = torch.empty((len(rows), n_cols, *row_shape[1:]), dtype=torch.bool, device=device)
+    for i, r in enumerate(rows):
+        gen = torch.Generator(device=device).manual_seed(row_seed(seed, r))
+        torch.lt(torch.rand(row_shape, generator=gen, device=device)[cols], 1.0 - rate,
+                 out=keep[i])
+    return keep
 
 
 def _apply_dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float):
@@ -696,7 +730,7 @@ class TinyGPT(nn.Module):
         targets: Optional[torch.Tensor] = None,  # (B, S), -1 = ignore
         *,
         attn_seeds: Optional[Sequence[int]] = None,
-        generator: Optional[torch.Generator] = None,
+        mask_seeds: Optional[Sequence[int]] = None,
         batch_offset: int = 0,
         global_batch: Optional[int] = None,
         unit: Optional[StageUnit] = None,
@@ -709,22 +743,23 @@ class TinyGPT(nn.Module):
         adds ``router_aux_coef`` times the layers' mean aux (JAX's).
 
         ``attn_seeds`` gives one uint32 attention-dropout seed per layer and
-        ``generator`` draws the embedding / MLP dropout masks; both None means
-        deterministic (no dropout anywhere), as in JAX without a key.
-        ``batch_offset`` is the global batch index of row 0 of ``idx`` (a
-        data-parallel rank's first row), which keys the attention mask.
-        ``global_batch``: the rows of the global batch; the embedding and MLP
-        masks are drawn for all of them at the full sequence length and
-        sliced to rows ``[batch_offset, batch_offset + B)`` and this rank's
-        columns, so every layout of the same global batch draws the same
-        masks (None: this call's B rows are the whole batch).
+        ``mask_seeds`` the embedding / MLP dropout masks' site seeds (the
+        embedding's, then layer l's at 1 + l; ``draw_mask_seeds`` draws
+        them from a generator); both None means deterministic (no dropout
+        anywhere), as in JAX without a key. ``batch_offset`` is the global
+        batch index of row 0 of ``idx`` (a data-parallel rank's first row),
+        which keys the attention mask and the rows' embedding / MLP masks.
+        ``global_batch``: the rows of the global batch (None: this call's B
+        rows are the whole batch, rows 0..B-1); each row's mask is drawn at
+        the full sequence length and cut to this rank's columns, so every
+        layout of the same global batch draws the same masks.
 
         ``unit``: one unit of a pipeline stage instead (``run_unit``); a
         schedule calls the model so, through the arm's wrapper."""
         if unit is not None:
             return self.run_unit(idx, targets, unit, attn_seeds, batch_offset, global_batch)
         c = self.config
-        x, aux = self._trunk(idx, attn_seeds, generator, batch_offset, global_batch)
+        x, aux = self._trunk(idx, attn_seeds, mask_seeds, batch_offset, global_batch)
         logits, loss = self._head(x, targets)
         if loss is not None and c.n_experts > 0:
             loss = loss + c.router_aux_coef * aux / c.n_layer
@@ -758,24 +793,22 @@ class TinyGPT(nn.Module):
 
     def _mask_geometry(self, B: int, S: int, batch_offset: int,
                        global_batch: Optional[int]):
-        """(this rank's columns of the stream, the dropout masks' drawn
-        shape or None for the stream's own, the window kept of it) for B
-        rows of S tokens (before the collective matmul's cut)."""
+        """(this rank's columns of the stream, the global rows of the
+        dropout masks, a row's drawn shape) for B rows of S tokens (before
+        the collective matmul's cut)."""
         s, n = self.seq_shard
         m, t = self.tp
         cols = slice(s * S, (s + 1) * S)
         if self.cmm:
             cols = slice(m * (S // t), (m + 1) * (S // t))
-        if (global_batch or B) == B and n == 1 and not self.cmm:
-            return cols, None, None
         row0 = batch_offset if global_batch is not None else 0
-        return cols, (global_batch or B, S * n, self.config.n_embd), (slice(row0, row0 + B), cols)
+        return cols, range(row0, row0 + B), (S * n, self.config.n_embd)
 
-    def embed(self, idx: torch.Tensor, generator: Optional[torch.Generator],
+    def embed(self, idx: torch.Tensor, mask_seed: Optional[int],
               batch_offset: int = 0, global_batch: Optional[int] = None) -> torch.Tensor:
-        """Token (+ learned position) embedding and its dropout, from
-        ``generator`` (None: no dropout) -> the stream in the compute
-        dtype."""
+        """Token (+ learned position) embedding and its dropout, from the
+        site seed ``mask_seed`` (None: no dropout) -> the stream in the
+        compute dtype."""
         c = self.config
         B, S = idx.shape
         s, n = self.seq_shard
@@ -784,7 +817,7 @@ class TinyGPT(nn.Module):
         if S * n > c.block_size:
             raise ValueError(f"Sequence {S * n} exceeds block size {c.block_size}")
         v0 = m * (c.vocab_size // t)
-        cols, mask_shape, window = self._mask_geometry(B, S, batch_offset, global_batch)
+        cols, rows, row_shape = self._mask_geometry(B, S, batch_offset, global_batch)
         if group is None:
             tok = self.wte[idx]
         elif self.cmm:
@@ -801,32 +834,33 @@ class TinyGPT(nn.Module):
                 c.compute_dtype)
         else:
             x = tok.to(c.compute_dtype)
-        return _apply_dropout(x, _dropout_mask(mask_shape or x.shape, c.dropout, generator,
-                                               x.device, window), c.dropout)
+        return _apply_dropout(x, _dropout_mask(mask_seed, c.dropout, rows, row_shape, cols,
+                                               x.device), c.dropout)
 
     def run_blocks(self, x: torch.Tensor, blocks: Sequence[int],
                    attn_seeds: Optional[Sequence[int]],
-                   generators: Sequence[Optional[torch.Generator]], batch_offset: int = 0,
+                   mask_seeds: Optional[Sequence[int]], batch_offset: int = 0,
                    global_batch: Optional[int] = None, moe_aux_mode: Optional[str] = None):
         """The local blocks ``blocks`` (indices into ``self.blocks``) over the
         stream x -> (the stream, their summed MoE aux or None). Block i's
-        attention seed is ``attn_seeds[layer_ids[i]]`` (indexed by global
-        layer) and its MLP mask comes from its generator, one per block of
-        ``blocks`` (None: no dropout)."""
+        attention seed is ``attn_seeds[layer_ids[i]]`` and its MLP mask's site
+        seed ``mask_seeds[1 + layer_ids[i]]``, both indexed by global layer
+        (None: no dropout)."""
         c = self.config
         s, n = self.seq_shard
         m, t = self.tp
         B = x.shape[0]
         S = x.shape[1] * (t if self.cmm else 1)
         pos0 = s * S
-        _, mask_shape, window = self._mask_geometry(B, S, batch_offset, global_batch)
+        cols, rows, row_shape = self._mask_geometry(B, S, batch_offset, global_batch)
         remat = normalize_remat(c.remat)
         aux = None
-        for i, gen in zip(blocks, generators):
+        for i in blocks:
             block = self.blocks[i]
             seed = attn_seeds[block.layer_id] if attn_seeds is not None else None
+            mask_seed = mask_seeds[1 + block.layer_id] if mask_seeds is not None else None
             args = (x, self.attention, seed if c.dropout > 0.0 else None,
-                    _dropout_mask(mask_shape or x.shape, c.dropout, gen, x.device, window),
+                    _dropout_mask(mask_seed, c.dropout, rows, row_shape, cols, x.device),
                     batch_offset, pos0, moe_aux_mode)
             if remat == "none":
                 x = block(*args)
@@ -838,15 +872,15 @@ class TinyGPT(nn.Module):
                 aux = layer_aux if aux is None else aux + layer_aux
         return x, aux
 
-    def _trunk(self, idx, attn_seeds, generator, batch_offset, global_batch,
+    def _trunk(self, idx, attn_seeds, mask_seeds, batch_offset, global_batch,
                moe_aux_mode: Optional[str] = None):
         """Embedding and blocks -> (the stream before the final norm, the
-        layers' summed MoE aux or None); every mask from ``generator``, in
-        layer order."""
-        x = self.embed(idx, generator, batch_offset, global_batch)
-        return self.run_blocks(x, range(len(self.blocks)), attn_seeds,
-                               [generator] * len(self.blocks), batch_offset, global_batch,
-                               moe_aux_mode)
+        layers' summed MoE aux or None); masks from the site seeds
+        ``mask_seeds`` (None: no dropout)."""
+        x = self.embed(idx, mask_seeds[0] if mask_seeds is not None else None, batch_offset,
+                       global_batch)
+        return self.run_blocks(x, range(len(self.blocks)), attn_seeds, mask_seeds, batch_offset,
+                               global_batch, moe_aux_mode)
 
     def head_loss(self, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Final norm, head and cross-entropy over the stream x: the mean
@@ -862,21 +896,17 @@ class TinyGPT(nn.Module):
         loss against ``targets`` -> (the stream or the loss, the chunk's MoE
         aux or None). Masks come from ``unit.mask_seeds``."""
         c = self.config
-        seeds = unit.mask_seeds if c.dropout > 0.0 else None
-
-        def gen(i: int) -> Optional[torch.Generator]:
-            if seeds is None:
-                return None
-            return torch.Generator(device=inp.device).manual_seed(int(seeds[i]))
-
-        x = self.embed(inp, gen(0), batch_offset, global_batch) if unit.embed else inp
+        seeds = [int(v) for v in unit.mask_seeds] if c.dropout > 0.0 and unit.mask_seeds else None
+        if unit.embed:
+            x = self.embed(inp, seeds[0] if seeds is not None else None, batch_offset,
+                           global_batch)
+        else:
+            x = inp
         aux = None
         if unit.chunk is not None:
             lc = self.chunk_layers
             local = range(unit.chunk * lc, (unit.chunk + 1) * lc)
-            x, aux = self.run_blocks(x, local, attn_seeds,
-                                     [gen(1 + self.layer_ids[i]) for i in local], batch_offset,
-                                     global_batch)
+            x, aux = self.run_blocks(x, local, attn_seeds, seeds, batch_offset, global_batch)
         if unit.head:
             x = self.head_loss(x, targets)
         return x, aux
@@ -898,7 +928,7 @@ def moe_overflow_fraction(model: TinyGPT, idx: torch.Tensor, batch_offset: int =
         n = len(model.blocks)
         aux = pipeline.forward_only(
             lambda: model.embed(idx, None, batch_offset, global_batch),
-            lambda x: model.run_blocks(x, range(n), None, [None] * n, batch_offset,
+            lambda x: model.run_blocks(x, range(n), None, None, batch_offset,
                                        global_batch, "overflow"),
             (*idx.shape, model.config.n_embd), model.config.compute_dtype)
     return aux / model.config.n_layer

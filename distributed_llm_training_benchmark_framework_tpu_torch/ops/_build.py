@@ -18,14 +18,19 @@ wrappers the first time they launch.
 
 ``LAUNCHES`` is the one record of kernel launches, one count per kernel
 mode: a wrapper calls ``launched`` where it launches its kernel and nowhere
-else, and ``reset_launch_counts`` zeroes them all.
+else, and ``reset_launch_counts`` zeroes them all. A process whose
+environment names a directory in ``KERNEL_LAUNCHES_DIR`` writes its counts
+there as ``launches_<pid>.json`` when it exits, once it has launched a
+kernel, so a parent can count the launches of the processes it started.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -155,11 +160,24 @@ def load() -> Dict[str, ctypes.CDLL]:
 
 
 LAUNCHES: Dict[str, int] = collections.Counter()
+LAUNCHES_DIR_ENV = "KERNEL_LAUNCHES_DIR"
+_dump_armed = False
+
+
+def _dump_launches(directory: str) -> None:
+    with open(os.path.join(directory, f"launches_{os.getpid()}.json"), "w") as f:
+        json.dump(dict(LAUNCHES), f)
 
 
 def launched(mode: str) -> None:
     """Count one launch of a kernel mode (e.g. ``flash_bwd_dq_fp32``)."""
+    global _dump_armed
     LAUNCHES[mode] += 1
+    if not _dump_armed:
+        _dump_armed = True
+        directory = os.environ.get(LAUNCHES_DIR_ENV)
+        if directory:
+            atexit.register(_dump_launches, directory)
 
 
 def reset_launch_counts() -> None:

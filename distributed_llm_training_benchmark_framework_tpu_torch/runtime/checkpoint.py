@@ -52,8 +52,8 @@ rank's parts back out. It holds:
   fp32 masters ``opt/master/...`` and moments, the host's count and, in
   the delayed form, the pending gradient slot ``opt/pending/...`` with its
   clip scale;
-- both dropout generators of the step (``rng/seed_gen``, the CPU one, and
-  ``rng/mask_gen``, the device one), which run on from step to step.
+- the step's dropout generator (``rng/seed_gen``, on the CPU; every
+  dropout mask is seeded from its draws), which runs on from step to step.
 
 zero2's buckets are gathered whole over ``data`` at save time (its shards
 are slices of flat per-block buffers, not row blocks of a leaf), and a
@@ -237,7 +237,7 @@ class TrainState:
     def _generators(self) -> Dict[str, torch.Generator]:
         if self.step_fn is None:
             return {}
-        return {"rng/seed_gen": self.step_fn.seed_gen, "rng/mask_gen": self.step_fn.mask_gen}
+        return {"rng/seed_gen": self.step_fn.seed_gen}
 
     # -- shapes ----------------------------------------------------------------
 

@@ -36,8 +36,8 @@ boundaries, so it adds no device sync and no collective to a timed window:
   first dispatch), the step cursor rewinds (``_StepCursor``), the poisoned
   tail leaves the timed lists, and the run replays; a save over an open
   trip is skipped. On the synthetic path a replay reads the table at
-  ``step + k * steps`` after k rollbacks and reseeds both dropout
-  generators (``TrainStep.reseed``), so it draws fresh rows and masks; on
+  ``step + k * steps`` after k rollbacks and reseeds the dropout
+  generator (``TrainStep.reseed``), so it draws fresh rows and masks; on
   the stream it re-consumes the same records;
 - the streaming input path (``data_path``: ``data/stream.py`` behind
   ``data/prefetch.py``) replaces the table. The prefetcher's ``get`` is the
@@ -942,7 +942,7 @@ def run_benchmark(
             """The whole heal of an open trip: restore, drop the poisoned tail
             from the timed lists (and ``loss_log``), record the rollback,
             rewind the step cursor and the input (the stream's cursor, or the
-            dropout generators on a fresh stream: the synthetic path also
+            dropout generator on a fresh stream: the synthetic path also
             folds the replay count into the table's row index)."""
             if numerics.trip is None:
                 return False
@@ -1307,7 +1307,7 @@ def run_benchmark(
             param_dtype=strat.param_dtype, offload_opt_state=strat.offload_opt_state,
             offload_delayed_update=asked.offload_delayed_update,
             offload_dpu_start_step=offload_dpu_start_step,
-            expert_parallel=expert_parallel, n_experts=n_experts,
+            expert_parallel=expert_parallel, n_experts=n_experts, remat_policy=cfg.remat,
             expert_overflow_pct=overflow, pipeline_parallel=pipeline_parallel,
             pipeline_schedule=pipeline_schedule,
             virtual_stages=virtual_stages if interleaved else 1,

@@ -41,16 +41,18 @@ replicated over ``model``, as JAX's batch spec names no ``model`` axis);
 each computes the whole loss (``parallel/tensor.py``'s vocab-parallel loss),
 so the mean over every rank of the group is still the global mean.
 
-Dropout randomness comes from explicit generators seeded from ``seed``: one
-uint32 attention-dropout seed per (step, micro, layer) from a CPU generator
-(a host integer, so no device sync, and the same on every rank, as the
-ranks of a ring must agree), and the embedding / MLP masks from a generator
-on the training device, drawn for the whole global micro-batch at the full
-sequence length and sliced to this rank's rows and columns
+Dropout randomness comes from one CPU generator seeded from ``seed`` (host
+integers, so no device sync, and the same on every rank, as the ranks of a
+ring must agree): per (step, micro) one uint32 attention-dropout seed per
+layer, then n_layer + 1 site seeds for the embedding / MLP masks (the
+embedding's and each layer's). Each global batch row draws its mask from
+its own generator seeded from (site seed, row), at the full sequence
+length, and a rank draws only its rows and keeps only its columns
 (``TinyGPT.forward``'s ``global_batch``): a run over a (data, seq) group
-draws the masks of the one-process run of the same global batch. JAX draws
-from its own PRNG, which no torch generator reproduces, so with dropout > 0
-the two agree only statistically; with dropout 0 they agree step for step.
+draws the masks of the one-process run of the same global batch, and a
+rank's masks do not grow with ``data``. JAX draws from its own PRNG, which
+no torch generator reproduces, so with dropout > 0 the two agree only
+statistically; with dropout 0 they agree step for step.
 
 Under pipeline parallelism (a ``pipe`` axis, ``parallel/pipeline.py``) the
 step's (accum, batch, S) micro-batches are the schedule's M microbatches
@@ -60,7 +62,8 @@ forward and backward units (each microbatch's loss entering as loss / M),
 and the arm reduces and steps. The step draws, per microbatch, the attention
 seeds of all n_layer layers and n_layer + 1 mask seeds (the embedding's and
 each layer's) from the CPU generator, the same on every rank, and each
-stage uses those of its layers, so every schedule draws the same masks.
+stage uses those of its layers, so every schedule draws the same masks,
+and the same as the step without a pipeline.
 The loss is the last stage's mean (plus, with experts, every stage's aux
 term), summed over the group and divided by M and the ranks of one stage.
 
@@ -77,8 +80,8 @@ its fenced boundary with the loss, so it adds no host sync. A pipelined
 step leaves None, as JAX's pipelined arms return no norm. ``param_checksum`` is the
 parameters' fp32 global norm (JAX ``make_param_norm_fn``).
 
-``reseed(seed, k)`` puts both dropout generators on a fresh stream, the
-k-th replay's: the sentinel's rollback restores the generators with the
+``reseed(seed, k)`` puts the dropout seeds' generator on a fresh stream, the
+k-th replay's: the sentinel's rollback restores the generator with the
 parameters, and a replay of the synthetic path must not redraw the
 poisoned pass's masks (JAX folds ``k * steps`` into the step index, whose
 keys feed its dropout).
@@ -115,19 +118,16 @@ class TrainStep:
         self.loss_group = mesh.group if mesh is not None else None
         self.world = mesh.world if mesh is not None else 1
         self.seed_gen = torch.Generator().manual_seed(seed)
-        self.mask_gen = torch.Generator(device=device).manual_seed(seed)
         self.pipeline = pipeline
         # The ranks of one pipeline stage (the whole group without a pipeline).
         self.stage_ranks = self.world // (mesh.size("pipe") if mesh is not None else 1)
         optimizer.track_grad_norm = sentinel and pipeline is None
 
     def reseed(self, seed: int, k: int) -> None:
-        """Both dropout generators on the stream of replay ``k`` (>= 1): the
-        seed ``seed + k * 0x9E3779B97F4A7C15`` modulo 2**63, a stream no
+        """The dropout seeds' generator on the stream of replay ``k`` (>= 1):
+        the seed ``seed + k * 0x9E3779B97F4A7C15`` modulo 2**63, a stream no
         earlier pass drew from."""
-        s = (seed + k * 0x9E3779B97F4A7C15) % 2**63
-        self.seed_gen.manual_seed(s)
-        self.mask_gen.manual_seed(s)
+        self.seed_gen.manual_seed((seed + k * 0x9E3779B97F4A7C15) % 2**63)
 
     def param_checksum(self) -> torch.Tensor:
         """The parameters' fp32 global L2 norm, a 0-d device tensor
@@ -190,13 +190,16 @@ class TrainStep:
         row0 = self.member * self.micro_batch
         if self.pipeline is not None:
             return self._pipelined(batch, row0, global_micro)
-        gen = self.mask_gen if self.config.dropout > 0.0 else None
         self.optimizer.zero_grad()
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         for j, micro in enumerate(batch):
+            # The pipeline's order of draws: one micro-batch's attention
+            # seeds, then its mask seeds.
+            attn_seeds = self._attn_seeds()
             with self.optimizer.sync_context(last=j == self.grad_accum - 1):
-                _, loss = self.model(micro, micro, attn_seeds=self._attn_seeds(), generator=gen,
-                                     batch_offset=row0, global_batch=global_micro)
+                _, loss = self.model(micro, micro, attn_seeds=attn_seeds,
+                                     mask_seeds=self._mask_seeds(), batch_offset=row0,
+                                     global_batch=global_micro)
                 loss.backward()
             loss_sum += loss.detach()
         self.optimizer.finish_grads(self.grad_accum)

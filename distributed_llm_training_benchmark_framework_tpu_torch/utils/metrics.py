@@ -35,7 +35,8 @@ all the same), as JAX's ``BenchmarkResult`` does, and so its
 (the batch shards over data x expert), so a step takes ``pd * accum * S *
 dp * ep`` tokens (JAX's ``tokens_per_step``); a MoE row stamps
 ``expert_parallel``, ``n_experts`` and ``expert_overflow_pct`` (None for a
-dense row).
+dense row). ``remat_policy`` is the policy the run executed with (a
+strategy's ``auto`` resolved).
 
 The run-time layer's keys (JAX's ``utils/metrics.py``): ``resumed``,
 ``n_restarts``, ``resume_step``, ``resume_baseline_loss`` and
@@ -225,6 +226,9 @@ class BenchmarkResult:
     # on the trained params (None for a dense row).
     expert_parallel: int = 1
     n_experts: int = 0
+    # The remat policy the run executed with ("none"/"dots"/"full"; a
+    # strategy's "auto" resolved by the memory model), JAX's key.
+    remat_policy: str = "none"
     expert_overflow_pct: Optional[float] = None
     # Pipeline ('pipe') width over the group, its schedule (meaningful when
     # pipeline_parallel > 1) and the interleaved schedule's chunks per stage.
@@ -263,7 +267,7 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    tp_collective_matmul: bool = False, param_dtype: str = "f32",
                    offload_opt_state: bool = False, offload_delayed_update: bool = False,
                    offload_dpu_start_step: int = 0, expert_parallel: int = 1,
-                   n_experts: int = 0,
+                   n_experts: int = 0, remat_policy: str = "none",
                    expert_overflow_pct: Optional[float] = None, pipeline_parallel: int = 1,
                    pipeline_schedule: str = "gpipe",
                    virtual_stages: int = 1, resumed: bool = False, n_restarts: int = 0,
@@ -343,7 +347,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         tp_collective_matmul=tp_collective_matmul, param_dtype=param_dtype,
         offload_opt_state=offload_opt_state, offload_delayed_update=offload_delayed_update,
         offload_dpu_start_step=offload_dpu_start_step, expert_parallel=expert_parallel,
-        n_experts=n_experts, expert_overflow_pct=expert_overflow_pct,
+        n_experts=n_experts, remat_policy=remat_policy,
+        expert_overflow_pct=expert_overflow_pct,
         pipeline_parallel=pipeline_parallel, pipeline_schedule=pipeline_schedule,
         virtual_stages=virtual_stages, n_rollbacks=n_rollbacks,
         rollback_steps_replayed=rollback_steps_replayed, data_mode=data_mode,

@@ -3,7 +3,8 @@
 
     python3 scripts/torch_step_profile.py [--rows parity flagship parity_ring flagship_ring
                                                   parity_ulysses flagship_ulysses
-                                                  parity_s8192 flagship_s8192 moe moe_bf16]
+                                                  parity_s8192 flagship_s8192 moe moe_bf16
+                                                  parity_pd2 flagship_dots flagship_full]
                                           [--arms ddp fsdp zero2 zero3]
                                           [--steps 3]
                                           [--out chiprun_out/torch_step_profile.json]
@@ -17,7 +18,9 @@ Ulysses head groups, and parity_s8192 / flagship_s8192, the same geometry
 through flash attention with no sequence shards: the work Ulysses does
 around the same kernels, in one process, is the difference; and moe /
 moe_bf16: the parity row with 8 experts, top-2, capacity 1.25, the 1.18B
-MoE model, at fp32 and bf16 parameters)
+MoE model, at fp32 and bf16 parameters; parity_pd2: the parity row at b2 x
+accum 2, two rows a micro-batch, each drawing its own dropout masks;
+flagship_dots / flagship_full: the flagship under remat dots / full)
 it builds the run exactly as ``train.loop.run_benchmark`` does, takes 3
 warmup steps, times ``--steps`` steps on the host clock (synchronised), and
 profiles the same number of steps with ``torch.profiler``. It reports, per
@@ -68,6 +71,11 @@ ROWS = {
                 n_experts=8),
     "moe_bf16": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, seq_len=2048,
                      n_experts=8, param_dtype="bf16"),
+    "parity_pd2": dict(model_family="tinygpt", per_device_batch=2, grad_accum=2, seq_len=2048),
+    "flagship_dots": dict(model_family="llama", per_device_batch=2, grad_accum=2, seq_len=2048,
+                          remat="dots"),
+    "flagship_full": dict(model_family="llama", per_device_batch=2, grad_accum=2, seq_len=2048,
+                          remat="full"),
 }
 
 
@@ -111,7 +119,9 @@ def profile_row(name: str, steps: int, strategy: str = "zero2") -> dict:
     from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 
     row = dict(ROWS[name])
-    arm = dataclasses.replace(get_strategy(strategy), param_dtype=row.pop("param_dtype", "f32"))
+    arm = get_strategy(strategy)
+    arm = dataclasses.replace(arm, param_dtype=row.pop("param_dtype", "f32"),
+                              remat=row.pop("remat", arm.remat))
     run = build_run(tier="A", device="cuda", strategy=arm, **row)
     step = 0
     for _ in range(3):

@@ -319,14 +319,15 @@ def test_attribution_classes_are_jaxs():
 
 def port_line(line):
     """JAX's report line as the port writes it: the title, the arms'
-    trade-off blurbs and the remat frontier's headroom note are the only
-    lines that differ (``make_report``)."""
+    trade-off blurbs and the remat frontier's headroom note (with the
+    port's window note) are the only lines that differ (``make_report``)."""
     if line == "# TPU Distributed Training Benchmark Report":
         return treport.TITLE
     for arm, (_, blurb) in jreport.TRADEOFFS.items():
         if line == blurb:
             return treport.TRADEOFFS[arm][1]
-    return line.replace("(blank off-TPU).", "(blank off the card).")
+    return line.replace("(blank off-TPU).",
+                        "(blank off the card). " + treport.FRONTIER_WINDOW_NOTE)
 
 
 def _registry(tmp_path, store_mod, dirs):

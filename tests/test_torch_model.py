@@ -17,7 +17,11 @@ import torch
 from distributed_llm_training_benchmark_framework_tpu.models import llama as jllama
 from distributed_llm_training_benchmark_framework_tpu.models import tinygpt as jtiny
 from distributed_llm_training_benchmark_framework_tpu_torch import bridge
-from distributed_llm_training_benchmark_framework_tpu_torch.models import TinyGPT, get_config
+from distributed_llm_training_benchmark_framework_tpu_torch.models import (
+    TinyGPT,
+    draw_mask_seeds,
+    get_config,
+)
 
 S = 64
 JAX_CONFIG = {"tinygpt": jtiny.get_model_config, "llama": jllama.get_llama_config}
@@ -81,11 +85,13 @@ def test_logits_loss_grads_match_jax(family, dtype, impl):
 
 def test_causal_tinygpt_and_dropout_paths_run():
     """Options off the bench path still run: causal TinyGPT, and dropout with
-    explicit seeds and generator (masks differ from JAX's, so only shapes and
+    explicit seeds (masks differ from JAX's, so only shapes and
     finiteness are checked)."""
     model = TinyGPT(get_config("tinygpt", "S", S, causal=True, dropout=0.1,
                                attention_impl="flash"))
     model.init_weights(torch.Generator().manual_seed(0))
     idx = torch.randint(0, 512, (2, S), generator=torch.Generator().manual_seed(0))
-    logits, loss = model(idx, idx, attn_seeds=[1, 2], generator=torch.Generator().manual_seed(0))
+    logits, loss = model(idx, idx, attn_seeds=[1, 2],
+                         mask_seeds=draw_mask_seeds(torch.Generator().manual_seed(0),
+                                                    model.config.n_layer))
     assert logits.shape == (2, S, 512) and torch.isfinite(loss)

@@ -1,10 +1,10 @@
 """Per-layer remat of the port's model (``models/tinygpt.py``).
 
 ``dots`` and ``full`` recompute in the backward what ``none`` keeps, so
-with the same weights, seeds and generator they must give the same
-gradients, at dropout 0.1 too: the MLP mask comes from an explicit
-generator that ``torch.utils.checkpoint`` does not restore, so a recompute
-that drew its own would drop other elements. At dropout 0 the gradients
+with the same weights and seeds they must give the same gradients, at
+dropout 0.1 too: the MLP mask is drawn from its site seed before the block
+runs, since ``torch.utils.checkpoint`` restores no explicit generator and a
+recompute that drew its own would drop other elements. At dropout 0 the gradients
 are also held to the JAX model's under the same policy (tier S, fp32,
 flash attention, the tolerance of tests/test_torch_model.py: 5e-3).
 """
@@ -18,7 +18,11 @@ import torch
 from distributed_llm_training_benchmark_framework_tpu.models import llama as jllama
 from distributed_llm_training_benchmark_framework_tpu.models import tinygpt as jtiny
 from distributed_llm_training_benchmark_framework_tpu_torch import bridge
-from distributed_llm_training_benchmark_framework_tpu_torch.models import TinyGPT, get_config
+from distributed_llm_training_benchmark_framework_tpu_torch.models import (
+    TinyGPT,
+    draw_mask_seeds,
+    get_config,
+)
 
 S = 64
 JAX_CONFIG = {"tinygpt": jtiny.get_model_config, "llama": jllama.get_llama_config}
@@ -34,8 +38,9 @@ def _grads(family, remat, dropout, params=None):
     idx = torch.randint(0, model.config.vocab_size, (2, S),
                         generator=torch.Generator().manual_seed(1))
     seeds = [11, 12] if dropout > 0 else None
-    gen = torch.Generator().manual_seed(3) if dropout > 0 else None
-    _, loss = model(idx, idx, attn_seeds=seeds, generator=gen)
+    masks = (draw_mask_seeds(torch.Generator().manual_seed(3), model.config.n_layer)
+             if dropout > 0 else None)
+    _, loss = model(idx, idx, attn_seeds=seeds, mask_seeds=masks)
     loss.backward()
     return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}, idx
 

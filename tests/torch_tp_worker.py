@@ -39,7 +39,7 @@ steps by ``TrainStep``. ``MODE``:
   on ``INPUTS``' ``x``, ``w1``, ``y``, ``w2``, ``wkv`` with the gradients
   of the sums of their outputs. Then TinyGPT at dropout 0.1 under remat
   none, dots and full, with and without the collective matmul: the loss
-  and gradients of one forward and backward (same seeds and generator).
+  and gradients of one forward and backward (same seeds).
 
 Writes ``OUT.rank<RANK>.npz`` and ``OUT.rank<RANK>.json``. The tests start
 the ranks with ``spawn_ranks`` and wait with ``wait_ranks``.
@@ -58,7 +58,11 @@ import torch
 import torch.distributed as dist
 
 from distributed_llm_training_benchmark_framework_tpu_torch import bridge
-from distributed_llm_training_benchmark_framework_tpu_torch.models import TinyGPT, get_config
+from distributed_llm_training_benchmark_framework_tpu_torch.models import (
+    TinyGPT,
+    draw_mask_seeds,
+    get_config,
+)
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import collective_matmul as tcm
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import ring_attention as tra
 from distributed_llm_training_benchmark_framework_tpu_torch.ops import ulysses_attention as tua
@@ -321,8 +325,8 @@ def cmm(rank, world, data, out):
                          dropout=0.1, remat=remat)
             model = TinyGPT(cfg, mesh=mesh)
             bridge.load_jax_params(model, tree(data, "tinygpt"))
-            _, loss = model(batch, batch, attn_seeds=[7, 8],
-                            generator=torch.Generator().manual_seed(3))
+            _, loss = model(batch, batch, attn_seeds=[7, 8], mask_seeds=draw_mask_seeds(
+                torch.Generator().manual_seed(3), cfg.n_layer))
             loss.backward()
             res["remat"][label] = loss.item()
             arrays.update(flat(f"remat.{label}", _grads(model)))
