@@ -169,7 +169,8 @@ batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
     one card, joined over gloo (NCCL takes one rank per device; gloo
     carries the collectives of CUDA tensors through the host), train both
     rows at full tier-A width, S 2048, at ``tensor_parallel=2`` ((data 1,
-    model 2)), under ddp and zero2, ``TP_STEPS`` steps: per-step losses
+    model 2)), one pair under ddp and one under zero2, the two pairs at
+    once (four processes on the card), ``TP_STEPS`` steps: per-step losses
     within ``TP_LOSS_RTOL`` of the no-group run on one card (phases 3 and
     12 and a no-group ddp flagship run), both ranks equal, K1's ``bhv``
     instance, K2 and K3 each launched layers x micro-batches x steps times
@@ -252,7 +253,18 @@ no kernel of its own: each stage runs K1-K3 on whole layers):
     ``PIPE_VS_ONE_RTOL``; (c) where a gpipe step of (a) goes on each
     stage: the schedule, the arm's reduction with the sum of the
     replicated leaves over ``pipe``, the optimizer step (host clock, the
-    card synchronized around each), and that sum alone over gloo.
+    card synchronized around each), and that sum alone over gloo. The
+    probe's pair and (d)'s four processes run beside the stages' pair, so
+    (a)'s and (c)'s times, and (d)'s, are taken with all of them on the
+    card. (d) pipelines beside tensor parallelism: four processes
+    (``--pipe-tp-worker``), tp 2 x pp 2 over gloo, the parity row at
+    dropout 0 under zero2 and gpipe, 2 + 3 steps, each stage 8 layers of 8 heads with ``wte`` whole on both ``model``
+    ranks (JAX's layout under ``pipe``): K1's ``bhv`` instance, K2 and K3
+    32 launches per stage and step (``PIPE_TP_LAUNCHES``), the four ranks'
+    losses equal and within ``PIPE_TP_RTOL`` of (b)'s one-process run,
+    messages per step M(P-1) per direction and pipeline, and per rank the
+    tokens/s, step ms, peak against ``estimate_hbm`` and receive wait (four
+    processes time-sliced on one card: not a scaling number).
 
 The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
 ``telemetry/``, ``faults/``; no kernel of its own):
@@ -279,7 +291,8 @@ The run-time layer (``train/harness.py``, ``runtime/checkpoint.py``,
     event).
 21. the second half of the run-time layer (``faults/sentinel.py``,
     ``data/stream.py``, ``data/prefetch.py``), the parity row at full width:
-    (a) three harness subprocesses at once on the card: the row with
+    (a) three harness subprocesses at once on the card, beside phase 20
+    (b) / (d), phase 22 and phase 26: the row with
     ``--sentinel on --sentinel-checksum-every 4 --checkpoint-every 4
     --inject-fault bitflip@7`` (exit 0, ``n_rollbacks`` 1, every replayed
     loss finite, the restore's wall); ``opt-moments@5`` with the sentinel
@@ -320,8 +333,9 @@ The supervisor and the run registry (``runtime/supervisor.py``,
     name and power limit: each attempt's wall, the supervisor's own time
     between attempts (its wall less the children's, backoff 0), the
     probe's wall and the ingest / gate / csv / telemetry-report / report
-    walls. The phase runs beside phase 20 (b) and (d), so these walls are
-    taken with those processes on the same host and card.
+    walls. The phase runs beside phase 20 (b) and (d), phase 21 (a) and
+    phase 26, so these walls are taken with those processes on the same
+    host and card.
 
 The trace and memory anatomy (``analysis/{profile_summary,step_anatomy,
 memory_anatomy}.py``; no kernel of its own):
@@ -381,14 +395,43 @@ the bench's ``--remat-sweep``; no kernel of its own):
     per policy) K2-K3 16 x 4 x 12 + 16 x 2 x 12 x 4 times and K1 once more
     per layer under a recomputing policy. Printed beside the card's name and power limit:
     the walls of (a), of each stage of (b), the arms' tokens/s and peak
-    memory, the frontier (tokens/s, peak, headroom per policy). (a) runs
-    beside phase 24, which needs only the host: phase 24's walls are
-    taken with it running.
+    memory, the frontier (tokens/s, peak, headroom per policy). (a) starts
+    once phase 21 (a) is done, beside phase 20 (b) / (d), 22 and 26, and
+    goes on beside phase 24, which needs only the host: phase 24's walls
+    are taken with it running. (b) runs beside the last legs and the
+    analysis of phase 26: its arms' tokens/s and the frontier are taken
+    with those processes on the host and card.
+
+The scaling suite (``scripts/torch_scaling_suite.sh``; no kernel of its own):
+
+26. the suite with ``SCALING_ENV``: the parity row (tier A, S 2048, b1 x
+    accum 4, flash, dropout 0.1) under ddp at ws 1 and 2 (two gloo ranks on
+    the one card, ``DIST_BACKEND=gloo``: the curves prove the mechanics,
+    not scaling across cards; gloo cannot carry fsdp's gathers of CUDA
+    tensors, so the phase runs ddp), 8 steps, a save every 2, the grow leg
+    (ws 2 resuming ws 1's checkpoint) and the shrink leg (ws 1 resuming ws
+    2's), then the stamp, validator, ingest, curves, gate and report: exit
+    0, the fresh rows stamped with ``scaling_efficiency`` (ws 1: 1.0), the
+    stitch and shrink rows ``resumed`` and ``resume_geometry_changed`` and
+    skipped by the gate, the curves file, K1-K3 launched 16 x 4 per step in
+    every rank process (``KERNEL_LAUNCHES_DIR``). Printed beside the card's
+    name and power limit: each stage's wall and each point's tokens/s, step
+    ms, peak and efficiency. It starts beside phase 20 (b) / (d), phase 22
+    and phase 21 (a) and goes on beside phases 24 and 25; its checkpoints
+    go under the temp directory.
+
+Phases run in the order 0-19, 23, 21 (b), 20 (with 22, 21 (a), 26 and,
+once 21 (a) is done, 25 (a) beside its (b) / (d)), 24 (with 25 (a) and 26
+beside it), 25 (b) (with 26 beside it), 26's end: the phases that measure
+in process have the card to themselves, but for 16 (b), whose two pairs
+share it, 19, whose (a), (c) and (d) share it, 20 (b) / (d), taken beside
+21 (a), 22, 25 (a) and 26, and 25 (b), taken beside 26.
 
 Ends with a line ``{"kernels": [...]}`` (per kernel and row: launches on the
 main path, error against the plain version, times, the least time the card
 could take and what bounds it; the parity row's K1-K3 also carry phase
-19's launches per stage and step and phase 25's in the suite's arms, the
+19's launches per stage and step (19 (d)'s under "gpipe tp2"), phase 25's
+in the suite's arms and phase 26's in the scaling suite's ranks, the
 flagship row's phase 25's in the remat sweep), the nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``. Exits nonzero without those lines when
 no CUDA device is available.
@@ -434,6 +477,93 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans() -> bool:
+    """Make this process the reaper of its orphaned descendants (Linux's
+    ``PR_SET_CHILD_SUBREAPER``): a process whose parent exits is handed to
+    this one, not to init, so ``stop_descendants`` still finds it. False
+    where the kernel refuses."""
+    import ctypes
+
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        return libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def process_table() -> dict:
+    """{pid: (parent pid, session id, state, command line)} of every
+    process ``/proc`` shows."""
+    table = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # it exited while the table was read
+            continue
+        # The command name in parentheses may hold spaces: split after it.
+        state, ppid, _pgrp, sid = stat[stat.rindex(")") + 2:].split()[:4]
+        table[int(name)] = (int(ppid), int(sid), state, cmd)
+    return table
+
+
+def descendants(root: int) -> dict:
+    """{pid: command line} of ``root``'s living descendants (zombies, which
+    wait only to be reaped, left out)."""
+    table = process_table()
+    children = {}
+    for pid, (ppid, _sid, _state, _cmd) in table.items():
+        children.setdefault(ppid, []).append(pid)
+    found, todo = {}, list(children.get(root, ()))
+    while todo:
+        pid = todo.pop()
+        if table[pid][2] != "Z":
+            found[pid] = table[pid][3]
+        todo += children.get(pid, ())
+    return found
+
+
+def reap_children() -> None:
+    """Collect the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_descendants(timeout: float = 30.0) -> tuple:
+    """SIGKILL every living descendant of this process until none is left
+    (with ``adopt_orphans``, also those whose parents exited before them)
+    and reap them: (the command lines found, those still alive at
+    ``timeout``)."""
+    import signal
+
+    found = {}
+    deadline = time.monotonic() + timeout
+    while True:
+        alive = descendants(os.getpid())
+        found.update(alive)
+        for pid in alive:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        reap_children()
+        if not alive or time.monotonic() > deadline:
+            return list(found.values()), list(alive.values())
+        time.sleep(0.05)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1455,7 +1585,7 @@ TP_SHAPES = {
 }
 # The ring at (d)'s geometry, B 2, over tp 2.
 TP_RING = dict(B=2, H=16, S=8192, n=4, D=64, rate=0.1, tp=2)
-# Phase 16 (b): the bench rows at tensor_parallel 2 in two processes.
+# Phase 16 (b): the bench rows at tensor_parallel 2, two processes per arm.
 TP_ROWS = {
     "parity": dict(model_family="tinygpt", per_device_batch=1, grad_accum=4, layers=16),
     "flagship": dict(model_family="llama", per_device_batch=2, grad_accum=2, layers=16),
@@ -1597,8 +1727,9 @@ def phase_tp_kernels(fa, ra, peaks):
     return out
 
 
-def tp_worker(rank: int, port: int, outdir: str) -> int:
-    """Phase 16 (b), one rank: ``chip_smoke.py --tp-worker RANK PORT DIR``."""
+def tp_worker(rank: int, port: int, outdir: str, arm: str) -> int:
+    """Phase 16 (b), one rank of one arm's pair: ``chip_smoke.py
+    --tp-worker RANK PORT DIR ARM``."""
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
     from distributed_llm_training_benchmark_framework_tpu_torch.parallel import get_strategy
@@ -1614,46 +1745,52 @@ def tp_worker(rank: int, port: int, outdir: str) -> int:
     out = {}
     try:
         for row, spec in TP_ROWS.items():
-            for arm in TP_ARMS:
-                fa.reset_launch_counts()
-                losses = []
-                res = loop.run_benchmark(
-                    strategy=arm, tier="A", seq_len=2048, model_family=spec["model_family"],
-                    steps=TP_STEPS, warmup_steps=TP_WARMUP,
-                    per_device_batch=spec["per_device_batch"], grad_accum=spec["grad_accum"],
-                    attention_impl="flash", sync_every=5, device="cuda", loss_log=losses,
-                    tensor_parallel=TP_WIDTH)
-                counts = {**fa.head_shard_launch_counts(),
-                          "flash_fwd": fa.launch_counts()["flash_fwd"]}
-                peak = torch.cuda.max_memory_allocated() / 1e9
-                cfg = models.get_config(spec["model_family"], "A", 2048, attention_impl="flash")
-                est = memory.estimate_hbm(cfg, get_strategy(arm), Mesh({"data": 1,
-                                                                        "model": TP_WIDTH}),
-                                          spec["per_device_batch"], 2048, loop.DATASET_SIZE)
-                out[f"{row}.{arm}"] = dict(
-                    losses=losses, launches=counts, peak_gb=peak, estimate_gb=est.total / 1e9,
-                    tokens_per_sec=res.tokens_per_sec, world_size=res.world_size,
-                    tensor_parallel=res.tensor_parallel, n_params=res.n_params)
-                gc.collect()
-                torch.cuda.empty_cache()
+            fa.reset_launch_counts()
+            losses = []
+            res = loop.run_benchmark(
+                strategy=arm, tier="A", seq_len=2048, model_family=spec["model_family"],
+                steps=TP_STEPS, warmup_steps=TP_WARMUP,
+                per_device_batch=spec["per_device_batch"], grad_accum=spec["grad_accum"],
+                attention_impl="flash", sync_every=5, device="cuda", loss_log=losses,
+                tensor_parallel=TP_WIDTH)
+            counts = {**fa.head_shard_launch_counts(),
+                      "flash_fwd": fa.launch_counts()["flash_fwd"]}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            cfg = models.get_config(spec["model_family"], "A", 2048, attention_impl="flash")
+            est = memory.estimate_hbm(cfg, get_strategy(arm), Mesh({"data": 1,
+                                                                    "model": TP_WIDTH}),
+                                      spec["per_device_batch"], 2048, loop.DATASET_SIZE)
+            out[f"{row}.{arm}"] = dict(
+                losses=losses, launches=counts, peak_gb=peak, estimate_gb=est.total / 1e9,
+                tokens_per_sec=res.tokens_per_sec, world_size=res.world_size,
+                tensor_parallel=res.tensor_parallel, n_params=res.n_params)
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         rt.cleanup_distributed()
-    with open(os.path.join(outdir, f"tp.rank{rank}.json"), "w") as f:
+    with open(os.path.join(outdir, f"tp.{arm}.rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
 
 def phase_tp_train(no_group_losses: dict) -> dict:
     """Phase 16 (b): two ranks of tensor_parallel 2 on the one card over
-    gloo, both rows, ddp and zero2, against the no-group run's losses."""
+    gloo, both rows, against the no-group run's losses: ddp's pair and
+    zero2's pair at once."""
     outdir = tempfile.mkdtemp(prefix="tp_smoke_")
     env = dict(os.environ, LOCAL_RANK="0",
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    port = free_port()
+    ports = {}
+    for arm in TP_ARMS:
+        while arm not in ports:
+            port = free_port()
+            if port not in ports.values():
+                ports[arm] = port
+    workers = [(arm, r) for arm in TP_ARMS for r in range(TP_WIDTH)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-worker",
-                               str(r), str(port), outdir], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(TP_WIDTH)]
+                               str(r), str(ports[arm]), outdir, arm], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for arm, r in workers]
     try:
         logs = [p.communicate(timeout=900)[0] for p in procs]
     finally:
@@ -1661,9 +1798,11 @@ def phase_tp_train(no_group_losses: dict) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"tp rank {r} exited {p.returncode}:\n{text[-4000:]}"
-    ranks = [json.load(open(os.path.join(outdir, f"tp.rank{r}.json")))
+    for (arm, r), p, text in zip(workers, procs, logs):
+        assert p.returncode == 0, f"tp {arm} rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    ranks = [{label: run for arm in TP_ARMS
+              for label, run in json.load(open(os.path.join(outdir, f"tp.{arm}.rank{r}.json"))
+                                          ).items()}
              for r in range(TP_WIDTH)]
     launches = {}
     for label, run in ranks[0].items():
@@ -1674,7 +1813,8 @@ def phase_tp_train(no_group_losses: dict) -> dict:
         rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
         peaks = [f"{rk[label]['peak_gb']:.2f}" for rk in ranks]
         log(f"[16] {row} {arm} at tensor_parallel {TP_WIDTH} (two ranks on one card over "
-            f"gloo): world_size {run['world_size']}, {run['tokens_per_sec']:.1f} tok/s, "
+            f"gloo, beside the other arm's pair): world_size {run['world_size']}, "
+            f"{run['tokens_per_sec']:.1f} tok/s, "
             f"losses {[round(x, 5) for x in run['losses']]}, max relative difference to the "
             f"no-group run {rel:.2e} (limit {TP_LOSS_RTOL}), peak per rank {peaks} GB, "
             f"estimate_hbm per rank {run['estimate_gb']:.2f} GB, launches per rank "
@@ -2360,6 +2500,108 @@ def pipe_worker(rank: int, port: int, outdir: str) -> int:
     return 0
 
 
+# Phase 19 (d): pipelines beside tensor parallelism, tp 2 x pp 2 as four
+# gloo processes on the one card (time-sliced: not a scaling number). The
+# parity row at dropout 0 under zero2 and gpipe; each stage holds 8 layers of
+# 8 heads, wte whole on both 'model' ranks (JAX's layout under 'pipe').
+PIPE_TP = dict(tp=2, pp=2, warmup=2, timed=3)
+# Losses against phase 19 (b)'s one-process run: phase 16 (b)'s tp limit.
+PIPE_TP_RTOL = 5e-3
+# K1 (its head-offset instance, ``flash_fwd_bhv``, as under tp), K2, K3 per
+# stage and step: its layers x micro-batches (8 x 4 = 32), each launch over
+# its 8 heads.
+PIPE_TP_KERNELS = ("flash_fwd_bhv", "flash_bwd_dq", "flash_bwd_dkv")
+PIPE_TP_LAUNCHES = (32, 32, 32)
+
+
+def pipe_tp_worker(rank: int, port: int, outdir: str) -> int:
+    """Phase 19 (d), one rank: ``chip_smoke.py --pipe-tp-worker RANK PORT DIR``."""
+    from distributed_llm_training_benchmark_framework_tpu_torch import models
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import get_strategy
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.mesh import Mesh
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import loop
+    from distributed_llm_training_benchmark_framework_tpu_torch.utils import memory
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp, pp = PIPE_TP["tp"], PIPE_TP["pp"]
+    assert rt.setup_distributed(num_processes=tp * pp, process_id=rank, master_port=port,
+                                device="cuda", backend="gloo")
+    n = PIPE_TP["warmup"] + PIPE_TP["timed"]
+    try:
+        fa.reset_launch_counts()
+        losses, plog = [], {}
+        res = loop.run_benchmark(
+            strategy="zero2", tier=PIPE["tier"], seq_len=PIPE["seq_len"], steps=n,
+            warmup_steps=PIPE_TP["warmup"], per_device_batch=PIPE["per_device_batch"],
+            grad_accum=PIPE["grad_accum"], attention_impl="flash", dropout=0.0, sync_every=5,
+            device="cuda", loss_log=losses, tensor_parallel=tp, pipeline_parallel=pp,
+            pipeline_schedule="gpipe", pipeline_log=plog)
+        counts = fa.head_shard_launch_counts()
+        cfg = models.get_config("tinygpt", "A", PIPE["seq_len"], attention_impl="flash",
+                                dropout=0.0)
+        est = memory.estimate_hbm(cfg, get_strategy("zero2"),
+                                  Mesh({"data": 1, "model": tp, "pipe": pp}),
+                                  PIPE["per_device_batch"], PIPE["seq_len"], loop.DATASET_SIZE)
+        out = dict(losses=losses,
+                   launches_per_step={k: counts.get(k, 0) / n for k in PIPE_TP_KERNELS},
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9, estimate_gb=est.total / 1e9,
+                   tokens_per_sec=res.tokens_per_sec, step_ms=1e3 * res.mean_step_time_sec,
+                   row=[res.world_size, res.tensor_parallel, res.pipeline_parallel,
+                        res.pipeline_schedule], **plog)
+    finally:
+        rt.cleanup_distributed()
+    with open(os.path.join(outdir, f"pipe_tp.rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_pipe_tp(one: list, smi: str, outdir: str = None) -> dict:
+    """Phase 19 (d): tp 2 x pp 2 against phase 19 (b)'s one-process losses;
+    ``outdir``: where its four processes wrote (None: start them here)."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel.pipeline import (
+        expected_messages,
+    )
+
+    tp, pp, M = PIPE_TP["tp"], PIPE_TP["pp"], PIPE["grad_accum"]
+    if outdir is None:
+        outdir, _ = _pair("--pipe-tp-worker", 600, n=tp * pp)
+    ranks = [json.load(open(os.path.join(outdir, f"pipe_tp.rank{r}.json")))
+             for r in range(tp * pp)]
+    law = expected_messages("gpipe", pp, M)
+    launches = {}
+    for r, rk in enumerate(ranks):
+        got = tuple(rk["launches_per_step"][k] for k in PIPE_TP_KERNELS)
+        stage = rk["stage"]
+        log(f"[19] (d) tp {tp} x pp {pp} rank {r} (model {r // pp}, stage {stage}; four "
+            f"processes time-sliced on one card over gloo, beside (a): not a scaling number): "
+            f"{rk['tokens_per_sec']:.1f} tok/s, step {rk['step_ms']:.2f} ms, peak "
+            f"{rk['peak_gb']:.2f} GB (estimate_hbm {rk['estimate_gb']:.2f} GB), messages per "
+            f"step fwd/bwd {rk['sent_per_step']} (law M(P-1) = {law} per direction and "
+            f"pipeline), receive wait {rk['wait_ms_per_step']:.2f} ms/step, K1/K2/K3 per step "
+            f"{got} (want {PIPE_TP_LAUNCHES}, 8 heads each), row {rk['row']} on {smi}")
+        assert stage == r % pp and got == PIPE_TP_LAUNCHES, (r, stage, got)
+        assert rk["row"] == [tp * pp, tp, pp, "gpipe"], rk["row"]
+        assert rk["losses"] == ranks[0]["losses"], f"rank {r}'s losses differ from rank 0's"
+        launches.setdefault(stage, rk["launches_per_step"])
+    for m in range(tp):
+        stages = ranks[m * pp:(m + 1) * pp]
+        for d in (0, 1):
+            assert sum(rk["sent_per_step"][d] for rk in stages) == law, (m, d)
+    piped = ranks[0]["losses"]
+    assert all(math.isfinite(x) for x in piped)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(piped, one))
+    log(f"[19] (d) losses {[round(x, 6) for x in piped]} (equal on all four ranks), one process "
+        f"{[round(x, 6) for x in one]}, max relative difference {rel:.2e} (limit {PIPE_TP_RTOL})")
+    assert rel <= PIPE_TP_RTOL, f"tp {tp} x pp {pp} differs from one process by {rel}"
+    return {"launches": [launches[s] for s in range(pp)], "vs_one_process_rel": rel,
+            "tokens_per_sec": ranks[0]["tokens_per_sec"], "step_ms": ranks[0]["step_ms"],
+            "stages": [{k: rk[k] for k in ("stage", "peak_gb", "estimate_gb", "sent_per_step",
+                                           "wait_ms_per_step")} for rk in ranks]}
+
+
 def pipe_step_parts(loop) -> dict:
     """Phase 19 (c), one stage: where a gpipe step of (a)'s row goes, on the
     host clock with the card synchronized around each part (which costs a
@@ -2412,10 +2654,10 @@ def pipe_step_parts(loop) -> dict:
                 pipe_sum_ms=1e3 * statistics.median(sums), pipe_sum_mb=shared * 4 / 1e6)
 
 
-def _pair(flag: str, timeout: int, check: bool = True) -> tuple:
-    """Start this script twice as ``flag`` RANK PORT DIR on the one card and
-    wait: (the directory, each process' output); kills both on the way out.
-    ``check``: fail unless both exit 0."""
+def _pair(flag: str, timeout: int, check: bool = True, n: int = PIPE["width"]) -> tuple:
+    """Start this script ``n`` times (two by default) as ``flag`` RANK PORT
+    DIR on the one card and wait: (the directory, each process' output);
+    kills them all on the way out. ``check``: fail unless all exit 0."""
     outdir = tempfile.mkdtemp(prefix="pipe_smoke_")
     env = dict(os.environ, LOCAL_RANK="0",
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
@@ -2423,7 +2665,7 @@ def _pair(flag: str, timeout: int, check: bool = True) -> tuple:
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r),
                                str(port), outdir], env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for r in range(PIPE["width"])]
+             for r in range(n)]
     try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -2444,9 +2686,18 @@ def phase_pipe(run_benchmark, smi) -> dict:
         pipeline_bubble_bound,
     )
 
+    from concurrent.futures import ThreadPoolExecutor
+
     # gloo reports the refusal as an exception in the sender, or aborts it
     # from its I/O thread: either way the sender's first line of it is kept.
-    outdir, logs = _pair("--pipe-probe", 120, check=False)
+    # The probe's pair and (d)'s four processes run beside the stages' pair.
+    with ThreadPoolExecutor(3) as pool:
+        probe = pool.submit(_pair, "--pipe-probe", 120, False)
+        stages = pool.submit(_pair, "--pipe-worker", 600)
+        tp_pp = pool.submit(_pair, "--pipe-tp-worker", 600, True, PIPE_TP["tp"] * PIPE_TP["pp"])
+        outdir, logs = probe.result()
+        stage_dir, _ = stages.result()
+        tp_pp_dir, _ = tp_pp.result()
     path = os.path.join(outdir, "probe.rank0.json")
     sent = json.load(open(path)) if os.path.exists(path) else {}
     errors = [ln for ln in logs[0].splitlines() if "gloo" in ln]
@@ -2454,8 +2705,7 @@ def phase_pipe(run_benchmark, smi) -> dict:
                                    (errors[-1].strip() if errors else logs[0][-300:]))
     log(f"[19] gloo send of a CUDA tensor: {sender}; the pipeline's transport stages its "
         "messages through pinned host memory under gloo")
-    outdir, _ = _pair("--pipe-worker", 600)
-    ranks = [json.load(open(os.path.join(outdir, f"pipe.rank{r}.json")))
+    ranks = [json.load(open(os.path.join(stage_dir, f"pipe.rank{r}.json")))
              for r in range(PIPE["width"])]
     P, M, V = PIPE["width"], PIPE["grad_accum"], PIPE["virtual"]
     summary, launches = {}, {}
@@ -2467,8 +2717,9 @@ def phase_pipe(run_benchmark, smi) -> dict:
             run = rk[sched]
             stage = run["stage"]
             got = tuple(run["launches_per_step"][k] for k in PIPE_KERNELS)
-            log(f"[19] (a) {sched} stage {stage} (two stages time-sliced on one card; not a "
-                f"scaling number): {run['tokens_per_sec']:.1f} tok/s, step "
+            log(f"[19] (a) {sched} stage {stage} (two stages time-sliced on one card, beside "
+                f"(d)'s four processes; not a scaling number): "
+                f"{run['tokens_per_sec']:.1f} tok/s, step "
                 f"{run['step_ms']:.2f} ms, peak {run['peak_gb']:.2f} GB (estimate_hbm "
                 f"{run['estimate_gb']:.2f} GB), messages per step fwd/bwd "
                 f"{run['sent_per_step']} (the pipeline's law {law} per direction), receive "
@@ -2520,6 +2771,9 @@ def phase_pipe(run_benchmark, smi) -> dict:
     summary["parts"] = [rk["parts"] for rk in ranks]
     summary["vs_one_process_rel"] = rel_one
     summary["loss_rel_to_gpipe"] = rel
+    summary["tp_pp"] = phase_pipe_tp(one, smi, tp_pp_dir)
+    launches["gpipe tp2"] = [dict(zip(PIPE_KERNELS, (st[k] for k in PIPE_TP_KERNELS)))
+                             for st in summary["tp_pp"]["launches"]]
     log(f"[19] summary {json.dumps(summary)} on {smi}")
     return launches
 
@@ -2755,7 +3009,7 @@ def phase_runtime(smi: str, beside=None) -> dict:
     log(f"[20] (d) drills at tier S: {json.dumps(drills)}")
     shutil.rmtree(root, ignore_errors=True)
     log(f"[20] phase wall {time.perf_counter() - t0:.1f} s"
-        + (" (phase 22 beside (b) and (d))" if beside is not None else ""))
+        + (" (phases 22, 21 (a) and 26 beside (b) and (d))" if beside is not None else ""))
     return {"costs": costs, "drills": drills, "loss_max_rel": rel, "beside": side}
 
 
@@ -2821,21 +3075,25 @@ def rt2_row(fa, run_benchmark, **kw) -> tuple:
     return res, log_
 
 
-def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
-    """Phase 21: the sentinel and the stream, (a) through the harness, (b)
-    in process (see the module docstring)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def rt2_shards(root: str) -> str:
+    """Phase 21's shards under ``root``, written with the port's writer."""
     from distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards import (
         make_shards,
     )
 
-    t0 = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="runtime2_smoke_")
     shards = os.path.join(root, "shards")
     make_shards(shards, seq_len=RT2_KW["seq_len"], vocab_size=RT2_VOCAB, seed=21, **RT2_SHARDS)
     log(f"[21] shards: {RT2_SHARDS} records of S {RT2_KW['seq_len']} under {shards} "
         f"({sum(os.path.getsize(os.path.join(shards, f)) for f in os.listdir(shards))} bytes)")
+    return shards
+
+
+def rt2_drills(root: str, shards: str, smi: str) -> dict:
+    """Phase 21 (a): three harness runs at once (their own processes, so
+    ``main`` runs them beside phase 20 (b) / (d) and phase 22)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
         jobs = {
             "bitflip@7": pool.submit(rt2_sentinel_run, root, "bitflip", RT2_BITFLIP + [
@@ -2848,7 +3106,23 @@ def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
     # The trip lands on step 6, the step after the corruption (its first
     # symptom: the guards judge the loss first, then the grad norm).
     assert drills["opt-moments@5 (snapshot)"]["trips"][0][1] == 6, drills
-    log(f"[21] (a) three harness runs at once on {smi}: {json.dumps(drills)}")
+    log(f"[21] (a) three harness runs at once on {smi}: {json.dumps(drills)}; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    return drills
+
+
+def phase_runtime2(fa, run_benchmark, smi: str, root: str = None) -> dict:
+    """Phase 21: the sentinel and the stream, (a) through the harness
+    (``rt2_drills``), (b) in process (see the module docstring). Given the
+    ``root`` that ``rt2_shards`` wrote, (b) alone: ``main`` runs (a) beside
+    phase 20 and keeps ``root``."""
+    t0 = time.perf_counter()
+    own = root is None
+    drills = None
+    if own:
+        root = tempfile.mkdtemp(prefix="runtime2_smoke_")
+        drills = rt2_drills(root, rt2_shards(root), smi)
+    shards = os.path.join(root, "shards")
     gc.collect()
     torch.cuda.empty_cache()
     rows = {}
@@ -2879,7 +3153,8 @@ def phase_runtime2(fa, run_benchmark, smi: str) -> dict:
     log(f"[21] (b) data-corrupt-record@5 on the stream: records_skipped {res.records_skipped}, "
         f"finite losses; the parameter checksum on {smi}: {json.dumps(checksum)}")
     del run
-    shutil.rmtree(root, ignore_errors=True)
+    if own:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"[21] phase wall {time.perf_counter() - t0:.1f} s")
     return {"drills": drills, "rows": rows, "cost": cost, "checksum": checksum}
 
@@ -3244,7 +3519,10 @@ def platform_hbm_gbps() -> float:
 def phase_static(smi: str) -> dict:
     """Phase 24: the graftcheck CLI as the bench's preflight runs it, the lint
     alone, the roster's collective audit and an injected seed bug, each in a
-    child process that must not initialize CUDA."""
+    child process that must not initialize CUDA; the three children at once
+    (one thread each, on the host)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from distributed_llm_training_benchmark_framework_tpu_torch import bench
     from distributed_llm_training_benchmark_framework_tpu_torch.analysis.static import (
         collective_audit as ca,
@@ -3257,13 +3535,20 @@ def phase_static(smi: str) -> dict:
         "inject": (["--audit", "--inject", "bad-cmm-ring", "--arms", "llama-tp2-gqa-cmm"], 1),
     }
     t0 = time.perf_counter()
-    out = {}
-    for tag, (args, want) in runs.items():
+
+    def audit(args: list) -> tuple:
         t1 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"{PKG}.analysis.static", *args],
                               capture_output=True, text=True, timeout=600,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
-        wall = time.perf_counter() - t1
+        return proc, time.perf_counter() - t1
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        jobs = {tag: pool.submit(audit, args) for tag, (args, _) in runs.items()}
+        done = {tag: job.result() for tag, job in jobs.items()}
+    out = {}
+    for tag, (args, want) in runs.items():
+        proc, wall = done[tag]
         assert proc.returncode == want, (
             f"[24] {tag}: exit {proc.returncode}, want {want}:\n{proc.stderr[-4000:]}")
         cuda = re.findall(r"torch\.cuda\.is_initialized\(\) = (\w+)", proc.stderr)
@@ -3310,13 +3595,18 @@ def start_script(script: str, args: list, env_extra: dict) -> dict:
 
 
 def stop_script(run: dict) -> None:
-    """Kill what is left of a started script's session and reap it."""
+    """Kill what is left of a started script's session, every process
+    group in it (``timeout`` puts its command in a group of its own), and
+    reap it."""
     import signal
 
-    try:
-        os.killpg(run["proc"].pid, signal.SIGKILL)
-    except ProcessLookupError:
-        pass
+    sid = run["proc"].pid
+    for pid, (_ppid, psid, _state, _cmd) in process_table().items():
+        if psid == sid:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
     run["proc"].wait()
 
 
@@ -3344,7 +3634,8 @@ def start_chaos_smoke(root: str) -> dict:
     """Phase 25 (a), started: the chaos smoke with CHAOS_ON_DEVICE=1, whose
     one-rank arms pass no --device, so run on cuda. It needs the card
     lightly (tier S) and the host mostly (process starts), so ``main``
-    runs it beside phase 24, which uses the host alone."""
+    starts it beside phase 20's tail and runs it on beside phase 24, which
+    uses the host alone."""
     return start_script("torch_chaos_suite.sh",
                         ["--smoke", "--jobs", "4", "--keep", "--results-dir",
                          os.path.join(root, "chaos")], {"CHAOS_ON_DEVICE": "1"})
@@ -3435,18 +3726,109 @@ def phase_suite(smi: str, chaos_run: dict = None, root: str = None) -> dict:
             "arms": arms, "frontier": frontier, "launches": launches}
 
 
+# Phase 26: the port's scaling suite on the card: ddp at ws 1 and 2 (two
+# gloo ranks time-sliced on the one card: the curves prove the mechanics,
+# not scaling across cards), the grow and shrink legs (the first elastic
+# resume across data widths on the card), the stamp, ingest, curves, gate
+# and report. ddp, not fsdp: two ranks on one card run over gloo (NCCL takes
+# one rank per device), and gloo carries the all-reduce of CUDA tensors but
+# not the gathers and reduce-scatters of fsdp / zero2 / zero3 (its TCP
+# transport reads the device pointer as host memory; the arms refuse it).
+# fsdp's reshard across widths is held on the CPU by the suite's --dryrun.
+SCALING_ENV = {"SCALING_STRATEGIES": "ddp", "SCALING_GEOMETRIES": "1 2", "TIER": "A",
+               "SEQ_LEN": "2048", "STEPS": "8", "WARMUP_STEPS": "2", "SYNC_EVERY": "2",
+               "PER_DEVICE_BATCH": "1", "GRAD_ACCUM": "4", "ATTENTION": "flash",
+               "DIST_BACKEND": "gloo", "TIMEOUT_PER_RUN": "500"}
+SCALING_RUNS = ("scaling-ddp-ws1", "scaling-ddp-ws2", "scaling-ddp-ws2-stitch",
+                "scaling-ddp-ws1-shrink")
+SCALING_STEP_LAUNCHES = 16 * 4  # parity: layers x micro-batches, per step and rank
+
+
+def scaling_root() -> str:
+    """A fresh directory for phase 26 (its runs' checkpoints, 2.84 GB a
+    save, ten saves) under the temp directory."""
+    return tempfile.mkdtemp(prefix="scaling_smoke_")
+
+
+def start_scaling(root: str) -> dict:
+    """Phase 26, started: ``scripts/torch_scaling_suite.sh`` with
+    ``SCALING_ENV`` under ``root``, its processes' kernel launches counted
+    through ``KERNEL_LAUNCHES_DIR``."""
+    os.makedirs(os.path.join(root, "launches"))
+    return start_script("torch_scaling_suite.sh", ["--results-dir", os.path.join(root, "res")],
+                        {**SCALING_ENV, "KERNEL_LAUNCHES_DIR": os.path.join(root, "launches")})
+
+
+def phase_scaling(smi: str, run: dict, root: str) -> dict:
+    """Phase 26: wait for the scaling suite and hold its results."""
+    import glob
+
+    from distributed_llm_training_benchmark_framework_tpu_torch.regress import store
+
+    res = finish_script(run, 1100)
+    out = res["out"]
+    stages = {m[0]: float(m[1]) for m in re.findall(r"^STAGE (\S+) wall ([\d.]+)s", out, re.M)}
+    knobs = " ".join(f"{k}={v}" for k, v in SCALING_ENV.items())
+    log(f"[26] torch_scaling_suite.sh ({knobs}): exit {res['rc']}, stage walls "
+        f"{json.dumps(stages)} s, wall {res['wall_s']:.1f} s on {smi}")
+    assert res["rc"] == 0, f"[26] scaling suite exit {res['rc']}:\n{out[-8000:]}"
+    assert "=== Scaling suite complete: 0 failure(s) ===" in out, out[-4000:]
+    assert list(stages) == list(SCALING_RUNS) + ["stamp", "validate", "registry", "gate",
+                                                 "report"], stages
+    assert "VALIDATE PASS" in out and "REGRESSION GATE FAILED" not in out, out[-4000:]
+    gate = re.findall(r"regress gate: (\d+) arm\(s\) checked, (\d+) regression", out)
+    assert gate and gate[-1] == ("2", "0"), gate
+    rows = {}
+    for name in SCALING_RUNS:
+        (path,) = glob.glob(os.path.join(root, "res", f"{name}_results", "result_*.json"))
+        rows[name] = json.load(open(path))
+    for name, r in rows.items():
+        assert r["backend"] == "cuda" and r["attention_impl"] == "flash", (name, r["backend"])
+        stitched = name.endswith(("-stitch", "-shrink"))
+        assert r["resumed"] is stitched and r["resume_geometry_changed"] is stitched, name
+        assert (r.get("scaling_efficiency") is not None) is (not stitched), name
+    assert rows[SCALING_RUNS[0]]["scaling_efficiency"] == 1.0
+    reg = store.Registry(os.path.join(root, "res", "registry"))
+    records = [rec for arm in reg.arms() for rec in reg.records(arm)]
+    flagged = [rec for rec in records if rec["result"].get("resumed")]
+    assert len(records) == 4 and len(flagged) == 2, [r["result"]["world_size"] for r in records]
+    skipped = re.findall(r"regress gate: SKIP arm=(\S+)", out)
+    assert sorted(skipped) == sorted(reg.arms()), skipped
+    curves = os.path.join(root, "res", "summary", "scaling_curves.json")
+    assert os.path.exists(curves) and json.load(open(curves)), curves
+    counts = [json.load(open(p)) for p in glob.glob(os.path.join(root, "launches", "*.json"))]
+    fresh = int(SCALING_ENV["STEPS"]) * SCALING_STEP_LAUNCHES
+    assert sum(c.get("flash_bwd_dq") == fresh for c in counts) == 3, counts
+    assert all(c.get(k, 0) % SCALING_STEP_LAUNCHES == 0 and c.get(k, 0) > 0
+               for c in counts for k in SUITE_FLASH), counts
+    launches = {k: sum(c.get(k, 0) for c in counts) for k in SUITE_FLASH}
+    points = {name: {"world_size": r["world_size"], "tokens_per_sec": r["tokens_per_sec"],
+                     "step_ms": 1e3 * r["mean_step_time_sec"], "peak_hbm_gb": r["peak_hbm_gb"],
+                     "scaling_efficiency": r.get("scaling_efficiency"),
+                     "resumed": r["resumed"], "resume_step": r.get("resume_step")}
+              for name, r in rows.items()}
+    log(f"[26] points (ws 2 is two gloo ranks on one card: mechanics, not scaling) on {smi}: "
+        f"{json.dumps(points)}")
+    log(f"[26] the stitch and shrink rows resumed across data widths, flagged and skipped by "
+        f"the gate ({skipped}); curves {curves}; K1-K3 launches over the suite's "
+        f"{len(counts)} rank processes {json.dumps(launches)}")
+    return {"wall_s": res["wall_s"], "stages": stages, "points": points, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--tp-worker"]:
-        return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--moe-worker"]:
         return moe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--pipe-worker"]:
         return pipe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--pipe-probe"]:
         return pipe_probe(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    if sys.argv[1:2] == ["--pipe-tp-worker"]:
+        return pipe_tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from distributed_llm_training_benchmark_framework_tpu_torch import models
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.ops import _build
@@ -3527,25 +3909,57 @@ def main() -> int:
     pipe_launches = walled("19", phase_pipe, run_benchmark, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    # Phase 22's chain of processes runs beside phase 20's straight run and
-    # drills: each is mostly process starts and checkpoint I/O.
-    phase_runtime(smi, beside=lambda: phase_supervisor(smi))
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_runtime2(fa, run_benchmark, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
+    # Phases 23 and 21 (b) measure in process, alone on the card, before
+    # the phases whose processes run side by side.
     phase_profile(fa, run_benchmark, row_results, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt2_root = tempfile.mkdtemp(prefix="runtime2_smoke_")
+    shards = rt2_shards(rt2_root)
+    phase_runtime2(fa, run_benchmark, smi, rt2_root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Beside phase 20's straight run and drills, after its (a), which has the
+    # card to itself: phase 22's chain of processes, phase 21 (a)'s three
+    # harness runs and phase 26, the scaling suite, each mostly process
+    # starts and checkpoint I/O; phase 25 (a), the chaos smoke, once 21 (a)
+    # is done. Phase 26 goes on beside phases 24, 25 (a) and 25 (b).
+    scaling_dir = scaling_root()
     suite_root = tempfile.mkdtemp(prefix="suite_smoke_")
-    chaos_run = start_chaos_smoke(suite_root)
+    scaling_run, chaos_run = {}, {}
+
+    def beside():
+        from concurrent.futures import ThreadPoolExecutor
+
+        log(f"[26] the scaling suite under {scaling_dir}, beside phases 20 (b) / (d), 22, "
+            "21 (a), 24 and 25")
+        scaling_run.update(start_scaling(scaling_dir))
+        with ThreadPoolExecutor(2) as pool:
+            supervisor = pool.submit(phase_supervisor, smi)
+            drills = pool.submit(rt2_drills, rt2_root, shards, smi).result()
+            log("[25] (a) the chaos smoke starts, beside phases 20 (b) / (d), 22 and 26")
+            chaos_run.update(start_chaos_smoke(suite_root))
+            return {"supervisor": supervisor.result(), "drills": drills}
+
     try:
+        phase_runtime(smi, beside=beside)
+        shutil.rmtree(rt2_root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_static(smi)
         gc.collect()
         torch.cuda.empty_cache()
         suite = phase_suite(smi, chaos_run, suite_root)
+        t = time.perf_counter()
+        scaling = phase_scaling(smi, scaling_run, scaling_dir)
+        log(f"[26] phase wall {scaling['wall_s']:.1f} s from its start, "
+            f"{time.perf_counter() - t:.1f} s of it after phase 25 (b)")
     finally:
-        stop_script(chaos_run)
+        for run in (chaos_run, scaling_run):
+            if run:
+                stop_script(run)
         shutil.rmtree(suite_root, ignore_errors=True)
+        shutil.rmtree(scaling_dir, ignore_errors=True)
 
     names = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
     sources = {
@@ -3580,6 +3994,7 @@ def main() -> int:
             }
             entry.update({nm: r[nm] for nm in OPTIONAL_KEYS if nm in r})
             if key == "a":
+                entry["scaling_suite_launches"] = scaling["launches"][names[kind]]
                 entry["pipeline_launches_per_stage_per_step"] = {
                     sched: [stage[names[kind]] for stage in stages]
                     for sched, stages in pipe_launches.items()}
@@ -3662,5 +4077,21 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """``main``, then stop every process it left running, and say which:
+    the script ends with no process of its own alive, whatever failed."""
+    adopted = adopt_orphans()
+    try:
+        return main()
+    finally:
+        found, alive = stop_descendants()
+        if found:
+            print(f"chip_smoke: stopped {len(found)} process(es) left running "
+                  f"(orphans adopted: {adopted}): {found}", file=sys.stderr, flush=True)
+        if alive:
+            print(f"chip_smoke: still alive after SIGKILL: {alive}", file=sys.stderr, flush=True)
+            sys.exit(1)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

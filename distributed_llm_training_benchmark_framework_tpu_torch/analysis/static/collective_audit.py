@@ -67,6 +67,7 @@ import weakref
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -175,7 +176,13 @@ class MemoryReport:
     ``output_bytes`` and ``alias_bytes`` describe a compiled program's
     buffers, which eager PyTorch does not have. ``estimate_bytes`` is the
     port's memory model (``utils/memory.estimate_hbm``) for the same arm,
-    recorded beside the measurement (not pinned).
+    recorded beside the measurement (not pinned). ``replicated_bytes`` is the
+    part of ``argument_bytes`` that an fsdp / zero3 arm keeps whole on every
+    ``data`` rank, read off the placement (the leaves FSDP2 did not turn
+    into DTensors, with their gradients and AdamW moments);
+    ``expected_replicated_bytes`` is what JAX's ``param_partition_specs``
+    leaves whole over ``data`` at the arm's mesh
+    (:func:`expected_replicated_bytes`). GC110 holds the two equal.
     """
 
     arm: str
@@ -183,6 +190,8 @@ class MemoryReport:
     temp_bytes: int
     peak_bytes: int
     estimate_bytes: int = 0
+    replicated_bytes: int = 0
+    expected_replicated_bytes: int = 0
 
     @property
     def estimate_drift_frac(self) -> Optional[float]:
@@ -197,6 +206,8 @@ class MemoryReport:
             "peak_bytes": self.peak_bytes,
             "estimate_bytes": self.estimate_bytes,
             "estimate_drift_frac": self.estimate_drift_frac,
+            "replicated_bytes": self.replicated_bytes,
+            "expected_replicated_bytes": self.expected_replicated_bytes,
         }
 
 
@@ -408,15 +419,28 @@ class _AuditMode(TorchDispatchMode):
         self.suspects = 0
         self.converts = 0
         self.messages = {"fwd": 0, "bwd": 0}
-        self.live: Dict[int, int] = {}
+        self.live: Dict[int, Tuple[int, int]] = {}
+        self.tokens = 0
         self.live_bytes = 0
         self.peak_new = 0
         self.allocated: set = set()
 
-    def _free(self, key: int) -> None:
-        n = self.live.pop(key, None)
-        if n is not None:
-            self.live_bytes -= n
+    def _free(self, key: int, token: Optional[int] = None) -> None:
+        """Drop the storage registered at ``key`` (``token``: only if it is
+        still the registration that token names)."""
+        entry = self.live.get(key)
+        if entry is not None and token in (None, entry[0]):
+            del self.live[key]
+            self.live_bytes -= entry[1]
+
+    def _register(self, st) -> None:
+        key = st.data_ptr()
+        self.tokens += 1
+        self.live[key] = (self.tokens, st.nbytes())
+        self.allocated.add(key)
+        self.live_bytes += st.nbytes()
+        self.peak_new = max(self.peak_new, self.live_bytes)
+        weakref.finalize(st, self._free, key, self.tokens)
 
     def _track(self, out, args) -> None:
         """Register each output storage that is new (not an input's: a view
@@ -427,11 +451,32 @@ class _AuditMode(TorchDispatchMode):
             key = st.data_ptr()
             if key in seen or key in self.live or st.nbytes() == 0:
                 continue
-            self.live[key] = st.nbytes()
-            self.allocated.add(key)
-            self.live_bytes += st.nbytes()
-            self.peak_new = max(self.peak_new, self.live_bytes)
-            weakref.finalize(st, self._free, key)
+            self._register(st)
+
+    @contextlib.contextmanager
+    def fsdp_storage(self) -> Iterator[None]:
+        """Follow FSDP2's unsharded buffers, which it frees and allocates
+        again by resizing their storages in place (``free_storage`` /
+        ``alloc_storage``, outside the dispatcher): a freed one leaves the
+        live set at once, an allocated one joins it."""
+        from torch.distributed.fsdp._fully_shard import _fsdp_param, _fsdp_param_group
+
+        real_alloc, real_free = _fsdp_param.alloc_storage, _fsdp_param.free_storage
+
+        def alloc(tensor):
+            real_alloc(tensor)
+            st = tensor.untyped_storage()
+            if st.nbytes() and st.data_ptr() not in self.live:
+                self._register(st)
+
+        def free(tensor):
+            self._free(tensor.untyped_storage().data_ptr())
+            real_free(tensor)
+
+        with _patched(_fsdp_param, "alloc_storage", alloc), \
+                _patched(_fsdp_param, "free_storage", free), \
+                _patched(_fsdp_param_group, "alloc_storage", alloc):
+            yield
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -548,6 +593,59 @@ def _state_storages(run) -> Dict[int, int]:
     return out
 
 
+def _replicated_state_bytes(run, spec: ArmSpec) -> int:
+    """Bytes of the state an fsdp / zero3 arm keeps whole over ``data`` on
+    rank 0, read off the placement: each parameter FSDP2 left a plain
+    tensor (not a DTensor), its gradient and its AdamW moments (the state
+    tensors of its shape). 0 for an arm that does not shard parameters or
+    at ``data`` width 1."""
+    from ...parallel.strategies import get_strategy
+
+    if not get_strategy(spec.strategy).shard_params or spec.width("data") == 1:
+        return 0
+    opt = run.step_fn.optimizer
+    state = opt.adamw.state if opt.adamw is not None else {}
+    out: Dict[int, int] = {}
+    for p in run.model.parameters():
+        if isinstance(p, DTensor):
+            continue
+        tensors = [p, p.grad] + [v for v in state.get(p, {}).values()
+                                 if isinstance(v, torch.Tensor) and v.shape == p.shape]
+        for t in tensors:
+            if isinstance(t, torch.Tensor):
+                key, n = _storage_key(t)
+                out[key] = n
+    return sum(out.values())
+
+
+def expected_replicated_bytes(spec: ArmSpec, model_config) -> int:
+    """What rank 0 of an fsdp / zero3 arm keeps whole over ``data`` by JAX's
+    ``param_partition_specs`` at the arm's mesh, from the JAX-shaped leaves
+    alone: every leaf whose spec has no ``data`` axis, and every block leaf
+    whose ``data`` axis is the layer axis (the port holds each layer as a
+    leaf of its own, so it cannot shard there), at its share of the other
+    axes; the parameter, its gradient and two AdamW moments (none under
+    host offload), in the parameter dtype."""
+    from ...parallel.strategies import get_strategy, param_partition_specs
+    from ...utils.memory import jax_leaf_shapes, param_itemsize
+
+    strategy = get_strategy(spec.strategy)
+    if not strategy.shard_params or spec.width("data") == 1:
+        return 0
+    mesh_shape = dict(zip(spec.axes, spec.mesh_shape))
+    shapes = jax_leaf_shapes(model_config)
+    specs = param_partition_specs(shapes, mesh_shape, True, kv_heads=model_config.kv_heads)
+    elements = 0
+    for name, shape in shapes.items():
+        axes = specs[name]
+        if "data" in axes and not (name.startswith("blocks/") and axes.index("data") == 0):
+            continue
+        split = math.prod(mesh_shape[a] for a in axes if a not in (None, "data"))
+        elements += math.prod(shape) // split
+    copies = 2 + (0 if strategy.offload_opt_state else 2)
+    return copies * elements * param_itemsize(model_config)
+
+
 @dataclasses.dataclass
 class _RankResult:
     counts: Dict[str, int]
@@ -574,7 +672,7 @@ def _audit_rank(spec: ArmSpec, rank: int) -> _RankResult:
                 run.step_fn(run.table, step)
         before = _state_storages(run)
         mode = _AuditMode(classes)
-        with mode:
+        with mode, mode.fsdp_storage():
             loss = run.step_fn(run.table, WARM_STEPS)
         if not torch.isfinite(loss).all():
             raise RuntimeError(f"arm {spec.name!r}: the audited step's loss is not finite")
@@ -588,7 +686,10 @@ def _audit_rank(spec: ArmSpec, rank: int) -> _RankResult:
         estimate = run.estimate.total if run.estimate is not None else 0
         memory = MemoryReport(spec.name, argument_bytes=argument,
                               temp_bytes=max(peak - argument, 0), peak_bytes=peak,
-                              estimate_bytes=int(estimate))
+                              estimate_bytes=int(estimate),
+                              replicated_bytes=_replicated_state_bytes(run, spec),
+                              expected_replicated_bytes=expected_replicated_bytes(
+                                  spec, run.config))
         del run, loss
     return _RankResult(dict(mode.counts), dict(mode.bytes),
                        {k: dict(v) for k, v in mode.sizes.items()}, mode.suspects,
@@ -1045,7 +1146,14 @@ def diff_memory_against_budget(report: MemoryReport, budgets: Dict[str, Any],
 def memory_growth_law_findings(per_tier: Dict[str, Dict[str, Dict[str, Any]]]) -> List[str]:
     """GC110's cross-tier laws (JAX's): per-rank temp bytes flat along
     ``data`` within :data:`MEMORY_TEMP_FLAT_TOL`, and fsdp / zero state
-    strictly shrinking as ``data`` grows."""
+    strictly shrinking as ``data`` grows. Where ``data`` outgrows a leaf's
+    every axis JAX's rule replicates it (JAX's own budgets leave their
+    256-way tier out for that reason, "the shrink law cannot hold there"),
+    and such a leaf's state stays whole: between two tiers that replicate
+    nothing the law reads the whole ``argument_bytes``; where a tier
+    replicates, its ``replicated_bytes`` must equal what JAX's specs leave
+    whole (``expected_replicated_bytes``), and the sharded rest must be
+    above 0 and shrink."""
     findings: List[str] = []
     tiers = sorted((t for t in per_tier if t in TOPOLOGY_TIERS),
                    key=lambda t: TOPOLOGY_TIERS[t].device_count)
@@ -1056,6 +1164,16 @@ def memory_growth_law_findings(per_tier: Dict[str, Dict[str, Dict[str, Any]]]) -
             shrinks = arm_shards_state_over_data(arm)
         except KeyError:
             shrinks = False
+        for t in present if shrinks else ():
+            e = per_tier[t][arm]
+            got, want = (int(e.get(k, 0)) for k in ("replicated_bytes",
+                                                     "expected_replicated_bytes"))
+            if got != want:
+                findings.append(
+                    f"GC110 growth-law: {arm} at {t} keeps {got} bytes of state whole over "
+                    f"data; JAX's param_partition_specs leave {want} bytes whole there — "
+                    "the placement departs from JAX's rule"
+                )
         for lo, hi in zip(present, present[1:]):
             e_lo, e_hi = per_tier[lo][arm], per_tier[hi][arm]
             t_lo, t_hi = int(e_lo.get("temp_bytes", 0)), int(e_hi.get("temp_bytes", 0))
@@ -1067,8 +1185,11 @@ def memory_growth_law_findings(per_tier: Dict[str, Dict[str, Dict[str, Any]]]) -
                     "must keep per-chip temps flat within "
                     f"{100 * MEMORY_TEMP_FLAT_TOL:.0f}%)"
                 )
-            if shrinks:
-                a_lo, a_hi = int(e_lo.get("argument_bytes", 0)), int(e_hi.get("argument_bytes", 0))
+            if not shrinks:
+                continue
+            a_lo, a_hi = int(e_lo.get("argument_bytes", 0)), int(e_hi.get("argument_bytes", 0))
+            r_lo, r_hi = int(e_lo.get("replicated_bytes", 0)), int(e_hi.get("replicated_bytes", 0))
+            if r_lo == r_hi == 0:
                 if a_lo > 0 and a_hi >= a_lo:
                     findings.append(
                         f"GC110 growth-law: {arm} per-chip argument bytes "
@@ -1077,6 +1198,12 @@ def memory_growth_law_findings(per_tier: Dict[str, Dict[str, Dict[str, Any]]]) -
                         "param/optimizer state is replicating instead of "
                         "sharding"
                     )
+            elif not 0 < a_hi - r_hi < a_lo - r_lo:
+                findings.append(
+                    f"GC110 growth-law: {arm} per-chip sharded state (argument bytes less "
+                    f"the state JAX's rule replicates) did not shrink along the fsdp/zero "
+                    f"shard axis or vanished ({lo}: {a_lo - r_lo} -> {hi}: {a_hi - r_hi})"
+                )
     return findings
 
 

@@ -67,14 +67,17 @@ from .collective_audit import REPO_ROOT
 PACKAGE = "distributed_llm_training_benchmark_framework_tpu_torch"
 
 #: Harness flags deliberately NOT reachable from the container env, with the
-#: reason each is exempt from GC201 (JAX's, and one of the port's):
+#: reason each is exempt from GC201 (JAX's, and two of the port's):
 #:   --local-rank        accepted for reference-CLI parity only
 #:   --deepspeed-config  alias of --strategy-config, which the entrypoint
 #:   --fsdp-config       already sets for the ZeRO arms
 #:   --device            the port's CPU escape hatch for tests and CPU runs;
 #:                       a container always trains on its accelerator
+#:   --backend           gloo lets several ranks share one card (the scaling
+#:                       suite on a one-card host); a container's ranks
+#:                       each take a card of their own over NCCL
 ENTRYPOINT_EXEMPT_FLAGS = frozenset(
-    {"--local-rank", "--deepspeed-config", "--fsdp-config", "--device"}
+    {"--local-rank", "--deepspeed-config", "--fsdp-config", "--device", "--backend"}
 )
 
 #: Flags the entrypoint passes to scripts/with_retries.sh (the retry

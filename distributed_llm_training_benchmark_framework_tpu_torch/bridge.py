@@ -94,7 +94,7 @@ def load_jax_params(model: TinyGPT, params_np: Dict,
                 raise ValueError(f"JAX tree has no {path[0]}")
             arr = np.asarray(params_np[path[0]])
             used.add(path)
-        for ax, i, n in ((tp_axis(name, model.config.kv_heads, t), m, t),
+        for ax, i, n in ((tp_axis(name, model.config.kv_heads, t, model.pipe[1]), m, t),
                          (expert_axis(name, ep), e, ep)):
             if ax is not None:
                 arr = np.split(arr, n, axis=ax)[i]
@@ -115,7 +115,7 @@ def shard_axes(model: TinyGPT, name: str) -> List[Tuple[int, int, int, Optional[
     """(axis, this rank's index, width, group) for each of the ``model`` and
     ``expert`` axes that shard the port parameter ``name``."""
     (m, t), (e, ep) = model.tp, model.ep
-    axes = ((tp_axis(name, model.config.kv_heads, t), m, t, model.model_group),
+    axes = ((tp_axis(name, model.config.kv_heads, t, model.pipe[1]), m, t, model.model_group),
             (expert_axis(name, ep), e, ep, model.expert_group))
     return [(ax, i, n, group) for ax, i, n, group in axes if ax is not None]
 

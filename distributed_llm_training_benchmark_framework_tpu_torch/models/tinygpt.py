@@ -66,7 +66,11 @@ the contiguous ``[s*L/P, (s+1)*L/P)`` under gpipe / 1f1b, or under the
 interleaved schedule (``virtual_stages`` V) the chunks ``{v*P + s}`` of
 ``L/(P*V)`` layers each, in ``layer_permutation``'s order; ``blocks.<i>``
 holds global layer ``layer_ids[i]``. The leaves outside the blocks are on
-every stage, as JAX's ``pipeline_param_specs`` replicates them. A schedule
+every stage, as JAX's ``pipeline_param_specs`` replicates them; beside a
+``model`` axis the blocks are that rank's Megatron shards and ``wte`` /
+``lm_head`` stay whole (JAX's ``param_partition_specs`` keeps them
+replicated over ``model`` under ``pipe``), so a stage embeds and scores the
+whole vocabulary with no collective (``vocab_tp`` 1). A schedule
 calls the model one unit at a time (``StageUnit``): ``embed``, a chunk's
 blocks (``run_blocks``) and the final norm, head and loss (``head_loss``).
 A unit's embedding and MLP dropout masks come from one seed per site and
@@ -624,12 +628,16 @@ class TinyGPT(nn.Module):
             s * per_stage:(s + 1) * per_stage]]
         self.chunk_layers = per_stage // virtual_stages
         self.tp, self.model_group = (m, t), (mesh.model_group if t > 1 else None)
+        # The vocabulary shards over 'model' but beside 'pipe', where JAX
+        # keeps wte / lm_head replicated over 'model' (every stage's embedding
+        # and head then take the whole vocabulary).
+        self.vocab_tp = t if pp == 1 else 1
         self.cmm = c.tp_collective_matmul and t > 1
         self.ep = mesh.expert_shard if mesh is not None else (0, 1)
         moe = _expert_groups(c, mesh)
         self.expert_group = moe.expert_group
         D, V, pd = c.n_embd, c.vocab_size, c.param_dtype
-        self.wte = _param(pd, V // t, D)
+        self.wte = _param(pd, V // self.vocab_tp, D)
         if c.pos_embed == "learned":
             self.wpe = _param(pd, c.block_size, D)
         self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe, g)
@@ -638,7 +646,7 @@ class TinyGPT(nn.Module):
         if c.norm == "layernorm":
             self.lnf_bias = _param(pd, D)
         if not c.tie_embeddings:
-            self.lm_head = _param(pd, V // t, D)
+            self.lm_head = _param(pd, V // self.vocab_tp, D)
         # The attention every block calls; the config picks it. A check that
         # compares against another implementation assigns this attribute.
         self.attention: AttentionFn = reference_attention
@@ -691,7 +699,7 @@ class TinyGPT(nn.Module):
             elif leaf.removeprefix("moe_").startswith("b") or leaf.endswith("_bias"):
                 p.zero_()
             else:
-                shards = [(tp_axis(name, self.config.kv_heads, t), m, t),
+                shards = [(tp_axis(name, self.config.kv_heads, t, self.pipe[1]), m, t),
                           (expert_axis(name, ep), e, ep)]
                 shards = [(ax, i, n) for ax, i, n in shards if ax is not None]
                 shape = list(p.shape)
@@ -777,6 +785,8 @@ class TinyGPT(nn.Module):
             x = _rms_norm(x, lnf[0], c.norm_eps)
         else:
             x = _layer_norm(x, lnf[0], lnf[1], c.norm_eps)
+        if self.vocab_tp == 1:
+            group = None  # the whole vocabulary on every 'model' rank
         if self.cmm:
             x = all_gather_seq(x, group)
         else:
@@ -818,7 +828,7 @@ class TinyGPT(nn.Module):
             raise ValueError(f"Sequence {S * n} exceeds block size {c.block_size}")
         v0 = m * (c.vocab_size // t)
         cols, rows, row_shape = self._mask_geometry(B, S, batch_offset, global_batch)
-        if group is None:
+        if group is None or self.vocab_tp == 1:
             tok = self.wte[idx]
         elif self.cmm:
             if S % t:

@@ -23,8 +23,11 @@ axes and the group:
   exchange blocks over ``seq_group`` (``ops/ring_attention.py``,
   ``ops/ulysses_attention.py``); each holds its ``model`` index's shard of
   the Megatron layout (``parallel/strategies.py``, ``parallel/tensor.py``),
-  its ``pipe`` index's layers (``parallel/pipeline.py``) and its ``expert``
-  index's E/ep experts (``models/moe.py``). The batch rows shard over
+  its ``pipe`` index's layers (``parallel/pipeline.py``; beside ``model``
+  a stage's layers are that ``model`` index's shards, and the pipeline of
+  one (data, seq, model) place is its pp consecutive ranks, ``pipe`` being
+  the fastest axis but ``expert``) and its ``expert`` index's E/ep experts
+  (``models/moe.py``). The batch rows shard over
   ``data`` x ``expert``: member ``d * ep + e`` of ``batch_group`` takes its
   own rows (JAX's ``batch_partition_spec``).
 - **Without a group, or at world 1, the n ``seq`` shards are held in one
@@ -52,6 +55,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from ..runtime.distributed import group_device_type
 
 
 @dataclasses.dataclass(frozen=True)
@@ -331,7 +336,7 @@ def make_mesh(shape: Optional[Sequence[int]] = None,
     widths[AXES.data] = dp
     device_mesh = replica = batch = None
     if group:
-        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_type = group_device_type()
         sp_group = sp if world > 1 else 1
         dims = [(AXES.data, dp), (AXES.seq, sp_group), (AXES.model, tp), (AXES.pipe, pp),
                 (AXES.expert, ep)]

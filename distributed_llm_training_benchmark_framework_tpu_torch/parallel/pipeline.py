@@ -367,11 +367,6 @@ def check_pipeline(pipeline_parallel: int, pipeline_schedule: str, virtual_stage
             "--tp-collective-matmul cannot compose with pipeline parallelism (the pipeline runs "
             "the residual stream manually over 'seq'; drop one of the two)"
         )
-    if tensor_parallel > 1:
-        raise ValueError(
-            "pipeline parallelism beside tensor parallelism is not ported (under 'pipe' JAX "
-            "keeps wte replicated over 'model', a second layout of the tp path; ROADMAP Queue 1 "
-            "item 13)")
     if expert_parallel > 1:
         raise ValueError(
             "pipeline parallelism beside an 'expert' axis wider than 1 is not ported (JAX takes "

@@ -98,6 +98,17 @@ the arm's reduction the replicated leaves' gradients are summed over
 ``pipe`` (the first stage holds the embedding's share, the last the
 head's), so they stay equal on every stage. The clip's norm sums the
 blocks' squares over ``pipe`` and counts the replicated leaves once.
+Beside a ``model`` axis (JAX's layout: the blocks' Megatron shards, ``wte``
+and ``lm_head`` whole on every ``model`` rank) each arm works over the
+data x seq ranks of one (``model``, ``pipe``) index, and the clip sums the
+squares of a stage's ``model``-sharded leaves over ``model`` and then all
+of the stage's own leaves over ``pipe``.
+
+fsdp / zero3 shard each leaf on the axis JAX's ``param_partition_specs``
+puts ``data`` on (``fsdp_data_axis``, FSDP2's ``shard_placement_fn``), not
+on dim 0 padded to the ``data`` width, whose padded buffers grew with the
+width; a leaf JAX leaves replicated over ``data`` stays whole
+(``_fully_shard``).
 
 The recipe equals optax's ``chain(clip_by_global_norm(c), adamw(schedule))``:
 
@@ -138,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -146,7 +158,7 @@ from typing import Any, ContextManager, Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.fsdp import fully_shard
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.nn.parallel import DistributedDataParallel
 
 from .mesh import AXES, Mesh, shard_data_mesh
@@ -493,13 +505,17 @@ def expert_axis(port_name: str, ep: int) -> Optional[int]:
     return 0 if ep > 1 and jax_leaf_name(port_name) in _EP_RULES else None
 
 
-def tp_axis(port_name: str, kv_heads: int, tp: int) -> Optional[int]:
+def tp_axis(port_name: str, kv_heads: int, tp: int, pp: int = 1) -> Optional[int]:
     """The axis of a port parameter (one layer's leaf, no layer axis) that
-    shards over ``model`` at width ``tp``, or None (replicated)."""
+    shards over ``model`` at width ``tp``, or None (replicated). Beside a
+    ``pipe`` axis of width ``pp`` > 1 ``wte`` and ``lm_head`` stay
+    replicated over ``model``, as JAX's ``param_partition_specs`` keeps them."""
     if tp == 1:
         return None
     name = jax_leaf_name(port_name)
     if name not in _TP_RULES or (name in _KV_LEAVES and not kv_aligned(kv_heads, tp)):
+        return None
+    if pp > 1 and name in ("wte", "lm_head"):
         return None
     ax = _TP_RULES[name][0]
     return ax - 1 if name.startswith("blocks/") else ax
@@ -570,6 +586,31 @@ def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[s
                                      composed=n_model > 1)
         specs[name] = tuple(spec)
     return specs
+
+
+def fsdp_data_axis(port_name: str, shape: Tuple[int, ...], mesh_shape: Dict[str, int],
+                   kv_heads: int, n_layer: int) -> Optional[int]:
+    """The axis of a port parameter (``shape``: this rank's ``model`` /
+    ``expert`` part of one layer's leaf) that JAX's ``param_partition_specs``
+    shards over ``data`` at ``mesh_shape``, or None where JAX leaves the
+    leaf replicated over ``data``. The rule sees the JAX leaf: global widths,
+    block leaves stacked on a layer axis. Where JAX picks that layer axis
+    (no tensor axis divides), the port, which holds each layer as a leaf of
+    its own, keeps the leaf replicated too."""
+    name = jax_leaf_name(port_name)
+    tp, ep = mesh_shape.get("model", 1), mesh_shape.get("expert", 1)
+    glob = list(shape)
+    for ax, n in ((tp_axis(port_name, kv_heads, tp, mesh_shape.get("pipe", 1)), tp),
+                  (expert_axis(port_name, ep), ep)):
+        if ax is not None:
+            glob[ax] *= n
+    block = name.startswith("blocks/")
+    jax_shape = (n_layer, *glob) if block else tuple(glob)
+    spec = param_partition_specs({name: jax_shape}, mesh_shape, True, kv_heads)[name]
+    if "data" not in spec:
+        return None
+    ax = spec.index("data")
+    return (ax - 1 if ax > 0 else None) if block else ax
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int):
@@ -645,10 +686,13 @@ class Optimizer:
     hold the other shards of the flagged parameters, and the rest are
     replicated over it: ``model`` under tensor parallelism, ``pipe`` under
     pipeline parallelism (the blocks), ``expert`` under expert parallelism
-    (never two of them wider than 1). ``pipe_group`` and ``pipe_shared``
+    (``pipe`` beside ``model``: ``model``). ``pipe_group`` and ``pipe_shared``
     (one flag per parameter): under a pipeline, the flagged parameters are
     held by every stage, and ``finish_grads`` sums their gradients over
-    ``pipe_group`` after the arm's reduction.
+    ``pipe_group`` after the arm's reduction. ``data_replicated`` (one flag
+    per parameter): the flagged gradients are whole on every rank of
+    ``norm_group`` (leaves an FSDP2 arm keeps out of its shards), so the
+    norm counts them once.
 
     Under ``offload_opt_state`` there is no device AdamW: ``host``
     (``parallel/offload.HostOffload``) holds the fp32 masters and moments of
@@ -670,7 +714,8 @@ class Optimizer:
                  shard_group: Optional[dist.ProcessGroup] = None,
                  shard_flags: Optional[List[bool]] = None,
                  pipe_group: Optional[dist.ProcessGroup] = None,
-                 pipe_shared: Optional[List[bool]] = None):
+                 pipe_shared: Optional[List[bool]] = None,
+                 data_replicated: Optional[List[bool]] = None):
         self.strategy = strategy
         self.params = [p for p in params]
         self.norm_group = norm_group
@@ -678,6 +723,7 @@ class Optimizer:
         self.shard_flags = shard_flags or [False] * len(self.params)
         self.pipe_group = pipe_group
         self.pipe_shared = pipe_shared or [False] * len(self.params)
+        self.data_replicated = data_replicated or [False] * len(self.params)
         if strategy.warmup_steps > 0:
             self.schedule = linear_schedule(0.0, strategy.learning_rate, strategy.warmup_steps)
         else:
@@ -741,30 +787,47 @@ class Optimizer:
                              tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """The norm over every element once: the flagged leaves' squares
         summed over ``shard_group``, the replicated ones' counted once,
-        then (shards of one gradient) summed over ``norm_group``.
+        then (shards of one gradient) summed over ``norm_group``; the
+        ``data_replicated`` leaves' squares join after that sum.
         ``tensors``: one per parameter, laid out as it (default: the grads)."""
-        parts = {True: [], False: []}
+        # Under pipe x model (``shard_group`` is ``model``) the stage's own
+        # leaves are summed over ``pipe`` after ``model`` (a model-sharded
+        # leaf is a block leaf), the ones every stage holds are not.
+        both = self.pipe_group is not None and self.pipe_group is not self.shard_group
+        parts: Dict[Tuple[bool, bool, bool], List[torch.Tensor]] = {}
         if tensors is None:
             tensors = [p.grad for p in self.params]
-        for t, sharded in zip(tensors, self.shard_flags):
+        for t, sharded, whole, shared in zip(tensors, self.shard_flags, self.data_replicated,
+                                             self.pipe_shared):
             if t is not None:
-                parts[sharded].append(_local(t))
-        norms = {sharded: _total_norm(grads, f32) for sharded, grads in parts.items() if grads}
-        some = next(iter(norms.values()))
-        sq = {sharded: norms[sharded] ** 2 if sharded in norms else torch.zeros_like(some)
-              for sharded in (True, False)}
-        dist.all_reduce(sq[True], group=self.shard_group)
-        total = sq[True] + sq[False]
+                parts.setdefault((sharded, whole, both and not shared), []).append(_local(t))
+        norms = {key: _total_norm(grads, f32) for key, grads in parts.items()}
+        zero = torch.zeros_like(next(iter(norms.values())))
+        sq = {key: norms[key] ** 2 if key in norms else zero.clone()
+              for key in itertools.product((True, False), repeat=3)}
+        out = {}
+        for whole in (False, True):
+            if whole and not any(self.data_replicated):
+                out[whole] = zero
+                continue
+            part = sq[True, whole, True] + sq[True, whole, False]
+            if self.shard_group is not None:
+                dist.all_reduce(part, group=self.shard_group)
+            part = part + sq[False, whole, True]
+            if both:
+                dist.all_reduce(part, group=self.pipe_group)
+            out[whole] = part + sq[False, whole, False]
+        total = out[False]
         if self.norm_group is not None:
             dist.all_reduce(total, group=self.norm_group)
-        return total.sqrt()
+        return (total + out[True]).sqrt()
 
     def _clip_norm(self, f32: bool = False,
                    tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """The clip's global norm: fp32 (an fp64 sum of fp32 gradients'
         squares rounded once), or the bf16 gradients' own dtype.
         ``tensors`` as for ``_global_norm_sharded``."""
-        if self.shard_group is None:
+        if self.shard_group is None and not any(self.data_replicated):
             local = (self._grads() if tensors is None
                      else [_local(t) for t in tensors if t is not None])
             norm = self._global_norm(local, f32)
@@ -871,15 +934,25 @@ class _DDPOptimizer(Optimizer):
 class _FSDPOptimizer(Optimizer):
     """fsdp / zero3: FSDP2 averages each gradient over its mesh; the experts'
     mesh is ``data`` only, so their gradients are divided by the ``expert``
-    width ``ep`` as well (dp * ep in all)."""
+    width ``ep`` as well (dp * ep in all). ``kept_out`` maps each group to
+    the leaves FSDP2 ignores (``fsdp_data_axis`` None), whose gradients
+    ``finish_grads`` averages over it by hand."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
-                 experts: List[torch.nn.Parameter], ep: int, **kw):
+                 experts: List[torch.nn.Parameter], ep: int,
+                 kept_out: Dict[dist.ProcessGroup, List[torch.nn.Parameter]], **kw):
         super().__init__(strategy, model.parameters(), **kw)
-        self.experts, self.ep = experts, ep
+        self.experts, self.ep, self.kept_out = experts, ep, kept_out
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
+        for group, params in self.kept_out.items():
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            _all_reduce_flat(grads, group)
+            torch._foreach_div_(grads, float(dist.get_world_size(group)))
         if self.experts:
             torch._foreach_div_([_local(p.grad) for p in self.experts], float(self.ep))
         super().finish_grads(grad_accum)
@@ -1024,8 +1097,9 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
 
 def _shard_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
     """The group whose ranks hold the other shards of the sharded leaves:
-    ``model``, ``pipe`` or ``expert`` (never two of them wider than 1), or
-    None."""
+    ``model``, ``pipe`` or ``expert`` (``model`` when ``pipe`` rides beside
+    it: the optimizer sums the stages' own leaves over ``pipe`` after it),
+    or None."""
     for group in (mesh.model_group, mesh.pipe_group):
         if group is not None:
             return group
@@ -1034,13 +1108,60 @@ def _shard_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
 
 def _shard_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
     """Per parameter of ``model`` (in ``parameters()`` order): whether the
-    ``model`` axis shards it (``tp_axis``), a ``pipe`` axis (a block leaf:
-    each stage holds its own layers) or, under an ``expert`` axis, it is an
-    expert leaf."""
+    ``model`` axis shards it (``tp_axis``), a ``pipe`` axis with no
+    ``model`` beside it (a block leaf: each stage holds its own layers) or,
+    under an ``expert`` axis, it is an expert leaf."""
     tp, ep, kv = mesh.size(AXES.model), mesh.size(AXES.expert), model.config.kv_heads
     pp = mesh.size(AXES.pipe)
-    return [tp_axis(name, kv, tp) is not None or expert_axis(name, ep) is not None
-            or (pp > 1 and zero2_bucket(name) != "") for name, _ in model.named_parameters()]
+    return [tp_axis(name, kv, tp, pp) is not None or expert_axis(name, ep) is not None
+            or (pp > 1 and tp == 1 and zero2_bucket(name) != "")
+            for name, _ in model.named_parameters()]
+
+
+def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
+                 experts: List[torch.nn.Module], shards: Dict[str, Any]):
+    """fsdp / zero3: FSDP2 on each block (its experts on the ``data`` mesh
+    first, under an ``expert`` axis) and then on the root, each leaf sharded
+    on the axis JAX's ``param_partition_specs`` puts ``data`` on
+    (``fsdp_data_axis``), so no leaf is padded to the ``data`` width. A leaf
+    JAX leaves replicated over ``data`` (no axis the width divides; on a
+    composed (data x model) mesh a vector-like leaf, or one whose only free
+    axes follow its ``model`` axis) is kept out of the shards
+    (``ignored_params``): it stays whole on every rank, its gradient is
+    averaged over the ranks FSDP2 would have averaged it over (``data``
+    for an expert leaf, else the arm's group), and the clip counts it once.
+    Padding it instead would grow its bytes with the width. At ``data``
+    width 1 every leaf is its own whole shard."""
+    n_layer, kv = model.config.n_layer, model.config.kv_heads
+    named = list(model.named_parameters())
+    if mesh.size(AXES.data) > 1:
+        axis = {p: fsdp_data_axis(name, tuple(p.shape), mesh.shape, kv, n_layer)
+                for name, p in named}
+    else:
+        axis = {p: 0 for _, p in named}
+    ignored = {p for p, ax in axis.items() if ax is None}
+    expert_ids = {id(p) for m in experts for p in m.parameters()}
+    kept_out: Dict[dist.ProcessGroup, List[torch.nn.Parameter]] = {}
+    for _, p in named:
+        if p in ignored:
+            group = mesh.data_group if id(p) in expert_ids else mesh.arm_group
+            kept_out.setdefault(group, []).append(p)
+    flags = [p in ignored for _, p in named]
+
+    def shard(module: torch.nn.Module, device_mesh) -> None:
+        fully_shard(module, mesh=device_mesh, shard_placement_fn=lambda p: Shard(axis[p]),
+                    ignored_params=ignored)
+
+    shard_mesh = shard_data_mesh(mesh)
+    for block in model.blocks:
+        if experts:
+            shard(block.experts, mesh.device_mesh[AXES.data])
+        shard(block, shard_mesh)
+    shard(model, shard_mesh)
+    # fully_shard replaced the parameters: take the experts' afterwards.
+    return model, _FSDPOptimizer(strategy, model, [p for m in experts for p in m.parameters()],
+                                 mesh.size(AXES.expert), kept_out, norm_group=mesh.data_group,
+                                 data_replicated=flags, **shards)
 
 
 def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:
@@ -1060,6 +1181,12 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
     check_ported(strategy)
     if mesh is None or mesh.device_mesh is None:
         return model, make_optimizer(strategy, model.parameters())
+    if (strategy.shard_grads and mesh.size(AXES.data) > 1 and dist.get_backend() == "gloo"
+            and next(model.parameters()).device.type == "cuda"):
+        raise ValueError(
+            f"the {strategy.name} arm gathers and reduce-scatters over 'data', which gloo cannot "
+            "carry for CUDA tensors (its TCP transport reads the device pointer as host memory); "
+            "run it over NCCL, one card per rank, or on the CPU")
     group = mesh.data_group
     shards = {}
     if _shard_group(mesh) is not None:
@@ -1069,15 +1196,7 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
         shards.update(pipe_group=mesh.pipe_group, pipe_shared=shared)
     experts = _expert_modules(model) if mesh.expert_group is not None else []
     if strategy.shard_params:
-        shard_mesh = shard_data_mesh(mesh)
-        for block in model.blocks:
-            if experts:
-                fully_shard(block.experts, mesh=mesh.device_mesh[AXES.data])
-            fully_shard(block, mesh=shard_mesh)
-        fully_shard(model, mesh=shard_mesh)
-        # fully_shard replaced the parameters: take the experts' afterwards.
-        return model, _FSDPOptimizer(strategy, model, [p for m in experts for p in m.parameters()],
-                                     mesh.size(AXES.expert), norm_group=group, **shards)
+        return _fully_shard(model, strategy, mesh, experts, shards)
     if strategy.shard_grads:
         return model, _Zero2Optimizer(strategy, model, mesh)
     device = next(model.parameters()).device

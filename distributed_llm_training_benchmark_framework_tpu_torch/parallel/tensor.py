@@ -32,6 +32,10 @@ ordinary tensors, so it issues them itself (Shoeybi et al. 2019, "f" and
   backward needs no collective: each rank's logits get softmax - one-hot
   over its own rows.
 
+The vocabulary-parallel pair runs without a ``pipe`` axis only: beside
+``pipe`` JAX keeps ``wte`` / ``lm_head`` whole on every ``model`` rank, and
+the model looks up and scores the whole vocabulary with no collective.
+
 A remat recompute (``models/tinygpt.py``) runs a forward collective again,
 with the same result; a gradient's all-reduce runs in the backward only,
 once.

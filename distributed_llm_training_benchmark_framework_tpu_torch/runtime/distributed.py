@@ -97,13 +97,15 @@ def read_env(env: Mapping[str, str] = os.environ, master_addr: Optional[str] = N
 
 
 class _Runtime:
-    """The store this process made in ``setup_distributed`` and its place in
-    the job; None outside a group. ``run`` counts the runs begun in this
-    process (``begin_run``): each run's flags live under its own number."""
+    """The store this process made in ``setup_distributed``, its place in
+    the job and the device type its tensors live on; None outside a group.
+    ``run`` counts the runs begun in this process (``begin_run``): each
+    run's flags live under its own number."""
 
     def __init__(self):
         self.store: Optional[dist.TCPStore] = None
         self.env: Optional[DistEnv] = None
+        self.device_type: Optional[str] = None
         self.run = 0
 
 
@@ -118,7 +120,8 @@ def setup_distributed(master_addr: Optional[str] = None, master_port: Optional[i
     ``device`` "cpu" selects gloo; otherwise NCCL on ``cuda:{LOCAL_RANK}``,
     which is made the current device. ``backend="gloo"`` with a CUDA device
     keeps the tensors on the card and carries the collectives over gloo
-    (several ranks on one card, where NCCL takes one rank per device).
+    (several ranks on one card, where NCCL takes one rank per device: rank
+    LOCAL_RANK takes card LOCAL_RANK mod the card count).
     Returns True if this call made a group, False when nothing names a
     world size (no group, as in JAX)."""
     env = read_env(os.environ, master_addr, master_port, num_processes, process_id)
@@ -126,11 +129,14 @@ def setup_distributed(master_addr: Optional[str] = None, master_port: Optional[i
         return False
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized in this process")
+    if backend not in (None, "gloo", "nccl"):
+        raise ValueError(f"backend {backend!r} (expected 'gloo' or 'nccl')")
     on_cpu = device is not None and torch.device(device).type == "cpu"
     if not on_cpu:
         if not torch.cuda.is_available():
             raise RuntimeError("NCCL needs a CUDA device; pass device='cpu' for gloo")
-        torch.cuda.set_device(env.local_rank)
+        torch.cuda.set_device(env.local_rank % torch.cuda.device_count() if backend == "gloo"
+                              else env.local_rank)
     timeout = datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_SEC)
     store = dist.TCPStore(env.master_addr, env.master_port, env.world_size,
                           is_master=env.rank == 0, timeout=timeout)
@@ -141,6 +147,7 @@ def setup_distributed(master_addr: Optional[str] = None, master_port: Optional[i
         **({} if gloo else {"device_id": torch.device("cuda", env.local_rank)}),
     )
     _RT.store, _RT.env = store, env
+    _RT.device_type = "cpu" if on_cpu else "cuda"
     return True
 
 
@@ -148,7 +155,16 @@ def cleanup_distributed() -> None:
     """Destroy the group and drop the store (no-op without a group)."""
     if dist.is_initialized():
         dist.destroy_process_group()
-    _RT.store, _RT.env = None, None
+    _RT.store, _RT.env, _RT.device_type = None, None, None
+
+
+def group_device_type() -> str:
+    """The device type of the group's tensors: the one ``setup_distributed``
+    was given (gloo carries CUDA tensors too), else "cuda" under NCCL and
+    "cpu" otherwise."""
+    if _RT.device_type is not None:
+        return _RT.device_type
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
 def get_world_size() -> int:

@@ -7,9 +7,11 @@
 Port of ``distributed_llm_training_benchmark_framework_tpu/train/harness.py``
 (its parser, ``resolve_strategy`` and ``main``'s exit codes). Every flag the
 JAX harness accepts is here with its default, and is either live or refused
-with the reason (``REFUSED``); none is accepted and ignored. The one flag
-added is ``--device`` (``cuda`` by default; ``cpu`` on request, for gloo
-runs on the host).
+with the reason (``REFUSED``); none is accepted and ignored. Two flags are
+added: ``--device`` (``cuda`` by default; ``cpu`` on request, for gloo
+runs on the host) and ``--backend`` (``gloo`` carries a group of ranks on
+CUDA tensors over the host, so several ranks can share one card; by
+default NCCL on the card, gloo on the host).
 
 - ``--world-size`` is the process group's size, one card per process.
   Under torchrun, or with ``--num-processes`` / ``--rank`` (and
@@ -95,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Distributed strategy arm")
     p.add_argument("--device", default=None,
                    help="cuda (default: one card per process) or cpu (gloo on the host)")
+    p.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                   help="The process group's backend (default: nccl on cuda, gloo on cpu); "
+                        "gloo on cuda lets several ranks share one card")
     # Distributed
     p.add_argument("--world-size", type=int, required=True,
                    help="Processes (cards) of the group; must equal the group's size")
@@ -297,7 +302,7 @@ def main(argv=None) -> int:
         master_addr=args.master_addr if explicit else None,
         master_port=args.master_port if explicit else None,
         num_processes=args.num_processes, process_id=args.rank if explicit else None,
-        device=args.device)
+        device=args.device, backend=args.backend)
     try:
         run_benchmark(
             strategy=strategy, tier=args.tier, model_family=args.model_family,

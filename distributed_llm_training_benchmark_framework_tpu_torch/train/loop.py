@@ -97,8 +97,10 @@ chunks per stage, 2 by default) with the step's ``grad_accum`` micro-batches
 as the schedule's microbatches (``parallel/pipeline.py``,
 ``parallel/interleaved.py``), with JAX's checks (``train/loop.py:464-546``):
 ``n_layer`` divisible by pp (by pp * V under interleaved), a known schedule,
-no ``tp_collective_matmul``. A ``model`` axis or an ``expert`` axis wider
-than 1 beside ``pipe`` is refused (ROADMAP Queue 1 items 13 and 12). The
+no ``tp_collective_matmul``. A ``model`` axis beside ``pipe`` runs
+JAX's layout (the blocks' Megatron shards, ``wte`` / ``lm_head`` replicated
+over ``model``); an ``expert`` axis wider than 1 beside ``pipe`` is refused
+(ROADMAP Queue 1 item 12). The
 row stamps ``pipeline_parallel``, ``pipeline_schedule`` and
 ``virtual_stages`` (1 unless interleaved). The MoE overflow diagnostic runs
 through the stages under gpipe and 1f1b and, as in JAX, is skipped under

@@ -14,8 +14,10 @@ counterpart, since there is no XLA here).
   host offload the optimizer term is 0: masters and moments live on the
   host (JAX's rule); the bf16 parameters and gradients stay. Without a
   process group, and under ddp, every rank holds whole params, grads and
-  both AdamW moments. fsdp / zero3 (FSDP2) keep rank 0's
-  rows of dim 0 of every leaf, ceil(d0 / dp) of them, for all three. zero2
+  both AdamW moments. fsdp / zero3 (FSDP2) keep rank 0's chunk of every
+  leaf on the axis JAX's rule shards over ``data``
+  (``parallel/strategies.fsdp_data_axis``), ceil(n / dp) of its n rows
+  there, or the whole leaf where the rule finds no axis, for all three. zero2
   holds its buckets' replicated flat buffers (one per block and one for the
   leaves outside the blocks, each padded to a multiple of dp), flat
   gradient buffers of the same sizes plus the shards they are
@@ -57,7 +59,12 @@ import torch
 
 from ..models.tinygpt import TinyGPT, normalize_remat
 from ..parallel.mesh import AXES
-from ..parallel.strategies import jax_leaf_name, param_partition_specs, zero2_bucket
+from ..parallel.strategies import (
+    fsdp_data_axis,
+    jax_leaf_name,
+    param_partition_specs,
+    zero2_bucket,
+)
 
 # Device memory per card in bytes, matched by substring against the device
 # name: 80 GB (decimal) for both H100 parts, from NVIDIA's data sheet.
@@ -113,17 +120,21 @@ def param_itemsize(model_config) -> int:
 
 
 def state_bytes(shapes: List[Tuple[str, Tuple[int, ...]]], strategy, dp: int, wrapped: bool,
-                item: int = 4) -> Tuple[int, int, int]:
+                item: int = 4, n_layer: int = 1, kv_heads: int = 1) -> Tuple[int, int, int]:
     """(params, grads, AdamW moments) bytes rank 0 holds, leaves (name,
-    shape) of ``item`` bytes per element, under the arm's layout over ``dp``
-    ranks (``wrapped``: a process group is up, so the arm's wrapper runs);
-    no moments on the device under host offload."""
+    shape) of ``item`` bytes per element of a model of ``n_layer`` layers,
+    under the arm's layout over ``dp`` ranks (``wrapped``: a process group
+    is up, so the arm's wrapper runs); no moments on the device under host
+    offload."""
     moments = 0 if strategy.offload_opt_state else 2
     n = sum(math.prod(s) for _, s in shapes)
     if not wrapped or not strategy.shard_grads:
         return n * item, n * item, moments * n * item
     if strategy.shard_params:
-        local = sum(-(-s[0] // dp) * math.prod(s[1:]) for _, s in shapes)
+        local = 0
+        for name, s in shapes:
+            ax = fsdp_data_axis(name, s, {"data": dp}, kv_heads, n_layer) if dp > 1 else None
+            local += math.prod(s) if ax is None else math.prod(s) // s[ax] * -(-s[ax] // dp)
         return local * item, local * item, moments * local * item
     buckets: Dict[str, int] = {}
     for name, s in shapes:
@@ -183,7 +194,7 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
         params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
     else:
         params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped,
-                                               param_itemsize(cfg))
+                                               param_itemsize(cfg), cfg.n_layer, cfg.kv_heads)
 
     # Analytic activations of one micro-batch's forward and backward (the
     # JAX package's formula and coefficients).

@@ -17,7 +17,10 @@
 #      step anatomy -> make_report -> validate_results;
 #   5. the registry: ingest and gate (SKIP_REGRESS=1 skips);
 #   6. REMAT_SWEEP=1: `python -m <port>.bench --remat-sweep` and the report
-#      refreshed with its frontier.
+#      refreshed with its frontier;
+#   7. SCALING_SUITE=1: the scaling suite's CPU smoke,
+#      scripts/torch_scaling_suite.sh --dryrun, in a throwaway directory
+#      with its own registry (SKIP_SCALING=1 skips).
 #
 # Where it runs: on the card by default, one card per rank; the world sizes
 # are 1 and each of 2, 4, 8 that torch.cuda.device_count() holds. DEVICE=cpu
@@ -28,8 +31,7 @@
 #     STRATEGIES="ddp zero2" SKIP_CHAOS=1 scripts/torch_run_all_benchmarks.sh
 #
 # Not ported (ROADMAP item 19): --k8s (GPU Job templates and a container
-# image for the port) and SCALING_SUITE=1 (the scaling suite); each is
-# refused with a message.
+# image for the port), refused with a message.
 set -euo pipefail
 
 cd "$(dirname "$0")/.."
@@ -92,6 +94,7 @@ PROFILE="${PROFILE:-0}"
 # length), one registry record per policy, and the report's frontier.
 REMAT_SWEEP="${REMAT_SWEEP:-0}"
 SCALING_SUITE="${SCALING_SUITE:-0}"
+SKIP_SCALING="${SKIP_SCALING:-0}"
 
 while [ $# -gt 0 ]; do
   case "$1" in
@@ -107,10 +110,6 @@ while [ $# -gt 0 ]; do
   esac
 done
 
-if [ "$SCALING_SUITE" = "1" ]; then
-  echo "ERROR: SCALING_SUITE=1 is not ported: the port's scaling suite" \
-       "(scripts/scaling_suite.sh) is ROADMAP item 19"; exit 1
-fi
 if [ "$LAYER_LOOP" != "unrolled" ]; then
   echo "ERROR: LAYER_LOOP=$LAYER_LOOP: the port runs the layers as a Python loop;" \
        "only 'unrolled' has a meaning (ROADMAP Queue 1 item 0)"; exit 1
@@ -376,6 +375,24 @@ if [ "$REMAT_SWEEP" = "1" ]; then
     FAIL=$((FAIL+1))
   fi
   stage_end remat_sweep
+fi
+
+if [ "$SCALING_SUITE" = "1" ] && [ "$SKIP_SCALING" != "1" ]; then
+  echo ""
+  echo "=== Scaling smoke (scripts/torch_scaling_suite.sh --dryrun) ==="
+  stage_start
+  SCALING_DIR=$(mktemp -d "${TMPDIR:-/tmp}/torch_scaling_smoke.XXXXXX")
+  # --registry pinned inside the temporary directory: an exported
+  # REGISTRY_DIR must not take the smoke's tiny CPU points for good.
+  if scripts/torch_scaling_suite.sh --dryrun --results-dir "$SCALING_DIR" \
+       --registry "$SCALING_DIR/registry"; then
+    rm -rf "$SCALING_DIR"
+  else
+    echo "SCALING SMOKE FAILED (SKIP_SCALING=1 to override)." \
+         "Artifacts: $SCALING_DIR"
+    FAIL=$((FAIL+1))
+  fi
+  stage_end scaling
 fi
 
 echo ""

@@ -63,6 +63,7 @@ from test_torch_arms_worker import (
     spawn_ranks,
     wait_ranks,
 )
+from torch_fsdp_rule import fsdp_local_numel
 from torch_threads import one_thread  # noqa: F401  (autouse)
 
 S, MICRO, ACCUM, STEPS = 64, 1, 2, 3
@@ -187,12 +188,14 @@ def test_arm_matches_its_jax_recipe(runs, label, world):
 @pytest.mark.parametrize("label", sorted(LABELS))
 def test_local_state_has_the_arms_size(runs, label, world):
     """Rank 0's params and AdamW moments: ddp whole; fsdp / zero3 rank 0's
-    rows of dim 0 of each leaf (FSDP2's ceil(d0 / world)); zero2 whole
-    params and the moments of its shards of the padded flat buffers, one
-    per block and one for the leaves outside the blocks."""
+    chunk of each leaf on the axis JAX's rule puts ``data`` on (the whole
+    leaf where it finds none); zero2 whole params and the moments of its
+    shards of the padded flat buffers, one per block and one for the leaves
+    outside the blocks."""
     size = runs[0][world][0]["sizes"][label]
     n = size["param_global"]
-    sharded = sum(-(-s[0] // world) * int(np.prod(s[1:])) for s in size["leaf_shapes"])
+    sharded = sum(fsdp_local_numel(name, s, 2, {"data": world}, 0)
+                  for name, s in zip(size["leaf_names"], size["leaf_shapes"]))
     buckets = {}
     for name, shape in zip(size["leaf_names"], size["leaf_shapes"]):
         buckets[tstrat.zero2_bucket(name)] = buckets.get(tstrat.zero2_bucket(name), 0) + int(
@@ -203,8 +206,10 @@ def test_local_state_has_the_arms_size(runs, label, world):
     want = {"ddp": (n, n), "fsdp": (sharded, sharded), "zero3": (sharded, sharded),
             "zero2": (n, flat_shard)}[arm]
     assert (size["param_local"], size["moments"]) == want
-    if arm in ("fsdp", "zero3", "zero2"):
-        assert size["moments"] <= n / world + n * 0.02  # about 1/world of the model
+    if arm == "zero2" or (arm in ("fsdp", "zero3") and world == 2):
+        # About 1/world of the model; at width 3 JAX's rule finds no axis of
+        # most tier-S leaves that 3 divides, and fsdp / zero3 keep them whole.
+        assert size["moments"] <= n / world + n * 0.02
     if arm == "zero2" and world == 3:
         assert flat_shard * world > n  # the flat buffers are padded
 

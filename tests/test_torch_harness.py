@@ -54,7 +54,7 @@ def test_every_jax_option_is_live_or_refused():
             assert dest in tharness.REFUSED, dest
         if action.choices is not None:
             assert list(port.choices) == list(action.choices), dest
-    assert set(port_opts) - set(jax_opts) == {"device"}
+    assert set(port_opts) - set(jax_opts) == {"device", "backend"}
     for dest, (default, reason) in tharness.REFUSED.items():
         assert port_opts[dest].default == default and reason, dest
 

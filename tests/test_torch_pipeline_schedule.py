@@ -193,7 +193,10 @@ def _refusal(**kw):
 
 def test_refusals_are_jaxs(eight_devices):
     """JAX's messages for what JAX refuses; the port's own for a pipeline at
-    world 1 and beside ``model`` or an ``expert`` axis wider than 1."""
+    world 1 and beside an ``expert`` axis wider than 1. Beside ``model`` a
+    pipeline is no longer refused (JAX's layout, ``tests/test_torch_pipeline_tp.py``):
+    at world 1 only the missing group is, and the collective matmul and an
+    ``expert`` axis stay refused beside ``model`` too."""
     with pytest.raises(ValueError) as want:
         jax_meta(jmake_mesh((1, 1, 1, 2, 1), AXES5, devices=jax.devices()[:2]), 4, "zb")
     assert _refusal(pipeline_schedule="zb") == str(want.value)
@@ -217,6 +220,11 @@ def test_refusals_are_jaxs(eight_devices):
     assert "needs a process group" in _refusal()
     assert "pipeline parallelism (pipe width 2)" in _refusal()
     msg = _refusal(tensor_parallel=2)
-    assert "beside tensor parallelism is not ported" in msg and "item 13" in msg
+    assert "needs a process group" in msg and "item 13" not in msg
+    tpipe.check_pipeline(2, "gpipe", 1, 2, tensor_parallel=2, expert_parallel=1,
+                   tp_collective_matmul=False)
+    assert _refusal(tensor_parallel=2, tp_collective_matmul=True) == str(want.value)
     msg = _refusal(n_experts=4, expert_parallel=2)
+    assert "beside an 'expert' axis wider than 1 is not ported" in msg and "item 12" in msg
+    msg = _refusal(tensor_parallel=2, n_experts=4, expert_parallel=2)
     assert "beside an 'expert' axis wider than 1 is not ported" in msg and "item 12" in msg

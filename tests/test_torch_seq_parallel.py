@@ -72,6 +72,7 @@ from torch_seq_parallel_worker import (
     spawn_ranks,
     wait_ranks,
 )
+from torch_fsdp_rule import fsdp_local_numel
 
 JAX_CONFIG = {"tinygpt": jtiny.get_model_config, "llama": jllama.get_llama_config}
 RECIPE = {"ddp": "ddp", "fsdp": "ddp", "zero2": "zero2", "zero3": "zero2"}
@@ -216,8 +217,8 @@ def test_jax_recipe_is_run_benchmarks_step(runs):
 @pytest.mark.parametrize("world,family,impl,arm", TRAINED)
 def test_local_state_has_the_arms_size(runs, world, family, impl, arm):
     """Replicated over ``seq``, sharded over ``data`` only: ddp whole;
-    fsdp / zero3 the rows of dim 0 of each leaf that its ``data`` index d
-    holds over dp (FSDP2's chunks of ceil(d0 / dp)), not over dp * n;
+    fsdp / zero3 the chunk its ``data`` index d holds over dp of each leaf,
+    on the axis JAX's rule puts ``data`` on, not over dp * n;
     zero2 whole params and the moments of its shard of the flat buffer
     padded to dp. The bytes each rank at ``data`` index 0 holds equal
     ``estimate_hbm``'s (rank 0's layout)."""
@@ -226,8 +227,8 @@ def test_local_state_has_the_arms_size(runs, world, family, impl, arm):
         d = r // SP
         size = res["sizes"][label]
         n = size["param_global"]
-        sharded = sum(min(-(-s[0] // dp), max(0, s[0] - d * -(-s[0] // dp)))
-                      * int(np.prod(s[1:])) for s in size["leaf_shapes"])
+        sharded = sum(fsdp_local_numel(name, s, 2, {"data": dp}, d)
+                      for name, s in zip(size["leaf_names"], size["leaf_shapes"]))
         want = {"ddp": (n, n), "fsdp": (sharded, sharded), "zero3": (sharded, sharded),
                 "zero2": (n, -(-n // dp))}[arm]
         assert (size["param_local"], size["moments"]) == want

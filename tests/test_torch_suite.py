@@ -100,10 +100,21 @@ def test_the_tiny_suite_runs_through_validate_and_gate(tiny):
 
 @pytest.mark.parametrize("how", ["k8s", "scaling"])
 def test_what_waits_for_item_19_is_refused(tmp_path, how):
+    """``--k8s`` waits for a container image (item 19a) and is refused;
+    ``SCALING_SUITE=1`` (item 19b) is no longer refused: the suite plans
+    its arms and runs ``scripts/torch_scaling_suite.sh --dryrun`` after
+    them (``tests/test_torch_scaling_suite.py`` runs that dry run)."""
     env = dict(TINY, RESULTS_DIR=str(tmp_path))
-    proc = (_run(SUITE, env, "--k8s") if how == "k8s"
-            else _run(SUITE, dict(env, SCALING_SUITE="1")))
-    assert proc.returncode != 0 and "ROADMAP item 19" in proc.stdout
+    if how == "k8s":
+        proc = _run(SUITE, env, "--k8s")
+        assert proc.returncode != 0 and "ROADMAP item 19" in proc.stdout
+    else:
+        proc = _run(SUITE, dict(env, SCALING_SUITE="1", SUITE_DRY_RUN="1"))
+        assert proc.returncode == 0 and "ROADMAP item 19" not in proc.stdout
+        assert "PLAN local" in proc.stdout
+        body = open(SUITE).read()
+        wired = body[body.index('if [ "$SCALING_SUITE" = "1" ]'):]
+        assert "SKIP_SCALING" in wired and "scripts/torch_scaling_suite.sh --dryrun" in wired
     assert not list(tmp_path.glob("bench-*"))
 
 

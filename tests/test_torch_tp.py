@@ -253,9 +253,12 @@ def test_each_rank_holds_its_megatron_shards(runs, family):
                 if arm in ARMS[world]:
                     shapes = res["shapes"][f"{family}.{arm}"]
                     assert {k: shapes[k] for k in want} == want, (world, arm)
-            if world == 4:  # FSDP2 keeps rows ceil(d0 / dp) of each local leaf
+            if world == 4:  # FSDP2 on JAX's axis: 'data' before 'model' or none
                 shapes = res["shapes"][f"{family}.fsdp"]
-                assert shapes["wte"] == [V // TP // 2, D]
+                assert shapes["wte"] == [V // TP, D]
+                assert shapes["blocks.0.wo"] == [D // TP, D]
+                assert shapes["blocks.0.ln1_scale"] == [D]
+                assert shapes["blocks.0." + ("wfc" if family == "tinygpt" else "wgu")][0] == D // 2
 
 
 @pytest.mark.parametrize("world,family,arm", TRAINED)

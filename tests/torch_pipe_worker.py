@@ -30,6 +30,14 @@ WORLD:
 - ``sp2pp2``: the ring under each schedule and Ulysses under gpipe: the loss
   and the gradient (ddp); every arm 3 steps under 1f1b with the ring.
 
+``TP_GEOMETRIES`` are (data, model, pipe) widths, pipelines beside tensor
+parallelism (``wte`` replicated over ``model``, JAX's layout):
+
+- ``tp2pp2``: per schedule, the loss, the gradient (ddp), the messages
+  and the clip's norm (ddp and zero2); ddp and zero2 3 steps under each
+  schedule; each rank's leaf shapes before the arm wraps the model.
+- ``dp2tp2pp2``: the same under gpipe only.
+
 Writes ``OUT.rank<RANK>.npz`` (rank 0: the arrays, keys ``<label>.<leaf>``)
 and ``OUT.rank<RANK>.json``.
 """
@@ -62,6 +70,10 @@ CONFIGS = {"l2": (2, 0), "l4": (4, 0), "moe": (4, EXPERTS)}
 SCHEDULE_CONFIG = {"gpipe": "l2", "1f1b": "l2", "interleaved": "l4"}
 # mode -> (data, seq, pipe)
 GEOMETRIES = {"pp2": (1, 1, 2), "dp2pp2": (2, 1, 2), "sp2pp2": (1, 2, 2)}
+# mode -> (data, model, pipe), and the schedules each runs
+TP_GEOMETRIES = {"tp2pp2": (1, 2, 2), "dp2tp2pp2": (2, 2, 2)}
+TP_SCHEDULES = {"tp2pp2": ("gpipe", "1f1b", "interleaved"), "dp2tp2pp2": ("gpipe",)}
+TP_ARMS = ("ddp", "zero2")
 ARMS = ("ddp", "fsdp", "zero2", "zero3")
 # mode -> the (arm, schedule) pairs trained 3 steps (under the ring at
 # (seq 2, pipe 2))
@@ -191,9 +203,52 @@ def trained(mesh, label, arm, schedule, params, table, dropout=0.0, attention="r
     return losses, bridge.export_params(model, pipe_group=mesh.pipe_group)
 
 
+def tp_main(rank, world, mode, table, params):
+    """The ``TP_GEOMETRIES`` runs: (results, arrays of rank 0)."""
+    dp, tp, pp = TP_GEOMETRIES[mode]
+    assert dp * tp * pp == world
+    res = {"losses": {}, "norms": {}, "sent": {}, "stage": None, "model": None, "shapes": {}}
+    arrays = {}
+    mesh = make_mesh((tp, pp), ("model", "pipe"))
+    res["stage"], res["model"] = list(mesh.pipe_shard), list(mesh.model_shard)
+    for schedule in TP_SCHEDULES[mode]:
+        c = SCHEDULE_CONFIG[schedule]
+        model = TinyGPT(config(c), mesh=mesh, virtual_stages=V if schedule == "interleaved" else 1)
+        res["shapes"][schedule] = {name: list(p.shape) for name, p in model.named_parameters()}
+        for arm in TP_ARMS:
+            loss, norm, sent, grads = gradient(mesh, c, arm, schedule, params[c], table)
+            res["norms"][f"{arm}.{schedule}"] = norm
+            if grads is not None:
+                res["losses"][f"grad.{schedule}"], res["sent"][schedule] = loss, sent
+                if rank == 0:
+                    arrays.update({k: np.asarray(v, np.float32)
+                                   for k, v in flat(f"grad.{schedule}", grads).items()})
+            losses, final = trained(mesh, c, arm, schedule, params[c], table)
+            res["losses"][f"{arm}.{schedule}"] = losses
+            if rank == 0:
+                arrays.update({k: np.asarray(v, np.float32)
+                               for k, v in flat(f"{arm}.{schedule}", final).items()})
+    return res, arrays
+
+
 def main():
     rank, world, port, inputs, out, mode = sys.argv[1:7]
     rank, world = int(rank), int(world)
+    if mode in TP_GEOMETRIES:
+        torch.set_num_threads(1)
+        assert rt.setup_distributed(num_processes=world, process_id=rank,
+                                    master_port=int(port), device="cpu")
+        data = np.load(inputs)
+        table = torch.from_numpy(data["table"].astype(np.int64))
+        try:
+            res, arrays = tp_main(rank, world, mode, table,
+                                  {label: tree(data, label) for label in ("l2", "l4")})
+        finally:
+            rt.cleanup_distributed()
+        np.savez(f"{out}.rank{rank}.npz", **arrays)
+        with open(f"{out}.rank{rank}.json", "w") as f:
+            json.dump(res, f)
+        return
     dp, sp, pp = GEOMETRIES[mode]
     assert dp * sp * pp == world
     torch.set_num_threads(1)

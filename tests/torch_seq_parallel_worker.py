@@ -180,6 +180,7 @@ def train(rank, world, data, out):
                     "moments": sum(_local(st["exp_avg"]).numel()
                                    for st in opt.adamw.state.values()),
                     "leaf_shapes": [list(p.shape) for p in model.parameters()],
+                    "leaf_names": [name for name, _ in model.named_parameters()],
                 }
                 res["bytes"][label] = {"held": list(held_bytes(model, opt)),
                                        "estimate": [est.params, est.grads, est.opt_state]}
