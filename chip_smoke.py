@@ -189,16 +189,15 @@ batch*head ids (K1's ``bhv`` instance, ``flash_fwd_bhv``).
     events on the copy stream), the time the step waited for the delayed
     worker, the pinned host bytes, the host's cores, intra-op threads and
     ``MemAvailable``; host AdamW over tier A's masters, fused and foreach;
-    (b) tier B (1.68B, S 1024, zero3) at f32, bf16, offload serial (b1 x
-    accum 4) and offload delayed (accum 16), 2 warmup + 4 timed steps, the
-    same prints, after checking that the host holds tier B's pinned state;
-    (c) the serial arm's update held against its plain version with masters
-    and moments on the card (``DeviceMasters``, test code here): in step
-    with it on the same gradients and scale for 5 steps (tier A, dropout
-    0), the masters within ``MASTER_RTOL`` relative plus ``MASTER_ATOL``
-    after every step, and a run of the plain version's own, whose per-step
-    losses must be within ``OFFLOAD_LOSS_RTOL`` of the host arm's; (d) the
-    same for the delayed arm over 4 steps against the plain version with a
+    (b) tier B's rows were cut to keep the script inside its limit (their
+    last numbers are ``PERF.md``'s); (c) the serial arm's update held
+    against its plain version with masters and moments on the card
+    (``DeviceMasters``, test code here): in step with it on the same
+    gradients and scale for 5 steps (tier A, dropout 0), the masters
+    within ``MASTER_RTOL`` relative plus ``MASTER_ATOL`` after every step,
+    and a run of the plain version's own, whose per-step losses must be
+    within ``OFFLOAD_LOSS_RTOL`` of the host arm's; (d) the same for the
+    delayed arm over 4 steps against the plain version with a
     one-step lag (update t takes step t-1's gradients and scale, update 0
     zeros).
 
@@ -210,23 +209,36 @@ is batched ``torch.bmm``, the attention K1-K3):
     2048, b1 x accum 4, zero2, dropout 0.1, through ``run_benchmark(
     n_experts=8)``, 3 warmup + 6 timed steps, at fp32 and at bf16
     parameters: tokens/s, step ms, MFU (active experts' FLOPs), peak memory
-    against ``estimate_hbm``, ``expert_overflow_pct``; the loss falls, K1-K3
-    launch 64 times each per step (K1 16 more: the overflow diagnostic's
-    forward after the timed steps), the overflow lies within JAX's [0, 60];
-    (b) the layer at the row's shape (N 2048, E 8, C 640, D 1024, F 4096,
-    bf16): the index dispatch (the main path) against the one-hot plain
+    against ``estimate_hbm``, ``expert_overflow_pct`` and beside it the
+    per-expert loads of the overflow diagnostic's forward (the share of the
+    assignments each expert received, the share of its own it kept,
+    ``recording_loads``); the loss falls, K1-K3 launch 64 times each per
+    step (K1 16 more: the diagnostic's forward after the timed steps), the
+    overflow lies within JAX's [0, 60]. The pairs of (c), (d1) and (d2)
+    run beside (a), six processes on the card; (b) the layer at the row's
+    shape (N 2048, E 8, C 640, D 1024, F 4096, bf16), once the pairs are
+    done: the index dispatch (the main path) against the one-hot plain
     version: the experts each token reaches equal, the output bit for bit,
     the gradients within 2e-2 of their largest magnitude; forward and
     forward + backward of both, and the route / dispatch / expert FFN /
     combine of the index form, on the device clock; (c) expert_parallel 2
-    as two processes on the one card over gloo (``chip_smoke.py
-    --moe-worker RANK PORT DIR``), after checking that gloo carries
-    ``all_to_all_single`` on CUDA tensors: the row's width at 4 layers,
-    dropout 0, zero2, 3 steps, per-step losses within ``MOE_EP_RTOL`` (JAX's
-    ep-against-one-device 5e-3: capacity is provisioned per member) of
-    one process's run of the same global batch, and the all-to-all's time
-    over gloo (through the host; not NCCL); (d) is phase 12: its zero2
-    group run reduce-scatters per block (the bucket count is printed).
+    (JAX's all-to-all form), (d1) tensor_parallel 2 (each rank the experts'
+    F/2 columns, K1 as its ``bhv`` instance) and (d2) expert_parallel 2
+    under ``moe_dispatch="einsum"`` (global routing: the count table's
+    all-reduce, then the same all-to-all), each as two processes on the one
+    card over gloo (``chip_smoke.py --moe-worker RANK PORT DIR LEG``), after
+    checking that gloo carries ``all_to_all_single`` on CUDA tensors (a leg
+    over ``expert`` logs NOT RUN only on gloo's own refusal): the row's
+    width at 4 layers, flash, dropout 0, zero2, 3 steps, per-step losses
+    equal on both ranks and within ``MOE_EP_RTOL`` (JAX's ep-against-one-device
+    5e-3) of one process's run of the same global batch, each rank's peak
+    memory and K1-K3 launches (16 a step), the overflow and the loads, and
+    (c)'s all-to-all time over gloo (through the host; not NCCL); (d3)
+    inside phase 12's single-rank NCCL group (phase 15's form), the model
+    beside a ``seq`` axis of width 1, against its no-group run (the ring
+    does not cross gloo on CUDA tensors, so ``seq`` width 2 is held on the
+    CPU); phase 12's zero2 group run reduce-scatters per block (the bucket
+    count is printed).
 
 Pipeline parallelism (``parallel/pipeline.py``, ``parallel/interleaved.py``;
 no kernel of its own: each stage runs K1-K3 on whole layers):
@@ -439,6 +451,7 @@ no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1495,11 +1508,11 @@ def phase_remat(fa, models):
     torch.cuda.empty_cache()
 
 
-def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop):
+def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop, inside_group):
     """Phase 12: the four arms on the parity row, first without a process
     group, then under a single-rank NCCL group, where each arm wraps the
     model; per-step losses agree, K1-K3 launch what the arm issues. Phase
-    15 runs inside the group."""
+    15, then ``inside_group`` (phase 18 (d3)), run inside the group."""
     import torch.distributed as dist
 
     run_benchmark, build_run, DATASET_SIZE = loop.run_benchmark, loop.build_run, loop.DATASET_SIZE
@@ -1560,6 +1573,9 @@ def phase_arms(fa, ra, ua, models, make_mesh, get_strategy, rt, memory, loop):
                 del run
                 gc.collect()
             phase_group_forms(fa, ra, ua, run_benchmark, runs["zero2", False]["losses"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            inside_group()
             gc.collect()
             torch.cuda.empty_cache()
             rt.cleanup_distributed()
@@ -1856,30 +1872,12 @@ OFFLOAD_WAYS = {
     "offload serial": dict(offload_opt_state=True),
     "offload delayed": dict(offload_opt_state=True, offload_delayed_update=True),
 }
-TIER_B = dict(tier="B", seq_len=1024, layers=32, warmup=2, timed=4)
-TIER_B_WAYS = {  # way: (strategy change, grad accum)
-    "f32": ({}, 4), "bf16": (dict(param_dtype="bf16"), 4),
-    "offload serial": (dict(offload_opt_state=True), 4),
-    "offload delayed": (dict(offload_opt_state=True, offload_delayed_update=True), 16),
-}
-# Host bytes per parameter of the offload state (parallel/offload.py): fp32
-# masters, gradient upcast and two moments, bf16 slot and upload buffer.
-HOST_BYTES_PER_PARAM = 4 * 4 + 2 * 2
-
-
 def mem_available_gb() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) * 1024 / 1e9
     raise RuntimeError("no MemAvailable in /proc/meminfo")
-
-
-def pinned_need_gb(n: int) -> float:
-    """Host bytes of the offload state of n parameters once pinned: the
-    pinned allocator rounds each flat buffer up to a power of two."""
-    pow2 = lambda b: 1 << (b - 1).bit_length()
-    return (4 * pow2(4 * n) + 2 * pow2(2 * n)) / 1e9
 
 
 class DeviceMasters:
@@ -2060,7 +2058,7 @@ def phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi
     """Phase 17: the host-offload arm and bf16 parameters on the card."""
     log(f"[17] host: {os.cpu_count()} cores, {torch.get_num_threads()} intra-op threads, "
         f"MemAvailable {mem_available_gb():.1f} GB; {smi}")
-    out = {"parity": {}, "tier_b": {}}
+    out = {"parity": {}}
     row = dict(tier="A", seq_len=2048, arm="zero2", accum=4, layers=16, warmup=WARMUP_STEPS,
                timed=TIMED_STEPS)
     for way, change in OFFLOAD_WAYS.items():
@@ -2073,19 +2071,6 @@ def phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi
         f"foreach {adamw['foreach']:.1f} ms ({torch.get_num_threads()} threads, "
         f"{os.cpu_count()} cores; the arm runs fused); {smi}")
     out["host_adamw_ms"] = adamw
-    with torch.device("meta"):
-        n_b = models.count_params(models.TinyGPT(models.get_config("tinygpt", "B", 1024)))
-    need, avail = pinned_need_gb(n_b), mem_available_gb()
-    log(f"[17] (b) tier B: {n_b} parameters; its pinned offload state {need:.1f} GB "
-        f"({HOST_BYTES_PER_PARAM} B per parameter, buffers rounded to powers of two) of "
-        f"MemAvailable {avail:.1f} GB")
-    assert need < 0.9 * avail, f"the host cannot hold tier B's offload state: {need} of {avail}"
-    for way, (change, accum) in TIER_B_WAYS.items():
-        out["tier_b"][way] = offload_run(
-            fa, loop, memory, models, get_strategy, param_torch_dtype,
-            f"(b) tier B zero3 S 1024 b1 x {accum} {way}", change=change, tier=TIER_B["tier"],
-            seq_len=TIER_B["seq_len"], arm="zero3", accum=accum, layers=TIER_B["layers"],
-            warmup=TIER_B["warmup"], timed=TIER_B["timed"])
     for key, way, steps, delayed in (("c", "offload serial", 5, False),
                                      ("d", "offload delayed", 4, True)):
         strategy = dataclasses.replace(get_strategy("zero2"), **OFFLOAD_WAYS[way])
@@ -2101,7 +2086,7 @@ def phase_offload(fa, loop, memory, models, get_strategy, param_torch_dtype, smi
         out[key] = dict(master_rel=rel, master_abs=worst, loss_rel=loss_rel)
     log("[17] summary: " + json.dumps(
         {k: ({w: {n: v for n, v in r.items() if n != "losses"} for w, r in v.items()}
-             if k in ("parity", "tier_b") else v) for k, v in out.items()}) + f" on {smi}")
+             if k == "parity" else v) for k, v in out.items()}) + f" on {smi}")
     return out
 
 
@@ -2120,27 +2105,82 @@ MOE_GRAD_TOL = 2e-2  # bf16 gradients, index vs plain (tests/test_torch_moe.py)
 MOE_EP = dict(width=2, layers=4, steps=3, accum=4)
 MOE_EP_RTOL = 5e-3  # JAX tests/test_moe.py: ep against one device
 MOE_OVERFLOW_MAX_PCT = 60.0  # analysis/validate_results.py EXPERT_OVERFLOW_MAX_PCT
+# The two-process legs of phase 18, each over gloo on the one card at the
+# row's width and MOE_EP's depth: leg -> (the axis of width 2, moe_dispatch).
+# (c) is JAX's all-to-all form; (d1) and (d2) its einsum form, which routes
+# the global micro-batch.
+MOE_LEGS = {"c": ("expert", "auto"), "d1": ("model", "auto"), "d2": ("expert", "einsum")}
 
 
-def moe_ep_config(models):
-    return models.get_config("tinygpt", "A", 2048, n_experts=MOE_ROW["n_experts"],
-                             n_layer=MOE_EP["layers"], dropout=0.0)
+def moe_ep_config(models, **change):
+    return models.get_config("tinygpt", "A", 2048, **{
+        "n_experts": MOE_ROW["n_experts"], "n_layer": MOE_EP["layers"], "dropout": 0.0,
+        "attention_impl": "flash", **change})
 
 
-def moe_ep_losses(models, strategies, mesh, micro: int, step_mod, table) -> list:
-    """zero2 on the 4-layer MoE model at the row's width, seed 0."""
+@contextlib.contextmanager
+def recording_loads(moe):
+    """Within it, every routing of the MoE layer (``moe.route``, which
+    ``moe.moe_mlp`` calls) appends to the list it yields this rank's
+    assignments per expert and the kept ones per expert, two (E,) int64
+    tensors on the device: the per-expert loads."""
+    real, records = moe.route, []
+
+    def route(xt, router, *args, **kwargs):
+        r = real(xt, router, *args, **kwargs)
+        onehot = torch.nn.functional.one_hot(r.expert_idx, router.shape[1])
+        records.append((onehot.sum((0, 1)), (onehot * r.keep[..., None]).sum((0, 1))))
+        return r
+
+    moe.route = route
+    try:
+        yield records
+    finally:
+        moe.route = real
+
+
+def expert_loads(records) -> dict:
+    """The per-expert loads of ``recording_loads``' records summed: the
+    share of the assignments each expert received, and the share of its
+    own it kept."""
+    assigned = sum(a for a, _ in records).double()
+    kept = sum(k for _, k in records).double()
+    return {"received": (assigned / assigned.sum()).tolist(),
+            "kept": (kept / assigned.clamp_min(1)).tolist(),
+            "assigned": assigned.tolist(), "kept_n": kept.tolist()}
+
+
+def moe_ep_losses(models, strategies, mesh, micro: int, step_mod, table, **change) -> dict:
+    """zero2 on the 4-layer MoE model at the row's width, seed 0: the
+    per-step losses and the training's K1-K3 launches (K1 in both its
+    instances), then (one dropout-free forward of step 0's first
+    micro-batch, this rank's rows) the overflow and this rank's loads."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.models import moe
+    from distributed_llm_training_benchmark_framework_tpu_torch.models.tinygpt import (
+        moe_overflow_fraction,
+    )
+    from distributed_llm_training_benchmark_framework_tpu_torch.ops import flash_attention as fa
+
     dev = torch.device("cuda")
     with dev:
-        model = models.TinyGPT(moe_ep_config(models), mesh=mesh)
+        model = models.TinyGPT(moe_ep_config(models, **change), mesh=mesh)
     model.init_weights(torch.Generator(device=dev).manual_seed(0))
     model, opt = strategies.apply_strategy(model, strategies.get_strategy("zero2"), mesh)
     step_fn = step_mod.TrainStep(model, opt, grad_accum=MOE_EP["accum"], micro_batch=micro,
                                  seed=0, device=dev, mesh=mesh)
-    return [step_fn(table, step).item() for step in range(MOE_EP["steps"])]
+    fa.reset_launch_counts()
+    losses = [step_fn(table, step).item() for step in range(MOE_EP["steps"])]
+    launches = {**fa.head_shard_launch_counts(), **fa.launch_counts()}
+    with recording_loads(moe) as records:
+        frac = moe_overflow_fraction(getattr(model, "module", model), step_fn.rows(table, 0)[0],
+                                     step_fn.member * micro, micro * step_fn.members)
+    return dict(losses=losses, launches=launches, overflow_pct=100.0 * frac.item(),
+                loads=expert_loads(records))
 
 
-def moe_worker(rank: int, port: int, outdir: str) -> int:
-    """Phase 18 (c), one rank: ``chip_smoke.py --moe-worker RANK PORT DIR``."""
+def moe_worker(rank: int, port: int, outdir: str, leg: str) -> int:
+    """Phase 18 (c), (d1) and (d2), one rank: ``chip_smoke.py --moe-worker
+    RANK PORT DIR LEG``."""
     import torch.distributed as dist
 
     from distributed_llm_training_benchmark_framework_tpu_torch import models
@@ -2153,31 +2193,38 @@ def moe_worker(rank: int, port: int, outdir: str) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ep = MOE_EP["width"]
-    assert rt.setup_distributed(num_processes=ep, process_id=rank, master_port=port,
+    axis, dispatch = MOE_LEGS[leg]
+    width = MOE_EP["width"]
+    assert rt.setup_distributed(num_processes=width, process_id=rank, master_port=port,
                                 device="cuda", backend="gloo")
     out = {}
     try:
-        # Does gloo take all_to_all_single on CUDA tensors? Each rank sends
-        # block j to rank j; rank r must receive j's block r.
-        x = torch.arange(ep * 4, device="cuda", dtype=torch.float32) + 100 * rank
-        y = torch.empty_like(x)
-        try:
-            dist.all_to_all_single(y, x)
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            out["a2a_error"] = str(e).splitlines()[0]
-        else:
-            want = torch.cat([torch.arange(rank * 4, rank * 4 + 4, device="cuda",
-                                           dtype=torch.float32) + 100 * j for j in range(ep)])
-            out["a2a_ok"] = bool(torch.equal(y, want))
-        if out.get("a2a_ok"):
-            mesh = make_mesh((ep,), ("expert",))
+        if axis == "expert":
+            # Does gloo take all_to_all_single on CUDA tensors? Each rank
+            # sends block j to rank j; rank r must receive j's block r.
+            x = torch.arange(width * 4, device="cuda", dtype=torch.float32) + 100 * rank
+            y = torch.empty_like(x)
+            try:
+                dist.all_to_all_single(y, x)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                out["a2a_error"] = str(e).splitlines()[0]
+            else:
+                want = torch.cat([torch.arange(rank * 4, rank * 4 + 4, device="cuda",
+                                               dtype=torch.float32) + 100 * j
+                                  for j in range(width)])
+                out["a2a_ok"] = bool(torch.equal(y, want))
+        if axis == "model" or out.get("a2a_ok"):
+            mesh = make_mesh((width,), (axis,))
             cfg = moe_ep_config(models)
             table = SyntheticDataset(cfg.vocab_size, 2048, 1000, 42).to_device("cuda")
-            out["losses"] = moe_ep_losses(models, strategies, mesh, 1, step_mod, table)
+            t = time.perf_counter()
+            out.update(moe_ep_losses(models, strategies, mesh, 1, step_mod, table,
+                                     moe_dispatch=dispatch))
+            out["wall_s"] = time.perf_counter() - t
             out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            cap = moe.capacity(2048, MOE_LAYER["E"], 2, cfg.capacity_factor)
+        if leg == "c" and out.get("a2a_ok"):
+            cap = moe.capacity(2048, MOE_LAYER["E"], 2, moe_ep_config(models).capacity_factor)
             buf = torch.zeros(MOE_LAYER["E"] * cap * MOE_LAYER["D"], device="cuda",
                               dtype=torch.bfloat16)
             group = mesh.expert_group
@@ -2189,7 +2236,7 @@ def moe_worker(rank: int, port: int, outdir: str) -> int:
             out["a2a_bytes"] = buf.numel() * buf.element_size()
     finally:
         rt.cleanup_distributed()
-    with open(os.path.join(outdir, f"moe.rank{rank}.json"), "w") as f:
+    with open(os.path.join(outdir, f"moe.{leg}.rank{rank}.json"), "w") as f:
         json.dump(out, f)
     return 0
 
@@ -2293,56 +2340,135 @@ def phase_moe_layer(models, moe) -> dict:
                 drop_frac=r.drop_frac.item())
 
 
-def phase_moe_ep(models, strategies, step_mod, SyntheticDataset, make_mesh) -> dict:
-    """Phase 18 (c): expert_parallel 2 as two gloo ranks on the one card
-    against one process's run of the same global batch."""
+def start_moe_pairs() -> dict:
+    """Phase 18 (c), (d1) and (d2): each leg's two gloo ranks on the one
+    card, all six processes at once -> {"procs": [(leg, rank, process)],
+    "dir": their output directory}."""
     outdir = tempfile.mkdtemp(prefix="moe_smoke_")
     env = dict(os.environ, LOCAL_RANK="0",
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    port = free_port()
-    ep = MOE_EP["width"]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--moe-worker",
-                               str(r), str(port), outdir], env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(ep)]
+    ports: dict = {}
+    for leg in MOE_LEGS:
+        while leg not in ports:
+            port = free_port()
+            if port not in ports.values():
+                ports[leg] = port
+    procs = [(leg, r, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--moe-worker", str(r), str(ports[leg]),
+         outdir, leg], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for leg in MOE_LEGS for r in range(MOE_EP["width"])]
+    return {"procs": procs, "dir": outdir}
+
+
+def moe_loads_line(loads: dict) -> str:
+    return (f"received {[round(v, 4) for v in loads['received']]}, kept "
+            f"{[round(v, 4) for v in loads['kept']]}")
+
+
+def phase_moe_pairs(pairs: dict, models, strategies, step_mod, SyntheticDataset, make_mesh,
+                    seq_leg: dict, smi) -> dict:
+    """Phase 18 (c), (d1) and (d2): wait for the pairs ``start_moe_pairs``
+    started and hold each leg's per-step losses against one process's run
+    of the same global batch: (c) and (d2) two rows a step (one per member),
+    (d1) one row (``model`` ranks share it; the no-group run of (d3),
+    ``seq_leg``). A leg over ``expert`` logs NOT RUN, and passes, only if
+    gloo refuses the all-to-all of CUDA tensors."""
+    procs = pairs["procs"]
     try:
-        logs = [p.communicate(timeout=900)[0] for p in procs]
+        logs = [p.communicate(timeout=900)[0] for _, _, p in procs]
     finally:
-        for p in procs:
+        for _, _, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, text) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"moe rank {r} exited {p.returncode}:\n{text[-4000:]}"
-    ranks = [json.load(open(os.path.join(outdir, f"moe.rank{r}.json"))) for r in range(ep)]
-    run = ranks[0]
-    if "a2a_error" in run:
-        # gloo has no all_to_all for CUDA tensors here: the leg cannot run.
-        # Only that refusal is accepted; anything else fails above.
-        assert "alltoall" in run["a2a_error"].lower() or "all_to_all" in run[
-            "a2a_error"].lower(), run["a2a_error"]
-        log(f"[18] (c) NOT RUN: gloo refuses all_to_all_single on CUDA tensors: "
-            f"{run['a2a_error']}")
-        return {"ran": False, "error": run["a2a_error"]}
-    assert all(rk["a2a_ok"] for rk in ranks), "gloo's all_to_all_single moved the wrong blocks"
+    for (leg, r, p), text in zip(procs, logs):
+        assert p.returncode == 0, f"moe {leg} rank {r} exited {p.returncode}:\n{text[-4000:]}"
+    width = MOE_EP["width"]
+    ranks = {leg: [json.load(open(os.path.join(pairs["dir"], f"moe.{leg}.rank{r}.json")))
+                   for r in range(width)] for leg in MOE_LEGS}
+    shutil.rmtree(pairs["dir"], ignore_errors=True)
     cfg = moe_ep_config(models)
     table = SyntheticDataset(cfg.vocab_size, 2048, 1000, 42).to_device("cuda")
-    base = moe_ep_losses(models, strategies, make_mesh(), ep, step_mod, table)
-    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], base))
-    log(f"[18] (c) expert_parallel {ep} over gloo on one card ({MOE_EP['layers']} layers at the "
-        f"row's width, zero2, dropout 0): losses {[round(v, 5) for v in run['losses']]}, one "
-        f"process {[round(v, 5) for v in base]}, max relative difference {rel:.2e} (limit "
-        f"{MOE_EP_RTOL}); peak per rank {[round(rk['peak_gb'], 2) for rk in ranks]} GB; "
-        f"all-to-all of {run['a2a_bytes'] / 1e6:.2f} MB over gloo (host-staged) "
-        f"{run['a2a_gloo_ms']:.3f} ms")
-    assert all(rk["losses"] == run["losses"] for rk in ranks), "ranks' losses differ"
-    assert all(math.isfinite(v) for v in run["losses"])
-    assert rel <= MOE_EP_RTOL, f"ep {ep} loss differs from one process's by {rel}"
-    return {"ran": True, "loss_rel": rel, "a2a_gloo_ms": run["a2a_gloo_ms"]}
+    base = {2: moe_ep_losses(models, strategies, make_mesh(), width, step_mod, table),
+            1: seq_leg["base"]}
+    per_step = MOE_EP["layers"] * MOE_EP["accum"]
+    out = {}
+    for leg, (axis, dispatch) in MOE_LEGS.items():
+        run = ranks[leg][0]
+        if "a2a_error" in run:
+            # gloo has no all_to_all for CUDA tensors here: the leg cannot
+            # run. Only that refusal is accepted; anything else fails above.
+            assert "alltoall" in run["a2a_error"].lower() or "all_to_all" in run[
+                "a2a_error"].lower(), run["a2a_error"]
+            log(f"[18] ({leg}) NOT RUN: gloo refuses all_to_all_single on CUDA tensors: "
+                f"{run['a2a_error']}")
+            out[leg] = {"ran": False, "error": run["a2a_error"]}
+            continue
+        if axis == "expert":
+            assert all(rk["a2a_ok"] for rk in ranks[leg]), \
+                f"({leg}): gloo's all_to_all_single moved the wrong blocks"
+        want = base[2 if axis == "expert" else 1]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"], want["losses"]))
+        # model ranks route the same tokens: rank 0's loads are the run's.
+        loads = expert_loads([(torch.tensor(rk["loads"]["assigned"]),
+                               torch.tensor(rk["loads"]["kept_n"]))
+                              for rk in (ranks[leg] if axis == "expert" else ranks[leg][:1])])
+        k1 = "flash_fwd_bhv" if axis == "model" else "flash_fwd"
+        kernels = (k1, "flash_bwd_dq", "flash_bwd_dkv")
+        launches = [{k: rk["launches"][k] for k in kernels} for rk in ranks[leg]]
+        what = {"c": "expert_parallel 2 (JAX's all-to-all form)",
+                "d1": "tensor_parallel 2 (the experts' F/2 columns)",
+                "d2": "expert_parallel 2, moe_dispatch einsum (global routing)"}[leg]
+        log(f"[18] ({leg}) MoE at {what} over gloo on one card ({MOE_EP['layers']} layers at "
+            f"the row's width, zero2, dropout 0, {MOE_EP['steps']} steps): losses "
+            f"{[round(v, 5) for v in run['losses']]}, one process "
+            f"{[round(v, 5) for v in want['losses']]}, max relative difference {rel:.2e} "
+            f"(limit {MOE_EP_RTOL}); peak per rank "
+            f"{[round(rk['peak_gb'], 2) for rk in ranks[leg]]} GB; wall per rank "
+            f"{[round(rk['wall_s'], 1) for rk in ranks[leg]]} s; K1-K3 "
+            f"launches per rank {launches} ({per_step} a step each); overflow "
+            f"{run['overflow_pct']:.4f}% (one process {want['overflow_pct']:.4f}%); expert loads "
+            f"{moe_loads_line(loads)}"
+            + (f"; all-to-all of {run['a2a_bytes'] / 1e6:.2f} MB over gloo (host-staged) "
+               f"{run['a2a_gloo_ms']:.3f} ms" if "a2a_gloo_ms" in run else "") + f" on {smi}")
+        assert all(rk["losses"] == run["losses"] for rk in ranks[leg]), f"({leg}): ranks differ"
+        assert all(math.isfinite(v) for v in run["losses"])
+        assert rel <= MOE_EP_RTOL, f"({leg}) loss differs from one process's by {rel}"
+        steps = MOE_EP["steps"]
+        assert all(n == {k: per_step * steps for k in kernels} for n in launches), launches
+        out[leg] = {"ran": True, "loss_rel": rel, "peak_gb": [rk["peak_gb"] for rk in ranks[leg]],
+                    "launches_per_rank_per_step": {k: launches[0][k] / steps for k in kernels},
+                    "overflow_pct": run["overflow_pct"], "loads": loads,
+                    **({"a2a_gloo_ms": run["a2a_gloo_ms"]} if "a2a_gloo_ms" in run else {})}
+    return out
 
 
-def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi) -> dict:
-    """Phase 18 (a)-(c)."""
+def phase_moe_seq(models, strategies, step_mod, SyntheticDataset, make_mesh) -> dict:
+    """Phase 18 (d3), run inside phase 12's single-rank NCCL group (phase
+    15's form): the MoE model beside a ``seq`` axis of width 1 (the ring
+    is flash there; gloo's send cannot carry the ring's CUDA blocks across
+    ranks on one card, so width 2 is held on the CPU), against the same
+    run with no group, one row a step; the no-group run is (d1)'s one
+    process too."""
+    cfg = moe_ep_config(models)
+    table = SyntheticDataset(cfg.vocab_size, 2048, 1000, 42).to_device("cuda")
+    base = moe_ep_losses(models, strategies, None, 1, step_mod, table)
+    seq = moe_ep_losses(models, strategies, make_mesh((1,), ("seq",)), 1, step_mod, table,
+                        attention_impl="ring")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(seq["losses"], base["losses"]))
+    per_step = MOE_EP["layers"] * MOE_EP["accum"]
+    log(f"[18] (d3) MoE beside 'seq' (width 1, ring) in the single-rank NCCL group: losses "
+        f"{[round(v, 5) for v in seq['losses']]}, no group {[round(v, 5) for v in base['losses']]}"
+        f", max relative difference {rel:.2e} (limit {MOE_EP_RTOL}); K1-K3 launches "
+        f"{seq['launches']} ({per_step} a step each)")
+    assert rel <= MOE_EP_RTOL, f"(d3): loss differs from no group by {rel}"
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    assert all(seq["launches"][k] == per_step * MOE_EP["steps"] for k in kernels), seq["launches"]
+    return {"base": base, "seq": seq, "loss_rel": rel}
+
+
+def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi, seq_leg) -> dict:
+    """Phase 18 (a)-(d): (c), (d1) and (d2)'s pairs run beside (a)."""
     from distributed_llm_training_benchmark_framework_tpu_torch.data import SyntheticDataset
     from distributed_llm_training_benchmark_framework_tpu_torch.models import moe
     from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies
@@ -2351,51 +2477,72 @@ def phase_moe(fa, loop, memory, models, get_strategy, make_mesh, smi) -> dict:
     steps = WARMUP_STEPS + TIMED_STEPS
     micro = MOE_ROW["layers"] * MOE_ROW["grad_accum"] * steps
     rows = {}
-    for label, change in (("f32", {}), ("bf16", {"param_dtype": "bf16"})):
-        strat = dataclasses.replace(get_strategy("zero2"), **change)
-        fa.reset_launch_counts()
-        losses = []
-        res = loop.run_benchmark(
-            strategy=strat, tier=MOE_ROW["tier"], seq_len=MOE_ROW["seq_len"], steps=steps,
-            warmup_steps=WARMUP_STEPS, per_device_batch=MOE_ROW["per_device_batch"],
-            grad_accum=MOE_ROW["grad_accum"], attention_impl="flash", sync_every=5,
-            device="cuda", loss_log=losses, n_experts=MOE_ROW["n_experts"])
-        counts = fa.launch_counts()
-        cfg = models.get_config("tinygpt", "A", 2048, attention_impl="flash",
-                                n_experts=MOE_ROW["n_experts"],
-                                param_dtype=strategies.param_torch_dtype(strat))
-        est = memory.estimate_hbm(cfg, strat, make_mesh(), MOE_ROW["per_device_batch"], 2048,
-                                  loop.DATASET_SIZE)
-        # The overflow diagnostic's dropout-free forward after the timed
-        # steps launches K1 once more per layer.
-        want = {"flash_fwd": micro + MOE_ROW["layers"], "flash_bwd_dq": micro,
-                "flash_bwd_dkv": micro}
-        log(f"[18] (a) MoE row {label} parameters (E {MOE_ROW['n_experts']} top-2, capacity "
-            f"1.25, zero2, S 2048, b1 x accum 4): {res.tokens_per_sec:.1f} tok/s, step "
-            f"{1e3 * res.mean_step_time_sec:.2f} ms (p50 {1e3 * res.step_time_p50_sec:.2f}), "
-            f"MFU {res.mfu_pct:.2f}% ({res.flops_per_token / 1e9:.3f} GFLOP/token), peak "
-            f"{res.peak_hbm_gb:.2f} GB (estimate_hbm {est.total / 1e9:.2f} GB), n_params "
-            f"{res.n_params}, expert_overflow_pct {res.expert_overflow_pct}, loss first "
-            f"{res.loss_first_window:.4f} last {res.loss_last_window:.4f}, launches {counts} "
-            f"on {smi}")
-        assert res.n_params == MOE_ROW["params"], res.n_params
-        assert all(math.isfinite(v) for v in losses) and len(losses) == steps
-        assert res.loss_last_window < res.loss_first_window, f"MoE {label}: loss did not fall"
-        assert counts == want, f"MoE {label}: launches {counts}, want {want}"
-        assert 0.0 <= res.expert_overflow_pct <= MOE_OVERFLOW_MAX_PCT, res.expert_overflow_pct
-        assert (res.n_experts, res.expert_parallel) == (MOE_ROW["n_experts"], 1)
-        rows[label] = dict(tokens_per_sec=res.tokens_per_sec, step_ms=1e3 * res.mean_step_time_sec,
-                           mfu_pct=res.mfu_pct, peak_gb=res.peak_hbm_gb,
-                           estimate_gb=est.total / 1e9,
-                           expert_overflow_pct=res.expert_overflow_pct, launches=counts)
-        gc.collect()
-        torch.cuda.empty_cache()
-    layer = phase_moe_layer(models, moe)
+    pairs = start_moe_pairs()
+    log(f"[18] (c), (d1), (d2): {len(pairs['procs'])} processes started beside (a)")
+    try:
+        for label, change in (("f32", {}), ("bf16", {"param_dtype": "bf16"})):
+            strat = dataclasses.replace(get_strategy("zero2"), **change)
+            fa.reset_launch_counts()
+            losses = []
+            with recording_loads(moe) as records:
+                res = loop.run_benchmark(
+                    strategy=strat, tier=MOE_ROW["tier"], seq_len=MOE_ROW["seq_len"],
+                    steps=steps, warmup_steps=WARMUP_STEPS,
+                    per_device_batch=MOE_ROW["per_device_batch"],
+                    grad_accum=MOE_ROW["grad_accum"], attention_impl="flash", sync_every=5,
+                    device="cuda", loss_log=losses, n_experts=MOE_ROW["n_experts"])
+            # The last forward of the run is the overflow diagnostic's, one
+            # routing per layer: the loads beside expert_overflow_pct.
+            loads = expert_loads(records[-MOE_ROW["layers"]:])
+            counts = fa.launch_counts()
+            cfg = models.get_config("tinygpt", "A", 2048, attention_impl="flash",
+                                    n_experts=MOE_ROW["n_experts"],
+                                    param_dtype=strategies.param_torch_dtype(strat))
+            est = memory.estimate_hbm(cfg, strat, make_mesh(), MOE_ROW["per_device_batch"],
+                                      2048, loop.DATASET_SIZE)
+            # The overflow diagnostic's dropout-free forward after the timed
+            # steps launches K1 once more per layer.
+            want = {"flash_fwd": micro + MOE_ROW["layers"], "flash_bwd_dq": micro,
+                    "flash_bwd_dkv": micro}
+            log(f"[18] (a) MoE row {label} parameters (E {MOE_ROW['n_experts']} top-2, "
+                f"capacity 1.25, zero2, S 2048, b1 x accum 4; beside (c)/(d)'s pairs): "
+                f"{res.tokens_per_sec:.1f} tok/s, step {1e3 * res.mean_step_time_sec:.2f} ms "
+                f"(p50 {1e3 * res.step_time_p50_sec:.2f}), MFU {res.mfu_pct:.2f}% "
+                f"({res.flops_per_token / 1e9:.3f} GFLOP/token), peak {res.peak_hbm_gb:.2f} GB "
+                f"(estimate_hbm {est.total / 1e9:.2f} GB), n_params {res.n_params}, "
+                f"expert_overflow_pct {res.expert_overflow_pct}, expert loads "
+                f"{moe_loads_line(loads)}, loss first {res.loss_first_window:.4f} last "
+                f"{res.loss_last_window:.4f}, launches {counts} on {smi}")
+            assert res.n_params == MOE_ROW["params"], res.n_params
+            assert all(math.isfinite(v) for v in losses) and len(losses) == steps
+            assert res.loss_last_window < res.loss_first_window, f"MoE {label}: loss did not fall"
+            assert counts == want, f"MoE {label}: launches {counts}, want {want}"
+            assert 0.0 <= res.expert_overflow_pct <= MOE_OVERFLOW_MAX_PCT, res.expert_overflow_pct
+            assert (res.n_experts, res.expert_parallel) == (MOE_ROW["n_experts"], 1)
+            # The loads' dropped share is the diagnostic's overflow.
+            dropped = 1.0 - sum(loads["kept_n"]) / sum(loads["assigned"])
+            assert abs(100.0 * dropped - res.expert_overflow_pct) < 1e-3, (dropped, res)
+            rows[label] = dict(tokens_per_sec=res.tokens_per_sec,
+                               step_ms=1e3 * res.mean_step_time_sec, mfu_pct=res.mfu_pct,
+                               peak_gb=res.peak_hbm_gb, estimate_gb=est.total / 1e9,
+                               expert_overflow_pct=res.expert_overflow_pct, loads=loads,
+                               launches=counts)
+            gc.collect()
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        legs = phase_moe_pairs(pairs, models, strategies, step_mod, SyntheticDataset,
+                               make_mesh, seq_leg, smi)
+        log(f"[18] (c)/(d) pairs done {time.perf_counter() - t:.1f} s after (a)")
+    finally:
+        for _, _, p in pairs["procs"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     gc.collect()
     torch.cuda.empty_cache()
-    ep = phase_moe_ep(models, strategies, step_mod, SyntheticDataset, make_mesh)
+    layer = phase_moe_layer(models, moe)
     summary = {"rows": rows, "layer": {k: v for k, v in layer.items() if k != "grad_err"},
-               "ep": ep}
+               "legs": legs, "d3": {k: v for k, v in seq_leg.items() if k != "base"}}
     log(f"[18] summary {json.dumps(summary)} on {smi}")
     return summary
 
@@ -3822,7 +3969,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--moe-worker"]:
-        return moe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return moe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     if sys.argv[1:2] == ["--pipe-worker"]:
         return pipe_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if sys.argv[1:2] == ["--pipe-probe"]:
@@ -3894,8 +4041,13 @@ def main() -> int:
     mb_launches = walled("11", phase_microbench, _build, mb)
     walled("13", phase_ulysses, fa, ua)
     launches.update(walled("14", phase_ulysses_train, fa, ra, run_benchmark))
-    arms = walled("12, 15", phase_arms, fa, ra, ua, models, make_mesh, get_strategy, rt, memory,
-                  loop)
+    from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies
+    from distributed_llm_training_benchmark_framework_tpu_torch.train import step as step_mod
+
+    moe_seq: dict = {}
+    arms = walled("12, 15, 18 (d3)", phase_arms, fa, ra, ua, models, make_mesh, get_strategy,
+                  rt, memory, loop, lambda: moe_seq.update(phase_moe_seq(
+                      models, strategies, step_mod, SyntheticDataset, make_mesh)))
     tp_timing = walled("16 (a)", phase_tp_kernels, fa, ra, peaks)
     tp_launches = walled("16 (b)", phase_tp_train, {
         ("parity", "zero2"): row_losses["parity"], ("flagship", "zero2"): row_losses["flagship"],
@@ -3903,7 +4055,8 @@ def main() -> int:
         ("flagship", "ddp"): no_group_ddp_flagship(run_benchmark)})
     walled("17", phase_offload, fa, loop, memory, models, get_strategy, param_torch_dtype, smi,
            row_results["parity"])
-    walled("18", phase_moe, fa, loop, memory, models, get_strategy, make_mesh, smi)
+    moe = walled("18", phase_moe, fa, loop, memory, models, get_strategy, make_mesh, smi,
+                 moe_seq)
     gc.collect()
     torch.cuda.empty_cache()
     pipe_launches = walled("19", phase_pipe, run_benchmark, smi)
@@ -3999,6 +4152,11 @@ def main() -> int:
                     sched: [stage[names[kind]] for stage in stages]
                     for sched, stages in pipe_launches.items()}
                 entry["suite_launches"] = suite["launches"]["arms"][names[kind]]
+                # K1 runs as its bhv instance under tensor parallelism.
+                entry["moe_composed_launches_per_rank_per_step"] = {
+                    leg: next(v for k, v in run["launches_per_rank_per_step"].items()
+                              if k.startswith(names[kind]))
+                    for leg, run in moe["legs"].items() if run["ran"]}
             if key == "b":
                 entry["suite_launches"] = suite["launches"]["remat_sweep"][names[kind]]
             kernels.append(entry)

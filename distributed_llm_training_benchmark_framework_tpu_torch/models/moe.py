@@ -35,21 +35,46 @@ einsums cost N*E*C*D multiply-adds each (about half the expert FFN at the
 k exact products, so the two forms give the same output bit for bit when
 the products are exact (bf16 operands, k 2).
 
-Over the process group (``ExpertGroups``):
+Over the process group (``ExpertGroups``), the layer computes what JAX's
+selector computes on the same mesh:
 
-- **expert width ep > 1** (JAX's ``_moe_mlp_a2a``): the batch is sharded
-  over (data, expert) and each member routes its own tokens with a
-  per-member capacity; the (E, C, D) buffer goes out by one all-to-all over
-  the ``expert`` group, the member's E/ep experts run on (E/ep, ep*C, D),
-  and one all-to-all brings it back. Both hops are ``_AllToAll``, whose
-  backward is the reverse exchange. ``f``, ``p`` and ``drop_frac`` are
-  averaged over the token-sharding ranks (``lax.pmean``);
-- **expert width 1 with data > 1**: JAX routes the global micro-batch under
-  GSPMD, with C = capacity(global N) and positions counted over every data
-  rank's tokens in global row order. Each rank therefore offsets its
-  positions by the assignments of the data ranks before it (an all-gather
-  of per-expert counts) and averages ``f``, ``p`` and ``drop_frac`` over the
-  data group, so every rank drops what JAX drops.
+- **JAX's all-to-all form** (``_moe_mlp_a2a``: expert width ep > 1, no
+  ``model``, ``seq`` or ``pipe`` axis, ``moe_dispatch`` not "einsum"): the
+  batch is sharded over (data, expert) and each member routes its own
+  tokens with a per-member capacity; the (E, C, D) buffer goes out by one
+  all-to-all over the ``expert`` group, the member's E/ep experts run on
+  (E/ep, ep*C, D), and one all-to-all brings it back. Both hops are
+  ``_AllToAll``, whose backward is the reverse exchange. ``f``, ``p`` and
+  ``drop_frac`` are averaged over the token-sharding ranks (``lax.pmean``);
+- **everything else is JAX's einsum form under GSPMD**, which routes the
+  global set of tokens the layer sees: C = capacity(global token count),
+  and slots counted in the global ``(b, s)`` row-major order, then choice
+  order. Without a pipeline that set is the whole micro-batch over every
+  rank that holds tokens (rows over data x expert, columns over ``seq``;
+  the ``model`` ranks hold replicas of the same tokens); a pipeline stage
+  routes its micro-batch over data x expert, each ``seq`` shard its own
+  window (``seq`` is manual in JAX's pipeline region). The port keeps each
+  rank's buffer local (``TokenUnits``): a token is kept when its global
+  slot is below C, and a rank's own assignments to an expert, in its local
+  order, have increasing global slots, so the ones it keeps are a prefix of
+  them. It fills an (E, C_loc, D) buffer by local slot, C_loc = min(C, its
+  N tokens), and drops every entry whose global slot is C or more. The
+  global slot is the local one plus an offset per (unit, expert), a unit
+  being one row's window of one ``seq`` shard, whose tokens are contiguous
+  in the global order: the exclusive prefix, in unit order, of a zero-filled
+  (units, E) table of counts, one all-reduce per layer and micro-batch
+  over the routing ranks. At ep > 1 the same exchange as above carries the
+  buffers (the expert FFN works row by row, so each expert gives the rows
+  JAX's global buffer gives); at ep 1 each rank runs every expert on its
+  own buffer. ``f``, ``p`` and ``drop_frac`` are averaged over the routing
+  ranks, whose token counts are equal;
+- **beside ``model``** each rank holds the F/tp columns of its experts
+  (``moe_w1`` / ``moe_b1`` column-parallel, ``moe_w2`` row-parallel, JAX's
+  ``_TP_RULES``): the buffer enters through "f"
+  (``parallel/tensor.copy_to_model``), the fp32 partial product of ``w2``
+  is summed over ``model`` and rounded once to the compute dtype, and
+  ``moe_b2`` is added after the sum; the router and the routing are
+  replicated.
 
 The averaged ``p`` is a differentiable all-reduce whose backward is the
 same average of the gradients: each rank's loss holds E * sum(f * p), and
@@ -66,6 +91,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..ops.collective_matmul import bmm_f32
+from ..parallel.tensor import copy_to_model, reduce_from_model
+
 DISPATCH_MODES = ("auto", "alltoall", "einsum")
 AUX_MODES = ("switch", "overflow")
 
@@ -76,21 +104,47 @@ def capacity(n_tokens: int, n_experts: int, top_k: int, factor: float) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class TokenUnits:
+    """Where this rank's tokens sit in the global order a layer routes them
+    in: its B rows are rows ``[member*B, (member+1)*B)`` of ``members * B``,
+    its columns the window ``shard`` of ``shards`` (a unit: one row's
+    window, unit id ``row * shards + shard``), over the ranks of ``group``,
+    whose tokens together make the routed set."""
+
+    member: int
+    members: int
+    shard: int
+    shards: int
+    group: Optional[dist.ProcessGroup] = None
+
+    def unit_ids(self, rows: int, device) -> torch.Tensor:
+        """The unit ids of this rank's ``rows`` rows, in order."""
+        r = torch.arange(rows, dtype=torch.int64, device=device) + self.member * rows
+        return r * self.shards + self.shard
+
+    def count(self, rows: int) -> int:
+        """Units in the routed set."""
+        return self.members * rows * self.shards
+
+
+@dataclasses.dataclass(frozen=True)
 class ExpertGroups:
     """Where a MoE layer's tokens and experts sit over the process group.
 
-    ``ep``: the ``expert`` width; ``expert_group``: the ep ranks of one
-    ``data`` index (the all-to-all's); ``stat_group``: the ranks whose
-    tokens make up the routed batch, over which ``f``, ``p`` and
-    ``drop_frac`` are averaged; ``offset_group``: at ep 1 over ``data`` > 1,
-    the data ranks in row order, over which positions and capacity are
-    global. All None: one process routes its own tokens, as JAX on one
-    device."""
+    ``ep``: the ``expert`` width; ``expert_group``: the ep ranks whose
+    experts together make a layer's (the all-to-all's); ``stat_group``: the
+    ranks whose tokens make up the routed set, over which ``f``, ``p`` and
+    ``drop_frac`` are averaged; ``units``: global routing over those ranks
+    (None: each rank routes its own tokens with its own capacity, JAX's
+    all-to-all form, or one process as JAX on one device);
+    ``model_group``: the ``model`` ranks that hold the F/tp shards of the
+    experts (None at ``model`` width 1)."""
 
     ep: int = 1
     expert_group: Optional[dist.ProcessGroup] = None
     stat_group: Optional[dist.ProcessGroup] = None
-    offset_group: Optional[dist.ProcessGroup] = None
+    units: Optional[TokenUnits] = None
+    model_group: Optional[dist.ProcessGroup] = None
 
 
 class Route(NamedTuple):
@@ -98,7 +152,8 @@ class Route(NamedTuple):
     expert_idx: torch.Tensor  # (N, K) chosen experts, best first
     gates: torch.Tensor       # (N, K) fp32, renormalised
     slot: torch.Tensor        # (N, K) this rank's position in its expert's buffer
-    keep: torch.Tensor        # (N, K) bool: position < capacity
+    pos: torch.Tensor         # (N, K) the global one (the slot when routed alone)
+    keep: torch.Tensor        # (N, K) bool: global position < capacity
     drop_frac: torch.Tensor   # fp32 scalar: dropped share of the assignments
 
 
@@ -151,11 +206,25 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :k], idx[:, :k]
 
 
+def unit_table(expert_idx: torch.Tensor, n_experts: int, units: TokenUnits,
+               rows: int) -> torch.Tensor:
+    """This rank's rows of the zero-filled (units, E) table of assignments
+    per unit and expert (int64), from its (N, K) choices over ``rows``
+    rows; summed over the routing ranks it is the whole table."""
+    counts = F.one_hot(expert_idx.reshape(rows, -1), n_experts).sum(1)  # (rows, E)
+    table = counts.new_zeros(units.count(rows), n_experts)
+    table[units.unit_ids(rows, counts.device)] = counts
+    return table
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, top_k: int, cap: int,
-          offset_group: Optional[dist.ProcessGroup] = None) -> Route:
+          units: Optional[TokenUnits] = None, rows: int = 1,
+          table: Optional[torch.Tensor] = None) -> Route:
     """JAX's ``_route`` on this rank's tokens ``xt`` (N, D), capacity
-    ``cap``; with ``offset_group``, positions count the assignments of the
-    group's lower ranks first (global routing over the group's rows)."""
+    ``cap``. With ``units`` the tokens are ``rows`` rows of this rank's
+    units and a choice is kept by its global slot (see the module
+    docstring): the whole table of counts is ``table`` when given, else
+    this rank's ``unit_table`` summed over ``units.group``."""
     N, E = xt.shape[0], router.shape[1]
     logits = torch.mm(xt.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
@@ -170,24 +239,36 @@ def route(xt: torch.Tensor, router: torch.Tensor, top_k: int, cap: int,
     prior = flat.t().contiguous().cumsum(1).t() - flat
     slot = (prior.reshape(N, top_k, E) * onehot).sum(-1)
     pos = slot
-    if offset_group is not None:
-        counts = flat.sum(0)
-        every = torch.empty(dist.get_world_size(offset_group) * E, dtype=counts.dtype,
-                            device=counts.device)
-        dist.all_gather_into_tensor(every, counts, group=offset_group)
-        before = every.view(-1, E)[:dist.get_rank(offset_group)].sum(0)
-        pos = slot + before[expert_idx]
+    if units is not None:
+        if table is None:
+            table = unit_table(expert_idx, E, units, rows)
+            dist.all_reduce(table, group=units.group)
+        # Global slot = local slot + (the units before this row's, in the
+        # global order) - (this rank's rows before it).
+        ids = units.unit_ids(rows, table.device)
+        counts = table[ids]
+        delta = (table.cumsum(0) - table)[ids] - (counts.cumsum(0) - counts)
+        pos = slot + delta.repeat_interleave(N // rows, 0).gather(1, expert_idx)
     keep = pos < cap
     drop_frac = (1.0 - keep.float()).mean()
-    return Route(probs, expert_idx, gates, slot, keep, drop_frac)
+    return Route(probs, expert_idx, gates, slot, pos, keep, drop_frac)
 
 
-def expert_ffn(xin: torch.Tensor, w1, b1, w2, b2, cd: torch.dtype) -> torch.Tensor:
+def expert_ffn(xin: torch.Tensor, w1, b1, w2, b2, cd: torch.dtype,
+               model_group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """JAX's ``_expert_ffn``: (E', C', D) -> (E', C', D), batched over the
-    experts, each product rounded to ``cd`` and its bias added there."""
+    experts, each product rounded to ``cd`` and its bias added there. With
+    ``model_group`` the weights are this rank's F/tp columns: the buffer
+    enters through "f", and ``w2``'s fp32 partial product is summed over
+    ``model``, rounded once, and then gets ``b2``."""
+    if model_group is not None:
+        xin = copy_to_model(xin, model_group)
     h = torch.bmm(xin, w1.to(cd)) + b1.to(cd)[:, None, :]
     h = F.gelu(h)  # exact erf
-    return torch.bmm(h, w2.to(cd)) + b2.to(cd)[:, None, :]
+    if model_group is None:
+        return torch.bmm(h, w2.to(cd)) + b2.to(cd)[:, None, :]
+    out = reduce_from_model(bmm_f32(h, w2.to(cd)), model_group).to(cd)
+    return out + b2.to(cd)[:, None, :]
 
 
 def aux_stats(probs: torch.Tensor, expert_idx: torch.Tensor, n_experts: int):
@@ -254,19 +335,14 @@ def _combine(out: torch.Tensor, r: Route, cap: int, dtype: torch.dtype) -> torch
 
 
 def check_dispatch(c, groups: ExpertGroups) -> None:
-    """JAX's selector's refusal: ``moe_dispatch`` "alltoall" needs an
-    ``expert`` width > 1 dividing the experts; "einsum" (global routing
-    over every token-sharding rank) is not ported at ep > 1."""
-    if c.moe_dispatch == "alltoall" and not (groups.ep > 1 and c.n_experts % groups.ep == 0):
+    """JAX's selector's one refusal: ``moe_dispatch`` "alltoall" needs its
+    geometry (an ``expert`` width > 1 dividing the experts, no ``model``,
+    ``seq`` or ``pipe`` axis), where the layer takes the all-to-all form."""
+    if c.moe_dispatch == "alltoall" and not (groups.ep > 1 and groups.units is None):
         raise ValueError(
             "moe_dispatch='alltoall' needs an in-scope mesh with a >1 'expert' axis, "
             f"n_experts % ep == 0, batch % (dp*ep) == 0, and no model/seq/pipe axes > 1 "
             f"(got expert width {groups.ep}, n_experts {c.n_experts})")
-    if c.moe_dispatch == "einsum" and groups.ep > 1:
-        raise ValueError(
-            "moe_dispatch='einsum' at expert width > 1 (routing the tokens of every "
-            "(data, expert) member together) is not ported; use 'auto' or 'alltoall' "
-            "(ROADMAP Queue 1 item 12)")
 
 
 def moe_mlp(c, x: torch.Tensor, router: torch.Tensor, ffn: Callable[[torch.Tensor], torch.Tensor],
@@ -274,15 +350,18 @@ def moe_mlp(c, x: torch.Tensor, router: torch.Tensor, ffn: Callable[[torch.Tenso
             aux_mode: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE layer on this rank's tokens x (B, S, D) -> (output, aux):
     index dispatch, ``ffn`` over this rank's experts ((E/ep, ep*C, D) ->
-    same), index combine; the all-to-all hops at ep > 1 (see the module
-    docstring). ``aux_mode`` None: the config's."""
+    same), index combine; global routing and the all-to-all hops as
+    ``groups`` says (see the module docstring). ``aux_mode`` None: the
+    config's."""
     B, S, D = x.shape
-    N, E, ep = B * S, c.n_experts, groups.ep
+    N, E, ep, units = B * S, c.n_experts, groups.ep, groups.units
     check_dispatch(c, groups)
-    rows = dist.get_world_size(groups.offset_group) if groups.offset_group is not None else 1
-    cap = capacity(N * rows, E, c.expert_top_k, c.capacity_factor)
+    tokens = N if units is None else N * units.members * units.shards
+    cap = capacity(tokens, E, c.expert_top_k, c.capacity_factor)
     xt = x.reshape(N, D)
-    r = route(xt, router, c.expert_top_k, cap, groups.offset_group)
+    r = route(xt, router, c.expert_top_k, cap, units, B)
+    if units is not None:
+        cap = min(cap, N)  # the local buffer: a rank keeps at most N per expert
     xin = _dispatch(xt, r, E, cap)
     if ep == 1:
         out = ffn(xin)

@@ -20,7 +20,9 @@ and ``moe_b2`` (E, D), in place of ``wfc`` / ``bfc`` / ``wproj`` / ``bproj``;
 the loss gains ``router_aux_coef`` times the Switch statistic averaged over
 the layers. Under an ``expert`` axis of width ep a rank holds its E/ep
 experts (``experts.<leaf>`` axis 0) and the layer exchanges tokens over the
-``expert`` group (``models/moe.py``).
+``expert`` group; beside ``model`` it holds their F/tp columns; over the
+group the layer routes the tokens JAX's selector routes together
+(``models/moe.py``).
 
 Numerics follow JAX's explicit casts (no ``torch.autocast``): parameters
 are stored in ``config.param_dtype`` (fp32, or bf16 as JAX's
@@ -124,7 +126,7 @@ from ..parallel.tensor import (
     vocab_parallel_cross_entropy,
     vocab_parallel_embedding,
 )
-from .moe import AUX_MODES, DISPATCH_MODES, ExpertGroups, expert_ffn, moe_mlp
+from .moe import AUX_MODES, DISPATCH_MODES, ExpertGroups, TokenUnits, expert_ffn, moe_mlp
 
 ATTENTION_IMPLS = ("reference", "flash", "ring", "ulysses")
 REMAT_POLICIES = ("none", "dots", "full")
@@ -396,18 +398,21 @@ def _param(dtype: torch.dtype, *shape) -> nn.Parameter:
 
 class Experts(nn.Module):
     """This rank's E/ep experts of one layer (the JAX leaves ``moe_w1``,
-    ``moe_b1``, ``moe_w2``, ``moe_b2``); ``forward`` is the expert FFN over
-    their (E/ep, C', D) buffer."""
+    ``moe_b1``, ``moe_w2``, ``moe_b2``), each at its ``model`` rank's F/tp
+    columns (``group``: the ``model`` group, None at width 1); ``forward``
+    is the expert FFN over their (E/ep, C', D) buffer."""
 
-    def __init__(self, c: TinyGPTConfig, n_local: int):
+    def __init__(self, c: TinyGPTConfig, n_local: int, tp: int = 1,
+                 group: Optional[torch.distributed.ProcessGroup] = None):
         super().__init__()
-        D, Fm, pd = c.n_embd, c.mlp_dim, c.param_dtype
-        self.cd = c.compute_dtype
+        D, Fm, pd = c.n_embd, c.mlp_dim // tp, c.param_dtype
+        self.cd, self.group = c.compute_dtype, group
         self.moe_w1, self.moe_b1 = _param(pd, n_local, D, Fm), _param(pd, n_local, Fm)
         self.moe_w2, self.moe_b2 = _param(pd, n_local, Fm, D), _param(pd, n_local, D)
 
     def forward(self, xin: torch.Tensor) -> torch.Tensor:
-        return expert_ffn(xin, self.moe_w1, self.moe_b1, self.moe_w2, self.moe_b2, self.cd)
+        return expert_ffn(xin, self.moe_w1, self.moe_b1, self.moe_w2, self.moe_b2, self.cd,
+                          self.group)
 
 
 class Block(nn.Module):
@@ -452,7 +457,7 @@ class Block(nn.Module):
             self.bo = _param(pd, D)
         if c.n_experts > 0:
             self.router = _param(pd, D, c.n_experts)
-            self.experts = Experts(c, c.n_experts // moe.ep)
+            self.experts = Experts(c, c.n_experts // moe.ep, t, group)
             return
         if c.mlp_act == "swiglu":
             self.wgu = _param(pd, D, 2, Fl)
@@ -636,6 +641,9 @@ class TinyGPT(nn.Module):
         self.ep = mesh.expert_shard if mesh is not None else (0, 1)
         moe = _expert_groups(c, mesh)
         self.expert_group = moe.expert_group
+        # JAX's overflow diagnostic routes outside the pipeline's manual
+        # region: beside 'seq', over the whole sequence.
+        self.diagnostic_moe = _expert_groups(c, mesh, in_pipeline=False) if pp > 1 else moe
         D, V, pd = c.n_embd, c.vocab_size, c.param_dtype
         self.wte = _param(pd, V // self.vocab_tp, D)
         if c.pos_embed == "learned":
@@ -931,22 +939,38 @@ def moe_overflow_fraction(model: TinyGPT, idx: torch.Tensor, batch_offset: int =
     mean over the token-sharding ranks, as the layer averages it). Under a
     pipeline of contiguous stages (``pipeline``: this rank's
     ``parallel.pipeline.Pipeline``) the forward runs through the stages in
-    order and the layers' fractions are summed over ``pipe``."""
+    order, routing as JAX's diagnostic does outside its pipeline (beside
+    ``seq``, over the whole sequence: ``TinyGPT.diagnostic_moe``), and the
+    layers' fractions are summed over ``pipe``."""
     if pipeline is None:
         _, aux = model._trunk(idx, None, None, batch_offset, global_batch, "overflow")
-    else:
-        n = len(model.blocks)
+        return aux / model.config.n_layer
+    n = len(model.blocks)
+    saved = [block.moe for block in model.blocks]
+    for block in model.blocks:
+        block.moe = model.diagnostic_moe
+    try:
         aux = pipeline.forward_only(
             lambda: model.embed(idx, None, batch_offset, global_batch),
             lambda x: model.run_blocks(x, range(n), None, None, batch_offset,
                                        global_batch, "overflow"),
             (*idx.shape, model.config.n_embd), model.config.compute_dtype)
+    finally:
+        for block, moe in zip(model.blocks, saved):
+            block.moe = moe
     return aux / model.config.n_layer
 
 
-def _expert_groups(c: TinyGPTConfig, mesh: Optional[Mesh]) -> ExpertGroups:
-    """The MoE layers' groups over ``mesh`` (``models/moe.py``), after the
-    refusals of what is not ported."""
+def _expert_groups(c: TinyGPTConfig, mesh: Optional[Mesh],
+                   in_pipeline: Optional[bool] = None) -> ExpertGroups:
+    """The MoE layers' groups over ``mesh`` (``models/moe.py``): JAX's
+    all-to-all form where its selector takes it (expert width > 1, no
+    ``model``, ``seq`` or ``pipe`` axis, ``moe_dispatch`` not "einsum"),
+    else global routing over the ranks that hold the routed tokens: outside
+    a pipeline's stages every rank of this rank's ``model`` and ``pipe``
+    indices (data x seq x expert), inside them (``in_pipeline``, by default
+    whether ``pipe`` is wider than 1) the data x expert ranks of its stage
+    and ``seq`` index."""
     _, ep = mesh.expert_shard if mesh is not None else (0, 1)
     if ep > 1 and c.n_experts == 0:
         raise ValueError("expert_parallel > 1 requires --num-experts > 0")
@@ -956,15 +980,17 @@ def _expert_groups(c: TinyGPTConfig, mesh: Optional[Mesh]) -> ExpertGroups:
         raise ValueError(f"expert parallelism (expert width {ep}) needs a process group")
     if c.n_experts == 0 or mesh is None or mesh.device_mesh is None:
         return ExpertGroups()
-    if not mesh.seq_in_process or mesh.size(AXES.model) > 1:
-        raise ValueError(
-            "MoE with a 'seq' or 'model' axis over the process group is not ported "
-            "(it needs routing across sequence shards; ROADMAP Queue 1 item 12)")
-    if ep > 1:
+    pipe = mesh.size(AXES.pipe) > 1
+    if (ep > 1 and c.moe_dispatch != "einsum" and mesh.seq_in_process
+            and mesh.model_group is None and not pipe):
         return ExpertGroups(ep, mesh.expert_group, mesh.batch_group)
-    if mesh.size(AXES.data) > 1:
-        return ExpertGroups(1, None, mesh.data_group, mesh.data_group)
-    return ExpertGroups()
+    staged = pipe if in_pipeline is None else in_pipeline
+    group = mesh.batch_group if staged else mesh.arm_group
+    if group is None or torch.distributed.get_world_size(group) == 1:
+        return ExpertGroups(ep, mesh.expert_group, model_group=mesh.model_group)
+    s, n = (0, 1) if staged else mesh.seq_shard
+    units = TokenUnits(*mesh.batch_shard, s, n, group)
+    return ExpertGroups(ep, mesh.expert_group, group, units, mesh.model_group)
 
 
 def count_params(model: nn.Module) -> int:

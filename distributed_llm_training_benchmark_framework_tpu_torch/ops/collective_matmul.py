@@ -115,6 +115,17 @@ def proj_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, *w.shape[1:])
 
 
+def bmm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, M, K) @ w (E, K, N) -> fp32 (E, M, N), batched as ``proj_f32``
+    (on the card one fp32-output GEMM per batch entry: the row-parallel
+    ``moe_w2`` of each expert)."""
+    if x.dtype == torch.float32:
+        return torch.bmm(x, w)
+    if x.device.type == "cuda":
+        return torch.stack([MMF32.apply(x[e], w[e].t()) for e in range(x.shape[0])])
+    return torch.bmm(x.float(), w.float())
+
+
 def ag_proj_sharded(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
     """All-gather side: x (B, S/n, D), this rank's sequence chunk, and w
     (D, F_l) or (D, C, F_l), its feature shard -> (B, S, ..., F_l) in x's

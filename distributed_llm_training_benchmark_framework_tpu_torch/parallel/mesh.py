@@ -42,14 +42,15 @@ axes and the group:
 
 The strategy arms shard and reduce over ``data``, ``seq`` and ``expert``,
 never over ``model`` or ``pipe``; the expert leaves reduce over ``data``
-only, and the leaves every pipeline stage holds (embedding, final norm,
-head) are summed over ``pipe`` after the arm's reduction
-(``parallel/strategies.py``).
+and ``seq`` only (the ranks that hold the same experts), and the leaves
+every pipeline stage holds (embedding, final norm, head) are summed over
+``pipe`` after the arm's reduction (``parallel/strategies.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -220,54 +221,53 @@ class Mesh:
         return self.replica_group if self.replica_group is not None else self.group
 
 
-def replicate_seq_shard_data(mesh: Mesh) -> DeviceMesh:
-    """The (``seq``, ``data``) ``DeviceMesh`` of this rank's ``model`` and
-    ``pipe`` indices, over the same ranks as ``mesh``'s data-major one:
-    FSDP2 takes a 2-D mesh as (replicate, shard), and the arms replicate
-    over ``seq`` and shard over ``data``. A ``DeviceMesh`` cannot be sliced
-    into another dim order, so it is built from the transposed rank grid
-    (collective: every rank calls it); with ``model`` or ``pipe`` in the
-    group, from the (model, pipe, seq, data) grid, sliced to this rank's
-    ``model`` and ``pipe`` indices."""
-    dp, n = mesh.size(AXES.data), mesh.size(AXES.seq)
-    tp, pp = mesh.size(AXES.model), mesh.size(AXES.pipe)
+def replicate_shard_data(mesh: Mesh, replicate: Sequence[str]) -> DeviceMesh:
+    """The 2-D (replicate, ``data``) ``DeviceMesh`` of the ranks that share
+    this rank's indices on every other axis, the ``replicate`` axes (which
+    ride the group) flattened into its first dim: FSDP2 takes a 2-D mesh as
+    (replicate, shard), and the arms replicate over ``seq`` and ``expert``
+    and shard over ``data``. A ``DeviceMesh`` cannot be sliced into another
+    dim order, so it is built from the transposed rank grid (collective:
+    every rank calls it); with other axes in the group, from the (other,
+    replicate, data) grid, sliced to this rank's indices on them."""
+    sp = 1 if mesh.seq_in_process else mesh.size(AXES.seq)
+    widths = {AXES.data: mesh.size(AXES.data), AXES.seq: sp, AXES.model: mesh.size(AXES.model),
+              AXES.pipe: mesh.size(AXES.pipe), AXES.expert: mesh.size(AXES.expert)}
+    axes = list(widths)
+    fixed = [a for a in axes[1:] if a not in replicate]
+    order = [*fixed, *replicate, AXES.data]
+    grid = torch.arange(math.prod(widths.values())).view(*widths.values()).permute(
+        *(axes.index(a) for a in order)).reshape(
+            math.prod(widths[a] for a in fixed), math.prod(widths[a] for a in replicate), -1)
+    # Each flattened dim is named by the axes it flattens.
+    name = "_".join(replicate)
     device_type = mesh.device_mesh.device_type
-    if tp * pp == 1:
-        grid = torch.arange(dp * n).view(dp, n).t()  # grid[s, d] = d * n + s
-        return DeviceMesh(device_type, grid, mesh_dim_names=(AXES.seq, AXES.data))
-    grid = torch.arange(dp * n * tp * pp).view(dp, n, tp, pp).permute(2, 3, 1, 0)  # [m, p, s, d]
-    full = DeviceMesh(device_type, grid,
-                      mesh_dim_names=(AXES.model, AXES.pipe, AXES.seq, AXES.data))
-    return full[(AXES.seq, AXES.data)]
+    if grid.shape[0] == 1:
+        return DeviceMesh(device_type, grid[0], mesh_dim_names=(name, AXES.data))
+    full = DeviceMesh(device_type, grid, mesh_dim_names=("_".join(fixed), name, AXES.data))
+    return full[(name, AXES.data)]
 
 
-def replicate_expert_shard_data(mesh: Mesh) -> DeviceMesh:
-    """The (``expert``, ``data``) ``DeviceMesh`` of a (data, expert) mesh,
-    for FSDP2's (replicate, shard) order: the non-expert leaves replicate
-    over ``expert`` and shard over ``data`` (JAX shards them over ``data``
-    only). Built from the transposed rank grid, as
-    :func:`replicate_seq_shard_data` (collective)."""
-    dp, ep = mesh.size(AXES.data), mesh.size(AXES.expert)
-    grid = torch.arange(dp * ep).view(dp, ep).t()  # grid[e, d] = d * ep + e
-    return DeviceMesh(mesh.device_mesh.device_type, grid,
-                      mesh_dim_names=(AXES.expert, AXES.data))
+def _data_mesh(mesh: Mesh, replicate: Sequence[str]) -> DeviceMesh:
+    if replicate:
+        return replicate_shard_data(mesh, replicate)
+    return mesh.device_mesh if mesh.device_mesh.ndim == 1 else mesh.device_mesh[AXES.data]
 
 
 def shard_data_mesh(mesh: Mesh) -> DeviceMesh:
     """The ``DeviceMesh`` FSDP2 shards the non-expert leaves over: ``data``
-    (1-D), or (``seq``, ``data``) when ``seq`` rides the group, or
-    (``expert``, ``data``) when ``expert`` does; of this rank's ``model``
-    and ``pipe`` indices."""
-    if mesh.expert_group is not None:
-        if not mesh.seq_in_process or mesh.model_group is not None:
-            raise ValueError("an 'expert' axis beside a 'seq' or 'model' axis over the process "
-                             "group is not ported (ROADMAP Queue 1 item 12)")
-        return replicate_expert_shard_data(mesh)
-    if not mesh.seq_in_process:
-        return replicate_seq_shard_data(mesh)
-    if mesh.device_mesh.ndim == 1:
-        return mesh.device_mesh
-    return mesh.device_mesh[AXES.data]
+    (1-D), or (replicate, ``data``) with ``seq`` and ``expert`` replicating
+    when they ride the group; of this rank's ``model`` and ``pipe``
+    indices."""
+    return _data_mesh(mesh, [a for a in (AXES.seq, AXES.expert) if mesh._rides(a)])
+
+
+def expert_shard_mesh(mesh: Mesh) -> DeviceMesh:
+    """The ``DeviceMesh`` FSDP2 shards the expert leaves over: ``data``
+    (1-D), or (``seq``, ``data``) when ``seq`` rides the group; of this
+    rank's ``model``, ``pipe`` and ``expert`` indices (the ranks that hold
+    the same experts)."""
+    return _data_mesh(mesh, [AXES.seq] if mesh._rides(AXES.seq) else [])
 
 
 def _group_of(world: int, key) -> dist.ProcessGroup:

@@ -355,8 +355,9 @@ class Pipeline:
 def check_pipeline(pipeline_parallel: int, pipeline_schedule: str, virtual_stages: int,
                    n_layer: int, tensor_parallel: int, expert_parallel: int,
                    tp_collective_matmul: bool) -> None:
-    """The JAX loop's checks of the pipeline options, and the port's
-    refusals of what is not ported."""
+    """The JAX loop's checks of the pipeline options. A ``model`` or an
+    ``expert`` axis beside ``pipe`` passes, as in JAX (a stage's MoE layers
+    route its micro-batch over data x expert, ``models/moe.py``)."""
     if pipeline_parallel < 1:
         raise ValueError(f"pipeline_parallel must be >= 1, got {pipeline_parallel}")
     if pipeline_parallel == 1:
@@ -367,10 +368,6 @@ def check_pipeline(pipeline_parallel: int, pipeline_schedule: str, virtual_stage
             "--tp-collective-matmul cannot compose with pipeline parallelism (the pipeline runs "
             "the residual stream manually over 'seq'; drop one of the two)"
         )
-    if expert_parallel > 1:
-        raise ValueError(
-            "pipeline parallelism beside an 'expert' axis wider than 1 is not ported (JAX takes "
-            "its GSPMD einsum fallback there; ROADMAP Queue 1 item 12)")
     if n_layer % pipeline_parallel:
         raise ValueError(f"n_layer={n_layer} not divisible by pipe={pipeline_parallel}")
     if pipeline_schedule == "interleaved":

@@ -43,7 +43,7 @@ gradients are averaged over all dp * n ranks, which is JAX's global-mean
 gradient because every rank's loss is a mean over the same count of
 targets (``train/step.py``). ddp is DDP over the whole group; fsdp / zero3
 are FSDP2 over a 2-D mesh whose replicate dim is ``seq`` and whose shard
-dim is ``data`` (``mesh.replicate_seq_shard_data``: FSDP2 takes (replicate,
+dim is ``data`` (``mesh.replicate_shard_data``: FSDP2 takes (replicate,
 shard) while the ranks are data-major); zero2 reduce-scatters over
 ``data``, all-reduces over ``seq`` and divides once by dp * n. The clip's
 norm is the full gradient's in every arm: each rank's shards are summed
@@ -65,23 +65,29 @@ norm counts each element once: the squares of ``model``-sharded leaves
 are summed over ``model``, replicated leaves counted once, as optax's
 global norm over the whole tree.
 
-Under expert parallelism (an ``expert`` axis of width ep over the group,
-a (data, expert) mesh; ``models/moe.py``) the batch rows shard over data x
-expert and each rank holds its E/ep experts, JAX's ``_EP_RULES``. The
-leaves outside the experts are replicated over ``expert`` and their
-gradients averaged over the dp * ep ranks (``Mesh.batch_group``); the
-expert leaves are summed over ``data`` only and divided by dp * ep: the
-all-to-all's backward has already brought every member's token gradients
-to the expert's owner, and each member's loss is a mean over its own rows.
-ddp is DDP over the batch group with the expert leaves ignored by DDP and
-all-reduced over ``data`` by hand; fsdp / zero3 wrap each block's experts
-in FSDP2 over the ``data`` mesh (its average over dp, then a division by
-ep) and the rest over the (expert, data) mesh, replicate over ``expert`` and shard
-over ``data`` (HSDP; JAX's ``shard_params`` shards over ``data`` only);
-zero2's buckets part the expert leaves from the rest: both reduce-scatter
-over ``data``, the rest then all-reduce over ``expert``, and both divide by
-dp * ep. The clip's norm sums the expert leaves' squares over ``expert``
-as it sums tp's over ``model``.
+Under expert parallelism (an ``expert`` axis of width ep over the group;
+``models/moe.py``) the batch rows shard over data x expert and each rank
+holds its E/ep experts, JAX's ``_EP_RULES``. The leaves outside the experts
+are replicated over ``expert`` and their gradients averaged over the dp *
+sp * ep ranks of the arm (``Mesh.arm_group``; sp the ``seq`` width when it
+rides the group, else 1); the expert leaves are summed over the ranks that
+hold the same experts, ``data`` and ``seq`` (``expert_reduce``), and
+divided by dp * sp * ep: the all-to-all's backward has already brought
+every member's token gradients to the expert's owner, and each member's
+loss is a mean over its own tokens. ddp is DDP over the arm's group with
+the expert leaves ignored by DDP and all-reduced by hand; fsdp / zero3
+wrap each block's experts in FSDP2 over the ``data`` mesh, or (seq, data)
+(``mesh.expert_shard_mesh``: its average, then a division by ep), and the
+rest over the (seq x expert, data) mesh, replicate over ``seq`` and
+``expert`` and shard over ``data`` (HSDP; JAX's ``shard_params`` shards
+over ``data`` only); zero2's buckets part the expert leaves from the rest:
+both reduce-scatter over ``data`` and all-reduce over ``seq``, the rest
+then over ``expert``, and both divide by dp * sp * ep. The clip's norm
+sums the expert leaves' squares over ``expert`` as it sums tp's over
+``model``; beside ``model`` an expert leaf that ``model`` shards (``moe_w1``,
+``moe_b1``, ``moe_w2``: JAX's ``_TP_RULES``) is summed over both
+(``shard_axes``), and beside ``pipe`` a stage's expert leaves over
+``expert`` and ``pipe``.
 
 Under pipeline parallelism (a ``pipe`` axis of width pp over the group;
 ``parallel/pipeline.py``) each rank holds its stage's blocks and, replicated
@@ -149,7 +155,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import itertools
 import json
 import math
 import os
@@ -161,7 +166,7 @@ from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor, Shard
 from torch.nn.parallel import DistributedDataParallel
 
-from .mesh import AXES, Mesh, shard_data_mesh
+from .mesh import AXES, Mesh, expert_shard_mesh, shard_data_mesh
 from .offload import HostOffload
 
 
@@ -447,9 +452,7 @@ def from_deepspeed_config(raw: Dict[str, Any], strategy_name: str) -> StrategyCo
 # leaves, whose block leaves carry a leading layer axis. Column-parallel
 # q/k/v and MLP up (output features), row-parallel attention out and MLP
 # down (input features), the vocabulary of the embedding and the head, and
-# inside each expert column-parallel w1 and row-parallel w2 (the memory
-# model's spec rule reads them; MoE over a 'model' axis on the group is
-# refused, models/tinygpt.py).
+# inside each expert column-parallel w1 and row-parallel w2.
 _TP_RULES = {
     "wte": (0,),
     "lm_head": (0,),
@@ -681,12 +684,14 @@ class Optimizer:
     ``.grad`` of the given parameters. ``count`` is optax's update count.
 
     ``norm_group``: the group whose ranks hold the other shards of every
-    gradient (None: each rank holds whole gradients). ``shard_group`` and
-    ``shard_flags`` (one flag per parameter): the ranks of ``shard_group``
-    hold the other shards of the flagged parameters, and the rest are
-    replicated over it: ``model`` under tensor parallelism, ``pipe`` under
-    pipeline parallelism (the blocks), ``expert`` under expert parallelism
-    (``pipe`` beside ``model``: ``model``). ``pipe_group`` and ``pipe_shared``
+    gradient (None: each rank holds whole gradients). ``shard_groups`` and
+    ``shard_keys`` (one tuple of flags per parameter, one flag per group):
+    the ranks of each flagged group hold the other parts of the parameter,
+    and it is replicated over the others: ``model`` under tensor
+    parallelism (its sharded leaves), ``expert`` under expert parallelism
+    (the expert leaves), ``pipe`` under pipeline parallelism (the stage's
+    own blocks, not the leaves every stage holds) (``shard_axes``).
+    ``pipe_group`` and ``pipe_shared``
     (one flag per parameter): under a pipeline, the flagged parameters are
     held by every stage, and ``finish_grads`` sums their gradients over
     ``pipe_group`` after the arm's reduction. ``data_replicated`` (one flag
@@ -711,16 +716,16 @@ class Optimizer:
 
     def __init__(self, strategy: StrategyConfig, params: Iterable[torch.nn.Parameter],
                  norm_group: Optional[dist.ProcessGroup] = None,
-                 shard_group: Optional[dist.ProcessGroup] = None,
-                 shard_flags: Optional[List[bool]] = None,
+                 shard_groups: Tuple[dist.ProcessGroup, ...] = (),
+                 shard_keys: Optional[List[Tuple[bool, ...]]] = None,
                  pipe_group: Optional[dist.ProcessGroup] = None,
                  pipe_shared: Optional[List[bool]] = None,
                  data_replicated: Optional[List[bool]] = None):
         self.strategy = strategy
         self.params = [p for p in params]
         self.norm_group = norm_group
-        self.shard_group = shard_group
-        self.shard_flags = shard_flags or [False] * len(self.params)
+        self.shard_groups = tuple(shard_groups)
+        self.shard_keys = shard_keys or [(False,) * len(self.shard_groups)] * len(self.params)
         self.pipe_group = pipe_group
         self.pipe_shared = pipe_shared or [False] * len(self.params)
         self.data_replicated = data_replicated or [False] * len(self.params)
@@ -785,49 +790,54 @@ class Optimizer:
 
     def _global_norm_sharded(self, f32: bool = False,
                              tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-        """The norm over every element once: the flagged leaves' squares
-        summed over ``shard_group``, the replicated ones' counted once,
-        then (shards of one gradient) summed over ``norm_group``; the
-        ``data_replicated`` leaves' squares join after that sum.
-        ``tensors``: one per parameter, laid out as it (default: the grads)."""
-        # Under pipe x model (``shard_group`` is ``model``) the stage's own
-        # leaves are summed over ``pipe`` after ``model`` (a model-sharded
-        # leaf is a block leaf), the ones every stage holds are not.
-        both = self.pipe_group is not None and self.pipe_group is not self.shard_group
-        parts: Dict[Tuple[bool, bool, bool], List[torch.Tensor]] = {}
+        """The norm over every element once: each parameter's squares
+        summed over the groups its key flags, then (shards of one gradient)
+        over ``norm_group``; the ``data_replicated`` leaves' squares join
+        after that sum. ``tensors``: one per parameter, laid out as it
+        (default: the grads)."""
+        parts: Dict[Tuple[Tuple[bool, ...], bool], List[torch.Tensor]] = {}
         if tensors is None:
             tensors = [p.grad for p in self.params]
-        for t, sharded, whole, shared in zip(tensors, self.shard_flags, self.data_replicated,
-                                             self.pipe_shared):
+        for t, key, whole in zip(tensors, self.shard_keys, self.data_replicated):
             if t is not None:
-                parts.setdefault((sharded, whole, both and not shared), []).append(_local(t))
-        norms = {key: _total_norm(grads, f32) for key, grads in parts.items()}
+                parts.setdefault((key, whole), []).append(_local(t))
+        norms = {slot: _total_norm(grads, f32) for slot, grads in parts.items()}
         zero = torch.zeros_like(next(iter(norms.values())))
-        sq = {key: norms[key] ** 2 if key in norms else zero.clone()
-              for key in itertools.product((True, False), repeat=3)}
-        out = {}
+        totals = {}
         for whole in (False, True):
             if whole and not any(self.data_replicated):
-                out[whole] = zero
+                totals[whole] = zero
                 continue
-            part = sq[True, whole, True] + sq[True, whole, False]
-            if self.shard_group is not None:
-                dist.all_reduce(part, group=self.shard_group)
-            part = part + sq[False, whole, True]
-            if both:
-                dist.all_reduce(part, group=self.pipe_group)
-            out[whole] = part + sq[False, whole, False]
-        total = out[False]
+            # The groups still to sum over -> the squares summed so far. The
+            # keys are the parameters', alike on every rank, so every rank
+            # issues the same all-reduces: one per group, of the sums whose
+            # remaining groups differ.
+            pending: Dict[frozenset, torch.Tensor] = {}
+            for key in sorted(set(self.shard_keys)):
+                rest = frozenset(i for i, flag in enumerate(key) if flag)
+                sq = norms[key, whole] ** 2 if (key, whole) in norms else zero
+                pending[rest] = pending[rest] + sq if rest in pending else sq
+            for i, group in enumerate(self.shard_groups):
+                merged: Dict[frozenset, torch.Tensor] = {}
+                for rest in [r for r in pending if i in r]:
+                    sq = pending.pop(rest)
+                    merged[rest - {i}] = merged[rest - {i}] + sq if rest - {i} in merged else sq
+                summed = torch.stack(list(merged.values()) or [zero])
+                dist.all_reduce(summed, group=group)
+                for rest, sq in zip(merged, summed):
+                    pending[rest] = pending[rest] + sq if rest in pending else sq
+            totals[whole] = pending.get(frozenset(), zero)
+        total = totals[False]
         if self.norm_group is not None:
             dist.all_reduce(total, group=self.norm_group)
-        return (total + out[True]).sqrt()
+        return (total + totals[True]).sqrt()
 
     def _clip_norm(self, f32: bool = False,
                    tensors: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         """The clip's global norm: fp32 (an fp64 sum of fp32 gradients'
         squares rounded once), or the bf16 gradients' own dtype.
         ``tensors`` as for ``_global_norm_sharded``."""
-        if self.shard_group is None and not any(self.data_replicated):
+        if not self.shard_groups and not any(self.data_replicated):
             local = (self._grads() if tensors is None
                      else [_local(t) for t in tensors if t is not None])
             norm = self._global_norm(local, f32)
@@ -898,13 +908,15 @@ class _DDPOptimizer(Optimizer):
     allocated anew by the micro-batches before the all-reduce, beside the
     buckets. Under expert parallelism DDP ignores the expert leaves
     (``experts``: their parameters), whose grads ``finish_grads`` sums over
-    ``expert_reduce`` (the ``data`` group) and divides by ``ranks``. Under a
+    each group of ``expert_reduce`` (``data``, and ``seq`` when it rides
+    the group: the ranks that hold the same experts) and divides by
+    ``ranks``. Under a
     pipeline (``explicit``) every backward runs under ``no_sync`` and
     ``finish_grads`` averages the gradients over DDP's group itself."""
 
     def __init__(self, strategy: StrategyConfig, ddp: DistributedDataParallel,
                  experts: List[torch.nn.Parameter] = (),
-                 expert_reduce: Optional[dist.ProcessGroup] = None, ranks: int = 1,
+                 expert_reduce: Tuple[dist.ProcessGroup, ...] = (), ranks: int = 1,
                  explicit: bool = False, **shards):
         super().__init__(strategy, ddp.module.parameters(), **shards)
         self.ddp = ddp
@@ -922,10 +934,13 @@ class _DDPOptimizer(Optimizer):
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
         for p in self.experts:
-            dist.all_reduce(p.grad, group=self.expert_reduce)
+            for group in self.expert_reduce:
+                dist.all_reduce(p.grad, group=group)
             p.grad.div_(self.ranks)
         if self.explicit:
-            grads = self._grads()
+            experts = {id(p) for p in self.experts}
+            grads = [_local(p.grad) for p in self.params
+                     if p.grad is not None and id(p) not in experts]
             _all_reduce_flat(grads, self.ddp.process_group)
             torch._foreach_div_(grads, float(dist.get_world_size(self.ddp.process_group)))
         super().finish_grads(grad_accum)
@@ -934,25 +949,28 @@ class _DDPOptimizer(Optimizer):
 class _FSDPOptimizer(Optimizer):
     """fsdp / zero3: FSDP2 averages each gradient over its mesh; the experts'
     mesh is ``data`` only, so their gradients are divided by the ``expert``
-    width ``ep`` as well (dp * ep in all). ``kept_out`` maps each group to
-    the leaves FSDP2 ignores (``fsdp_data_axis`` None), whose gradients
-    ``finish_grads`` averages over it by hand."""
+    width ``ep`` as well (dp * ep in all, times ``seq`` when it rides the
+    group). ``kept_out`` maps each tuple of groups to the leaves FSDP2
+    ignores (``fsdp_data_axis`` None), whose gradients ``finish_grads``
+    averages over those groups by hand."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
                  experts: List[torch.nn.Parameter], ep: int,
-                 kept_out: Dict[dist.ProcessGroup, List[torch.nn.Parameter]], **kw):
+                 kept_out: Dict[Tuple[dist.ProcessGroup, ...], List[torch.nn.Parameter]],
+                 **kw):
         super().__init__(strategy, model.parameters(), **kw)
         self.experts, self.ep, self.kept_out = experts, ep, kept_out
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
-        for group, params in self.kept_out.items():
+        for groups, params in self.kept_out.items():
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
-            _all_reduce_flat(grads, group)
-            torch._foreach_div_(grads, float(dist.get_world_size(group)))
+            for group in groups:
+                _all_reduce_flat(grads, group)
+            torch._foreach_div_(grads, float(math.prod(dist.get_world_size(g) for g in groups)))
         if self.experts:
             torch._foreach_div_([_local(p.grad) for p in self.experts], float(self.ep))
         super().finish_grads(grad_accum)
@@ -998,11 +1016,12 @@ class _Zero2Optimizer(Optimizer):
         self.ranks = dp * math.prod(dist.get_world_size(g) for g in (seq, expert)
                                     if g is not None)
         names = [name for name, _ in model.named_parameters()]
-        flags = _shard_flags(model, mesh)
-        # One bucket per (block, dtype, kind): sharded over 'model' / an
-        # expert leaf (the clip counts their squares over that group), or not.
+        groups, keys = shard_axes(model, mesh)
+        expert_at = groups.index(expert) if expert is not None else None
+        # One bucket per (block, dtype, kind): the groups that hold its
+        # leaves' other parts (the clip sums their squares over them).
         by_key: Dict[tuple, List[torch.nn.Parameter]] = {}
-        for name, p, sharded in zip(names, model.parameters(), flags):
+        for name, p, sharded in zip(names, model.parameters(), keys):
             by_key.setdefault((zero2_bucket(name), p.dtype, sharded), []).append(p)
         self.buckets: List[_Bucket] = []
         shards = []
@@ -1023,7 +1042,7 @@ class _Zero2Optimizer(Optimizer):
                 shard = torch.nn.Parameter(flat[rank * size:(rank + 1) * size])
                 shard.grad = torch.zeros(size, dtype=dtype, device=device)
                 shards.append(shard)
-                is_expert = sharded and expert is not None
+                is_expert = expert_at is not None and sharded[expert_at]
                 replicas = tuple(g for g in (seq, None if is_expert else expert) if g is not None)
                 bucket = _Bucket(key, flat, grads, shard.grad, params, replicas)
                 for p in params:
@@ -1032,8 +1051,8 @@ class _Zero2Optimizer(Optimizer):
         pipe = {}
         if mesh.pipe_group is not None:
             pipe = dict(pipe_group=mesh.pipe_group, pipe_shared=[key == "" for key, _, _ in by_key])
-        super().__init__(strategy, shards, norm_group=self.group, shard_group=_shard_group(mesh),
-                         shard_flags=[sharded for _, _, sharded in by_key], **pipe)
+        super().__init__(strategy, shards, norm_group=self.group, shard_groups=groups,
+                         shard_keys=[sharded for _, _, sharded in by_key], **pipe)
 
     def zero_grad(self) -> None:
         # The params' grads are views into the flat buffers: keep them.
@@ -1095,27 +1114,22 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
     return Optimizer(strategy, params)
 
 
-def _shard_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
-    """The group whose ranks hold the other shards of the sharded leaves:
-    ``model``, ``pipe`` or ``expert`` (``model`` when ``pipe`` rides beside
-    it: the optimizer sums the stages' own leaves over ``pipe`` after it),
-    or None."""
-    for group in (mesh.model_group, mesh.pipe_group):
-        if group is not None:
-            return group
-    return mesh.expert_group
-
-
-def _shard_flags(model: torch.nn.Module, mesh: Mesh) -> List[bool]:
-    """Per parameter of ``model`` (in ``parameters()`` order): whether the
-    ``model`` axis shards it (``tp_axis``), a ``pipe`` axis with no
-    ``model`` beside it (a block leaf: each stage holds its own layers) or,
-    under an ``expert`` axis, it is an expert leaf."""
+def shard_axes(model: torch.nn.Module, mesh: Mesh
+               ) -> Tuple[Tuple[dist.ProcessGroup, ...], List[Tuple[bool, ...]]]:
+    """The groups whose ranks hold other parts of some leaves (``model``,
+    ``expert``, ``pipe``, those that ride the group) and, per parameter of
+    ``model`` (in ``parameters()`` order), which of them hold its other
+    parts: ``model`` the leaves it shards (``tp_axis``), ``expert`` the
+    expert leaves, ``pipe`` a stage's own blocks (not the leaves every
+    stage holds)."""
     tp, ep, kv = mesh.size(AXES.model), mesh.size(AXES.expert), model.config.kv_heads
     pp = mesh.size(AXES.pipe)
-    return [tp_axis(name, kv, tp, pp) is not None or expert_axis(name, ep) is not None
-            or (pp > 1 and tp == 1 and zero2_bucket(name) != "")
-            for name, _ in model.named_parameters()]
+    names = [name for name, _ in model.named_parameters()]
+    axes = [(mesh.model_group, lambda n: tp_axis(n, kv, tp, pp) is not None),
+            (mesh.expert_group, lambda n: expert_axis(n, ep) is not None),
+            (mesh.pipe_group, lambda n: zero2_bucket(n) != "")]
+    axes = [(g, f) for g, f in axes if g is not None]
+    return tuple(g for g, _ in axes), [tuple(f(n) for _, f in axes) for n in names]
 
 
 def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
@@ -1141,11 +1155,11 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
         axis = {p: 0 for _, p in named}
     ignored = {p for p, ax in axis.items() if ax is None}
     expert_ids = {id(p) for m in experts for p in m.parameters()}
-    kept_out: Dict[dist.ProcessGroup, List[torch.nn.Parameter]] = {}
+    kept_out: Dict[Tuple[dist.ProcessGroup, ...], List[torch.nn.Parameter]] = {}
     for _, p in named:
         if p in ignored:
-            group = mesh.data_group if id(p) in expert_ids else mesh.arm_group
-            kept_out.setdefault(group, []).append(p)
+            groups = expert_reduce(mesh) if id(p) in expert_ids else (mesh.arm_group,)
+            kept_out.setdefault(groups, []).append(p)
     flags = [p in ignored for _, p in named]
 
     def shard(module: torch.nn.Module, device_mesh) -> None:
@@ -1153,9 +1167,10 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
                     ignored_params=ignored)
 
     shard_mesh = shard_data_mesh(mesh)
+    expert_mesh = expert_shard_mesh(mesh) if experts else None
     for block in model.blocks:
         if experts:
-            shard(block.experts, mesh.device_mesh[AXES.data])
+            shard(block.experts, expert_mesh)
         shard(block, shard_mesh)
     shard(model, shard_mesh)
     # fully_shard replaced the parameters: take the experts' afterwards.
@@ -1166,6 +1181,14 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
 
 def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:
     return [block.experts for block in model.blocks if hasattr(block, "experts")]
+
+
+def expert_reduce(mesh: Mesh) -> Tuple[dist.ProcessGroup, ...]:
+    """The groups the expert leaves' gradients are summed over under an
+    ``expert`` axis: ``data``, and ``seq`` when it rides the group (the
+    ranks that hold the same experts; the all-to-all's backward has brought
+    the other ``expert`` ranks' token gradients already)."""
+    return tuple(g for g in (mesh.data_group, mesh.seq_group) if g is not None)
 
 
 def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
@@ -1187,10 +1210,8 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
             f"the {strategy.name} arm gathers and reduce-scatters over 'data', which gloo cannot "
             "carry for CUDA tensors (its TCP transport reads the device pointer as host memory); "
             "run it over NCCL, one card per rank, or on the CPU")
-    group = mesh.data_group
-    shards = {}
-    if _shard_group(mesh) is not None:
-        shards = dict(shard_group=_shard_group(mesh), shard_flags=_shard_flags(model, mesh))
+    groups, keys = shard_axes(model, mesh)
+    shards = dict(shard_groups=groups, shard_keys=keys) if groups else {}
     if mesh.pipe_group is not None:
         shared = [zero2_bucket(name) == "" for name, _ in model.named_parameters()]
         shards.update(pipe_group=mesh.pipe_group, pipe_shared=shared)
@@ -1208,6 +1229,6 @@ def apply_strategy(model: torch.nn.Module, strategy: StrategyConfig,
         model, device_ids=[device.index] if device.type == "cuda" else None,
         process_group=mesh.arm_group, broadcast_buffers=False, gradient_as_bucket_view=True,
     )
-    return ddp, _DDPOptimizer(strategy, ddp, expert_params, group,
-                              mesh.size(AXES.data) * mesh.size(AXES.expert),
+    return ddp, _DDPOptimizer(strategy, ddp, expert_params, expert_reduce(mesh),
+                              dist.get_world_size(mesh.arm_group),
                               explicit=mesh.pipe_group is not None, **shards)

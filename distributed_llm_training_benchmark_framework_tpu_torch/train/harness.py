@@ -127,9 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--virtual-stages", type=int, default=2,
                    help="Layer chunks per stage under --pipeline-schedule interleaved")
     p.add_argument("--expert-parallel", type=int, default=1,
-                   help="Expert-parallel ('expert' axis) width")
+                   help="Expert-parallel ('expert' axis) width; composes with the "
+                        "tensor, sequence and pipeline axes")
     p.add_argument("--num-experts", type=int, default=0,
-                   help="Mixture-of-Experts MLP with this many experts (0: dense)")
+                   help="Mixture-of-Experts MLP with this many experts (0: dense); beside "
+                        "--tensor-parallel, --sequence-parallel or --pipeline-parallel the "
+                        "layers route the global micro-batch, as JAX's einsum form does")
     # Model and data
     p.add_argument("--tier", type=str, required=True, choices=["A", "B", "S"],
                    help="Model tier (S: the small test tier)")

@@ -77,7 +77,11 @@ held in one process on its card. The row stamps
 (``models/moe.py``); ``expert_parallel`` ep > 1 puts an ``expert`` axis on
 the group, each rank holding E/ep experts
 and its own rows of a global micro-batch of ``pd * dp * ep``, with JAX's
-checks (``train/loop.py:464-479``). After the timed steps a MoE row gets
+checks (``train/loop.py:464-479``). The MoE model composes with every
+other axis as in JAX: beside ``seq``, ``model`` or ``pipe``, or under
+``moe_dispatch`` "einsum", the layers route the global micro-batch (JAX's
+einsum form), and beside ``model`` each rank holds its experts' F/tp
+columns. After the timed steps a MoE row gets
 ``expert_overflow_pct``: the capacity's dropped share of the assignments on
 the trained params, from one dropout-free forward of the first step's
 micro-batch (JAX's diagnostic). There is no CLI flag for either, as the
@@ -99,8 +103,9 @@ as the schedule's microbatches (``parallel/pipeline.py``,
 ``n_layer`` divisible by pp (by pp * V under interleaved), a known schedule,
 no ``tp_collective_matmul``. A ``model`` axis beside ``pipe`` runs
 JAX's layout (the blocks' Megatron shards, ``wte`` / ``lm_head`` replicated
-over ``model``); an ``expert`` axis wider than 1 beside ``pipe`` is refused
-(ROADMAP Queue 1 item 12). The
+over ``model``); an ``expert`` axis beside ``pipe`` puts each stage's
+experts over it, and the stage's MoE layers route its micro-batch over
+data x expert, as JAX's einsum form does under its pipeline. The
 row stamps ``pipeline_parallel``, ``pipeline_schedule`` and
 ``virtual_stages`` (1 unless interleaved). The MoE overflow diagnostic runs
 through the stages under gpipe and 1f1b and, as in JAX, is skipped under
@@ -435,11 +440,13 @@ def _global_params(cfg: TinyGPTConfig, model: torch.nn.Module, mesh: Mesh) -> in
 def _overflow_pct(run: "Run", micro: int) -> float:
     """JAX's ``expert_overflow_pct``: the diagnostic on the first step's
     micro-batch of the global batch (``batch_for_step(0, global_micro)``),
-    this rank's rows of it, in percent, rounded to 4 places."""
+    this rank's rows and columns of it, in percent, rounded to 4 places."""
     step_fn, inner = run.step_fn, getattr(run.model, "module", run.model)
     global_micro = micro * step_fn.members
     row0 = step_fn.member * micro
     rows = step_batch(run.table, 0, 1, global_micro)[0, row0:row0 + micro]
+    s, n = step_fn.seq_shard
+    rows = rows[:, s * (rows.shape[1] // n):(s + 1) * (rows.shape[1] // n)]
     frac = moe_overflow_fraction(inner, rows, row0, global_micro, step_fn.pipeline)
     return round(float(frac) * 100.0, 4)
 

@@ -32,8 +32,11 @@ Port of ``distributed_llm_training_benchmark_framework_tpu/train/step.py``
 Under expert parallelism the batch rows shard over ``data`` x ``expert``
 (JAX's ``batch_partition_spec``): the global micro-batch is pd * dp * ep
 rows and member ``d * ep + e`` takes rows ``[(d*ep + e)*pd, ...)``, keyed
-from its first row. The MoE layers exchange tokens over the ``expert``
-group (``models/moe.py``); every member's loss is a mean over its own rows.
+from its first row, beside ``seq`` (its columns), ``model`` (the same rows
+on every ``model`` rank) and ``pipe`` (the same rows on every stage) as
+without experts. The MoE layers exchange tokens over the ``expert`` group
+and, off JAX's all-to-all form, route the global micro-batch
+(``models/moe.py``); every member's loss is a mean over its own tokens.
 
 Under tensor parallelism the ``model`` ranks of a (data, seq) place take the
 same rows and columns, the same seeds and the same masks (the batch is

@@ -51,6 +51,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 from jax.sharding import NamedSharding
 
 from distributed_llm_training_benchmark_framework_tpu.analysis.validate_results import (
@@ -243,11 +244,16 @@ def test_clip_norm_counts_every_element_once(runs, mode, arm):
 
 
 def test_moe_beside_model_or_seq_on_the_group_is_refused(runs):
-    refusals = runs[0]["ep2"][0]["refusals"]
-    assert set(refusals) == {"model", "seq"}
-    for msg in refusals.values():
-        assert "MoE with a 'seq' or 'model' axis over the process group is not ported" in msg
-        assert "ROADMAP Queue 1 item 12" in msg
+    """No longer refused: MoE beside a ``model`` or a ``seq`` axis on the
+    group trains as the one-process run of the same global batch does (the
+    layers route the global micro-batch): losses equal on both ranks and
+    within 1e-5 relative of it. ``tests/test_torch_moe_composed.py`` holds
+    these geometries against JAX's step."""
+    ranks = runs[0]["ep2"]
+    assert set(ranks[0]["composed"]) == {"model", "seq"}
+    for axis, (got, want) in ranks[0]["composed"].items():
+        assert all(r["composed"][axis][0] == got for r in ranks), axis
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=axis)
 
 
 def test_expert_row_validates_and_carries_the_moe_keys(runs):
@@ -272,15 +278,27 @@ def test_expert_options_are_refused_as_jax_refuses_them():
         make_mesh((2,), ("expert",))
 
 
+# (data, expert, the axis beside them at width 2): the ids of the meshes
+# without one stay "data-expert".
+ESTIMATE_MESHES = [pytest.param(d, e, None, id=f"{d}-{e}") for d, e in ((1, 2), (2, 2), (1, 8))] + [
+    pytest.param(d, e, axis, id=f"{d}-{e}-{axis}")
+    for d, e, axis in ((1, 2, "model"), (2, 2, "model"), (1, 2, "seq"), (2, 2, "seq"),
+                       (1, 2, "pipe"), (2, 2, "pipe"))]
+
+
 @pytest.mark.parametrize("arm", sorted(jstrat.STRATEGIES))
-@pytest.mark.parametrize("data,expert", [(1, 2), (2, 2), (1, 8)])
-def test_estimate_under_an_expert_axis_is_jaxs(data, expert, arm):
+@pytest.mark.parametrize("data,expert,beside", ESTIMATE_MESHES)
+def test_estimate_under_an_expert_axis_is_jaxs(data, expert, beside, arm):
     """The 1.18B MoE model (tier A, 8 experts): params, grads, activations
     and logits equal JAX's ``estimate_hbm`` on the same mesh (its spec rule
-    with ``_EP_RULES``), the AdamW moments its optimizer state less optax's
-    scalar counters."""
+    with ``_EP_RULES``, and ``_TP_RULES`` on the experts beside ``model``),
+    the AdamW moments its optimizer state less optax's scalar counters;
+    also with a ``model``, ``seq`` or ``pipe`` axis of width 2 beside the
+    ``expert`` one."""
+    widths = {"data": data, "expert": expert, **({beside: 2} if beside else {})}
+    shape = tuple(widths.get(a, 1) for a in AXES5)
     jstrategy = jstrat.get_strategy(arm)
-    jmesh = jmake_mesh((data, 1, 1, 1, expert), AXES5, devices=jax.devices()[:data * expert])
+    jmesh = jmake_mesh(shape, AXES5, devices=jax.devices()[:int(np.prod(shape))])
     jcfg = _resolve_model_config(jtiny.get_model_config("A", 2048, n_experts=8,
                                                         scan_layers=False), jstrategy, jmesh)
     want = jmemory.estimate_hbm(jcfg, jstrategy, jmesh, 1, 2048)
@@ -289,9 +307,10 @@ def test_estimate_under_an_expert_axis_is_jaxs(data, expert, arm):
     scalars = sum(np.dtype(x.dtype).itemsize for x in
                   jax.tree_util.tree_leaves(jax.eval_shape(opt.init, shapes)) if x.shape == ())
     strategy = tstrat.get_strategy(arm)
-    got = tmemory.estimate_hbm(get_config("tinygpt", "A", 2048, n_experts=8,
-                                          remat=strategy.remat), strategy,
-                               Mesh({"data": data, "expert": expert}), 1, 2048)
+    # JAX's CPU pipelines compute in fp32 (``_resolve_model_config``).
+    cd = torch.float32 if jcfg.compute_dtype == jnp.float32 else torch.bfloat16
+    got = tmemory.estimate_hbm(get_config("tinygpt", "A", 2048, n_experts=8, remat=strategy.remat,
+                                          compute_dtype=cd), strategy, Mesh(widths), 1, 2048)
     assert (got.params, got.grads, got.activations, got.logits) == (
         want.params, want.grads, want.activations, want.logits)
     assert got.opt_state == want.opt_state - scalars

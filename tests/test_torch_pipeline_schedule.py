@@ -193,10 +193,10 @@ def _refusal(**kw):
 
 def test_refusals_are_jaxs(eight_devices):
     """JAX's messages for what JAX refuses; the port's own for a pipeline at
-    world 1 and beside an ``expert`` axis wider than 1. Beside ``model`` a
-    pipeline is no longer refused (JAX's layout, ``tests/test_torch_pipeline_tp.py``):
-    at world 1 only the missing group is, and the collective matmul and an
-    ``expert`` axis stay refused beside ``model`` too."""
+    world 1. Beside ``model`` or an ``expert`` axis a pipeline is not
+    refused (JAX's layout, ``tests/test_torch_pipeline_tp.py``,
+    ``tests/test_torch_moe_composed.py``): at world 1 only the missing group
+    is, and the collective matmul stays refused beside ``model`` too."""
     with pytest.raises(ValueError) as want:
         jax_meta(jmake_mesh((1, 1, 1, 2, 1), AXES5, devices=jax.devices()[:2]), 4, "zb")
     assert _refusal(pipeline_schedule="zb") == str(want.value)
@@ -224,7 +224,8 @@ def test_refusals_are_jaxs(eight_devices):
     tpipe.check_pipeline(2, "gpipe", 1, 2, tensor_parallel=2, expert_parallel=1,
                    tp_collective_matmul=False)
     assert _refusal(tensor_parallel=2, tp_collective_matmul=True) == str(want.value)
-    msg = _refusal(n_experts=4, expert_parallel=2)
-    assert "beside an 'expert' axis wider than 1 is not ported" in msg and "item 12" in msg
-    msg = _refusal(tensor_parallel=2, n_experts=4, expert_parallel=2)
-    assert "beside an 'expert' axis wider than 1 is not ported" in msg and "item 12" in msg
+    tpipe.check_pipeline(2, "gpipe", 1, 2, tensor_parallel=1, expert_parallel=2,
+                         tp_collective_matmul=False)
+    tpipe.check_pipeline(2, "1f1b", 1, 2, tensor_parallel=2, expert_parallel=2,
+                         tp_collective_matmul=False)
+    assert "needs a process group" in _refusal(n_experts=4, expert_parallel=2)

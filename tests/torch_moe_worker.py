@@ -17,8 +17,9 @@ micro-batch's gradient from the same load: the clip's global norm
 (``Optimizer._clip_norm``), and under ddp every leaf's gradient after the
 arm's reduction, experts gathered over ``expert`` (rank 0). At the ep-2
 geometries the gradients also of the model at ``router_aux_coef`` 0. At
-(1, 2) also the refusals of MoE beside a ``model`` or ``seq`` axis on the
-group, and a ``run_benchmark`` row at ``expert_parallel`` 2.
+(1, 2) also MoE beside a ``model`` and a ``seq`` axis on the group against
+the same steps in one process, and a ``run_benchmark`` row at
+``expert_parallel`` 2.
 
 Writes ``OUT.rank<RANK>.npz`` and ``OUT.rank<RANK>.json``.
 """
@@ -40,7 +41,6 @@ from distributed_llm_training_benchmark_framework_tpu_torch.parallel import make
 from distributed_llm_training_benchmark_framework_tpu_torch.parallel import strategies as tstrat
 from distributed_llm_training_benchmark_framework_tpu_torch.runtime import distributed as rt
 from distributed_llm_training_benchmark_framework_tpu_torch.train import run_benchmark
-from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 from distributed_llm_training_benchmark_framework_tpu_torch.train.step import TrainStep
 
 
@@ -78,8 +78,9 @@ def wait_ranks(procs):
 
 
 def config(**kw):
+    kw.setdefault("attention_impl", "reference")
     return get_config("tinygpt", "S", S, dropout=0.0, compute_dtype=torch.float32,
-                      attention_impl="reference", n_experts=EXPERTS, **kw)
+                      n_experts=EXPERTS, **kw)
 
 
 def strategy(arm):
@@ -142,14 +143,22 @@ def gradients(model, opt, mesh, table):
     return norm, bridge.export_params(twin)
 
 
-def refusals():
+def composed(params, table):
+    """MoE beside a ``model`` or a ``seq`` axis over the two ranks: {axis:
+    (3 zero2 steps' losses there, the same steps in this process with no
+    group)}, from ``scaled(params)``; the layers route the global
+    micro-batch, as JAX's einsum form does."""
     out = {}
-    for label, kw in (("model", dict(tensor_parallel=2)),
-                      ("seq", dict(sequence_parallel=2, attention_impl="ring"))):
-        try:
-            build_run(tier="S", seq_len=S, n_experts=EXPERTS, device="cpu", **kw)
-        except ValueError as e:
-            out[label] = str(e)
+    for axis, kw in (("model", {}), ("seq", dict(attention_impl="ring"))):
+        losses = []
+        for mesh in (make_mesh((2,), (axis,)), None):
+            model = TinyGPT(config(**kw), mesh=mesh)
+            bridge.load_jax_params(model, scaled(params))
+            model, opt = tstrat.apply_strategy(model, strategy("zero2"), mesh)
+            step_fn = TrainStep(model, opt, grad_accum=ACCUM, micro_batch=MICRO, seed=0,
+                                device=CPU, mesh=mesh)
+            losses.append([step_fn(table, step).item() for step in range(STEPS)])
+        out[axis] = losses
     return out
 
 
@@ -186,7 +195,7 @@ def main():
             if rank == 0:
                 arrays.update(flat("grad.no_aux", grads))
         if (dp, ep) == (1, 2):
-            res["refusals"] = refusals()
+            res["composed"] = composed(params, table)
             res["row"] = run_benchmark(strategy="zero2", tier="S", seq_len=S, steps=3,
                                        warmup_steps=1, per_device_batch=MICRO, grad_accum=ACCUM,
                                        device="cpu", world_size=world, n_experts=EXPERTS,
