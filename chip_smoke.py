@@ -431,8 +431,29 @@ The scaling suite (``scripts/torch_scaling_suite.sh``; no kernel of its own):
     ms, peak and efficiency. It starts beside phase 20 (b) / (d), phase 22
     and phase 21 (a) and goes on beside phases 24 and 25; its checkpoints
     go under the temp directory.
+27. the scan layer loop (``layer_loop="scan"``, ``models/tinygpt.ScanBlocks``):
+    (a) both tier-A rows through ``run_benchmark`` as phase 3 runs them (3
+    + 6 steps): per-step losses against phase 3's unrolled rows at the same
+    seed (within ``ARM_LOSS_RTOL``; the line says whether bit for bit),
+    tokens/s and the arm's own peak (``hbm_measured``) beside phase 3's,
+    K1-K3 launches per step equal to the unrolled rows' (64 / 32 each);
+    then each row again profiled as phase 23 profiles the unrolled ones
+    just before it: tokens/s and the step anatomy's busy and idle beside
+    phase 23's, the two loops side by side; (b) inside phase
+    12's single-rank NCCL group, the parity row under zero2 (its per-layer
+    buckets fed inside the backward), fsdp and zero3 (one layer's gather
+    at a time), losses against phase 12's unrolled group runs, exact K1-K3
+    launches, and on a zero2 scan build the device time of the buckets'
+    feed of every layer's gradients and of the copy of the gathered shards
+    back into the stacked leaves; (c) the MoE (d1) leg's attention on one
+    rank, BH 8 (B 1 x 8 of 16 heads, rank 1's ids), S 2048, Dh 64, rate 0
+    (the legs' dropout): K1's bhv instance, K2 and K3 against their plain
+    versions, timed on both clocks beside SDPA's forward and torch's flash
+    backward, with their bounds; they join the kernels line with phase 18 (d1)'s
+    launches per rank.
 
-Phases run in the order 0-19, 23, 21 (b), 20 (with 22, 21 (a), 26 and,
+Phases run in the order 0-19 (27 (b) inside 12's group), 23, 27 (a), 27
+(c), 21 (b), 20 (with 22, 21 (a), 26 and,
 once 21 (a) is done, 25 (a) beside its (b) / (d)), 24 (with 25 (a) and 26
 beside it), 25 (b) (with 26 beside it), 26's end: the phases that measure
 in process have the card to themselves, but for 16 (b), whose two pairs
@@ -3962,6 +3983,234 @@ def phase_scaling(smi: str, run: dict, root: str) -> dict:
     return {"wall_s": res["wall_s"], "stages": stages, "points": points, "launches": launches}
 
 
+# Phase 27: the scan layer loop. (a) both tier-A rows, profiled as phase 23
+# profiles the unrolled ones; (b) the arms of SCAN_ARMS inside phase 12's
+# single-rank NCCL group; (c) the MoE (d1) leg's attention, BH 8 (B 1 x 8 of
+# 16 heads, rank 1's; the legs run dropout 0), timed on K1's bhv instance
+# and K2 / K3.
+SCAN_ARMS = ("zero2", "fsdp", "zero3")
+SCAN_D1 = dict(B=1, H=16, tp=2, S=2048, D=64, causal=False, rate=0.0)
+
+
+def phase_scan_group(fa, loop, memory, models, get_strategy, make_mesh) -> dict:
+    """Phase 27 (b), inside phase 12's single-rank NCCL group: the parity row
+    under the scan loop through zero2's per-layer buckets (fed inside the
+    backward) and fsdp / zero3's per-layer gathers; then, on a zero2 scan
+    build at the row's shape, the device time of the buckets' feed (every
+    layer's gradients copied in) and of the copy of the gathered shards
+    back into the stacked leaves."""
+    steps = WARMUP_STEPS + TIMED_STEPS
+    out = {}
+    for arm in SCAN_ARMS:
+        mesh = make_mesh()
+        cfg = models.get_config("tinygpt", "A", 2048, attention_impl="flash", scan_layers=True)
+        remat = memory.resolve_auto_remat(
+            cfg, get_strategy(arm), mesh, ARM_ROW["per_device_batch"], 2048,
+            loop.DATASET_SIZE, torch.cuda.get_device_name(0)).remat
+        fa.reset_launch_counts()
+        losses = []
+        t0 = time.perf_counter()
+        res = loop.run_benchmark(
+            strategy=arm, tier="A", seq_len=2048, model_family=ARM_ROW["model_family"],
+            steps=steps, warmup_steps=WARMUP_STEPS, per_device_batch=ARM_ROW["per_device_batch"],
+            grad_accum=ARM_ROW["grad_accum"], attention_impl="flash", sync_every=5,
+            device="cuda", loss_log=losses, layer_loop="scan")
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        micro = ARM_ROW["layers"] * ARM_ROW["grad_accum"] * steps
+        want = {"flash_fwd": micro * (1 if remat == "none" else 2),
+                "flash_bwd_dq": micro, "flash_bwd_dkv": micro}
+        log(f"[27] (b) {arm} under the scan loop in the single-rank NCCL group: remat {remat}, "
+            f"{res.tokens_per_sec:.1f} tok/s, step {1e3 * res.mean_step_time_sec:.2f} ms, the "
+            f"arm's own peak {res.hbm_measured} GiB (the process's {res.peak_hbm_gb:.2f} GB), "
+            f"layer_loop {res.layer_loop}, launches {counts}; the run's wall {wall:.1f} s (init "
+            f"{res.time_in_init_sec:.1f} s, steps {res.time_in_timed_sec:.1f} s timed)")
+        assert res.layer_loop == "scan" and res.world_size == 1 and len(losses) == steps
+        assert all(math.isfinite(x) for x in losses)
+        assert counts == want, f"[27] (b) {arm}: launches {counts}, want {want}"
+        out[arm] = dict(res=res, losses=losses, remat=remat, launches=counts)
+        gc.collect()
+        torch.cuda.empty_cache()
+    run = loop.build_run(strategy="zero2", tier="A", seq_len=2048, per_device_batch=1,
+                         grad_accum=4, device="cuda", layer_loop="scan")
+    opt, blocks = run.step_fn.optimizer, run.model.blocks
+    layer_buckets = [b for b in opt.buckets if b.flat is None]
+    assert type(blocks.arm).__name__ == "_Zero2ScanArm" and len(layer_buckets) == 16, (
+        f"[27] (b) zero2 scan: {type(blocks.arm).__name__}, {len(layer_buckets)} layer buckets")
+    run.step_fn(run.table, 0)
+    torch.cuda.synchronize()
+    grads = {i: [torch.randn_like(blocks.stacked(leaf)[i]) for leaf in blocks.leaf_names]
+             for i in range(len(blocks))}
+    wholes = [torch.randn(b.grads.numel(), device="cuda") for b in layer_buckets]
+
+    @torch.no_grad()
+    def feed():
+        for i, g in grads.items():
+            blocks.arm.feed(i, g)
+
+    @torch.no_grad()
+    def copy_back():
+        for b, whole in zip(layer_buckets, wholes):
+            offset = 0
+            for p in b.params:
+                p.copy_(whole[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+
+    nbytes = sum(b.grads.numel() * b.grads.element_size() for b in layer_buckets)
+    out["feed_device_ms"] = median_ms(feed, warmup=2, reps=10, device_clock=True)
+    out["copy_back_device_ms"] = median_ms(copy_back, warmup=2, reps=10, device_clock=True)
+    out["block_bytes"] = nbytes
+    log(f"[27] (b) zero2 scan at the parity row's shape: the buckets' feed of all 16 layers' "
+        f"gradients {out['feed_device_ms']:.4f} ms a micro-batch and the copy of the gathered "
+        f"shards back into the stacked leaves {out['copy_back_device_ms']:.4f} ms a step "
+        f"(device clock, median of 10; {nbytes / 1e6:.1f} MB of block parameters)")
+    del run, opt, blocks, grads, wholes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_scan_rows(fa, run_benchmark, row_losses: dict, row_results: dict, profiled: dict,
+                    smi: str) -> dict:
+    """Phase 27 (a): both tier-A rows under the scan loop, as phase 3 runs
+    them (3 + 6 steps): per-step losses against phase 3's unrolled rows at
+    the same seed, tokens/s and the arm's own peak beside phase 3's, K1-K3
+    launches per step; then scan again profiled, as phase 23 profiles the
+    unrolled rows just before: tokens/s and the step anatomy's busy and
+    idle beside phase 23's (the two loops side by side; walls move between
+    phases of one call)."""
+    root = tempfile.mkdtemp(prefix="scan_smoke_")
+    out = {}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    for name, row in PROFILE_ROWS.items():
+        kw = dict(strategy="zero2", tier="A", seq_len=2048, model_family=row["model_family"],
+                  steps=steps, warmup_steps=WARMUP_STEPS, per_device_batch=row["per_device_batch"],
+                  grad_accum=row["grad_accum"], attention_impl="flash", device="cuda",
+                  layer_loop="scan")
+        fa.reset_launch_counts()
+        losses = []
+        res = run_benchmark(sync_every=5, loss_log=losses, **kw)
+        counts = fa.launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        prof = run_benchmark(sync_every=TIMED_STEPS, results_dir=os.path.join(root, f"r_{name}"),
+                             profile_dir=os.path.join(root, name), **kw)
+        per_step = {k: n / steps for k, n in counts.items()}
+        want = row["layers"] * row["grad_accum"]
+        base, base_res, unrolled = row_losses[name], row_results[name], profiled[name]
+        diff = max(abs(a - b) for a, b in zip(losses, base))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+        same = losses == base
+        out[name] = dict(losses=losses, max_abs_diff=diff, bit_equal=same,
+                         tokens_per_sec=res.tokens_per_sec,
+                         tokens_per_sec_unrolled=base_res.tokens_per_sec,
+                         step_ms=1e3 * res.mean_step_time_sec,
+                         step_ms_unrolled=1e3 * base_res.mean_step_time_sec,
+                         hbm_measured_gib=res.hbm_measured,
+                         hbm_measured_gib_unrolled=base_res.hbm_measured,
+                         compute_frac=prof.anatomy_compute_frac, idle_frac=prof.anatomy_idle_frac,
+                         compute_frac_unrolled=unrolled["anatomy"]["compute_frac"],
+                         idle_frac_unrolled=unrolled["anatomy"]["idle_frac"],
+                         profiled_tokens_per_sec=prof.tokens_per_sec,
+                         profiled_tokens_per_sec_unrolled=unrolled["tokens_per_sec"],
+                         launches_per_step=per_step)
+        o = out[name]
+        log(f"[27] (a) {name} under --layer-loop scan: losses "
+            f"{[round(x, 5) for x in losses]} vs phase 3's unrolled "
+            f"{[round(x, 5) for x in base]}: max |diff| {diff:.3e} (relative {rel:.2e}), "
+            f"{'bit for bit equal' if same else 'not bit for bit'}; tok/s "
+            f"{res.tokens_per_sec:.1f} vs {base_res.tokens_per_sec:.1f} unrolled (phase 3), "
+            f"step {o['step_ms']:.2f} vs {o['step_ms_unrolled']:.2f} ms; the arm's own peak "
+            f"{res.hbm_measured} vs {base_res.hbm_measured} GiB; K1-K3 per step {per_step} "
+            f"(want {want} each); profiled (as phase 23): device busy {o['compute_frac']!r} vs "
+            f"{o['compute_frac_unrolled']!r}, idle {o['idle_frac']!r} vs "
+            f"{o['idle_frac_unrolled']!r}, tok/s {prof.tokens_per_sec:.1f} vs "
+            f"{unrolled['tokens_per_sec']:.1f} on {smi}")
+        assert res.layer_loop == "scan" and all(math.isfinite(x) for x in losses)
+        assert rel <= ARM_LOSS_RTOL, f"[27] (a) {name}: scan vs unrolled loss differs by {rel}"
+        assert set(per_step.values()) == {want}, f"[27] (a) {name}: {per_step} per step"
+        assert prof.anatomy_idle_frac is not None, f"[27] (a) {name}: no step anatomy"
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_scan_d1(fa, peaks) -> dict:
+    """Phase 27 (c): the MoE (d1) leg's attention on one rank, BH 8 (B 1 x
+    rank 1's 8 of 16 heads), S 2048, Dh 64, non-causal, rate 0 (the legs
+    run dropout 0): K1's bhv instance, K2 and K3 (the head ids as the leg
+    keys them) against their plain versions, timed on both clocks with
+    SDPA's forward and torch's flash backward beside them, and their
+    bounds at BH 8."""
+    sh = SCAN_D1
+    seed = 0x2545F491
+    Hl = sh["H"] // sh["tp"]
+    shape = dict(BH=sh["B"] * Hl, S=sh["S"], D=sh["D"], causal=sh["causal"], rate=sh["rate"])
+    q, k, v, do = make_inputs(shape, seed=27)
+    c, r = sh["causal"], sh["rate"]
+    bhv = fa._global_bh_vec(sh["B"], Hl, 0, Hl, sh["H"], "cuda")
+    o, lse = fa.flash_fwd(q, k, v, c, r, seed, bhv=bhv)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, c, r, seed)
+    po, pl = fa.flash_forward_plain(q, k, v, c, r, seed, bhv=bhv)
+    pargs = (q, k, v, do, pl, fa.attention_delta(po, do), c, r, seed)
+    dq, (dk, dv) = fa.flash_bwd_dq(*args, bhv=bhv), fa.flash_bwd_dkv(*args, bhv=bhv)
+    pdq, (pdk, pdv) = fa.flash_bwd_dq_plain(*pargs, bhv=bhv), fa.flash_bwd_dkv_plain(*pargs,
+                                                                                     bhv=bhv)
+    errs = {"fwd": max(max_abs(o, po), max_abs(lse, pl)), "dq": max_abs(dq, pdq),
+            "dkv": max(max_abs(dk, pdk), max_abs(dv, pdv))}
+    rels = {"out": rel_err(o, po), "dq": rel_err(dq, pdq), "dk": rel_err(dk, pdk),
+            "dv": rel_err(dv, pdv)}
+    assert all(e <= 2e-2 for e in rels.values()), f"[27] (c) rel errors {rels}"
+    kern = {"fwd": lambda: fa.flash_fwd(q, k, v, c, r, seed, bhv=bhv),
+            "dq": lambda: fa.flash_bwd_dq(*args, bhv=bhv),
+            "dkv": lambda: fa.flash_bwd_dkv(*args, bhv=bhv)}
+    plain = {"fwd": lambda: fa.flash_forward_plain(q, k, v, c, r, seed, bhv=bhv),
+             "dq": lambda: fa.flash_bwd_dq_plain(*pargs, bhv=bhv),
+             "dkv": lambda: fa.flash_bwd_dkv_plain(*pargs, bhv=bhv)}
+    q4, k4, v4 = (x.unsqueeze(0) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_bwd = library_flash_bwd(q, k, v, do, c)
+    library = {"fwd": lambda: sdpa(q4, k4, v4, is_causal=c), "dq": None, "dkv": lib_bwd}
+    out = {}
+    for kind in ("fwd", "dq", "dkv"):
+        res = dict(max_abs_err=errs[kind], ms=median_ms(kern[kind]),
+                   device_ms=median_ms(kern[kind], device_clock=True),
+                   plain_ms=median_ms(plain[kind], warmup=2, reps=20))
+        res["bound_ms"], res["bound_by"] = bound(kind, shape, peaks)
+        lib = library[kind]
+        res["library_ms"] = median_ms(lib) if lib is not None else None
+        res["library_device_ms"] = median_ms(lib, device_clock=True) if lib is not None else None
+        if kind == "dq":
+            res["library_note"] = ("one library call computes dq, dk and dv together: its time "
+                                   "is on this row's flash_bwd_dkv entry")
+        out[kind] = res
+    log(f"[27] (c) the MoE (d1) leg's attention, BH {shape['BH']} S {shape['S']} Dh "
+        f"{shape['D']} rate {r}, rank 1's heads (ms, median of 25): " + json.dumps(
+            {kind: {n: (round(x, 5) if isinstance(x, float) else x) for n, x in res.items()}
+             for kind, res in out.items()}) + f"; rel errors {json.dumps(rels)}")
+    del q, k, v, do, o, lse, po, pl, dq, dk, dv, pdq, pdk, pdv
+    torch.cuda.empty_cache()
+    return {"shape": shape, "timing": out}
+
+
+def scan_group_report(scan_group: dict, arms: dict, smi: str) -> None:
+    """Phase 27 (b)'s losses against phase 12's unrolled group runs."""
+    for arm in SCAN_ARMS:
+        mine, base = scan_group[arm], arms[arm]["group"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(mine["losses"], base["losses"]))
+        same = mine["losses"] == base["losses"]
+        log(f"[27] (b) {arm} in the group, scan vs unrolled (phase 12): per-step loss max "
+            f"relative difference {rel:.2e} ({'bit for bit equal' if same else 'not bit for bit'}"
+            f"), tok/s {base['res'].tokens_per_sec:.1f} -> {mine['res'].tokens_per_sec:.1f}, "
+            f"the arm's own peak (allocator, less what the process held before it) "
+            f"{base['res'].hbm_measured} -> {mine['res'].hbm_measured} GiB, launches "
+            f"{mine['launches']} (unrolled {base['launches']}) on {smi}")
+        assert rel <= ARM_LOSS_RTOL, f"[27] (b) {arm}: scan vs unrolled loss differs by {rel}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
@@ -4045,9 +4294,17 @@ def main() -> int:
     from distributed_llm_training_benchmark_framework_tpu_torch.train import step as step_mod
 
     moe_seq: dict = {}
-    arms = walled("12, 15, 18 (d3)", phase_arms, fa, ra, ua, models, make_mesh, get_strategy,
-                  rt, memory, loop, lambda: moe_seq.update(phase_moe_seq(
-                      models, strategies, step_mod, SyntheticDataset, make_mesh)))
+    scan_group: dict = {}
+
+    def inside_group():
+        moe_seq.update(phase_moe_seq(models, strategies, step_mod, SyntheticDataset, make_mesh))
+        t = time.perf_counter()
+        scan_group.update(phase_scan_group(fa, loop, memory, models, get_strategy, make_mesh))
+        log(f"[27 (b)] phase wall {time.perf_counter() - t:.1f} s")
+
+    arms = walled("12, 15, 18 (d3), 27 (b)", phase_arms, fa, ra, ua, models, make_mesh,
+                  get_strategy, rt, memory, loop, inside_group)
+    scan_group_report(scan_group, arms, smi)
     tp_timing = walled("16 (a)", phase_tp_kernels, fa, ra, peaks)
     tp_launches = walled("16 (b)", phase_tp_train, {
         ("parity", "zero2"): row_losses["parity"], ("flagship", "zero2"): row_losses["flagship"],
@@ -4064,7 +4321,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     # Phases 23 and 21 (b) measure in process, alone on the card, before
     # the phases whose processes run side by side.
-    phase_profile(fa, run_benchmark, row_results, smi)
+    profiled = phase_profile(fa, run_benchmark, row_results, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    scan_rows = walled("27 (a)", phase_scan_rows, fa, run_benchmark, row_losses, row_results,
+                       profiled, smi)
+    scan_d1 = walled("27 (c)", phase_scan_d1, fa, peaks)
     gc.collect()
     torch.cuda.empty_cache()
     rt2_root = tempfile.mkdtemp(prefix="runtime2_smoke_")
@@ -4216,6 +4478,27 @@ def main() -> int:
                                     "library_ms", "device_ms", "library_device_ms",
                                     "offset_instance_device_ms")},
         })
+    d1_steps = MOE_EP["steps"]
+    d1_launches = moe["legs"].get("d1", {}).get("launches_per_rank_per_step", {})
+    for kind in ("fwd", "dq", "dkv"):
+        r, sh = scan_d1["timing"][kind], scan_d1["shape"]
+        per_step = next((v for k, v in d1_launches.items() if k.startswith(names[kind])), None)
+        kernels.append({
+            "name": f"{'flash_fwd_bhv' if kind == 'fwd' else names[kind]} [MoE (d1) leg, one "
+                    f"rank of tensor_parallel {SCAN_D1['tp']}: BH {sh['BH']} S {sh['S']} Dh "
+                    f"{sh['D']} causal {sh['causal']} rate {sh['rate']}]",
+            "route": "cuda",
+            "source": sources[kind][0],
+            "replaces": sources[kind][1],
+            "launches": None if per_step is None else int(per_step * d1_steps),
+            "launches_per_step": per_step,
+            "launches_on": "each rank of phase 18 (d1)",
+            **r,
+        })
+    log("[27] " + json.dumps({"scan_rows": {n: {k: v for k, v in o.items() if k != "losses"}
+                                            for n, o in scan_rows.items()},
+                              "scan_group": {k: v for k, v in scan_group.items()
+                                             if not isinstance(v, dict)}}) + f" on {smi}")
     log("[12] the arms at world 1 (parity row; tokens/s measure each wrapper's overhead on "
         "one card, nothing about scaling): " + json.dumps({
             arm: {"remat": a["group"]["remat"], "world_size": a["group"]["res"].world_size,

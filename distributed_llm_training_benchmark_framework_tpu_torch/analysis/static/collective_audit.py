@@ -108,7 +108,9 @@ class ArmSpec:
     The fields are JAX's. ``config_overrides`` is a tuple of (key, value)
     pairs (hashable): ``attention_impl``, ``n_experts``,
     ``tp_collective_matmul``, ``dropout``, ``n_layer``, and ``scan_layers``
-    False (the port's layer loop is the unrolled one; True is refused).
+    (True: the scan layer loop, ``--layer-loop scan``; the port's default
+    loop is the unrolled one, so its scan arm says so where JAX's takes its
+    own default).
     ``inject`` turns on one of the seed bugs the audit must flag
     (:func:`_injected`). ``pipeline_schedule`` / ``virtual_stages`` matter
     only with a ``pipe`` axis wider than 1.
@@ -212,8 +214,8 @@ class MemoryReport:
 
 
 #: The audit roster: JAX's (``hlo_audit.ROSTER``), arm for arm, at tier S /
-#: seq 64 over 8 ranks, but ``llama-fsdp-dp4-tp2-scan``: the port has no
-#: scan layer loop (ROADMAP Queue 1 item 0, ``--layer-loop``).
+#: seq 64 over 8 ranks; ``llama-fsdp-dp4-tp2-scan`` names its layer loop,
+#: which is JAX's default and not the port's.
 ROSTER: Dict[str, ArmSpec] = {
     spec.name: spec
     for spec in (
@@ -236,6 +238,16 @@ ROSTER: Dict[str, ArmSpec] = {
             "llama-fsdp-dp4-tp2", "fsdp", (4, 1, 2), ("data", "seq", "model"),
             global_batch=8, model_family="llama",
             config_overrides=(("scan_layers", False),),
+        ),
+        # The same composition under the scan layer loop: FSDP of the
+        # stacked leaves by hand, one layer's gather per iteration and its
+        # reduce-scatter in the backward; blocks/wq stays model-only (JAX's
+        # scan-carry rule), so its state exceeds the unrolled arm's by
+        # blocks/wq's data-sharded share.
+        ArmSpec(
+            "llama-fsdp-dp4-tp2-scan", "fsdp", (4, 1, 2), ("data", "seq", "model"),
+            global_batch=8, model_family="llama",
+            config_overrides=(("scan_layers", True),),
         ),
         # llama x tp with the collective matmul: the ring's sends and
         # receives are the budgeted schedule (`--inject bad-cmm-ring` puts
@@ -261,10 +273,8 @@ ROSTER: Dict[str, ArmSpec] = {
     )
 }
 
-#: JAX roster arms the port does not audit, with the reason.
-NOT_AUDITED = {
-    "llama-fsdp-dp4-tp2-scan": "the port has no scan layer loop (ROADMAP Queue 1 item 0)",
-}
+#: JAX roster arms the port does not audit, with the reason (none).
+NOT_AUDITED: Dict[str, str] = {}
 
 
 # ---------------------------------------------------------------------------
@@ -543,9 +553,6 @@ def _build_kwargs(spec: ArmSpec) -> Dict[str, Any]:
     if unknown:
         raise ValueError(f"arm {spec.name!r}: config overrides {unknown} have no port "
                          f"counterpart (known: {list(_OVERRIDE_KEYS)})")
-    if over.get("scan_layers"):
-        raise ValueError(f"arm {spec.name!r}: the port has no scan layer loop "
-                         "(ROADMAP Queue 1 item 0)")
     members = spec.width("data") * spec.width("expert")
     if spec.global_batch % members:
         raise ValueError(f"arm {spec.name!r}: global batch {spec.global_batch} does not "
@@ -563,6 +570,7 @@ def _build_kwargs(spec: ArmSpec) -> Dict[str, Any]:
         n_experts=int(over.get("n_experts", 0)), expert_parallel=spec.width("expert"),
         pipeline_parallel=spec.width("pipe"), pipeline_schedule=spec.pipeline_schedule,
         virtual_stages=spec.virtual_stages, dataset_size=64,
+        layer_loop="scan" if over.get("scan_layers") else "unrolled",
     )
     if "n_layer" in over:
         kw["n_layer"] = int(over["n_layer"])
@@ -605,9 +613,13 @@ def _replicated_state_bytes(run, spec: ArmSpec) -> int:
         return 0
     opt = run.step_fn.optimizer
     state = opt.adamw.state if opt.adamw is not None else {}
+    inner = getattr(run.model, "module", run.model)
+    # Under the scan loop the stacked leaves the arm shards by hand.
+    arm = getattr(inner.blocks, "arm", None) if getattr(inner, "scan", False) else None
+    hand = {id(inner.blocks.stacked(leaf)) for leaf in getattr(arm, "sharded", ())}
     out: Dict[int, int] = {}
     for p in run.model.parameters():
-        if isinstance(p, DTensor):
+        if isinstance(p, DTensor) or id(p) in hand:
             continue
         tensors = [p, p.grad] + [v for v in state.get(p, {}).values()
                                  if isinstance(v, torch.Tensor) and v.shape == p.shape]
@@ -622,8 +634,9 @@ def expected_replicated_bytes(spec: ArmSpec, model_config) -> int:
     """What rank 0 of an fsdp / zero3 arm keeps whole over ``data`` by JAX's
     ``param_partition_specs`` at the arm's mesh, from the JAX-shaped leaves
     alone: every leaf whose spec has no ``data`` axis, and every block leaf
-    whose ``data`` axis is the layer axis (the port holds each layer as a
-    leaf of its own, so it cannot shard there), at its share of the other
+    whose ``data`` axis is the layer axis under the unrolled loop (the
+    port holds each layer as a leaf of its own, so it cannot shard there;
+    the scan loop's placement, ``scan_stacked``, can), at its share of the other
     axes; the parameter, its gradient and two AdamW moments (none under
     host offload), in the parameter dtype."""
     from ...parallel.strategies import get_strategy, param_partition_specs
@@ -634,11 +647,14 @@ def expected_replicated_bytes(spec: ArmSpec, model_config) -> int:
         return 0
     mesh_shape = dict(zip(spec.axes, spec.mesh_shape))
     shapes = jax_leaf_shapes(model_config)
-    specs = param_partition_specs(shapes, mesh_shape, True, kv_heads=model_config.kv_heads)
+    scan = model_config.scan_layers
+    specs = param_partition_specs(shapes, mesh_shape, True, kv_heads=model_config.kv_heads,
+                                  scan_stacked=scan)
     elements = 0
     for name, shape in shapes.items():
         axes = specs[name]
-        if "data" in axes and not (name.startswith("blocks/") and axes.index("data") == 0):
+        layer_axis = name.startswith("blocks/") and "data" in axes and axes.index("data") == 0
+        if "data" in axes and (scan or not layer_axis):
             continue
         split = math.prod(mesh_shape[a] for a in axes if a not in (None, "data"))
         elements += math.prod(shape) // split

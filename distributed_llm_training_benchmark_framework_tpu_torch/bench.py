@@ -73,8 +73,11 @@ carries ``remat_policy`` (requested), ``remat_policy_resolved`` (what ran:
 and ``hbm_headroom_gb`` (the card's capacity less the measured peak; None
 on the CPU), and becomes a registry record of its own lineage
 (``bench.py:remat-sweep:<policy>``), from which ``analysis.make_report``
-renders the frontier. ``--layer-loop`` and ``tokens_per_dollar`` of the JAX
-bench are not part of the port yet. Checkpoints, fault injection and the
+renders the frontier. ``--layer-loop`` is JAX's (``bench.py:287``, default
+``unrolled``): the top row's layer loop (``scan``: the block leaves stacked,
+``models/tinygpt.ScanBlocks``); the flagship and the sweep keep
+``FLAGSHIP_LAYER_LOOP``. ``tokens_per_dollar`` is JAX's key, null where the
+repo holds no price for the device (the H100: ``utils/flops.py``). Checkpoints, fault injection and the
 rest of the run-time flags are the harness's
 (``python -m distributed_llm_training_benchmark_framework_tpu_torch.train.harness``).
 """
@@ -100,7 +103,7 @@ REFERENCE_BEST_TOKENS_PER_SEC_PER_GPU = 18147.0 / 4
 FLAGSHIP_FAMILY = "llama"
 FLAGSHIP_PER_DEVICE_BATCH = 2
 FLAGSHIP_GRAD_ACCUM = 2
-FLAGSHIP_LAYER_LOOP = "unrolled"  # eager PyTorch runs the layers as a Python loop
+FLAGSHIP_LAYER_LOOP = "unrolled"  # JAX's flagship loop
 
 # The remat/HBM frontier (--remat-sweep), JAX's: every policy the model
 # takes (models/tinygpt.normalize_remat) and 'auto', from no recompute to
@@ -136,10 +139,11 @@ def run_preflight() -> None:
 
 
 def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: int,
-                attention_impl: str, dropout, profile_dir=None, remat=None):
+                attention_impl: str, dropout, profile_dir=None, remat=None,
+                layer_loop: str = FLAGSHIP_LAYER_LOOP):
     """Run one arm (``remat``: the strategy's remat policy replaced, for the
-    sweep); return its contract-shaped row and the result row it was made
-    from."""
+    sweep) under ``layer_loop``; return its contract-shaped row and the
+    result row it was made from."""
     strategy = (args.strategy if remat is None
                 else dataclasses.replace(get_strategy(args.strategy), remat=remat))
     with contextlib.redirect_stdout(sys.stderr):
@@ -150,6 +154,7 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
             attention_impl=attention_impl, dropout=dropout, sync_every=args.sync_every,
             device=args.device, world_size=args.world_size,
             tp_collective_matmul=args.tp_collective_matmul, profile_dir=profile_dir,
+            layer_loop=layer_loop,
         )
     per_chip = result.tokens_per_sec / result.world_size
     extra = {"tp_collective_matmul": True} if result.tp_collective_matmul else {}
@@ -190,6 +195,8 @@ def measure_row(args, *, model_family: str, per_device_batch: int, grad_accum: i
         "mfu_pct": round(result.mfu_pct, 2),
         "peak_hbm_gb": round(result.peak_hbm_gb, 2),
         "peak_hbm_method": result.peak_hbm_method,
+        "tokens_per_dollar": (round(result.tokens_per_dollar) if result.tokens_per_dollar
+                              else None),
         "device_kind": result.device_kind,
         "mean_step_time_sec": round(result.mean_step_time_sec, 5),
         "loss_first_window": round(result.loss_first_window, 4),
@@ -220,6 +227,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["reference", "flash", "ring", "ulysses"])
     p.add_argument("--dropout", type=float, default=None)
     p.add_argument("--sync-every", type=int, default=10)
+    p.add_argument("--layer-loop", default="unrolled", choices=["scan", "unrolled"],
+                   help="The top row's layer loop (scan: stacked block leaves, one body per "
+                        "layer); the flagship and the sweep keep FLAGSHIP_LAYER_LOOP")
     p.add_argument("--tp-collective-matmul", action="store_true",
                    help="run the tensor-parallel projections as collective matmuls (needs a "
                         ">1 'model' axis to have any effect)")
@@ -263,7 +273,7 @@ def registry_rows(args, payload, backend=None):
              dict(run_params, model_family=args.model_family,
                   per_device_batch=args.per_device_batch,
                   grad_accum=args.grad_accum,
-                  layer_loop=FLAGSHIP_LAYER_LOOP))]
+                  layer_loop=args.layer_loop))]
     if "flagship" in payload:
         # The flagship sub-object already carries its geometry; only the
         # shared run length is added.
@@ -320,7 +330,8 @@ def main(argv=None):
         top, payload = measure_row(args, model_family=args.model_family,
                                    per_device_batch=args.per_device_batch,
                                    grad_accum=args.grad_accum, attention_impl=args.attention,
-                                   dropout=args.dropout, profile_dir=args.profile_dir)
+                                   dropout=args.dropout, profile_dir=args.profile_dir,
+                                   layer_loop=args.layer_loop)
         results = [top]
         if args.flagship == "on" or (args.flagship == "auto"
                                      and args.model_family != FLAGSHIP_FAMILY):

@@ -8,6 +8,15 @@ mapping is fixed: ``params[name]`` <-> ``model.<name>`` and
 ``params["blocks"][leaf][i]`` <-> ``model.blocks[i].<leaf>``, or, for the
 expert leaves of a MoE block, ``model.blocks[i].experts.<leaf>``.
 
+Under the scan layer loop (``models/tinygpt.ScanBlocks``) the port holds the
+block leaves stacked as JAX does, and the map is the same per layer:
+``params["blocks"][leaf][i]`` <-> layer i's slice ``model.blocks.<leaf>[i]``
+(a view, named ``blocks.<i>.<leaf>`` as its unrolled counterpart), so the
+``model`` / ``expert`` axes of a slice are its unrolled leaf's. Where an
+fsdp / zero3 arm holds a stacked leaf as this rank's ``data`` share of each
+layer (``parallel/strategies.py``), the export gathers the share
+(``ScanBlocks.unshard``) and the load keeps it (``ScanBlocks.shard``).
+
 A caller turns the JAX tree into numpy first
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
 
@@ -51,15 +60,24 @@ from .models.tinygpt import TinyGPT
 from .parallel.strategies import expert_axis, tp_axis
 
 
-def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.nn.Parameter]]:
-    """Yield (JAX path, port parameter) for every port parameter; a block
-    path is ("blocks", leaf, global layer index)."""
-    for name, p in model.named_parameters():
+def leaves(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], str, torch.Tensor]]:
+    """Yield (JAX path, port name, port tensor) for every leaf of every
+    layer (``TinyGPT.layer_parameters``: a parameter, or under the scan
+    loop a layer's slice of a stacked one); a block path is ("blocks",
+    leaf, global layer index)."""
+    for name, p in model.layer_parameters():
         parts = name.split(".")
         if parts[0] == "blocks":
-            yield ("blocks", parts[-1], model.layer_ids[int(parts[1])]), p
+            yield ("blocks", parts[-1], model.layer_ids[int(parts[1])]), name, p
         else:
-            yield (name,), p
+            yield (name,), name, p
+
+
+def leaf_map(model: TinyGPT) -> Iterator[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """Yield (JAX path, port tensor) for every leaf of every layer (see
+    ``leaves``)."""
+    for path, _, p in leaves(model):
+        yield path, p
 
 
 def _jax_leaf_paths(params: Dict) -> set:
@@ -82,7 +100,7 @@ def load_jax_params(model: TinyGPT, params_np: Dict,
     m, t = model.tp
     e, ep = model.ep
     row = None if layer_order is None else np.argsort(np.asarray(layer_order))
-    for (path, p), (name, _) in zip(leaf_map(model), model.named_parameters()):
+    for path, name, p in leaves(model):
         if path[0] == "blocks":
             _, leaf, i = path
             if leaf not in params_np.get("blocks", {}):
@@ -98,9 +116,11 @@ def load_jax_params(model: TinyGPT, params_np: Dict,
                          (expert_axis(name, ep), e, ep)):
             if ax is not None:
                 arr = np.split(arr, n, axis=ax)[i]
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{'/'.join(map(str, path))}: shape {arr.shape} vs {tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype))
+        want_shape = tuple(global_shape(model, name, p, local=True))
+        if tuple(arr.shape) != want_shape:
+            raise ValueError(f"{'/'.join(map(str, path))}: shape {arr.shape} vs {want_shape}")
+        part = torch.from_numpy(np.array(arr, dtype=np.float32)).to(p.dtype)
+        p.copy_(_scan_shard(model, name, part.to(p.device)))
     if used != want:
         raise ValueError(f"JAX leaves with no port counterpart: {sorted(want - used)}")
     return model
@@ -120,9 +140,28 @@ def shard_axes(model: TinyGPT, name: str) -> List[Tuple[int, int, int, Optional[
     return [(ax, i, n, group) for ax, i, n, group in axes if ax is not None]
 
 
-def global_shape(model: TinyGPT, name: str, p: torch.Tensor) -> List[int]:
-    """The global shape of the leaf whose local part (or DTensor) is ``p``."""
-    shape = list(p.shape)
+def _scan_leaf(model: TinyGPT, name: str) -> Optional[str]:
+    """The stacked leaf (``wqkv``, ``experts.moe_w1``) of a layer's slice
+    ``blocks.<i>.<leaf>`` under the scan loop, else None."""
+    if not getattr(model, "scan", False) or not name.startswith("blocks."):
+        return None
+    return name.split(".", 2)[2]
+
+
+def _scan_shard(model: TinyGPT, name: str, part: torch.Tensor) -> torch.Tensor:
+    """This rank's ``data`` share of a layer's slice ``part`` where the arm
+    holds the stacked leaf so (``ScanBlocks.shard``), else ``part``."""
+    leaf = _scan_leaf(model, name)
+    return part if leaf is None else model.blocks.shard(leaf, part)
+
+
+def global_shape(model: TinyGPT, name: str, p: torch.Tensor, local: bool = False) -> List[int]:
+    """The global shape of the leaf whose local part (or DTensor) is ``p``
+    (``local``: its shape at this rank's ``model`` / ``expert`` widths)."""
+    leaf = _scan_leaf(model, name)
+    shape = list(p.shape) if leaf is None else list(model.blocks[0].leaf_shapes[leaf])
+    if local:
+        return shape
     for ax, _, n, _ in shard_axes(model, name):
         shape[ax] *= n
     return shape
@@ -130,10 +169,14 @@ def global_shape(model: TinyGPT, name: str, p: torch.Tensor) -> List[int]:
 
 def gather_leaf(model: TinyGPT, name: str, p: torch.Tensor) -> torch.Tensor:
     """The global leaf of which ``p`` is this rank's part: a DTensor's full
-    tensor, then the ``model`` and ``expert`` shards gathered (collectives
-    that every rank of those groups calls)."""
+    tensor (or a stacked leaf's layer share, ``ScanBlocks.unshard``), then
+    the ``model`` and ``expert`` shards gathered (collectives that every
+    rank of those groups calls)."""
     if isinstance(p, DTensor):
         p = p.full_tensor()
+    leaf = _scan_leaf(model, name)
+    if leaf is not None:
+        p = model.blocks.unshard(leaf, p)
     for ax, _, n, group in shard_axes(model, name):
         parts = [torch.empty_like(p) for _ in range(n)]
         dist.all_gather(parts, p.contiguous(), group=group)
@@ -143,10 +186,11 @@ def gather_leaf(model: TinyGPT, name: str, p: torch.Tensor) -> torch.Tensor:
 
 def local_leaf(model: TinyGPT, name: str, full: torch.Tensor) -> torch.Tensor:
     """This rank's ``model`` / ``expert`` part of a global leaf (a view; the
-    inverse of ``gather_leaf`` up to a DTensor's ``data`` sharding)."""
+    inverse of ``gather_leaf`` up to a DTensor's ``data`` sharding), and of
+    a stacked leaf's layer its ``data`` share where the arm holds one."""
     for ax, i, n, _ in shard_axes(model, name):
         full = full.chunk(n, dim=ax)[i]
-    return full
+    return _scan_shard(model, name, full)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -167,7 +211,7 @@ def export_params(model: torch.nn.Module, layer_order: Optional[Sequence[int]] =
     out: Dict = {}
     stacks: Dict[str, list] = {}
     inner = getattr(model, "module", model)
-    for (path, p), (name, _) in zip(leaf_map(inner), inner.named_parameters()):
+    for path, name, p in leaves(inner):
         arr = _numpy(gather_leaf(inner, name, p.detach()).to("cpu", copy=True))
         if path[0] == "blocks":
             stacks.setdefault(path[1], []).append((path[2], arr))

@@ -338,7 +338,7 @@ def corruption_victim(model, grad_explode: bool = False) -> tuple:
     from .. import bridge
 
     sizes = {}
-    for (path, p), (name, _) in zip(bridge.leaf_map(model), model.named_parameters()):
+    for path, name, p in bridge.leaves(model):
         leaf = path[:2] if path[0] == "blocks" else path
         layers = model.config.n_layer if path[0] == "blocks" else 1
         sizes[leaf] = math.prod(bridge.global_shape(model, name, p)) * layers
@@ -457,7 +457,7 @@ class FaultInjector:
         victim, _size = corruption_victim(model, grad_explode=self.spec.kind == "grad-explode")
         label = "params" + "".join(f"[{k!r}]" for k in victim)
         with torch.no_grad():
-            for (path, p), (name, _) in zip(bridge.leaf_map(model), model.named_parameters()):
+            for path, name, p in bridge.leaves(model):
                 if tuple(path[:len(victim)]) != victim:
                     continue
                 local = p.to_local() if hasattr(p, "to_local") else p

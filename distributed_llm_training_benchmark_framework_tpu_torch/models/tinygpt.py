@@ -81,6 +81,19 @@ every schedule and every recompute of a unit draws the same masks, as JAX
 folds the global layer into its key; the attention seeds are indexed by
 global layer as well. The whole model's forward takes the same seeds.
 
+The scan layer loop (``scan_layers``, JAX's default, ``--layer-loop
+scan``) holds the block leaves as JAX does, stacked on a leading axis of
+this model's layers in one ``ScanBlocks`` module (``blocks.<leaf>``;
+expert leaves ``blocks.experts.<leaf>``), and runs the one ``Block.body``
+over each layer's slices, which a forward takes once per stacked leaf
+(``unbind``); an arm may take the slices and run the layers its own way
+(zero2's per-layer gradient feed, fsdp's per-layer gather:
+``parallel/strategies.py``). ``layer_parameters`` names each layer's
+slice as its unrolled leaf (``blocks.<i>.<leaf>``), so the weight draw, the
+bridge and the checkpoint see one layout under both loops. Beside a
+``pipe`` or an ``expert`` axis the scan loop is refused (ROADMAP Queue 1
+item 22).
+
 Within a site, global batch row r draws its keep-mask at the full
 sequence from a generator seeded ``row_seed(site seed, r)``, and keeps its
 rank's columns of it in a buffer of their own. So a row's mask does not
@@ -95,7 +108,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -190,6 +203,11 @@ class TinyGPTConfig:
     router_aux_coef: float = 0.01
     moe_aux_mode: str = "switch"
     moe_dispatch: str = "auto"
+    # The layer loop (JAX's ``scan_layers``): False, one ``Block`` module per
+    # layer; True, the block leaves stacked on a leading layer axis in one
+    # ``ScanBlocks`` module, whose layers run the same body over their
+    # slices. The port's default is the unrolled loop; the harness picks.
+    scan_layers: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -396,6 +414,48 @@ def _param(dtype: torch.dtype, *shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype))
 
 
+def block_leaf_shapes(c: TinyGPTConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
+    """{leaf: shape} of one layer's leaves at a ``model`` rank's local
+    widths (tp), in the modules' parameter order; expert leaves (this
+    rank's E/ep experts, ``ep`` = 1 here: the caller divides) are named
+    ``experts.<leaf>``."""
+    D, H, Hkv, Dh, Fm = c.n_embd, c.n_head, c.kv_heads, c.head_dim, c.mlp_dim
+    Dl, Fl = (H // tp) * Dh, Fm // tp
+    kv = (Hkv // tp if kv_aligned(Hkv, tp) else Hkv) * Dh
+    out: Dict[str, Tuple[int, ...]] = {"ln1_scale": (D,), "ln2_scale": (D,)}
+    if c.norm == "layernorm":
+        out.update(ln1_bias=(D,), ln2_bias=(D,))
+    if Hkv == H:
+        out["wqkv"] = (D, 3, Dl)
+        if c.bias:
+            out["bqkv"] = (3, Dl)
+    else:
+        out.update(wq=(D, Dl), wkv=(D, 2, kv))
+        if c.bias:
+            out.update(bq=(Dl,), bkv=(2, kv))
+    out["wo"] = (Dl, D)
+    if c.bias:
+        out["bo"] = (D,)
+    if c.n_experts > 0:
+        E = c.n_experts
+        out["router"] = (D, E)
+        out.update({"experts.moe_w1": (E, D, Fl), "experts.moe_b1": (E, Fl),
+                    "experts.moe_w2": (E, Fl, D), "experts.moe_b2": (E, D)})
+        return out
+    if c.mlp_act == "swiglu":
+        out["wgu"] = (D, 2, Fl)
+        if c.bias:
+            out["bgu"] = (2, Fl)
+    else:
+        out["wfc"] = (D, Fl)
+        if c.bias:
+            out["bfc"] = (Fl,)
+    out["wproj"] = (Fl, D)
+    if c.bias:
+        out["bproj"] = (D,)
+    return out
+
+
 class Experts(nn.Module):
     """This rank's E/ep experts of one layer (the JAX leaves ``moe_w1``,
     ``moe_b1``, ``moe_w2``, ``moe_b2``), each at its ``model`` rank's F/tp
@@ -424,7 +484,7 @@ class Block(nn.Module):
 
     def __init__(self, c: TinyGPTConfig, tp: Tuple[int, int] = (0, 1),
                  group: Optional[torch.distributed.ProcessGroup] = None,
-                 moe: ExpertGroups = ExpertGroups(), layer_id: int = 0):
+                 moe: ExpertGroups = ExpertGroups(), layer_id: int = 0, leaves: bool = True):
         super().__init__()
         self.moe = moe
         self.layer_id = layer_id  # the global layer this block is
@@ -432,44 +492,26 @@ class Block(nn.Module):
         m, t = tp
         self.group = group
         self.cmm = c.tp_collective_matmul and t > 1
-        D, H, Hkv, Dh, Fm = c.n_embd, c.n_head, c.kv_heads, c.head_dim, c.mlp_dim
+        H, Hkv = c.n_head, c.kv_heads
         # Local widths: query heads, their first global index, kv heads.
         self.n_head, self.head0 = H // t, m * (H // t)
         self.kv_sharded = kv_aligned(Hkv, t)
         self.n_kv = Hkv // t if self.kv_sharded else Hkv
-        Dl, Fl = self.n_head * Dh, Fm // t
+        self.leaf_shapes = block_leaf_shapes(c, t)
+        if not leaves:
+            return  # a layer of ``ScanBlocks``, which holds the leaves stacked
         pd = c.param_dtype
-        self.ln1_scale, self.ln2_scale = _param(pd, D), _param(pd, D)
-        if c.norm == "layernorm":
-            self.ln1_bias, self.ln2_bias = _param(pd, D), _param(pd, D)
-        if Hkv == H:
-            self.wqkv = _param(pd, D, 3, Dl)
-            if c.bias:
-                self.bqkv = _param(pd, 3, Dl)
-        else:
-            self.wq = _param(pd, D, Dl)
-            self.wkv = _param(pd, D, 2, self.n_kv * Dh)
-            if c.bias:
-                self.bq = _param(pd, Dl)
-                self.bkv = _param(pd, 2, self.n_kv * Dh)
-        self.wo = _param(pd, Dl, D)
-        if c.bias:
-            self.bo = _param(pd, D)
+        for name, shape in self.leaf_shapes.items():
+            if not name.startswith("experts."):
+                setattr(self, name, _param(pd, *shape))
         if c.n_experts > 0:
-            self.router = _param(pd, D, c.n_experts)
             self.experts = Experts(c, c.n_experts // moe.ep, t, group)
-            return
-        if c.mlp_act == "swiglu":
-            self.wgu = _param(pd, D, 2, Fl)
-            if c.bias:
-                self.bgu = _param(pd, 2, Fl)
-        else:
-            self.wfc = _param(pd, D, Fl)
-            if c.bias:
-                self.bfc = _param(pd, Fl)
-        self.wproj = _param(pd, Fl, D)
-        if c.bias:
-            self.bproj = _param(pd, D)
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """{leaf: this module's own parameter}: the body's weights in the
+        unrolled loop (the experts run as their module, ``experts``, so an
+        arm's hooks on it fire)."""
+        return dict(self.named_parameters(recurse=False))
 
     def _rep(self, p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A leaf replicated over ``model`` and used on the sequence-sharded
@@ -477,12 +519,12 @@ class Block(nn.Module):
         gradient: summed over ``model`` in the backward (else p itself)."""
         return copy_to_model(p, self.group) if self.cmm and p is not None else p
 
-    def _norm(self, x, which: str):
+    def _norm(self, w: Dict[str, torch.Tensor], x, which: str):
         c = self.c
-        scale = self._rep(getattr(self, f"{which}_scale"))
+        scale = self._rep(w[f"{which}_scale"])
         if c.norm == "rmsnorm":
             return _rms_norm(x, scale, c.norm_eps)
-        return _layer_norm(x, scale, self._rep(getattr(self, f"{which}_bias")), c.norm_eps)
+        return _layer_norm(x, scale, self._rep(w[f"{which}_bias"]), c.norm_eps)
 
     def _proj(self, h, w, b=None):
         """h (..., K) @ w (K, ...) in the compute dtype, plus an optional bias."""
@@ -519,27 +561,38 @@ class Block(nn.Module):
     def forward(self, x, attention: AttentionFn, attn_seed: Optional[int],
                 drop_mask: Optional[torch.Tensor], batch_offset: int = 0, pos_offset: int = 0,
                 moe_aux_mode: Optional[str] = None):
-        """One layer; ``drop_mask`` is the MLP dropout's keep mask (None: no
-        dropout), ``batch_offset`` the global batch index of row 0 and
-        ``pos_offset`` the global position of column 0; ``moe_aux_mode``
-        None: the config's."""
+        """One layer over this module's own leaves (see ``body``)."""
+        return self.body(self.leaves(), x, attention, attn_seed, drop_mask, batch_offset,
+                         pos_offset, moe_aux_mode, getattr(self, "experts", None))
+
+    def body(self, w: Dict[str, torch.Tensor], x, attention: AttentionFn,
+             attn_seed: Optional[int], drop_mask: Optional[torch.Tensor], batch_offset: int = 0,
+             pos_offset: int = 0, moe_aux_mode: Optional[str] = None,
+             ffn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        """One layer over the leaves ``w`` ({leaf: tensor}): the unrolled
+        loop passes a block's own parameters and its experts as ``ffn``, the
+        scan loop its layer's slices of the stacked leaves, expert leaves
+        unprefixed (``ffn`` None: the expert FFN over those). ``drop_mask``
+        is the MLP dropout's keep mask (None: no dropout), ``batch_offset``
+        the global batch index of row 0 and ``pos_offset`` the global
+        position of column 0; ``moe_aux_mode`` None: the config's."""
         c = self.c
         B = x.shape[0]
         H, Dh = self.n_head, c.head_dim
-        h = self._norm(x, "ln1")
+        h = self._norm(w, x, "ln1")
         if not self.cmm:
             h = copy_to_model(h, self.group)
         if c.kv_heads == c.n_head:
-            qkv = self._col(h, self.wqkv, getattr(self, "bqkv", None))  # (B, S, 3, H*Dh)
+            qkv = self._col(h, w["wqkv"], w.get("bqkv"))  # (B, S, 3, H*Dh)
             S = qkv.shape[1]
             q, k, v = (qkv[:, :, i].reshape(B, S, H, Dh) for i in range(3))
         else:
-            wkv, bkv = self.wkv, getattr(self, "bkv", None)
+            wkv, bkv = w["wkv"], w.get("bkv")
             if not self.kv_sharded:
                 # Replicated over 'model', but each rank uses only its own
                 # heads' k/v: the gradient is summed over 'model'.
                 wkv, bkv = copy_to_model(wkv, self.group), copy_to_model(bkv, self.group)
-            q = self._col(h, self.wq, getattr(self, "bq", None))
+            q = self._col(h, w["wq"], w.get("bq"))
             kv = self._col(h, wkv, bkv)
             S = q.shape[1]
             q = q.reshape(B, S, H, Dh)
@@ -556,22 +609,108 @@ class Block(nn.Module):
         rate = c.dropout if attn_seed is not None else 0.0
         attn = attention(q, k, v, causal=c.causal, dropout_rate=rate, dropout_seed=attn_seed,
                          batch_offset=batch_offset)
-        x = x + self._row(attn.reshape(B, S, H * Dh), self.wo, getattr(self, "bo", None))
+        x = x + self._row(attn.reshape(B, S, H * Dh), w["wo"], w.get("bo"))
 
-        h = self._norm(x, "ln2")
+        h = self._norm(w, x, "ln2")
         if c.n_experts > 0:
-            h, aux = moe_mlp(c, h, self.router, self.experts, self.moe, moe_aux_mode)
+            if ffn is None:
+                cd, group = c.compute_dtype, self.group
+                ffn = (lambda xin: expert_ffn(xin, w["moe_w1"], w["moe_b1"], w["moe_w2"],
+                                              w["moe_b2"], cd, group))
+            h, aux = moe_mlp(c, h, w["router"], ffn, self.moe, moe_aux_mode)
             return x + _apply_dropout(h, drop_mask, c.dropout), aux
         if not self.cmm:
             h = copy_to_model(h, self.group)
         if c.mlp_act == "swiglu":
-            gu = self._col(h, self.wgu, getattr(self, "bgu", None))  # (B, S, 2, F)
+            gu = self._col(h, w["wgu"], w.get("bgu"))  # (B, S, 2, F)
             h = F.silu(gu[:, :, 0]) * gu[:, :, 1]
         else:
-            h = F.gelu(self._col(h, self.wfc, getattr(self, "bfc", None)))  # exact erf
-        h = self._row(h, self.wproj, getattr(self, "bproj", None))
+            h = F.gelu(self._col(h, w["wfc"], w.get("bfc")))  # exact erf
+        h = self._row(h, w["wproj"], w.get("bproj"))
         h = _apply_dropout(h, drop_mask, c.dropout)
         return x + h
+
+
+class ScanBlocks(nn.Module):
+    """The blocks of the scan layer loop (``TinyGPTConfig.scan_layers``),
+    held as JAX holds them: one parameter per JAX leaf ``blocks/<leaf>``,
+    stacked on a leading axis of this model's layers, each layer's slice at
+    the shape a ``Block`` holds it (this rank's ``model`` shard); the
+    expert leaves in the child module ``experts``. ``layers`` are the
+    layers' bodies (``Block``s that hold no leaves), ``blocks[i]`` layer
+    i's, so every layer runs the one ``Block.body``.
+
+    A forward takes each stacked leaf's slices once (``unstack``: one
+    autograd node consumes each leaf, and its backward writes the stacked
+    gradient once; a slice taken per layer would give each layer's
+    backward a zero tensor the size of the whole stack). An arm may take
+    over how the slices are taken and how a layer runs on them (``arm``,
+    ``parallel/strategies.py``: zero2's per-layer gradient feed, fsdp's
+    per-layer gather)."""
+
+    def __init__(self, c: TinyGPTConfig, tp: Tuple[int, int],
+                 group: Optional[torch.distributed.ProcessGroup], moe: ExpertGroups,
+                 layer_ids: Sequence[int]):
+        super().__init__()
+        self.layers = [Block(c, tp, group, moe, g, leaves=False) for g in layer_ids]
+        shapes = self.layers[0].leaf_shapes
+        self.leaf_names = list(shapes)
+        n, pd = len(layer_ids), c.param_dtype
+        if c.n_experts > 0:
+            self.experts = nn.Module()
+        for name, shape in shapes.items():
+            owner, leaf = ((self.experts, name.split(".", 1)[1]) if name.startswith("experts.")
+                           else (self, name))
+            owner.register_parameter(leaf, _param(pd, n, *shape))
+        self.arm = None  # an arm's layer hooks (parallel/strategies.py), or None
+
+    def __len__(self) -> int:
+        return len(self.layers)
+
+    def __getitem__(self, i: int) -> Block:
+        return self.layers[i]
+
+    def __iter__(self):
+        return iter(self.layers)
+
+    def stacked(self, leaf: str) -> torch.nn.Parameter:
+        """The stacked parameter of ``leaf`` (``experts.moe_w1``, ...)."""
+        return self.get_parameter(leaf)
+
+    def layer_parameters(self, prefix: str = "blocks."):
+        """(``<prefix><i>.<leaf>``, layer i's slice of the stacked leaf) in
+        the unrolled model's parameter order (layer by layer)."""
+        for i in range(len(self.layers)):
+            for leaf in self.leaf_names:
+                yield f"{prefix}{i}.{leaf}", self.stacked(leaf)[i]
+
+    def shard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a layer's slice of ``leaf`` as the arm holds
+        the stacked leaf (the slice itself but under fsdp / zero3)."""
+        return part if self.arm is None else self.arm.shard(leaf, part)
+
+    def unshard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``shard`` (a collective over ``data`` where the arm
+        shards ``leaf``)."""
+        return part if self.arm is None else self.arm.unshard(leaf, part)
+
+    def unstack(self) -> Dict[str, Sequence[torch.Tensor]]:
+        """{leaf: its per-layer slices}, one autograd node per leaf."""
+        if self.arm is not None:
+            return self.arm.unstack(self)
+        return {leaf: self.stacked(leaf).unbind(0) for leaf in self.leaf_names}
+
+    def run_layer(self, i: int, slices: Dict[str, torch.Tensor], remat: str, *args):
+        """Layer i's body over its slices ({leaf: slice}) and ``args``
+        (``Block.body``'s after the weights)."""
+        layer = self.layers[i]
+
+        def body(w: Dict[str, torch.Tensor]):
+            return layer.body({k.removeprefix("experts."): v for k, v in w.items()}, *args)
+
+        if self.arm is not None:
+            return self.arm.run_layer(i, slices, remat, body)
+        return body(slices)
 
 
 _SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -624,6 +763,13 @@ class TinyGPT(nn.Module):
             check_tp(c, t)
         s, pp = mesh.pipe_shard if mesh is not None else (0, 1)
         self.pipe = (s, pp)
+        self.scan = c.scan_layers
+        ep = mesh.expert_shard[1] if mesh is not None else 1
+        if self.scan and (pp > 1 or ep > 1):
+            raise ValueError(
+                "the scan layer loop runs beside 'data', 'seq' and 'model'; beside "
+                f"{'pipe' if pp > 1 else 'expert'} it is not ported yet (ROADMAP Queue 1 item "
+                "22): use --layer-loop unrolled")
         if c.n_layer % pp:
             raise ValueError(f"n_layer={c.n_layer} not divisible by pipe={pp}")
         per_stage = c.n_layer // pp
@@ -648,8 +794,11 @@ class TinyGPT(nn.Module):
         self.wte = _param(pd, V // self.vocab_tp, D)
         if c.pos_embed == "learned":
             self.wpe = _param(pd, c.block_size, D)
-        self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe, g)
-                                    for g in self.layer_ids)
+        if self.scan:
+            self.blocks = ScanBlocks(c, self.tp, self.model_group, moe, self.layer_ids)
+        else:
+            self.blocks = nn.ModuleList(Block(c, self.tp, self.model_group, moe, g)
+                                        for g in self.layer_ids)
         self.lnf_scale = _param(pd, D)
         if c.norm == "layernorm":
             self.lnf_bias = _param(pd, D)
@@ -719,15 +868,26 @@ class TinyGPT(nn.Module):
                 p.copy_(w)
         return self
 
+    def layer_parameters(self):
+        """(name, tensor) of every leaf in the unrolled model's names and
+        order: ``named_parameters`` in the unrolled loop; in the scan loop
+        each stacked leaf as its layers' slices, ``blocks.<i>.<leaf>``
+        (views: writing one writes the stacked parameter)."""
+        for name, p in self.named_parameters():
+            if not (self.scan and name.startswith("blocks.")):
+                yield name, p
+            elif name == "blocks." + self.blocks.leaf_names[0]:
+                yield from self.blocks.layer_parameters()
+
     def _whole_model_parameters(self):
         """(name in the whole model, this rank's parameter or None, its
         shape) in the whole model's parameter order: this model's own at
         ``pipe`` width 1; a stage's blocks by their global layer ids."""
         if self.pipe[1] == 1:
-            for name, p in self.named_parameters():
+            for name, p in self.layer_parameters():
                 yield name, p, p.shape
             return
-        local = dict(self.named_parameters())
+        local = dict(self.layer_parameters())
         where = {g: i for i, g in enumerate(self.layer_ids)}
         with torch.device("meta"):
             whole = TinyGPT(self.config)
@@ -872,6 +1032,7 @@ class TinyGPT(nn.Module):
         pos0 = s * S
         cols, rows, row_shape = self._mask_geometry(B, S, batch_offset, global_batch)
         remat = normalize_remat(c.remat)
+        slices = self.blocks.unstack() if self.scan else None
         aux = None
         for i in blocks:
             block = self.blocks[i]
@@ -880,10 +1041,14 @@ class TinyGPT(nn.Module):
             args = (x, self.attention, seed if c.dropout > 0.0 else None,
                     _dropout_mask(mask_seed, c.dropout, rows, row_shape, cols, x.device),
                     batch_offset, pos0, moe_aux_mode)
+            fn = block
+            if slices is not None:
+                fn = functools.partial(self.blocks.run_layer, i,
+                                       {leaf: s[i] for leaf, s in slices.items()}, remat)
             if remat == "none":
-                x = block(*args)
+                x = fn(*args)
             else:
-                x = checkpoint(block, *args, use_reentrant=False,
+                x = checkpoint(fn, *args, use_reentrant=False,
                                context_fn=functools.partial(_remat_context, remat))
             if c.n_experts > 0:
                 x, layer_aux = x

@@ -158,7 +158,7 @@ import functools
 import json
 import math
 import os
-from typing import Any, ContextManager, Dict, Iterable, List, Optional, Tuple
+from typing import Any, ContextManager, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -487,6 +487,10 @@ _EP_RULES = {
 # leaves below this many elements per layer stay replicated over 'data'.
 _COMPOSED_MIN_SHARD_ELEMENTS = 4096
 
+# JAX's scan-carry rule: under the scan layer loop on a composed mesh these
+# stacked column-parallel leaves stay model-only (replicated over 'data').
+_COMPOSED_CONTRACTION_DATA_SKIP = frozenset({"blocks/wq"})
+
 
 def kv_aligned(kv_heads: int, tp: int) -> bool:
     """JAX's kv-head-aligned rule: ``wkv`` / ``bkv`` shard over ``model``
@@ -559,13 +563,16 @@ def _shard_largest_free_axis(spec: list, shape: Tuple[int, ...], n_shards: int,
 
 
 def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[str, int],
-                          shard: bool, kv_heads: Optional[int] = None) -> Dict[str, tuple]:
-    """JAX's ``param_partition_specs`` (the unrolled layer loop) over
-    JAX-shaped leaves: {leaf path: shape, block leaves stacked on a layer
-    axis} -> {leaf path: spec}, a spec being a tuple of axis names or None
-    per dimension. Under a ``pipe`` axis the layer axis of the block leaves
-    shards over ``pipe`` (contiguous stages) and ``wte`` / ``lm_head`` stay
-    replicated over ``model``, as in JAX."""
+                          shard: bool, kv_heads: Optional[int] = None,
+                          scan_stacked: bool = False) -> Dict[str, tuple]:
+    """JAX's ``param_partition_specs`` over JAX-shaped leaves: {leaf path:
+    shape, block leaves stacked on a layer axis} -> {leaf path: spec}, a
+    spec being a tuple of axis names or None per dimension. Under a ``pipe``
+    axis the layer axis of the block leaves shards over ``pipe`` (contiguous
+    stages) and ``wte`` / ``lm_head`` stay replicated over ``model``, as in
+    JAX. ``scan_stacked`` (the scan layer loop): on a composed (data x
+    model) mesh the ``_COMPOSED_CONTRACTION_DATA_SKIP`` leaves stay
+    model-only."""
     n_data, n_model = mesh_shape.get("data", 1), mesh_shape.get("model", 1)
     n_pipe, n_expert = mesh_shape.get("pipe", 1), mesh_shape.get("expert", 1)
     kv_misaligned = kv_heads is not None and kv_heads % n_model != 0
@@ -584,7 +591,8 @@ def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[s
                     continue
                 if spec[ax] is None and shape[ax] % n_model == 0:
                     spec[ax] = "model"
-        if shard and n_data > 1:
+        skip = scan_stacked and n_model > 1 and name in _COMPOSED_CONTRACTION_DATA_SKIP
+        if shard and n_data > 1 and not skip:
             _shard_largest_free_axis(spec, shape, n_data, name.startswith("blocks/"),
                                      composed=n_model > 1)
         specs[name] = tuple(spec)
@@ -592,14 +600,18 @@ def param_partition_specs(shapes: Dict[str, Tuple[int, ...]], mesh_shape: Dict[s
 
 
 def fsdp_data_axis(port_name: str, shape: Tuple[int, ...], mesh_shape: Dict[str, int],
-                   kv_heads: int, n_layer: int) -> Optional[int]:
+                   kv_heads: int, n_layer: int, scan_stacked: bool = False) -> Optional[int]:
     """The axis of a port parameter (``shape``: this rank's ``model`` /
     ``expert`` part of one layer's leaf) that JAX's ``param_partition_specs``
     shards over ``data`` at ``mesh_shape``, or None where JAX leaves the
     leaf replicated over ``data``. The rule sees the JAX leaf: global widths,
     block leaves stacked on a layer axis. Where JAX picks that layer axis
-    (no tensor axis divides), the port, which holds each layer as a leaf of
-    its own, keeps the leaf replicated too."""
+    (no tensor axis divides, or on a composed mesh none comes before the
+    leaf's ``model`` axis), the unrolled port, which holds each layer as a
+    leaf of its own, keeps the leaf replicated too. ``scan_stacked`` (the
+    scan loop, whose port holds the block leaves stacked): the rule's
+    ``scan_stacked`` form, and a block leaf's axis counts the layer axis (0
+    is the layer axis)."""
     name = jax_leaf_name(port_name)
     tp, ep = mesh_shape.get("model", 1), mesh_shape.get("expert", 1)
     glob = list(shape)
@@ -609,11 +621,14 @@ def fsdp_data_axis(port_name: str, shape: Tuple[int, ...], mesh_shape: Dict[str,
             glob[ax] *= n
     block = name.startswith("blocks/")
     jax_shape = (n_layer, *glob) if block else tuple(glob)
-    spec = param_partition_specs({name: jax_shape}, mesh_shape, True, kv_heads)[name]
+    spec = param_partition_specs({name: jax_shape}, mesh_shape, True, kv_heads,
+                                 scan_stacked)[name]
     if "data" not in spec:
         return None
     ax = spec.index("data")
-    return (ax - 1 if ax > 0 else None) if block else ax
+    if scan_stacked or not block:
+        return ax
+    return ax - 1 if ax > 0 else None
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int):
@@ -738,9 +753,13 @@ class Optimizer:
         if strategy.offload_opt_state:
             self.host = HostOffload(strategy, [_local(p) for p in self.params], self.schedule)
         else:
+            # DTensors and plain tensors in groups of their own: the foreach
+            # update refuses a list that mixes them (FSDP2's shards beside
+            # the leaves it leaves whole, or the scan loop's stacked leaves).
+            kinds = [[p for p in self.params if isinstance(p, DTensor) == d] for d in (True, False)]
             self.adamw = torch.optim.AdamW(
-                self.params, lr=strategy.learning_rate, betas=strategy.betas,
-                eps=strategy.eps, weight_decay=strategy.weight_decay,
+                [{"params": ps} for ps in kinds if ps], lr=strategy.learning_rate,
+                betas=strategy.betas, eps=strategy.eps, weight_decay=strategy.weight_decay,
             )
         self.count = 0
         self.track_grad_norm = False
@@ -952,14 +971,18 @@ class _FSDPOptimizer(Optimizer):
     width ``ep`` as well (dp * ep in all, times ``seq`` when it rides the
     group). ``kept_out`` maps each tuple of groups to the leaves FSDP2
     ignores (``fsdp_data_axis`` None), whose gradients ``finish_grads``
-    averages over those groups by hand."""
+    averages over those groups by hand. ``scan_shared``: under the scan
+    loop, the stacked leaves ``_FSDPScanArm`` shards, whose gradients its
+    backward has summed over the arm's ranks; ``finish_grads`` divides them
+    by the count of those ranks."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module,
                  experts: List[torch.nn.Parameter], ep: int,
                  kept_out: Dict[Tuple[dist.ProcessGroup, ...], List[torch.nn.Parameter]],
-                 **kw):
+                 scan_shared: Tuple[List[torch.nn.Parameter], int] = ([], 1), **kw):
         super().__init__(strategy, model.parameters(), **kw)
         self.experts, self.ep, self.kept_out = experts, ep, kept_out
+        self.scan_shared = scan_shared
 
     @torch.no_grad()
     def finish_grads(self, grad_accum: int) -> None:
@@ -971,6 +994,12 @@ class _FSDPOptimizer(Optimizer):
             for group in groups:
                 _all_reduce_flat(grads, group)
             torch._foreach_div_(grads, float(math.prod(dist.get_world_size(g) for g in groups)))
+        params, ranks = self.scan_shared
+        if params:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            torch._foreach_div_([p.grad for p in params], float(ranks))
         if self.experts:
             torch._foreach_div_([_local(p.grad) for p in self.experts], float(self.ep))
         super().finish_grads(grad_accum)
@@ -986,18 +1015,20 @@ def zero2_bucket(port_name: str) -> str:
 @dataclasses.dataclass(eq=False)
 class _Bucket:
     """One zero2 bucket: its block (``zero2_bucket``), the flat params (the
-    parameters, ``params``, are views into it, laid end to end in order),
-    the flat grads, this rank's shard of the grads, the groups its shard is
-    all-reduced over after the reduce-scatter, and the reduce-scatter's
-    arming (the backward that lands the step's last gradients), count-down
-    and work."""
+    parameters, ``params``, are views into it, laid end to end in order;
+    None under the scan loop, where ``params`` are a layer's slices of the
+    stacked leaves), the flat grads, this rank's shard of the grads, the
+    groups its shard is all-reduced over after the reduce-scatter, the
+    leaves' port names, and the reduce-scatter's arming (the backward that
+    lands the step's last gradients), count-down and work."""
 
     key: str
-    flat: torch.Tensor
+    flat: Optional[torch.Tensor]
     grads: torch.Tensor
     shard_grad: torch.Tensor
-    params: List[torch.nn.Parameter]
+    params: List[torch.Tensor]
     replicas: Tuple[dist.ProcessGroup, ...]
+    names: List[str]
     armed: bool = False
     pending: int = 0
     work: Any = None
@@ -1007,52 +1038,100 @@ class _Zero2Optimizer(Optimizer):
     """zero2 by hand (see the module docstring). AdamW steps over this rank's
     shard of each bucket's flat buffer, a view into it, so its update lands
     in the replicated params in place; the all-gathers fill in the other
-    shards."""
+    shards.
+
+    Under the scan loop (``ScanBlocks``) a stacked leaf cannot also be views
+    into per-layer buckets, so a layer's buckets hold its slices' grads and
+    this rank's shard of its params as tensors of their own: the layer's
+    gradients are copied into its buckets where they are ready, inside the
+    backward (``_Zero2ScanArm``), and after the update the all-gathered
+    shards are copied back into the stacked leaves. The leaves outside the
+    blocks keep the unrolled buckets."""
 
     def __init__(self, strategy: StrategyConfig, model: torch.nn.Module, mesh: Mesh):
         self.group = mesh.data_group
         dp, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        self.dp, self.rank = dp, rank
         seq, expert = mesh.seq_group, mesh.expert_group
         self.ranks = dp * math.prod(dist.get_world_size(g) for g in (seq, expert)
                                     if g is not None)
-        names = [name for name, _ in model.named_parameters()]
-        groups, keys = shard_axes(model, mesh)
+        scan = getattr(model, "scan", False)
+        named = list(model.layer_parameters()) if scan else list(model.named_parameters())
+        groups, keys = shard_axes(model, mesh, [name for name, _ in named])
         expert_at = groups.index(expert) if expert is not None else None
         # One bucket per (block, dtype, kind): the groups that hold its
         # leaves' other parts (the clip sums their squares over them).
-        by_key: Dict[tuple, List[torch.nn.Parameter]] = {}
-        for name, p, sharded in zip(names, model.parameters(), keys):
-            by_key.setdefault((zero2_bucket(name), p.dtype, sharded), []).append(p)
+        by_key: Dict[tuple, List[Tuple[str, torch.Tensor]]] = {}
+        for (name, p), sharded in zip(named, keys):
+            by_key.setdefault((zero2_bucket(name), p.dtype, sharded), []).append((name, p))
         self.buckets: List[_Bucket] = []
         shards = []
         with torch.no_grad():
-            for (key, dtype, sharded), params in by_key.items():
+            for (key, dtype, sharded), items in by_key.items():
+                params = [p for _, p in items]
                 n = sum(p.numel() for p in params)
                 size = -(-n // dp)  # one rank's shard; the padding is zero
                 device = params[0].device
-                flat = torch.zeros(size * dp, dtype=dtype, device=device)
-                grads = torch.zeros_like(flat)
-                offset = 0
-                for p in params:
-                    k = p.numel()
-                    flat[offset:offset + k].copy_(p.reshape(-1))
-                    p.data = flat[offset:offset + k].view_as(p)
-                    p.grad = grads[offset:offset + k].view_as(p)
-                    offset += k
-                shard = torch.nn.Parameter(flat[rank * size:(rank + 1) * size])
+                grads = torch.zeros(size * dp, dtype=dtype, device=device)
+                if scan and key != "":
+                    flat = None
+                    whole = torch.cat([p.reshape(-1) for p in params]
+                                      + [grads.new_zeros(size * dp - n)])
+                    shard = torch.nn.Parameter(whole[rank * size:(rank + 1) * size].clone())
+                else:
+                    flat = torch.zeros(size * dp, dtype=dtype, device=device)
+                    offset = 0
+                    for p in params:
+                        k = p.numel()
+                        flat[offset:offset + k].copy_(p.reshape(-1))
+                        p.data = flat[offset:offset + k].view_as(p)
+                        p.grad = grads[offset:offset + k].view_as(p)
+                        offset += k
+                    shard = torch.nn.Parameter(flat[rank * size:(rank + 1) * size])
                 shard.grad = torch.zeros(size, dtype=dtype, device=device)
                 shards.append(shard)
                 is_expert = expert_at is not None and sharded[expert_at]
                 replicas = tuple(g for g in (seq, None if is_expert else expert) if g is not None)
-                bucket = _Bucket(key, flat, grads, shard.grad, params, replicas)
-                for p in params:
-                    p.register_post_accumulate_grad_hook(functools.partial(self._ready, bucket))
+                bucket = _Bucket(key, flat, grads, shard.grad, params, replicas,
+                                 [name for name, _ in items])
+                if flat is not None:
+                    for p in params:
+                        p.register_post_accumulate_grad_hook(
+                            functools.partial(self._ready, bucket))
                 self.buckets.append(bucket)
         pipe = {}
         if mesh.pipe_group is not None:
             pipe = dict(pipe_group=mesh.pipe_group, pipe_shared=[key == "" for key, _, _ in by_key])
         super().__init__(strategy, shards, norm_group=self.group, shard_groups=groups,
                          shard_keys=[sharded for _, _, sharded in by_key], **pipe)
+        if scan:
+            model.blocks.arm = _Zero2ScanArm(self, model.blocks)
+
+    @torch.no_grad()
+    def reload_shards(self) -> None:
+        """Under the scan loop, copy this rank's shard of each layer's
+        params from the stacked leaves again (after a checkpoint load wrote
+        them); the unrolled shards are views of them already."""
+        for b, shard in zip(self.buckets, self.params):
+            if b.flat is None:
+                whole = torch.cat([p.reshape(-1) for p in b.params]
+                                  + [b.grads.new_zeros(b.grads.numel() - sum(
+                                      p.numel() for p in b.params))])
+                shard.copy_(whole[self.rank * shard.numel():(self.rank + 1) * shard.numel()])
+
+    def feed(self, b: _Bucket, grads: List[Optional[torch.Tensor]]) -> None:
+        """Under the scan loop: a layer's gradients for the bucket ``b``
+        (one per leaf, None where a leaf has none) are ready in the
+        backward: add them into its flat grads, and in the bucket's last
+        backward start its reduce-scatter."""
+        offset = 0
+        for p, g in zip(b.params, grads):
+            k = p.numel()
+            if g is not None:
+                b.grads[offset:offset + k].add_(g.reshape(-1))
+            offset += k
+        if b.armed:
+            self._launch(b)
 
     def zero_grad(self) -> None:
         # The params' grads are views into the flat buffers: keep them.
@@ -1106,7 +1185,256 @@ class _Zero2Optimizer(Optimizer):
         super().step()
         with torch.no_grad():
             for b, shard in zip(self.buckets, self.params):
-                dist.all_gather_into_tensor(b.flat, shard, group=self.group)
+                if b.flat is not None:
+                    dist.all_gather_into_tensor(b.flat, shard, group=self.group)
+                    continue
+                whole = torch.empty(shard.numel() * self.dp, dtype=shard.dtype,
+                                    device=shard.device)
+                dist.all_gather_into_tensor(whole, shard, group=self.group)
+                offset = 0
+                for p in b.params:
+                    p.copy_(whole[offset:offset + p.numel()].view_as(p))
+                    offset += p.numel()
+
+
+class _Slices(torch.autograd.Function):
+    """Every layer's slices of the stacked leaves, one node for all of them,
+    whose backward gives the stacked leaves no gradient: zero2's buckets
+    take the layers' gradients (``_Feed``)."""
+
+    @staticmethod
+    def forward(ctx, n_layers: int, *stacked: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.n = len(stacked)
+        return tuple(p[i] for p in stacked for i in range(n_layers))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * (1 + ctx.n)
+
+
+class _Feed(torch.autograd.Function):
+    """The identity on one layer's slices; its backward, where the layer's
+    gradients are all ready, hands them to the layer's zero2 buckets."""
+
+    @staticmethod
+    def forward(ctx, arm: "_Zero2ScanArm", i: int, *slices: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.arm, ctx.i = arm, i
+        return tuple(t.view_as(t) for t in slices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.arm.feed(ctx.i, grads)
+        return (None, None) + (None,) * len(grads)
+
+
+class _Zero2ScanArm:
+    """zero2's layer hooks on ``ScanBlocks`` (``_Zero2Optimizer``): the
+    slices come from one ``_Slices`` node, and each layer's run passes them
+    through ``_Feed``, which copies the layer's gradients into its buckets
+    in the backward."""
+
+    def __init__(self, opt: _Zero2Optimizer, blocks) -> None:
+        self.opt = opt
+        self.leaf_names = list(blocks.leaf_names)
+        # Layer i -> [(bucket, the index in leaf_names of each of its leaves)].
+        self.layer_buckets: Dict[int, List[Tuple[_Bucket, List[int]]]] = {}
+        for b in opt.buckets:
+            if b.flat is None:
+                i = int(b.key.split(".")[1])
+                at = [self.leaf_names.index(name.split(".", 2)[2]) for name in b.names]
+                self.layer_buckets.setdefault(i, []).append((b, at))
+
+    def unstack(self, blocks) -> Dict[str, Sequence[torch.Tensor]]:
+        n = len(blocks)
+        flat = _Slices.apply(n, *[blocks.stacked(leaf) for leaf in self.leaf_names])
+        return {leaf: flat[j * n:(j + 1) * n] for j, leaf in enumerate(self.leaf_names)}
+
+    def run_layer(self, i: int, slices: Dict[str, torch.Tensor], remat: str, body):
+        out = _Feed.apply(self, i, *[slices[leaf] for leaf in self.leaf_names])
+        return body(dict(zip(self.leaf_names, out)))
+
+    def feed(self, i: int, grads) -> None:
+        for b, at in self.layer_buckets[i]:
+            self.opt.feed(b, [grads[j] for j in at])
+
+    def shard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        return part
+
+    def unshard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        return part
+
+
+class _LayerGather:
+    """One layer's gathered leaves under ``_FSDPScanArm``: gathered in the
+    forward (``_GatherLayer``), and again at most once in the backward
+    where a saved tensor asks for them (``full``), released when the
+    layer's backward is done."""
+
+    def __init__(self, arm: "_FSDPScanArm", chunks: List[torch.Tensor]) -> None:
+        self.arm, self.chunks, self.cache = arm, chunks, None
+
+    def full(self) -> List[torch.Tensor]:
+        if self.cache is None:
+            with torch.no_grad():
+                self.cache = self.arm.gather(self.chunks)
+        return self.cache
+
+
+class _GatherLayer(torch.autograd.Function):
+    """All-gather one layer's shares of the ``data``-sharded stacked leaves
+    (one collective for all of them); the backward reduce-scatters their
+    gradients (summed over ``data``) back to the shares."""
+
+    @staticmethod
+    def forward(ctx, layer: _LayerGather, *chunks: torch.Tensor):
+        ctx.layer = layer
+        return tuple(layer.arm.gather(list(chunks)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.layer.cache = None
+        return (None,) + tuple(ctx.layer.arm.reduce_scatter(list(grads)))
+
+
+class _Regather:
+    """A saved tensor that lives in a gathered leaf: packed as where it sits
+    (leaf, size, stride, offset) and rebuilt from the layer's gather."""
+
+    def __init__(self, layer: _LayerGather, j: int, t: torch.Tensor) -> None:
+        self.layer, self.j = layer, j
+        self.geometry = (t.size(), t.stride(), t.storage_offset())
+
+    def get(self) -> torch.Tensor:
+        return self.layer.full()[self.j].as_strided(*self.geometry)
+
+
+class _FSDPScanArm:
+    """fsdp / zero3 under the scan loop: JAX's FSDP schedule over stacked
+    leaves, by hand. A stacked leaf that JAX's ``param_partition_specs(...,
+    scan_stacked=True)`` shards over ``data`` (``fsdp_data_axis``; on a
+    tensor axis or, where none qualifies, the layer axis) is held as this
+    rank's 1/dp share of each layer's elements (the layer's slice
+    flattened, padded to a multiple of dp, rank r's r-th block): the bytes
+    of JAX's placement, whichever axis it picks. Each layer's run gathers
+    its shares of every such leaf in one all-gather over ``data``, frees
+    them after the layer (the tensors its backward saves from them are
+    packed as their place in the gather and rebuilt by one all-gather in
+    the backward, or, under remat, the recompute gathers again), and its
+    backward reduce-scatters their gradients; the stacked leaf's gradient
+    is this rank's shares. A stacked leaf JAX keeps replicated over
+    ``data`` stays whole (``replicated``). At ``data`` width 1 every leaf
+    is "sharded" over the one rank (the gather is a copy), as FSDP2 runs
+    at width 1."""
+
+    def __init__(self, blocks, mesh: Mesh, kv_heads: int, n_layer: int) -> None:
+        self.group, self.seq_group = mesh.data_group, mesh.seq_group
+        self.dp, self.rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        self.leaf_names = list(blocks.leaf_names)
+        self.sharded: List[str] = []
+        self.layout: Dict[str, Tuple[Tuple[int, ...], int, int]] = {}  # shape, numel, share
+        with torch.no_grad():
+            for leaf in self.leaf_names:
+                p = blocks.stacked(leaf)
+                shape = tuple(p.shape[1:])
+                if self.dp > 1 and fsdp_data_axis(f"blocks.0.{leaf}", shape, mesh.shape,
+                                                  kv_heads, n_layer, scan_stacked=True) is None:
+                    continue
+                n = math.prod(shape)
+                share = -(-n // self.dp)
+                self.sharded.append(leaf)
+                self.layout[leaf] = (shape, n, share)
+                whole = p.new_zeros(p.shape[0], share * self.dp)
+                whole[:, :n] = p.reshape(p.shape[0], n)
+                local = torch.nn.Parameter(
+                    whole[:, self.rank * share:(self.rank + 1) * share].clone(),
+                    requires_grad=p.requires_grad)
+                owner, name = ((blocks.experts, leaf.split(".", 1)[1])
+                               if leaf.startswith("experts.") else (blocks, leaf))
+                owner.register_parameter(name, local)
+        self.replicated = [leaf for leaf in self.leaf_names if leaf not in self.layout]
+        blocks.arm = self
+
+    # -- the collectives -----------------------------------------------------
+
+    def gather(self, chunks: List[torch.Tensor]) -> List[torch.Tensor]:
+        """One layer's shares (one per sharded leaf) -> its whole slices,
+        each in a storage of its own."""
+        sizes = [c.numel() for c in chunks]
+        flat = torch.cat([c.reshape(-1) for c in chunks])
+        out = flat.new_empty(flat.numel() * self.dp)
+        dist.all_gather_into_tensor(out, flat, group=self.group)
+        rows = out.view(self.dp, -1)
+        full, offset = [], 0
+        for leaf, k in zip(self.sharded, sizes):
+            shape, n, _ = self.layout[leaf]
+            full.append(rows[:, offset:offset + k].clone().view(-1)[:n].view(shape))
+            offset += k
+        return full
+
+    def reduce_scatter(self, grads: List[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+        """One layer's whole-slice gradients -> this rank's shares, summed
+        over ``data`` (and over ``seq`` where it rides the group, as FSDP2's
+        replicate dim sums each backward's)."""
+        shares = [self.layout[leaf][2] for leaf in self.sharded]
+        ref = next(g for g in grads if g is not None)
+        buf = ref.new_zeros(self.dp, sum(shares))
+        offset = 0
+        for leaf, g, k in zip(self.sharded, grads, shares):
+            n = self.layout[leaf][1]
+            if g is not None:
+                padded = g.new_zeros(k * self.dp)
+                padded[:n] = g.reshape(-1)
+                buf[:, offset:offset + k] = padded.view(self.dp, k)
+            offset += k
+        out = buf.new_empty(sum(shares))
+        dist.reduce_scatter_tensor(out, buf.view(-1), group=self.group)
+        if self.seq_group is not None:
+            dist.all_reduce(out, group=self.seq_group)
+        return list(torch.split(out, shares))
+
+    # -- ScanBlocks' hooks -----------------------------------------------------
+
+    def unstack(self, blocks) -> Dict[str, Sequence[torch.Tensor]]:
+        return {leaf: blocks.stacked(leaf).unbind(0) for leaf in self.leaf_names}
+
+    def run_layer(self, i: int, slices: Dict[str, torch.Tensor], remat: str, body):
+        chunks = [slices[leaf] for leaf in self.sharded]
+        layer = _LayerGather(self, [c.detach() for c in chunks])
+        full = _GatherLayer.apply(layer, *chunks)
+        w = dict(slices)
+        w.update(zip(self.sharded, full))
+        if remat != "none":
+            return body(w)  # inside a checkpoint, whose recompute gathers again
+        where = {t.untyped_storage().data_ptr(): j for j, t in enumerate(full)}
+        del full
+
+        def pack(t: torch.Tensor):
+            j = where.get(t.untyped_storage().data_ptr())
+            return t if j is None else _Regather(layer, j, t)
+
+        def unpack(obj):
+            return obj.get() if isinstance(obj, _Regather) else obj
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            return body(w)
+
+    def shard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        if leaf not in self.layout:
+            return part
+        _, n, share = self.layout[leaf]
+        flat = part.new_zeros(share * self.dp)
+        flat[:n] = part.reshape(-1)
+        return flat[self.rank * share:(self.rank + 1) * share]
+
+    def unshard(self, leaf: str, part: torch.Tensor) -> torch.Tensor:
+        if leaf not in self.layout:
+            return part
+        shape, n, share = self.layout[leaf]
+        out = part.new_empty(share * self.dp)
+        dist.all_gather_into_tensor(out, part.contiguous(), group=self.group)
+        return out[:n].view(shape)
 
 
 def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter]) -> Optimizer:
@@ -1114,17 +1442,18 @@ def make_optimizer(strategy: StrategyConfig, params: Iterable[torch.nn.Parameter
     return Optimizer(strategy, params)
 
 
-def shard_axes(model: torch.nn.Module, mesh: Mesh
+def shard_axes(model: torch.nn.Module, mesh: Mesh, names: Optional[List[str]] = None
                ) -> Tuple[Tuple[dist.ProcessGroup, ...], List[Tuple[bool, ...]]]:
     """The groups whose ranks hold other parts of some leaves (``model``,
     ``expert``, ``pipe``, those that ride the group) and, per parameter of
-    ``model`` (in ``parameters()`` order), which of them hold its other
-    parts: ``model`` the leaves it shards (``tp_axis``), ``expert`` the
-    expert leaves, ``pipe`` a stage's own blocks (not the leaves every
-    stage holds)."""
+    ``model`` (in ``parameters()`` order; or per name of ``names``), which
+    of them hold its other parts: ``model`` the leaves it shards
+    (``tp_axis``), ``expert`` the expert leaves, ``pipe`` a stage's own
+    blocks (not the leaves every stage holds)."""
     tp, ep, kv = mesh.size(AXES.model), mesh.size(AXES.expert), model.config.kv_heads
     pp = mesh.size(AXES.pipe)
-    names = [name for name, _ in model.named_parameters()]
+    if names is None:
+        names = [name for name, _ in model.named_parameters()]
     axes = [(mesh.model_group, lambda n: tp_axis(n, kv, tp, pp) is not None),
             (mesh.expert_group, lambda n: expert_axis(n, ep) is not None),
             (mesh.pipe_group, lambda n: zero2_bucket(n) != "")]
@@ -1145,9 +1474,18 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
     averaged over the ranks FSDP2 would have averaged it over (``data``
     for an expert leaf, else the arm's group), and the clip counts it once.
     Padding it instead would grow its bytes with the width. At ``data``
-    width 1 every leaf is its own whole shard."""
+    width 1 every leaf is its own whole shard. Under the scan loop the
+    stacked block leaves are ``_FSDPScanArm``'s (one layer gathered at a
+    time) and FSDP2 shards the root's leaves only."""
     n_layer, kv = model.config.n_layer, model.config.kv_heads
-    named = list(model.named_parameters())
+    scan = getattr(model, "scan", False)
+    hand, whole = [], []  # under the scan loop: the stacked leaves it shards, keeps whole
+    if scan:
+        arm = _FSDPScanArm(model.blocks, mesh, kv, n_layer)
+        hand = [model.blocks.stacked(leaf) for leaf in arm.sharded]
+        whole = [model.blocks.stacked(leaf) for leaf in arm.replicated]
+    stacked = {id(p) for p in hand + whole}
+    named = [(name, p) for name, p in model.named_parameters() if id(p) not in stacked]
     if mesh.size(AXES.data) > 1:
         axis = {p: fsdp_data_axis(name, tuple(p.shape), mesh.shape, kv, n_layer)
                 for name, p in named}
@@ -1160,7 +1498,11 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
         if p in ignored:
             groups = expert_reduce(mesh) if id(p) in expert_ids else (mesh.arm_group,)
             kept_out.setdefault(groups, []).append(p)
-    flags = [p in ignored for _, p in named]
+    if whole:
+        kept_out.setdefault((mesh.arm_group,), []).extend(whole)
+    ignored |= set(hand) | set(whole)
+    hand_ids = {id(p) for p in hand}
+    flags = [p in ignored and id(p) not in hand_ids for _, p in model.named_parameters()]
 
     def shard(module: torch.nn.Module, device_mesh) -> None:
         fully_shard(module, mesh=device_mesh, shard_placement_fn=lambda p: Shard(axis[p]),
@@ -1168,15 +1510,17 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
 
     shard_mesh = shard_data_mesh(mesh)
     expert_mesh = expert_shard_mesh(mesh) if experts else None
-    for block in model.blocks:
-        if experts:
-            shard(block.experts, expert_mesh)
-        shard(block, shard_mesh)
+    if not scan:
+        for block in model.blocks:
+            if experts:
+                shard(block.experts, expert_mesh)
+            shard(block, shard_mesh)
     shard(model, shard_mesh)
     # fully_shard replaced the parameters: take the experts' afterwards.
     return model, _FSDPOptimizer(strategy, model, [p for m in experts for p in m.parameters()],
-                                 mesh.size(AXES.expert), kept_out, norm_group=mesh.data_group,
-                                 data_replicated=flags, **shards)
+                                 mesh.size(AXES.expert), kept_out,
+                                 (hand, dist.get_world_size(mesh.arm_group)),
+                                 norm_group=mesh.data_group, data_replicated=flags, **shards)
 
 
 def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:

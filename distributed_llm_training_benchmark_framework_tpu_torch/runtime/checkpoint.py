@@ -179,23 +179,30 @@ class TrainState:
         self.inner = getattr(model, "module", model)
         self.optimizer = optimizer
         self.step_fn = step_fn
-        # (key, port name, parameter) for every leaf this rank holds.
-        self.leaves = [(bridge.leaf_key(path), name, p) for (path, p), (name, _) in
-                       zip(bridge.leaf_map(self.inner), self.inner.named_parameters())]
-        by_id = {id(p): (key, name) for key, name, p in self.leaves}
-        # Per optimizer tensor: the leaves it holds, with their offsets in
-        # it (zero2: a bucket's params laid end to end), else its own leaf.
+        # (key, port name, tensor) for every leaf of every layer this rank
+        # holds (under the scan loop a layer's slice of a stacked leaf).
+        self.leaves = [(bridge.leaf_key(path), name, p)
+                       for path, name, p in bridge.leaves(self.inner)]
+        by_name = {name: key for key, name, _ in self.leaves}
+        # Per optimizer tensor: the leaves it holds, with where each sits in
+        # it (zero2: a bucket's leaves laid end to end, by offset; a stacked
+        # leaf: its layers, by row), else its own leaf.
         self.zero2 = isinstance(optimizer, _Zero2Optimizer)
         if self.zero2:
             self.units = []
             for b in optimizer.buckets:
                 items, offset = [], 0
-                for p in b.params:
-                    items.append((*by_id[id(p)], p, offset))
+                for name, p in zip(b.names, b.params):
+                    items.append((by_name[name], name, p, offset))
                     offset += p.numel()
                 self.units.append(items)
         else:
-            self.units = [[(*by_id[id(p)], p, None)] for p in optimizer.params]
+            rows: Dict[int, List[Tuple[str, str, torch.Tensor, Optional[int]]]] = {}
+            for key, name, p in self.leaves:
+                base = p._base if p._base is not None else p
+                row = None if p._base is None else len(rows.get(id(base), []))
+                rows.setdefault(id(base), []).append((key, name, p, row))
+            self.units = [rows[id(p)] for p in optimizer.params]
 
     # -- the optimizer's per-tensor state ------------------------------------
 
@@ -274,8 +281,8 @@ class TrainState:
         companion ``comp`` (collective under zero2 over ``data``)."""
         unit = self.units[i]
         if not self.zero2:
-            key, name, p, _ = unit[0]
-            yield key, name, _unshard(p, comp)
+            for key, name, p, row in unit:
+                yield key, name, _unshard(p, comp if row is None else comp[row])
             return
         group = self.optimizer.group
         flat = comp.to(unit[0][2].device)
@@ -312,9 +319,9 @@ class TrainState:
         for kind, comps in self._companions().items():
             for comp, unit in zip(comps, self.units):
                 if not self.zero2:
-                    key, name, p, _ = unit[0]
-                    part = bridge.local_leaf(self.inner, name, sd[f"opt/{kind}/{key}"])
-                    comp.copy_(_shard(p, part))
+                    for key, name, p, row in unit:
+                        part = bridge.local_leaf(self.inner, name, sd[f"opt/{kind}/{key}"])
+                        (comp if row is None else comp[row]).copy_(_shard(p, part))
                     continue
                 whole = torch.zeros(comp.numel() * dist.get_world_size(self.optimizer.group),
                                     dtype=comp.dtype)
@@ -322,6 +329,8 @@ class TrainState:
                     part = bridge.local_leaf(self.inner, name, sd[f"opt/{kind}/{key}"])
                     whole[offset:offset + p.numel()].copy_(part.reshape(-1))
                 comp.copy_(whole[rank * comp.numel():(rank + 1) * comp.numel()])
+        if self.zero2:
+            self.optimizer.reload_shards()
         opt = self.optimizer
         opt.count = int(sd["opt/count"][0])
         step = float(sd["opt/adamw_step"][0])

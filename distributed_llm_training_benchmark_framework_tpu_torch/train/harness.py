@@ -31,6 +31,11 @@ default NCCL on the card, gloo on the host).
   stream under DIR (make shards with ``python -m
   distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards``),
   and ``--data-stall-timeout-sec`` bounds the wait for a batch.
+- ``--layer-loop scan`` holds the block leaves stacked as JAX does and runs
+  one body over each layer's slices (``models/tinygpt.ScanBlocks``; fsdp /
+  zero3 gather one layer at a time); ``--debug`` (or ``BENCH_DEBUG=1``)
+  sets the strict NCCL settings before the group starts and turns on
+  autograd's anomaly mode (``runtime/debug.py``).
 - ``--profile-dir DIR`` traces the timed window with ``torch.profiler``
   (rank 0) into DIR, with ``cost_analysis.json`` beside it, and puts the
   step anatomy into the row (``analysis/step_anatomy.py``; read the trace
@@ -68,6 +73,7 @@ from ..faults import (
     Preempted,
 )
 from ..runtime import distributed as dist_rt
+from ..runtime.debug import debug_requested, enable_debug
 from .loop import run_benchmark
 
 _XLA = ("an XLA or Pallas knob with no counterpart in the port: the Hopper kernels' tiles "
@@ -75,8 +81,6 @@ _XLA = ("an XLA or Pallas knob with no counterpart in the port: the Hopper kerne
 
 #: dest -> (the port's default, the reason any other value is refused).
 REFUSED = {
-    "layer_loop": ("unrolled", "eager PyTorch runs the layers as a Python loop; a 'scan' form "
-                               "has no meaning here yet (ROADMAP Queue 1 item 0)"),
     "xla_latency_hiding": (False, _XLA),
     "prng_impl": ("rbg", "the port's dropout draws from torch generators and its kernels' "
                          "coordinate hash; JAX's threefry has no counterpart (ROADMAP Queue 3)"),
@@ -85,7 +89,13 @@ REFUSED = {
     "flash_block_k_bwd": (None, _XLA),
     "flash_pallas_backward": (False, _XLA),
     "flash_blockwise_backward": (False, _XLA),
-    "debug": (False, "JAX's fail-fast NaN and tracer-leak checks; not ported"),
+}
+
+#: dest -> why the port's default differs from JAX's, for a flag whose
+#: every value is live.
+DEFAULT_DIFFERS = {
+    "layer_loop": ("JAX's default is scan; the port's stays unrolled while the scan loop "
+                   "refuses 'pipe' and 'expert' (ROADMAP Queue 1 item 22)"),
 }
 
 
@@ -168,7 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp-collective-matmul", action="store_true",
                    help="Run the tensor-parallel projections as collective matmuls")
     p.add_argument("--layer-loop", choices=["scan", "unrolled"], default="unrolled",
-                   help="unrolled (scan is refused: eager PyTorch loops over the layers)")
+                   help="scan: the block leaves stacked on a layer axis, one body per layer "
+                        "(models/tinygpt.ScanBlocks); unrolled: one module per layer")
     p.add_argument("--flash-pallas-backward", action="store_true", help="Refused: " + _XLA)
     p.add_argument("--flash-blockwise-backward", action="store_true", help="Refused: " + _XLA)
     p.add_argument("--flash-block-k-bwd", type=int, default=None, help="Refused: " + _XLA)
@@ -217,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="Resume from the newest valid checkpoint in --checkpoint-dir (one "
                         "saved under another mesh is resharded)")
-    p.add_argument("--debug", action="store_true", help="Refused: not ported")
+    p.add_argument("--debug", action="store_true",
+                   help="Fail-fast collectives and numerics (runtime/debug.py; or BENCH_DEBUG=1)")
     # Chaos harness
     p.add_argument("--inject-fault", type=str, default=None,
                    help="Arm one deterministic fault: sigkill@N, sigterm@N, "
@@ -298,6 +310,9 @@ def main(argv=None) -> int:
                              "schedules the host optimizer update; there is nothing to delay "
                              "on a device-resident optimizer)")
         strategy = dataclasses.replace(strategy, offload_delayed_update=True)
+    debug = args.debug or debug_requested()
+    if debug:
+        enable_debug()  # before the process group starts
     if args.local_rank != 0 and "LOCAL_RANK" not in os.environ:
         os.environ["LOCAL_RANK"] = str(args.local_rank)
     explicit = args.num_processes is not None
@@ -328,7 +343,7 @@ def main(argv=None) -> int:
             inject_fault=args.inject_fault, hang_timeout_sec=args.hang_timeout_sec,
             sentinel=args.sentinel == "on", sentinel_checksum_every=args.sentinel_checksum_every,
             data_path=args.data_path, data_stall_timeout_sec=args.data_stall_timeout_sec,
-            profile_dir=args.profile_dir,
+            profile_dir=args.profile_dir, layer_loop=args.layer_loop, debug=debug,
         )
     except Preempted as e:
         print(f"PREEMPTED: {e} — exiting {EXIT_PREEMPTED} (resume with --resume)", flush=True)

@@ -319,7 +319,7 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
               pipeline_schedule: str = "gpipe", virtual_stages: int = 2,
               dataset_size: int = DATASET_SIZE, skip_memory_check: bool = False,
               sentinel: bool = False, synthetic: bool = True,
-              n_layer: Optional[int] = None) -> Run:
+              n_layer: Optional[int] = None, layer_loop: str = "unrolled") -> Run:
     """Model (initialised from ``seed``, the same on every rank and, under
     tensor parallelism, the same global weights), the arm's layout and
     optimizer, device-resident table and train step of one arm;
@@ -334,7 +334,11 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
     step); ``skip_memory_check`` attempts a run the memory model refuses;
     ``sentinel`` makes the step keep its gradient norm for the numerics
     sentinel; ``n_layer`` overrides the tier's depth (the static audit's
-    interleaved arm, as JAX's audit overrides its config)."""
+    interleaved arm, as JAX's audit overrides its config); ``layer_loop``
+    "scan" holds the block leaves stacked (JAX's ``scan_layers``;
+    ``models/tinygpt.ScanBlocks``), "unrolled" one module per layer."""
+    if layer_loop not in ("scan", "unrolled"):
+        raise ValueError(f"unknown layer_loop {layer_loop!r}")
     dev = resolve_device(device)
     strat = get_strategy(strategy) if isinstance(strategy, str) else strategy
     check_ported(strat)
@@ -347,7 +351,7 @@ def build_run(*, strategy: Union[str, StrategyConfig] = "zero2", tier: str = "A"
         )
     overrides = {"attention_impl": attention_impl,
                  "compute_dtype": torch.bfloat16 if strat.precision == "bf16" else torch.float32,
-                 "param_dtype": param_torch_dtype(strat)}
+                 "param_dtype": param_torch_dtype(strat), "scan_layers": layer_loop == "scan"}
     overrides.update(_ring_overrides(attention_impl, sequence_parallel, causal, ring_zigzag))
     overrides.update(_moe_overrides(n_experts, expert_parallel))
     if n_layer is not None:
@@ -593,6 +597,8 @@ def run_benchmark(
     data_stall_timeout_sec: float = 60.0,
     runtime_log: Optional[dict] = None,
     profile_dir: Optional[str] = None,
+    layer_loop: str = "unrolled",
+    debug: bool = False,
 ) -> metrics_mod.BenchmarkResult:
     """Train ``steps`` optimizer steps (the first ``warmup_steps`` untimed)
     and return the result row (on every rank); with ``results_dir`` rank 0
@@ -639,6 +645,10 @@ def run_benchmark(
     (``analysis/memory_anatomy.py``) into the row and a ``memory_anatomy``
     event. Both are best-effort, as in JAX: a failure prints a WARNING
     and leaves the fields null.
+
+    ``layer_loop`` as for :func:`build_run`; ``debug`` is stamped on the row
+    (the harness's ``--debug`` turns debug mode on before the process
+    group starts: ``runtime/debug.py``).
 
     This wrapper owns the recorder, the SIGTERM guard and the watchdog: any
     exception that escapes the run is recorded as ``run_aborted`` with its
@@ -700,7 +710,7 @@ def run_benchmark(
             expert_parallel=expert_parallel, pipeline_parallel=pipeline_parallel,
             pipeline_schedule=pipeline_schedule, virtual_stages=virtual_stages,
             dataset_size=dataset_size, skip_memory_check=skip_memory_check,
-            sentinel=sentinel, synthetic=not use_stream)
+            sentinel=sentinel, synthetic=not use_stream, layer_loop=layer_loop)
         dev, cfg, strat, model, table, step_fn, mesh = (
             built.device, built.config, built.strategy, built.model, built.table, built.step_fn,
             built.mesh)
@@ -1333,6 +1343,7 @@ def run_benchmark(
             stream_cursor_start=cursor_start if use_stream else -1,
             stream_cursor_end=stream_cursor_end,
             step_anatomy=step_anatomy, memory_anatomy=memory_anatomy,
+            layer_loop=layer_loop, debug=bool(debug),
         )
         if results_dir is not None and is_main:
             metrics_mod.emit_result(result, results_dir)

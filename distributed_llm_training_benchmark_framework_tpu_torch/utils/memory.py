@@ -46,6 +46,9 @@ counterpart, since there is no XLA here).
   logits term does not, as in JAX), and counts the stage's ``L // pp``
   layers of one micro-batch: JAX's term, though a GPipe stage holds all M
   micro-batches' activations at once (an under-count kept as JAX has it).
+- **Under the scan layer loop** (``TinyGPTConfig.scan_layers``) the state
+  bytes are JAX's as above at every mesh, by the rule's ``scan_stacked``
+  form, as JAX's ``estimate_hbm`` reads ``scan_layers``.
 - The device-resident synthetic table is int64 here.
 """
 
@@ -111,8 +114,9 @@ class HBMEstimate:
 def param_shapes(model_config) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of the model's parameters, from a build on the meta
     device."""
+    unrolled = dataclasses.replace(model_config, scan_layers=False)
     with torch.device("meta"):
-        return [(name, tuple(p.shape)) for name, p in TinyGPT(model_config).named_parameters()]
+        return [(name, tuple(p.shape)) for name, p in TinyGPT(unrolled).named_parameters()]
 
 
 def param_itemsize(model_config) -> int:
@@ -147,7 +151,7 @@ def jax_leaf_shapes(model_config) -> Dict[str, Tuple[int, ...]]:
     """The JAX package's leaves of the model, global shapes: {``wte``: (V, D),
     ``blocks/wqkv``: (L, D, 3, D), ...}, block leaves stacked on a layer axis."""
     with torch.device("meta"):
-        model = TinyGPT(model_config)
+        model = TinyGPT(dataclasses.replace(model_config, scan_layers=False))
     out = {}
     for name, p in model.named_parameters():
         leaf = jax_leaf_name(name)
@@ -161,12 +165,14 @@ def jax_leaf_shapes(model_config) -> Dict[str, Tuple[int, ...]]:
 def spec_state_bytes(model_config, strategy, mesh_shape: Dict[str, int]) -> Tuple[int, int, int]:
     """(params, grads, AdamW moments) bytes of one card by the JAX
     package's layout rules over ``mesh_shape`` (leaves in the parameter
-    dtype; see the module docstring)."""
+    dtype; see the module docstring), in their ``scan_stacked`` form under
+    the scan layer loop, as JAX's ``estimate_hbm`` takes them."""
     shapes = jax_leaf_shapes(model_config)
     item = param_itemsize(model_config)
 
     def total(shard: bool) -> int:
-        specs = param_partition_specs(shapes, mesh_shape, shard, kv_heads=model_config.kv_heads)
+        specs = param_partition_specs(shapes, mesh_shape, shard, kv_heads=model_config.kv_heads,
+                                      scan_stacked=model_config.scan_layers)
         out = 0
         for name, shape in shapes.items():
             factor = math.prod(mesh_shape.get(ax, 1) for ax in specs[name] if ax is not None)
@@ -190,8 +196,9 @@ def estimate_hbm(model_config: Any, strategy: Any, mesh: Any, per_device_batch: 
     ep = mesh.size(AXES.expert) if mesh is not None else 1
     pp = mesh.size(AXES.pipe) if mesh is not None else 1
     wrapped = mesh is not None and mesh.device_mesh is not None
-    if tp > 1 or ep > 1 or pp > 1:
-        params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, dict(mesh.shape))
+    if tp > 1 or ep > 1 or pp > 1 or cfg.scan_layers:
+        mesh_shape = dict(mesh.shape) if mesh is not None else {}
+        params_b, grads_b, opt_b = spec_state_bytes(cfg, strategy, mesh_shape)
     else:
         params_b, grads_b, opt_b = state_bytes(param_shapes(cfg), strategy, dp, wrapped,
                                                param_itemsize(cfg), cfg.n_layer, cfg.kv_heads)

@@ -245,6 +245,13 @@ class BenchmarkResult:
     records_skipped: int = 0
     stream_cursor_start: int = -1
     stream_cursor_end: int = -1
+    # Tokens per on-demand dollar (JAX's key; 0.0 where the repo holds no
+    # price for the device, as on the H100: utils/flops.py).
+    tokens_per_dollar: float = 0.0
+    # The layer loop ("scan": stacked block leaves, "unrolled": a module per
+    # layer) and whether debug mode (runtime/debug.py) was on.
+    layer_loop: str = "unrolled"
+    debug: bool = False
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -280,7 +287,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
                    stream_cursor_start: int = -1,
                    stream_cursor_end: int = -1,
                    step_anatomy: Optional[Dict[str, Any]] = None,
-                   memory_anatomy: Optional[Dict[str, Any]] = None) -> BenchmarkResult:
+                   memory_anatomy: Optional[Dict[str, Any]] = None,
+                   layer_loop: str = "unrolled", debug: bool = False) -> BenchmarkResult:
     mean_step = sum(step_times) / len(step_times) if step_times else 0.0
     mean_loss = sum(losses) / len(losses) if losses else 0.0
     if losses:
@@ -355,6 +363,8 @@ def compute_result(*, strategy: str, world_size: int, seq_len: int, tier: str, s
         data_stall_frac=data_stall_frac, data_stall_sec=data_stall_sec,
         records_consumed=records_consumed, records_skipped=records_skipped,
         stream_cursor_start=stream_cursor_start, stream_cursor_end=stream_cursor_end,
+        tokens_per_dollar=flops_mod.tokens_per_dollar(tps_per_chip, device_kind) or 0.0,
+        layer_loop=layer_loop, debug=debug,
         **anatomy_fields, **mem_fields,
     )
 

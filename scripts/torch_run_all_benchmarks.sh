@@ -50,8 +50,10 @@ PER_DEVICE_BATCH="${PER_DEVICE_BATCH:-1}"
 GRAD_ACCUM="${GRAD_ACCUM:-4}"
 # Fence (block on the loss) every N steps, as the bench times.
 SYNC_EVERY="${SYNC_EVERY:-10}"
-# The port runs the layers as a Python loop: 'unrolled' only (the harness
-# refuses 'scan', ROADMAP Queue 1 item 0).
+# 'unrolled' (a module per layer) or 'scan' (the block leaves stacked,
+# JAX's default loop). Under scan the composition arms over 'pipe' or
+# 'expert', which the scan loop refuses (ROADMAP Queue 1 item 22), are
+# skipped with a SKIP line.
 LAYER_LOOP="${LAYER_LOOP:-unrolled}"
 STRATEGIES="${STRATEGIES:-ddp fsdp zero2 zero3}"
 # 'reference' (the plain attention) or 'flash' (the hand-written kernels
@@ -110,9 +112,8 @@ while [ $# -gt 0 ]; do
   esac
 done
 
-if [ "$LAYER_LOOP" != "unrolled" ]; then
-  echo "ERROR: LAYER_LOOP=$LAYER_LOOP: the port runs the layers as a Python loop;" \
-       "only 'unrolled' has a meaning (ROADMAP Queue 1 item 0)"; exit 1
+if [ "$LAYER_LOOP" != "unrolled" ] && [ "$LAYER_LOOP" != "scan" ]; then
+  echo "ERROR: LAYER_LOOP=$LAYER_LOOP: expected 'unrolled' or 'scan'"; exit 1
 fi
 DEVICE_FLAGS=""
 case "$DEVICE" in
@@ -274,6 +275,11 @@ llama-flagship|zero2|--model-family llama --per-device-batch 2 --grad-accum 2 --
   echo "=== Composition arms (ws=$WS_MAX) ==="
   while IFS='|' read -r cname cstrat cflags; do
     [ -z "$cname" ] && continue
+    if [ "$LAYER_LOOP" = "scan" ] && [[ "$cflags" =~ --(pipeline|expert)-parallel ]]; then
+      echo "SKIP $cname: the scan layer loop refuses 'pipe' and 'expert'" \
+           "(ROADMAP Queue 1 item 22)"
+      continue
+    fi
     run_local "$cstrat" "$WS_MAX" "$cflags $EXTRA_ARGS" "$cname${RUN_SUFFIX:+-$RUN_SUFFIX}"
   done <<EOF
 $ROSTER

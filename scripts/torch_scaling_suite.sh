@@ -77,8 +77,7 @@ else
   SCALING_STRATEGIES="${SCALING_STRATEGIES:-ddp fsdp zero2}"
   RESULTS_DIR="${RESULTS_DIR:-$REPO_ROOT/results/torch_scaling}"
 fi
-# The port runs the layers as a Python loop: 'unrolled' only.
-LAYER_LOOP=unrolled
+LAYER_LOOP="${LAYER_LOOP:-unrolled}"
 ATTENTION="${ATTENTION:-reference}"
 # PROFILE=1 gives every point (fresh and stitch legs) a --profile-dir, so
 # the rows carry step anatomy. Profile the whole sweep or none of it: a

@@ -77,7 +77,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "attention_impl", "dropo
               "model_tflops_per_sec_per_chip", "mfu_pct", "peak_hbm_gb", "peak_hbm_method",
               "device_kind", "mean_step_time_sec", "loss_first_window", "loss_last_window",
               "wall_time_total_sec", "time_in_compile_sec", "time_in_timed_sec",
-              "n_anomalies",
+              "n_anomalies", "tokens_per_dollar",
               # The memory anatomy, on every row (JAX's bench.py:186-199).
               "hbm_estimate_gib", "hbm_measured", "hbm_measured_reason", "hbm_attribution",
               "hbm_attribution_source", "hbm_reference_gib", "hbm_model_drift_frac"}

@@ -76,7 +76,8 @@ def test_the_sweep_has_one_row_per_policy(sweep):
 
 def test_a_sweep_row_has_jaxs_keys(sweep, jax_row):
     port = set(sweep[0]["remat_sweep"]["dots"])
-    assert port == (set(jax_row) - {"tokens_per_dollar"}) | PORT_ONLY
+    assert port == set(jax_row) | PORT_ONLY
+    assert sweep[0]["remat_sweep"]["dots"]["tokens_per_dollar"] is None  # no CPU price
     assert jax_row["remat_policy_resolved"] == "dots"
 
 

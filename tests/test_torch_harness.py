@@ -51,7 +51,7 @@ def test_every_jax_option_is_live_or_refused():
         assert port.option_strings == action.option_strings, dest
         assert port.required == action.required, dest
         if port.default != action.default:
-            assert dest in tharness.REFUSED, dest
+            assert dest in tharness.REFUSED or tharness.DEFAULT_DIFFERS.get(dest), dest
         if action.choices is not None:
             assert list(port.choices) == list(action.choices), dest
     assert set(port_opts) - set(jax_opts) == {"device", "backend"}
@@ -59,15 +59,13 @@ def test_every_jax_option_is_live_or_refused():
         assert port_opts[dest].default == default and reason, dest
 
 
-REFUSALS = [(["--layer-loop", "scan"], "Queue 1 item 0"),
-            (["--xla-latency-hiding"], "XLA or Pallas"),
+REFUSALS = [(["--xla-latency-hiding"], "XLA or Pallas"),
             (["--prng-impl", "threefry"], "threefry"),
             (["--flash-block-q", "128"], "XLA or Pallas"),
             (["--flash-block-k", "128"], "XLA or Pallas"),
             (["--flash-block-k-bwd", "128"], "XLA or Pallas"),
             (["--flash-pallas-backward"], "XLA or Pallas"),
-            (["--flash-blockwise-backward"], "XLA or Pallas"),
-            (["--debug"], "not ported")]
+            (["--flash-blockwise-backward"], "XLA or Pallas")]
 
 
 @pytest.mark.parametrize("flag,reason", REFUSALS, ids=[f[0][0] for f in REFUSALS])
@@ -76,6 +74,34 @@ def test_unported_flags_are_refused_with_their_reason(tmp_path, flag, reason):
         tharness.main(["--device", "cpu", "--strategy", "ddp", "--steps", "3",
                        "--results-dir", str(tmp_path)] + SMALL + flag)
     assert flag[0] in str(refused.value)
+
+
+@pytest.mark.parametrize("flag,want", [
+    ([], dict(layer_loop="unrolled", debug=False)),
+    (["--layer-loop", "scan"], dict(layer_loop="scan", debug=False)),
+    (["--debug"], dict(layer_loop="unrolled", debug=True)),
+], ids=["defaults", "--layer-loop", "--debug"])
+def test_layer_loop_and_debug_are_live(tmp_path, monkeypatch, flag, want):
+    """``--layer-loop`` and ``--debug`` reach ``run_benchmark`` (the scan
+    loop itself: tests/test_torch_scan.py; debug mode:
+    tests/test_torch_debug.py), and ``--debug`` sets its environment before
+    the process group starts."""
+    from distributed_llm_training_benchmark_framework_tpu_torch.runtime import debug as tdebug
+
+    seen = {}
+    for key in tdebug.DEBUG_ENV:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.delenv("BENCH_DEBUG", raising=False)
+    monkeypatch.setattr(tharness, "enable_debug",
+                        lambda: seen.update(env=dict(tdebug.DEBUG_ENV)))
+    monkeypatch.setattr(tharness.dist_rt, "setup_distributed",
+                        lambda **kw: seen.update(group_after_debug="env" in seen))
+    monkeypatch.setattr(tharness, "run_benchmark", lambda **kw: seen.update(kw))
+    assert tharness.main(["--device", "cpu", "--strategy", "ddp", "--steps", "3",
+                          "--results-dir", str(tmp_path)] + SMALL + flag) == 0
+    assert {k: seen[k] for k in want} == want
+    assert seen["group_after_debug"] == want["debug"]
+    assert "layer_loop" not in tharness.REFUSED and "debug" not in tharness.REFUSED
 
 
 def test_profile_dir_is_live(tmp_path, monkeypatch):

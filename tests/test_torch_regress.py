@@ -315,7 +315,8 @@ def test_bench_records_and_gives_a_verdict_on_stderr(tmp_path, capsys):
 def test_bench_auto_skips_without_a_registry(tmp_path, capsys):
     args = argparse.Namespace(regress="auto", registry=str(tmp_path / "none"), strategy="zero2",
                               tier="S", seq_len=64, steps=3, warmup_steps=1, sync_every=10,
-                              model_family="tinygpt", per_device_batch=1, grad_accum=4)
+                              model_family="tinygpt", per_device_batch=1, grad_accum=4,
+                              layer_loop="unrolled")
     payload = {"metric": "tinygpt_tierS_seq64_tokens_per_sec_per_chip", "value": 1.0,
                "flagship": {"metric": "llama_tierS_seq64_tokens_per_sec_per_chip", "value": 2.0}}
     tbench.record_in_registry(args, payload, backend="cpu")

@@ -2,7 +2,7 @@
 budgets (``configs/collective_budgets_torch.json``), its CLI and the bench's
 preflight, held against the JAX package's ``analysis/static/hlo_audit.py``:
 
-- the roster is JAX's but the scan arm, spec for spec, and the pipeline
+- the roster is JAX's, spec for spec (the scan arm names its loop), and the pipeline
   arms are those of JAX's budgets file;
 - the pipeline laws: the counted messages equal
   ``parallel.pipeline.expected_messages`` per direction, the bubble bounds
@@ -66,11 +66,16 @@ def _env():
 
 
 def test_roster_is_jaxs_but_the_scan_arm():
-    jax_roster = {n: s for n, s in jaudit.ROSTER.items() if n not in audit.NOT_AUDITED}
-    assert list(audit.NOT_AUDITED) == ["llama-fsdp-dp4-tp2-scan"]
-    assert list(audit.ROSTER) == list(jax_roster)
+    """Every JAX arm is audited, spec for spec; the scan arm names its layer
+    loop, JAX's default and not the port's."""
+    assert audit.NOT_AUDITED == {}
+    assert list(audit.ROSTER) == list(jaudit.ROSTER)
     for name, spec in audit.ROSTER.items():
-        assert dataclasses.asdict(spec) == dataclasses.asdict(jax_roster[name]), name
+        want = jaudit.ROSTER[name]
+        if name == "llama-fsdp-dp4-tp2-scan":
+            assert want.config_overrides == ()
+            want = dataclasses.replace(want, config_overrides=(("scan_layers", True),))
+        assert dataclasses.asdict(spec) == dataclasses.asdict(want), name
 
 
 def test_pipeline_arms_are_those_of_jaxs_budgets(budgets):
@@ -85,7 +90,7 @@ def test_list_arms_prints_the_roster_and_the_pipeline_arms(capsys):
     out = capsys.readouterr().out.splitlines()
     roster = [ln.split(":")[0] for ln in out if not ln.startswith("[")]
     pipes = [ln.split()[1].rstrip(":") for ln in out if ln.startswith("[pipeline]")]
-    assert roster == list(audit.ROSTER) and len(roster) == 9
+    assert roster == list(audit.ROSTER) and len(roster) == 10
     assert pipes == list(audit.PIPELINE_ROSTER) and len(pipes) == 4
 
 

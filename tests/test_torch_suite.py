@@ -118,7 +118,9 @@ def test_what_waits_for_item_19_is_refused(tmp_path, how):
     assert not list(tmp_path.glob("bench-*"))
 
 
-@pytest.mark.parametrize("env", [{"LAYER_LOOP": "scan"}, {"WORLD_SIZES": ""}],
+# LAYER_LOOP takes "scan" or "unrolled" (tests/test_torch_scan.py runs the
+# suite's plan under scan); another layer loop is refused.
+@pytest.mark.parametrize("env", [{"LAYER_LOOP": "while"}, {"WORLD_SIZES": ""}],
                          ids=["scan", "cpu-without-world-sizes"])
 def test_refusals_before_any_arm(tmp_path, env):
     proc = _run(SUITE, dict(TINY, RESULTS_DIR=str(tmp_path), **env))
