@@ -108,9 +108,9 @@ class ArmSpec:
     The fields are JAX's. ``config_overrides`` is a tuple of (key, value)
     pairs (hashable): ``attention_impl``, ``n_experts``,
     ``tp_collective_matmul``, ``dropout``, ``n_layer``, and ``scan_layers``
-    (True: the scan layer loop, ``--layer-loop scan``; the port's default
-    loop is the unrolled one, so its scan arm says so where JAX's takes its
-    own default).
+    (True: the scan layer loop, ``--layer-loop scan``; ``build_run``'s
+    default loop is the unrolled one, so an arm JAX compiles under its own
+    default, scan, says so).
     ``inject`` turns on one of the seed bugs the audit must flag
     (:func:`_injected`). ``pipeline_schedule`` / ``virtual_stages`` matter
     only with a ``pipe`` axis wider than 1.
@@ -214,8 +214,9 @@ class MemoryReport:
 
 
 #: The audit roster: JAX's (``hlo_audit.ROSTER``), arm for arm, at tier S /
-#: seq 64 over 8 ranks; ``llama-fsdp-dp4-tp2-scan`` names its layer loop,
-#: which is JAX's default and not the port's.
+#: seq 64 over 8 ranks; ``llama-fsdp-dp4-tp2-scan`` and ``zero2-ep2-moe``
+#: name their layer loop, scan, which JAX compiles them under by default
+#: and ``build_run`` does not.
 ROSTER: Dict[str, ArmSpec] = {
     spec.name: spec
     for spec in (
@@ -268,7 +269,7 @@ ROSTER: Dict[str, ArmSpec] = {
             "zero2-ep2-moe", "zero2", (4, 1, 1, 1, 2),
             ("data", "seq", "model", "pipe", "expert"),
             global_batch=16,
-            config_overrides=(("n_experts", 4),),
+            config_overrides=(("n_experts", 4), ("scan_layers", True)),
         ),
     )
 }
@@ -594,6 +595,10 @@ def _state_storages(run) -> Dict[int, int]:
     for p in list(run.model.parameters()) + list(opt.params):
         add(p)
         add(p.grad)
+    # zero2's flat gradient buffers: under the scan loop no leaf's grad is a
+    # view into a layer's buffer (the stacked leaves hold none).
+    for bucket in getattr(opt, "buckets", ()):
+        add(bucket.grads)
     if opt.adamw is not None:
         for st in opt.adamw.state.values():
             for v in st.values():
@@ -904,7 +909,8 @@ def _bad_pipeline_spec():
 
 #: Pipeline arms: JAX's (``hlo_audit.PIPELINE_ROSTER``), at dp=2 x pipe=2
 #: with live dropout (0.1, as JAX's), the interleaved arm at V=2 over 4
-#: layers. Each is audited at its M and at M * ``PIPELINE_GROWTH_M_FACTOR``.
+#: layers, each under the scan layer loop, as JAX compiles them. Each is
+#: audited at its M and at M * ``PIPELINE_GROWTH_M_FACTOR``.
 PIPELINE_ROSTER: Dict[str, ArmSpec] = {
     spec.name: spec
     for spec in (
@@ -912,27 +918,27 @@ PIPELINE_ROSTER: Dict[str, ArmSpec] = {
             "pp2-gpipe", "ddp", (2, 1, 1, 2),
             ("data", "seq", "model", "pipe"),
             global_batch=4, grad_accum=4, pipeline_schedule="gpipe",
-            config_overrides=(("dropout", 0.1),),
+            config_overrides=(("dropout", 0.1), ("scan_layers", True)),
         ),
         ArmSpec(
             "pp2-1f1b", "ddp", (2, 1, 1, 2),
             ("data", "seq", "model", "pipe"),
             global_batch=4, grad_accum=4, pipeline_schedule="1f1b",
-            config_overrides=(("dropout", 0.1),),
+            config_overrides=(("dropout", 0.1), ("scan_layers", True)),
         ),
         ArmSpec(
             "pp2-interleaved-v2", "ddp", (2, 1, 1, 2),
             ("data", "seq", "model", "pipe"),
             global_batch=4, grad_accum=4, pipeline_schedule="interleaved",
             virtual_stages=2,
-            config_overrides=(("dropout", 0.1), ("n_layer", 4)),
+            config_overrides=(("dropout", 0.1), ("n_layer", 4), ("scan_layers", True)),
         ),
         ArmSpec(
             "llama-pp2-1f1b", "ddp", (2, 1, 1, 2),
             ("data", "seq", "model", "pipe"),
             global_batch=4, grad_accum=4, model_family="llama",
             pipeline_schedule="1f1b",
-            config_overrides=(("dropout", 0.1),),
+            config_overrides=(("dropout", 0.1), ("scan_layers", True)),
         ),
     )
 }

@@ -433,7 +433,7 @@ class FaultInjector:
 
     # -- parameter and optimizer-state corruption (the sentinel's proofs) --
 
-    def corrupt_params(self, step: int, model) -> None:
+    def corrupt_params(self, step: int, model, optimizer=None) -> None:
         """Poison the parameters in place just before step N dispatches, for
         ``bitflip@N`` (element ``[0, ...]`` of the JAX injector's victim leaf
         set to :data:`BITFLIP_VALUE`) and ``grad-explode@N`` (the ``wte``
@@ -445,7 +445,10 @@ class FaultInjector:
         holding the global element writes it; a replicated leaf (DDP,
         zero2's gathered buffers, a pipeline's shared leaves) is written on
         every rank that holds it, as JAX writes every replica of its global
-        array."""
+        array. zero2 under the scan loop keeps its shards of the stacked
+        leaves apart from them: ``optimizer``'s shards are copied from the
+        leaves again (``reload_shards``), so the poison reaches the update as
+        it does unrolled."""
         if (self.spec is None or self.fired or self.spec.kind not in ("bitflip", "grad-explode")
                 or step != self.spec.step):
             return
@@ -465,6 +468,9 @@ class FaultInjector:
                     local.mul_(GRAD_EXPLODE_SCALE)
                 elif (path[0] != "blocks" or path[2] == 0) and _owns_first_element(model, name, p):
                     local.view(-1)[0] = BITFLIP_VALUE
+        reload = getattr(optimizer, "reload_shards", None)
+        if reload is not None:
+            reload()
         if self.spec.kind == "bitflip":
             self._announce(f"bitflip: {label}[0...] = {BITFLIP_VALUE:g} before step {step}")
         else:

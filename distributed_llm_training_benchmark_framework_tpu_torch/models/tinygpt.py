@@ -90,9 +90,12 @@ over each layer's slices, which a forward takes once per stacked leaf
 (zero2's per-layer gradient feed, fsdp's per-layer gather:
 ``parallel/strategies.py``). ``layer_parameters`` names each layer's
 slice as its unrolled leaf (``blocks.<i>.<leaf>``), so the weight draw, the
-bridge and the checkpoint see one layout under both loops. Beside a
-``pipe`` or an ``expert`` axis the scan loop is refused (ROADMAP Queue 1
-item 22).
+bridge and the checkpoint see one layout under both loops. It runs beside
+every axis: a pipeline stage stacks its layers in ``layer_permutation``
+order (row i is ``blocks.<i>``, global layer ``layer_ids[i]``; a unit
+takes the slices once and runs its chunk's rows), and under an ``expert``
+axis the stacked expert leaves hold this rank's E/ep experts (axis 1, after
+the layer axis).
 
 Within a site, global batch row r draws its keep-mask at the full
 sequence from a generator seeded ``row_seed(site seed, r)``, and keeps its
@@ -414,11 +417,11 @@ def _param(dtype: torch.dtype, *shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype))
 
 
-def block_leaf_shapes(c: TinyGPTConfig, tp: int = 1) -> Dict[str, Tuple[int, ...]]:
+def block_leaf_shapes(c: TinyGPTConfig, tp: int = 1,
+                      ep: int = 1) -> Dict[str, Tuple[int, ...]]:
     """{leaf: shape} of one layer's leaves at a ``model`` rank's local
     widths (tp), in the modules' parameter order; expert leaves (this
-    rank's E/ep experts, ``ep`` = 1 here: the caller divides) are named
-    ``experts.<leaf>``."""
+    ``expert`` rank's E/ep experts) are named ``experts.<leaf>``."""
     D, H, Hkv, Dh, Fm = c.n_embd, c.n_head, c.kv_heads, c.head_dim, c.mlp_dim
     Dl, Fl = (H // tp) * Dh, Fm // tp
     kv = (Hkv // tp if kv_aligned(Hkv, tp) else Hkv) * Dh
@@ -437,8 +440,8 @@ def block_leaf_shapes(c: TinyGPTConfig, tp: int = 1) -> Dict[str, Tuple[int, ...
     if c.bias:
         out["bo"] = (D,)
     if c.n_experts > 0:
-        E = c.n_experts
-        out["router"] = (D, E)
+        out["router"] = (D, c.n_experts)
+        E = c.n_experts // ep
         out.update({"experts.moe_w1": (E, D, Fl), "experts.moe_b1": (E, Fl),
                     "experts.moe_w2": (E, Fl, D), "experts.moe_b2": (E, D)})
         return out
@@ -497,7 +500,7 @@ class Block(nn.Module):
         self.n_head, self.head0 = H // t, m * (H // t)
         self.kv_sharded = kv_aligned(Hkv, t)
         self.n_kv = Hkv // t if self.kv_sharded else Hkv
-        self.leaf_shapes = block_leaf_shapes(c, t)
+        self.leaf_shapes = block_leaf_shapes(c, t, moe.ep)
         if not leaves:
             return  # a layer of ``ScanBlocks``, which holds the leaves stacked
         pd = c.param_dtype
@@ -764,12 +767,6 @@ class TinyGPT(nn.Module):
         s, pp = mesh.pipe_shard if mesh is not None else (0, 1)
         self.pipe = (s, pp)
         self.scan = c.scan_layers
-        ep = mesh.expert_shard[1] if mesh is not None else 1
-        if self.scan and (pp > 1 or ep > 1):
-            raise ValueError(
-                "the scan layer loop runs beside 'data', 'seq' and 'model'; beside "
-                f"{'pipe' if pp > 1 else 'expert'} it is not ported yet (ROADMAP Queue 1 item "
-                "22): use --layer-loop unrolled")
         if c.n_layer % pp:
             raise ValueError(f"n_layer={c.n_layer} not divisible by pipe={pp}")
         per_stage = c.n_layer // pp
@@ -891,7 +888,7 @@ class TinyGPT(nn.Module):
         where = {g: i for i, g in enumerate(self.layer_ids)}
         with torch.device("meta"):
             whole = TinyGPT(self.config)
-        for name, w in whole.named_parameters():
+        for name, w in whole.layer_parameters():
             parts = name.split(".")
             if parts[0] == "blocks":
                 i = where.get(int(parts[1]))

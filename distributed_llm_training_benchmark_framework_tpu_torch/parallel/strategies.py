@@ -1110,8 +1110,9 @@ class _Zero2Optimizer(Optimizer):
     @torch.no_grad()
     def reload_shards(self) -> None:
         """Under the scan loop, copy this rank's shard of each layer's
-        params from the stacked leaves again (after a checkpoint load wrote
-        them); the unrolled shards are views of them already."""
+        params from the stacked leaves again (after a checkpoint load or a
+        fault injection wrote them); the unrolled shards are views of them
+        already."""
         for b, shard in zip(self.buckets, self.params):
             if b.flat is None:
                 whole = torch.cat([p.reshape(-1) for p in b.params]
@@ -1326,10 +1327,15 @@ class _FSDPScanArm:
     is this rank's shares. A stacked leaf JAX keeps replicated over
     ``data`` stays whole (``replicated``). At ``data`` width 1 every leaf
     is "sharded" over the one rank (the gather is a copy), as FSDP2 runs
-    at width 1."""
+    at width 1. Under an ``expert`` axis the shares of the leaves every
+    expert rank holds (all but ``experts.*``) are summed over ``expert`` as
+    well, as FSDP2 replicates the unrolled blocks over it; the expert
+    leaves' over ``data`` (and ``seq``) only, the ranks that hold the same
+    experts."""
 
     def __init__(self, blocks, mesh: Mesh, kv_heads: int, n_layer: int) -> None:
         self.group, self.seq_group = mesh.data_group, mesh.seq_group
+        self.expert_group = mesh.expert_group
         self.dp, self.rank = dist.get_world_size(self.group), dist.get_rank(self.group)
         self.leaf_names = list(blocks.leaf_names)
         self.sharded: List[str] = []
@@ -1392,7 +1398,11 @@ class _FSDPScanArm:
         dist.reduce_scatter_tensor(out, buf.view(-1), group=self.group)
         if self.seq_group is not None:
             dist.all_reduce(out, group=self.seq_group)
-        return list(torch.split(out, shares))
+        parts = list(torch.split(out, shares))
+        if self.expert_group is not None:
+            shared = [t for leaf, t in zip(self.sharded, parts) if not leaf.startswith("experts.")]
+            _all_reduce_flat(shared, self.expert_group)
+        return parts
 
     # -- ScanBlocks' hooks -----------------------------------------------------
 
@@ -1480,10 +1490,14 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
     n_layer, kv = model.config.n_layer, model.config.kv_heads
     scan = getattr(model, "scan", False)
     hand, whole = [], []  # under the scan loop: the stacked leaves it shards, keeps whole
+    whole_experts = []  # of ``whole``, the expert leaves under an ``expert`` axis
     if scan:
         arm = _FSDPScanArm(model.blocks, mesh, kv, n_layer)
         hand = [model.blocks.stacked(leaf) for leaf in arm.sharded]
         whole = [model.blocks.stacked(leaf) for leaf in arm.replicated]
+        if experts:
+            whole_experts = [p for leaf, p in zip(arm.replicated, whole)
+                             if leaf.startswith("experts.")]
     stacked = {id(p) for p in hand + whole}
     named = [(name, p) for name, p in model.named_parameters() if id(p) not in stacked]
     if mesh.size(AXES.data) > 1:
@@ -1498,8 +1512,9 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
         if p in ignored:
             groups = expert_reduce(mesh) if id(p) in expert_ids else (mesh.arm_group,)
             kept_out.setdefault(groups, []).append(p)
-    if whole:
-        kept_out.setdefault((mesh.arm_group,), []).extend(whole)
+    for p in whole:
+        groups = expert_reduce(mesh) if any(p is e for e in whole_experts) else (mesh.arm_group,)
+        kept_out.setdefault(groups, []).append(p)
     ignored |= set(hand) | set(whole)
     hand_ids = {id(p) for p in hand}
     flags = [p in ignored and id(p) not in hand_ids for _, p in model.named_parameters()]
@@ -1509,21 +1524,27 @@ def _fully_shard(model: torch.nn.Module, strategy: StrategyConfig, mesh: Mesh,
                     ignored_params=ignored)
 
     shard_mesh = shard_data_mesh(mesh)
-    expert_mesh = expert_shard_mesh(mesh) if experts else None
     if not scan:
+        expert_mesh = expert_shard_mesh(mesh) if experts else None
         for block in model.blocks:
             if experts:
                 shard(block.experts, expert_mesh)
             shard(block, shard_mesh)
     shard(model, shard_mesh)
     # fully_shard replaced the parameters: take the experts' afterwards.
-    return model, _FSDPOptimizer(strategy, model, [p for m in experts for p in m.parameters()],
-                                 mesh.size(AXES.expert), kept_out,
+    # Under the scan loop the arm's shares are divided with ``hand``, and
+    # the expert leaves kept whole divided as FSDP2's experts are.
+    expert_params = whole_experts if scan else [p for m in experts for p in m.parameters()]
+    return model, _FSDPOptimizer(strategy, model, expert_params, mesh.size(AXES.expert), kept_out,
                                  (hand, dist.get_world_size(mesh.arm_group)),
                                  norm_group=mesh.data_group, data_replicated=flags, **shards)
 
 
 def _expert_modules(model: torch.nn.Module) -> List[torch.nn.Module]:
+    """The modules that hold the expert leaves: each block's ``experts``, or
+    under the scan loop the stacked ones' (``ScanBlocks.experts``)."""
+    if getattr(model, "scan", False):
+        return [model.blocks.experts] if hasattr(model.blocks, "experts") else []
     return [block.experts for block in model.blocks if hasattr(block, "experts")]
 
 

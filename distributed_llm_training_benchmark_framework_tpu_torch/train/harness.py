@@ -31,11 +31,12 @@ default NCCL on the card, gloo on the host).
   stream under DIR (make shards with ``python -m
   distributed_llm_training_benchmark_framework_tpu_torch.data.make_shards``),
   and ``--data-stall-timeout-sec`` bounds the wait for a batch.
-- ``--layer-loop scan`` holds the block leaves stacked as JAX does and runs
-  one body over each layer's slices (``models/tinygpt.ScanBlocks``; fsdp /
-  zero3 gather one layer at a time); ``--debug`` (or ``BENCH_DEBUG=1``)
-  sets the strict NCCL settings before the group starts and turns on
-  autograd's anomaly mode (``runtime/debug.py``).
+- ``--layer-loop`` is ``scan`` by default, as JAX's: the block leaves
+  stacked as JAX holds them, one body over each layer's slices
+  (``models/tinygpt.ScanBlocks``; fsdp / zero3 gather one layer at a time),
+  beside every axis; ``unrolled`` holds one module per layer. ``--debug``
+  (or ``BENCH_DEBUG=1``) sets the strict NCCL settings before the group
+  starts and turns on autograd's anomaly mode (``runtime/debug.py``).
 - ``--profile-dir DIR`` traces the timed window with ``torch.profiler``
   (rank 0) into DIR, with ``cost_analysis.json`` beside it, and puts the
   step anatomy into the row (``analysis/step_anatomy.py``; read the trace
@@ -92,11 +93,8 @@ REFUSED = {
 }
 
 #: dest -> why the port's default differs from JAX's, for a flag whose
-#: every value is live.
-DEFAULT_DIFFERS = {
-    "layer_loop": ("JAX's default is scan; the port's stays unrolled while the scan loop "
-                   "refuses 'pipe' and 'expert' (ROADMAP Queue 1 item 22)"),
-}
+#: every value is live (none does now).
+DEFAULT_DIFFERS: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -177,7 +175,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rbg: the port's own generators (threefry is refused)")
     p.add_argument("--tp-collective-matmul", action="store_true",
                    help="Run the tensor-parallel projections as collective matmuls")
-    p.add_argument("--layer-loop", choices=["scan", "unrolled"], default="unrolled",
+    p.add_argument("--layer-loop", choices=["scan", "unrolled"], default="scan",
                    help="scan: the block leaves stacked on a layer axis, one body per layer "
                         "(models/tinygpt.ScanBlocks); unrolled: one module per layer")
     p.add_argument("--flash-pallas-backward", action="store_true", help="Refused: " + _XLA)

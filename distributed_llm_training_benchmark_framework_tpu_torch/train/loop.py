@@ -1127,7 +1127,7 @@ def run_benchmark(
                     print(f"[Step {step:04d}] delayed-update phase begins")
                 t_window = time.perf_counter()
             # The sentinel's proof faults poison the state just before step N.
-            chaos.corrupt_params(step, inner)
+            chaos.corrupt_params(step, inner, step_fn.optimizer)
             chaos.corrupt_opt_state(step, step_fn.optimizer)
             if live["prefetch"] is not None:
                 # The one blocking pull on the input path inside the timed

@@ -120,7 +120,8 @@ DEV=(--device cpu)
 STEPS=14; WARMUP=2; CKPT_EVERY=4
 # sync-every 2: windowed timing, as the real suite, so a tiny run's per-step
 # jitter does not trip the validator's CV envelope.
-# LAYER_LOOP=scan runs every arm under the scan layer loop.
+# LAYER_LOOP=scan runs every arm, multi-rank ones included, under the scan
+# layer loop (the harness's default); the suite's own default stays unrolled.
 COMMON=(--tier S --seq-len 32 --steps "$STEPS" --warmup-steps "$WARMUP"
         --per-device-batch 1 --grad-accum 1 --dataset-size 64 --heartbeat-sec 0
         --sync-every 2 --layer-loop "${LAYER_LOOP:-unrolled}")

@@ -50,10 +50,9 @@ PER_DEVICE_BATCH="${PER_DEVICE_BATCH:-1}"
 GRAD_ACCUM="${GRAD_ACCUM:-4}"
 # Fence (block on the loss) every N steps, as the bench times.
 SYNC_EVERY="${SYNC_EVERY:-10}"
-# 'unrolled' (a module per layer) or 'scan' (the block leaves stacked,
-# JAX's default loop). Under scan the composition arms over 'pipe' or
-# 'expert', which the scan loop refuses (ROADMAP Queue 1 item 22), are
-# skipped with a SKIP line.
+# 'unrolled' (a module per layer, the suite's default, as JAX's suite's) or
+# 'scan' (the block leaves stacked, the harness's default loop): scan runs
+# every arm, the composition arms over 'pipe' and 'expert' included.
 LAYER_LOOP="${LAYER_LOOP:-unrolled}"
 STRATEGIES="${STRATEGIES:-ddp fsdp zero2 zero3}"
 # 'reference' (the plain attention) or 'flash' (the hand-written kernels
@@ -275,11 +274,6 @@ llama-flagship|zero2|--model-family llama --per-device-batch 2 --grad-accum 2 --
   echo "=== Composition arms (ws=$WS_MAX) ==="
   while IFS='|' read -r cname cstrat cflags; do
     [ -z "$cname" ] && continue
-    if [ "$LAYER_LOOP" = "scan" ] && [[ "$cflags" =~ --(pipeline|expert)-parallel ]]; then
-      echo "SKIP $cname: the scan layer loop refuses 'pipe' and 'expert'" \
-           "(ROADMAP Queue 1 item 22)"
-      continue
-    fi
     run_local "$cstrat" "$WS_MAX" "$cflags $EXTRA_ARGS" "$cname${RUN_SUFFIX:+-$RUN_SUFFIX}"
   done <<EOF
 $ROSTER

@@ -77,6 +77,8 @@ else
   SCALING_STRATEGIES="${SCALING_STRATEGIES:-ddp fsdp zero2}"
   RESULTS_DIR="${RESULTS_DIR:-$REPO_ROOT/results/torch_scaling}"
 fi
+# LAYER_LOOP=scan runs every point of every arm under the scan layer loop
+# (the harness's default); the suite's own default stays unrolled, as JAX's.
 LAYER_LOOP="${LAYER_LOOP:-unrolled}"
 ATTENTION="${ATTENTION:-reference}"
 # PROFILE=1 gives every point (fresh and stitch legs) a --profile-dir, so

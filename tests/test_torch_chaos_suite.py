@@ -34,8 +34,14 @@ SMOKE = ["sigkill", "torn-checkpoint", "bitflip", "data-corrupt-record"]
 
 @pytest.fixture(scope="module")
 def smoke(tmp_path_factory):
+    # Two arms at a time, not four: a tier-S step on the CPU takes ~20 ms,
+    # and a window three times its predecessors' median opens a
+    # step_time_spike that the validator rejects if it has not resolved by
+    # the run's end. Beside the test run's other workers, the smoke's own
+    # concurrent arms (process starts, checkpoint writes, validations) are
+    # the part of that contention this test controls.
     root = tmp_path_factory.mktemp("smoke")
-    return run_chaos(["--smoke", "--jobs", "4"], root), root
+    return run_chaos(["--smoke", "--jobs", "2"], root), root
 
 
 @pytest.mark.parametrize("name", ["torch_chaos_suite.sh", "torch_with_retries.sh",

@@ -17,7 +17,13 @@ from distributed_llm_training_benchmark_framework_tpu_torch.utils import metrics
 @pytest.fixture
 def clean_env(monkeypatch):
     for key in list(tdebug.DEBUG_ENV) + ["BENCH_DEBUG"]:
-        monkeypatch.delenv(key, raising=False)
+        # setenv first, so that the undo restores the key's absence too:
+        # ``delenv`` of an absent key records nothing, and what
+        # ``enable_debug`` sets would outlive the test (a DETAIL debug mode
+        # in every later subprocess of the worker, the fake process group of
+        # the static audit included, which cannot wrap a ``FakeStore``).
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
     was = torch.is_anomaly_enabled()
     yield monkeypatch
     torch.autograd.set_detect_anomaly(was)

@@ -77,9 +77,9 @@ def test_unported_flags_are_refused_with_their_reason(tmp_path, flag, reason):
 
 
 @pytest.mark.parametrize("flag,want", [
-    ([], dict(layer_loop="unrolled", debug=False)),
-    (["--layer-loop", "scan"], dict(layer_loop="scan", debug=False)),
-    (["--debug"], dict(layer_loop="unrolled", debug=True)),
+    ([], dict(layer_loop="scan", debug=False)),
+    (["--layer-loop", "unrolled"], dict(layer_loop="unrolled", debug=False)),
+    (["--debug"], dict(layer_loop="scan", debug=True)),
 ], ids=["defaults", "--layer-loop", "--debug"])
 def test_layer_loop_and_debug_are_live(tmp_path, monkeypatch, flag, want):
     """``--layer-loop`` and ``--debug`` reach ``run_benchmark`` (the scan

@@ -37,7 +37,12 @@ against the JAX package's ``scan_layers=True``, at tier S.
   and memory budgets, its counts obey the per-layer gather law, and its
   state exceeds ``llama-fsdp-dp4-tp2``'s by ``blocks/wq``'s data-sharded
   share.
-- The scan loop refuses ``pipe`` and ``expert`` naming ROADMAP item 22.
+- Beside ``pipe`` and ``expert`` the scan loop builds and trains: the
+  harness, whose default loop is scan as JAX's, takes steps at (pipe 2)
+  and (expert 2) over two gloo ranks through ``runtime.launch`` (the
+  geometries held against the unrolled loop and JAX:
+  ``tests/test_torch_scan_pipe.py``, ``tests/test_torch_scan_moe.py``), and
+  ``LAYER_LOOP=scan`` plans every arm of the suite.
 """
 
 import dataclasses
@@ -200,19 +205,43 @@ def test_one_autograd_node_consumes_each_stacked_leaf(n_layer):
     assert _consumers(loss2, [("wo", one_by_one)]) == {"wo": n_layer}
 
 
-def test_scan_refuses_pipe_and_expert_naming_item_22():
+HARNESS_GEOMETRIES = {"pp2": ["--pipeline-parallel", "2", "--pipeline-schedule", "1f1b"],
+                      "ep2": ["--num-experts", "4", "--expert-parallel", "2"]}
+
+
+def test_scan_builds_and_steps_beside_pipe_and_expert(tmp_path):
+    """The harness with no ``--layer-loop`` (scan, JAX's default) on two
+    gloo ranks at (pipe 2) and (expert 2): each finishes its steps and
+    writes a row that names the scan loop."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
     from distributed_llm_training_benchmark_framework_tpu_torch.train.loop import build_run
 
-    for kw in (dict(pipeline_parallel=2), dict(n_experts=4, expert_parallel=2)):
-        with pytest.raises(ValueError, match="item 22"):
-            TinyGPT(get_config("tinygpt", "S", S, scan_layers=True,
-                               n_experts=kw.get("n_experts", 0)),
-                    mesh=SimpleNamespace(model_shard=(0, 1),
-                                         pipe_shard=(0, kw.get("pipeline_parallel", 1)),
-                                         expert_shard=(0, kw.get("expert_parallel", 1)),
-                                         device_mesh=None, size=lambda a: 1))
     with pytest.raises(ValueError, match="unknown layer_loop"):
         build_run(tier="S", seq_len=S, device="cpu", layer_loop="while")
+    repo = Path(__file__).resolve().parents[1]
+    pkg = "distributed_llm_training_benchmark_framework_tpu_torch"
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(var, None)
+    procs = {}
+    for label, flags in HARNESS_GEOMETRIES.items():
+        cmd = [sys.executable, "-m", f"{pkg}.runtime.launch", "--nproc", "2", "--",
+               sys.executable, "-m", f"{pkg}.train.harness", "--device", "cpu",
+               "--strategy", "zero2", "--world-size", "2", "--tier", "S", "--seq-len", "32",
+               "--steps", "3", "--warmup-steps", "1", "--sync-every", "1",
+               "--per-device-batch", "1", "--grad-accum", "2", "--heartbeat-sec", "0",
+               "--results-dir", str(tmp_path / label), *flags]
+        procs[label] = subprocess.Popen(cmd, cwd=repo, env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+    for label, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (label, err[-3000:])
+        (row,) = [json.loads(p.read_text()) for p in (tmp_path / label).glob("result_*.json")]
+        assert row["layer_loop"] == "scan" and row["world_size"] == 2, label
 
 
 # ---------------------------------------------------------------------------
@@ -454,9 +483,9 @@ def test_scan_audit_arms_state_exceeds_the_unrolled_arms_by_wqs_share():
     assert scan.replicated_bytes - unrolled.replicated_bytes == 4 * 4 * wq
 
 
-def test_suite_under_scan_skips_the_arms_it_refuses():
-    """``LAYER_LOOP=scan`` reaches every arm of the suite's plan; the
-    composition arms over ``pipe`` or ``expert`` are skipped naming item 22."""
+def test_suite_under_scan_plans_every_arm():
+    """``LAYER_LOOP=scan`` reaches every arm of the suite's plan, the
+    composition arms over ``pipe`` and ``expert`` included: no SKIP line."""
     import os
     import subprocess
     from pathlib import Path
@@ -467,9 +496,8 @@ def test_suite_under_scan_skips_the_arms_it_refuses():
     res = subprocess.run(["bash", "scripts/torch_run_all_benchmarks.sh"], cwd=repo, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
-    skipped = [ln.split()[1].rstrip(":") for ln in res.stdout.splitlines()
-               if ln.startswith("SKIP ")]
-    assert skipped == ["pp2-gpipe", "pp2-1f1b", "pp2-interleaved", "moe-ep2", "moe8-ep2"]
-    assert all("item 22" in ln for ln in res.stdout.splitlines() if ln.startswith("SKIP "))
+    assert not [ln for ln in res.stdout.splitlines() if ln.startswith("SKIP ")]
     planned = [ln for ln in res.stdout.splitlines() if ln.startswith("PLAN ")]
-    assert len(planned) == 8 + 9
+    assert len(planned) == 8 + 14
+    for arm in ("pp2-gpipe", "pp2-1f1b", "pp2-interleaved", "moe-ep2", "moe8-ep2"):
+        assert sum(ln.split()[2].endswith(f"-{arm}") for ln in planned) == 1, arm
